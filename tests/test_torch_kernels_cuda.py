@@ -1,0 +1,112 @@
+"""Card-only checks of the Hopper AIMC kernels K2/K3 (`repro_torch/kernels/
+csrc/aimc_mvm.cu`) against their plain PyTorch versions on the same CUDA
+tensors. Without a CUDA device every test here skips; run them on the card
+with ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
+
+This file imports no JAX (the card's machine has none); the CPU parity of
+the plain versions with the JAX reference is `test_torch_aimc_mvm.py`.
+
+Tolerance: the kernel adds each row block's dequantized contribution in
+turn (the Pallas kernel's association) while the plain version sums the
+codes times s_w first and scales once, so outputs agree to f32 rounding of
+a KB-term sum: |err| <= 1e-5 * max(1, max|y|). ADC and DAC codes are equal,
+and a stacked gate is bit-equal to its single-gate launch.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.quant import adc_step_lsb, sym_scale
+from repro_torch.kernels import aimc_mvm, cprng, ops, ref
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _operands(b, kb, m, np_, g=None, seed=0, device="cpu"):
+    rng = np.random.default_rng(seed)
+    lead = () if g is None else (g,)
+    x = rng.standard_normal((b, kb * m)).astype(np.float32)
+    w_q = rng.integers(-127, 128, lead + (kb, m, np_), dtype=np.int8)
+    s_w = (rng.random(lead + (kb, np_), dtype=np.float32) + 0.5) * 1e-3
+    bias = rng.standard_normal(lead + (np_,)).astype(np.float32)
+    t = [torch.from_numpy(a).to(device) for a in (x, w_q, s_w, bias)]
+    s_x = sym_scale(t[0]).reshape(1, 1)
+    return t[0], t[1], t[2], s_x, t[3]
+
+
+def _close(y, want):
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    err = float((y - want).abs().max())
+    assert err <= tol, f"max |err| {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kb,m,np_", [
+    (4, 8, 512, 4096), (16, 1, 512, 1024), (5, 3, 64, 384), (1, 2, 96, 128),
+    (33, 2, 128, 256)])
+@pytest.mark.parametrize("sigma", [0.0, 57.5])
+def test_k2_matches_plain(dev, b, kb, m, np_, sigma):
+    x, w_q, s_w, s_x, _ = _operands(b, kb, m, np_, device=dev)
+    step = adc_step_lsb(m, 1.0)
+    y = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, 0xC0FFEE, adc_step=step,
+                             sigma=sigma)
+    want = ref.aimc_matmul_ref_v2(x, w_q, s_w, s_x, 0xC0FFEE, adc_step=step,
+                                  sigma=sigma)
+    torch.cuda.synchronize()
+    _close(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "relu", "sigmoid", "tanh"])
+def test_k2_epilogues_with_bias(dev, act):
+    x, w_q, s_w, s_x, bias = _operands(6, 2, 128, 256, device=dev)
+    step = adc_step_lsb(128, 1.0)
+    y = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, 7, bias, adc_step=step,
+                             sigma=20.0, activation=act)
+    want = ref.aimc_matmul_ref_v2(x, w_q, s_w, s_x, 7, bias, adc_step=step,
+                                  sigma=20.0, activation=act)
+    _close(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [0.0, 40.0])
+def test_k3_bit_equal_to_per_gate_k2(dev, sigma):
+    x, w_q, s_w, s_x, bias = _operands(7, 2, 128, 384, g=3, device=dev)
+    step = adc_step_lsb(128, 1.0)
+    acts = ("sigmoid", "tanh", "relu")
+    y = aimc_mvm.aimc_mvm_stacked(x, w_q, s_w, s_x, 99, bias, adc_step=step,
+                                  sigma=sigma, activations=acts)
+    for g in range(3):
+        yg = aimc_mvm.aimc_mvm_v2(x, w_q[g], s_w[g], s_x,
+                                  cprng.stack_seed(99, g), bias[g],
+                                  adc_step=step, sigma=sigma,
+                                  activation=acts[g])
+        assert torch.equal(y[g], yg)
+    want = ref.aimc_matmul_stacked_ref(x, w_q, s_w, s_x, 99, bias,
+                                       adc_step=step, sigma=sigma,
+                                       activations=acts)
+    _close(y, want)
+
+
+@pytest.mark.cuda
+def test_dispatch_counts_launches_and_never_falls_back(dev):
+    x, w_q, s_w, s_x, _ = _operands(4, 1, 64, 128, device=dev)
+    aimc_mvm.reset_counts()
+    ops.aimc_matmul_v2(x, w_q, s_w, s_x, adc_step=8.0)
+    ops.aimc_matmul_stacked(x, w_q[None], s_w[None], s_x, adc_step=8.0)
+    assert aimc_mvm.LAUNCHES == {"aimc_mvm_v2": 1, "aimc_mvm_stacked": 1}
+    with pytest.raises(ValueError):
+        ops.aimc_matmul_v2(x, w_q.cpu(), s_w, s_x, adc_step=8.0)
+    assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] == 1
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    x, w_q, s_w, s_x, _ = _operands(2, 1, 64, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, adc_step=8.0)
