@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: serve granite-8b at its published
-width on programmed AIMC crossbars through the hand-written Hopper kernels.
+width on programmed AIMC crossbars, and run the paper's MLP, LSTM and
+CNN-F/M/S at theirs with read noise on, through the hand-written Hopper
+kernels K1-K4.
 
     python3 chip_smoke.py        # one CUDA card; exits non-zero without one
 
@@ -28,10 +30,34 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      zeroed just before and read just after: K3 36 x passes, K2 5 x 36 x
      passes, ledgers reconcile. K3's launch count in the record is this
      run's; K2's is phase 4's.
+  7. v1/hw kernels (after phase 2) — K1 (`aimc_mvm_v1`, explicit noise
+     operand), K2 with counter noise and K4 (K2/K3 with "hw" Philox noise)
+     at every MVM shape of the paper nets at their published widths, K1
+     also at the granite decode shapes: each held to its plain version
+     within 1e-5 * max(1, max|y|) and timed as in phase 2. K4's raw draws
+     are held to N(0, 1) moments; same seed, same output; K3 hw gates equal
+     K2 hw launches bit for bit.
+  8. staged — the MLP through the v1 staged entry `ops.aimc_matmul` with a
+     bulk `noise.read_noise` operand: 2 K1 launches per forward, counts
+     zeroed just before and read just after. K1's launch count in the
+     record is this run's.
+  9. paper nets — MLP (1024, B 16), the PTB-char LSTM (n_h 750, x = y = 50,
+     T 20, B 8) side by side and gate-fused, CNN-F/M/S (224 px, B 8, 1000
+     classes) through `AimcContext` and the `paper_nets` entry points,
+     noise off and with bench_accuracy's NOISY read noise under both noise
+     sources. Launch counts zeroed before and read after each apply-only
+     forward: MLP 2 K2, LSTM T x 2 K2 or T x (K3 + K2), CNN 5 K2, the same
+     as "hw" launches under "hw" (K4's count in the record is their sum).
+     Fidelity against the digital fp32 path (output SNR, LSTM top-1, the
+     CNN flip-margin rule), hw's SNR within 1 dB of counter's; noise off,
+     the fused LSTM equals the side-by-side one bit for bit and every net
+     equals the same programmed net run on the CPU (plain versions) within
+     1e-4.
 
 The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
-per-kernel JSON record. Details go to chiprun_out/chip_smoke.json.
+per-kernel JSON record (K2/K3 timed per granite layer at decode, K1/K4 per
+MLP forward). Details go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -51,9 +77,21 @@ ARCH = "granite-8b"
 N_REQ, PROMPT, GEN, SLOTS, RATE, SEED = 4, 16, 8, 4, 20.0, 0
 NOISE_SEED, NOISE_SIGMA = 0xC0FFEE, 57.5     # sigma: read_sigma_lsb(512)
 KERNEL_REPS = 20
+# the paper nets at their published widths (bench_accuracy's networks,
+# which cut the LSTM to n_h 256 and the CNN to 64 px for CPU time)
+MLP_N, MLP_B = 1024, 16
+LSTM_NH, LSTM_X, LSTM_T, LSTM_B = 750, 50, 20, 8
+CNN_IMG, CNN_B, CNN_CLASSES = 224, 8, 1000
 # published dense peaks of the card (data sheets): bytes/s, int8 ops/s
 PEAKS = {"H200": (4.8e12, 1979e12), "H100 PCIe": (2.0e12, 1513e12),
          "H100": (3.35e12, 1979e12)}
+
+
+def paper_noise():
+    """bench_accuracy's NOISY read noise (programming noise at its
+    defaults)."""
+    from repro_torch.core.noise import NoiseModel
+    return NoiseModel(sigma_read=0.003)
 
 
 def fail(msg: str):
@@ -91,12 +129,14 @@ def time_ms(fn, flush, reps: int) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / reps
 
 
-def bound_ms(b, k_pad, np_, g, peaks, bias: bool):
+def bound_ms(b, k_pad, np_, g, peaks, bias: bool, noise_bytes: int = 0):
     """Least time for the same work: bytes moved once (x, w_q, s_w, s_x,
-    bias, out) over the memory rate vs int8 MACs over the int8 rate."""
+    bias, K1's noise operand, out) over the memory rate vs int8 MACs over
+    the int8 rate."""
     kb = k_pad // 512
     nbytes = (b * k_pad * 4 + g * (k_pad * np_ + kb * np_ * 4)
-              + g * b * np_ * 4 + 4 + (g * np_ * 4 if bias else 0))
+              + g * b * np_ * 4 + 4 + (g * np_ * 4 if bias else 0)
+              + noise_bytes)
     ops = 2 * g * b * k_pad * np_
     t_bytes, t_ops = nbytes / peaks[0] * 1e3, ops / peaks[1] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -241,39 +281,30 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def step_times(eng, prompt):
-    """Host-clock times of one synchronised [1 x prompt_pad] prefill and one
-    decode step with every slot busy, and a torch.profiler trace of that
-    decode step: device-busy time (union of kernel intervals), idle share
-    and the kernels that take the most device time."""
+def timed(fn, dev, reps=5):
+    """Mean host-clock ms of ``fn`` over ``reps`` synchronised calls, after
+    one warm-up call; returns (ms, last output)."""
+    import torch
+    fn()
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t) / reps * 1e3, out
+
+
+def device_profile(fn, dev):
+    """One synchronised call of ``fn`` under torch.profiler: its host-clock
+    ms, device-busy ms (union of kernel intervals), idle share and the
+    kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    dev = eng.device
-    tokens, vl = eng._pad_prompt(prompt)
-
-    def timed(fn, reps=5):
-        fn()
-        torch.cuda.synchronize(dev)
-        t = time.perf_counter()
-        for _ in range(reps):
-            out = fn()
-        torch.cuda.synchronize(dev)
-        return (time.perf_counter() - t) / reps * 1e3, out
-
-    prefill_ms, (tok1, cache1) = timed(lambda: eng._prefill_fn(tokens, vl))
-    sess = eng.begin()
-    for slot in range(eng.n_slots):
-        eng._insert(sess, cache1, tok1, slot, int(vl[0]), GEN)
-
-    def step():
-        return eng._decode_fn(sess.cache, sess.tok_buf, sess.state, 1)
-
-    decode_ms, _ = timed(step)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        step()
+        fn()
         torch.cuda.synchronize(dev)
         wall_us = (time.perf_counter() - t) * 1e6
     spans, by_name = [], {}
@@ -287,22 +318,49 @@ def step_times(eng, prompt):
         if b > end:
             busy_us += b - max(a, end)
             end = b
+    return {"profiled_ms": wall_us / 1e3,
+            "device_busy_ms": busy_us / 1e3 if spans else None,
+            "device_idle_share": 1.0 - busy_us / wall_us if spans else None,
+            "top_kernels_ms": {n[:80]: v / 1e3 for n, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:6]}}
+
+
+def print_profile(tag, prof):
+    if prof["device_busy_ms"] is None:
+        print(f"[{tag}]   device busy: not measured (profiler saw no device "
+              f"events)", flush=True)
+        return
+    print(f"[{tag}]   profiled {prof['profiled_ms']:.2f} ms, device busy "
+          f"{prof['device_busy_ms']:.2f} ms (idle share "
+          f"{prof['device_idle_share']:.2f})", flush=True)
+    for n, v in prof["top_kernels_ms"].items():
+        print(f"[{tag}]   {v:8.3f} ms  {n}", flush=True)
+
+
+def step_times(eng, prompt):
+    """Host-clock times of one synchronised [1 x prompt_pad] prefill and one
+    decode step with every slot busy, and a torch.profiler trace of that
+    decode step."""
+    dev = eng.device
+    tokens, vl = eng._pad_prompt(prompt)
+    prefill_ms, (tok1, cache1) = timed(lambda: eng._prefill_fn(tokens, vl),
+                                       dev)
+    sess = eng.begin()
+    for slot in range(eng.n_slots):
+        eng._insert(sess, cache1, tok1, slot, int(vl[0]), GEN)
+
+    def step():
+        return eng._decode_fn(sess.cache, sess.tok_buf, sess.state, 1)
+
+    decode_ms, _ = timed(step, dev)
+    prof = device_profile(step, dev)
     out = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
            "decode_tok_s": eng.n_slots / decode_ms * 1e3,
-           "profiled_step_ms": wall_us / 1e3,
-           "device_busy_ms": busy_us / 1e3 if spans else None,
-           "device_idle_share": 1.0 - busy_us / wall_us if spans else None,
-           "top_kernels_ms": {n[:80]: v / 1e3 for n, v in sorted(
-               by_name.items(), key=lambda kv: -kv[1])[:6]}}
+           "profiled_step_ms": prof.pop("profiled_ms"), **prof}
     print(f"[times] prefill [1x{len(tokens[0])}] {prefill_ms:.2f} ms; decode "
           f"step [{eng.n_slots} slots] {decode_ms:.2f} ms "
-          f"({out['decode_tok_s']:.1f} tok/s); profiled step "
-          f"{out['profiled_step_ms']:.2f} ms, device busy "
-          + (f"{out['device_busy_ms']:.2f} ms (idle share "
-             f"{out['device_idle_share']:.2f})" if spans else
-             "not measured (profiler saw no device events)"), flush=True)
-    for n, v in out["top_kernels_ms"].items():
-        print(f"[times]   {v:8.3f} ms  {n}", flush=True)
+          f"({out['decode_tok_s']:.1f} tok/s)", flush=True)
+    print_profile("times", dict(out, profiled_ms=out["profiled_step_ms"]))
     return out
 
 
@@ -445,6 +503,421 @@ def fused_serve_phase(dev):
     return {"launches": counts, "passes": passes, "report": rep.summary()}
 
 
+def paper_shapes():
+    """(name, B, K, N, G) of every crossbar MVM the paper nets run at the
+    published widths: the MLP layers, the LSTM cell (side by side, and the
+    fused [4, ...] stack) and head, and the conv layers of CNN-F/M/S (im2col
+    rows = batch x output positions). Repeated shapes appear once."""
+    from repro_torch.models.paper_nets import CNN_SPECS
+    shapes = [("mlp fc", MLP_B, MLP_N, MLP_N, 1),
+              ("lstm cell", LSTM_B, LSTM_NH + LSTM_X, 4 * LSTM_NH, 1),
+              ("lstm cell G=4", LSTM_B, LSTM_NH + LSTM_X, LSTM_NH, 4),
+              ("lstm dense", LSTM_B, LSTM_NH, LSTM_X, 1)]
+    for v, spec in CNN_SPECS.items():
+        hw = CNN_IMG
+        for i, (cin, k, cout, stride, pad, _lrn, pool) in enumerate(spec):
+            ho = (hw + 2 * pad - k) // stride + 1
+            shapes.append((f"cnn-{v} conv{i}", CNN_B * ho * ho,
+                           k * k * cin, cout, 1))
+            hw = ho // pool
+    out, seen = [], set()
+    for row in shapes:
+        if row[1:] not in seen:
+            seen.add(row[1:])
+            out.append(row)
+    return out
+
+
+def v1_hw_kernel_phase(dev, peaks):
+    """K1 (`aimc_mvm_v1`, explicit noise operand from `noise.read_noise`),
+    K2 with counter noise and K4 (K2/K3 with "hw" Philox noise) at every
+    paper-net MVM shape, K1 also at the granite decode shapes: each held to
+    its plain version on the same CUDA tensors within
+    1e-5 * max(1, max|y|) and timed (CUDA events, L2 flushed)."""
+    import functools
+
+    import torch
+
+    from repro_torch.core import noise as noise_lib
+    from repro_torch.core import prng
+    from repro_torch.core.aimc import AimcConfig, program_stacked
+    from repro_torch.core.quant import sym_scale
+    from repro_torch.kernels import aimc_mvm, ref
+    from repro_torch.models.paper_nets import LSTM_GATE_ACTS
+
+    cfg = AimcConfig(noise=paper_noise())
+    step = cfg.adc_step
+    sigma = noise_lib.read_sigma_lsb(cfg.tile_rows, cfg.noise)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    granite = [(f"granite {p}", SLOTS, k, n, 1) for p, k, n in
+               (("wq", 4096, 4096), ("wk", 4096, 1024),
+                ("w_gate", 4096, 14336), ("w_down", 14336, 4096))]
+    rows = []
+    worst = {"aimc_mvm_v1": 0.0, "aimc_mvm_hw": 0.0}
+    for idx, (name, b, k, n, g) in enumerate(paper_shapes() + granite):
+        w = torch.randn((g, k, n), generator=gen, device=dev)
+        st = program_stacked(w * (2.0 / (k + n)) ** 0.5, cfg)
+        del w
+        kb, m, np_ = st.w_q.shape[-3:]
+        x = torch.nn.functional.pad(
+            torch.randn((b, k), generator=gen, device=dev), (0, kb * m - k))
+        s_x = sym_scale(x).reshape(1, 1)
+        runs = []
+        if g == 1:
+            w_q, s_w = st.w_q[0], st.s_w[0]
+            noise = noise_lib.read_noise(
+                prng.fold_in(prng.PRNGKey(SEED), idx), (kb, b, np_), m,
+                cfg.noise, device=dev)
+            runs.append(("aimc_mvm_v1",
+                         functools.partial(aimc_mvm.aimc_mvm_v1, x, w_q, s_w,
+                                           s_x, noise, adc_step=step),
+                         functools.partial(ref.aimc_matmul_ref, x, w_q, s_w,
+                                           s_x, noise, adc_step=step),
+                         kb * b * np_ * 4))
+            kern_fn, plain_fn = aimc_mvm.aimc_mvm_v2, ref.aimc_matmul_ref_v2
+            args, acts = (x, w_q, s_w, s_x, NOISE_SEED), {}
+        else:
+            kern_fn = aimc_mvm.aimc_mvm_stacked
+            plain_fn = ref.aimc_matmul_stacked_ref
+            args = (x, st.w_q, st.s_w, s_x, NOISE_SEED)
+            acts = {"activations": LSTM_GATE_ACTS}
+        if not name.startswith("granite"):
+            for src in ("counter", "hw"):
+                kw = dict(adc_step=step, sigma=sigma, noise_source=src,
+                          **acts)
+                runs.append((f"{kern_fn.__name__} {src}",
+                             functools.partial(kern_fn, *args, **kw),
+                             functools.partial(plain_fn, *args, **kw), 0))
+        for kname, kern, plain, noise_bytes in runs:
+            y, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((y - want).abs().max())
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            check(bool(torch.isfinite(y).all()) and err <= tol,
+                  f"{kname} {name}: max |err| {err} > {tol}")
+            wkey = ("aimc_mvm_v1" if kname == "aimc_mvm_v1" else
+                    "aimc_mvm_hw" if kname.endswith("hw") else None)
+            if wkey:
+                worst[wkey] = max(worst[wkey], err)
+            row = {"kernel": kname, "shape": name, "B": b, "K": k, "N": n,
+                   "G": g, "max_abs_err": err, "tol": tol,
+                   "ms": time_ms(kern, flush, KERNEL_REPS),
+                   "plain_ms": time_ms(plain, flush, 3)}
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                b, kb * m, np_, g, peaks, bias=False,
+                noise_bytes=noise_bytes)
+            rows.append(row)
+            print(f"[v1/hw] {kname} {name} [{b}x{k}]x[{k}x{n}]"
+                  f"{f' G={g}' if g > 1 else ''}: max|err| {err:.3g} (tol "
+                  f"{tol:.3g}); kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})", flush=True)
+        del st, x, runs
+    return rows, worst
+
+
+def hw_draw_phase(dev):
+    """K4's own stream: raw Philox draws read back through the kernel (zero
+    weights, unit scales and ADC step, sigma 16, so each output is
+    rint(16 z)) held to N(0, 1) moments over 2^21 draws per gate; same seed
+    gives the same output, another seed another; K3 gate g equals a K2
+    launch with `stack_seed(seed, g)` bit for bit."""
+    import torch
+
+    from repro_torch.kernels import aimc_mvm, cprng
+    from repro_torch.models.paper_nets import LSTM_GATE_ACTS
+
+    b, np_ = 512, 4096
+    x = torch.ones((b, 64), device=dev)
+    w_q = torch.zeros((2, 1, 64, np_), dtype=torch.int8, device=dev)
+    s_w = torch.ones((2, 1, np_), device=dev)
+    s_x = torch.ones((1, 1), device=dev)
+    z = aimc_mvm.aimc_mvm_stacked(x, w_q, s_w, s_x, 0x5EED, adc_step=1.0,
+                                  sigma=16.0, noise_source="hw")
+    z = z.double() / 16.0
+    flat = z[0].flatten()
+    n = flat.numel()
+    mean, std = float(flat.mean()), float(flat.std())
+    lag1 = float(torch.corrcoef(torch.stack([flat[:-1], flat[1:]]))[0, 1])
+    gates = float(torch.corrcoef(torch.stack([flat, z[1].flatten()]))[0, 1])
+    check(abs(mean) < 4.0 / n ** 0.5, f"hw draws mean {mean}")
+    check(abs(std - 1.0) < 0.01, f"hw draws std {std}")
+    check(abs(lag1) < 0.01 and abs(gates) < 0.01,
+          f"hw draws correlated: lag-1 {lag1}, gate-to-gate {gates}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    x = torch.randn((LSTM_B, 1024), generator=gen, device=dev)
+    w_q = torch.randint(-127, 128, (4, 2, 512, 768), generator=gen,
+                        device=dev, dtype=torch.int8)
+    s_w = torch.rand((4, 2, 768), generator=gen, device=dev) * 1e-3 + 5e-4
+    s_x = (x.abs().max() / 127).reshape(1, 1)
+    kw = dict(adc_step=2873.0, sigma=8.62, noise_source="hw")
+    y = aimc_mvm.aimc_mvm_stacked(x, w_q, s_w, s_x, 41,
+                                  activations=LSTM_GATE_ACTS, **kw)
+    check(torch.equal(y, aimc_mvm.aimc_mvm_stacked(
+        x, w_q, s_w, s_x, 41, activations=LSTM_GATE_ACTS, **kw)),
+        "hw noise: same seed, different output")
+    check(not torch.equal(y, aimc_mvm.aimc_mvm_stacked(
+        x, w_q, s_w, s_x, 42, activations=LSTM_GATE_ACTS, **kw)),
+        "hw noise: another seed, same output")
+    for g in range(4):
+        check(torch.equal(y[g], aimc_mvm.aimc_mvm_v2(
+            x, w_q[g], s_w[g], s_x, cprng.stack_seed(41, g),
+            activation=LSTM_GATE_ACTS[g], **kw)),
+            f"K3 hw gate {g} != K2 hw with stack_seed")
+    out = {"n": n, "mean": mean, "std": std, "lag1": lag1,
+           "gate_corr": gates}
+    print(f"[hw] Philox draws over {n} per gate: mean {mean:.2e}, std "
+          f"{std:.5f}, lag-1 rho {lag1:.2e}, gate-to-gate rho {gates:.2e}; "
+          f"same seed equal, other seed differs; K3 hw gates bit-equal to "
+          f"K2 hw launches", flush=True)
+    return out
+
+
+def snr_db(ref, test) -> float:
+    import torch
+    err = torch.linalg.norm((ref - test).double())
+    return float(20 * torch.log10(torch.linalg.norm(ref.double())
+                                  / torch.clamp_min(err, 1e-12)))
+
+
+def _ctx_on(ctx, device):
+    """A copy of an `AimcContext` whose programmed states live on
+    ``device`` (noise off, so its key is never drawn from)."""
+    from repro_torch.core.aimclib import AimcContext
+    out = AimcContext(ctx.cfg)
+    out._counts = dict(ctx._counts)
+    for name, st in ctx._builder._entries.items():
+        out._builder._entries[name] = dataclasses.replace(
+            st, w_q=st.w_q.to(device), s_w=st.s_w.to(device))
+    return out
+
+
+def card_vs_cpu(name, p, x, cfg, aimc, ctx, y):
+    """Noise off, the programmed net on the card against the same programmed
+    states on the CPU (plain versions). Every crossbar MVM of one card
+    forward is replayed on the CPU from the card's own input and must agree
+    within 1e-5 * max(1, max|y|), the kernel-vs-plain bound; the MLP's and
+    LSTM's outputs must agree within 1e-4 end to end. A CNN's output is
+    reported, not held: the kernel's row-block association and the card's
+    own LRN `pow` move f32 values by ulps, a DAC code on a rounding tie then
+    moves, and over five layers of ~10^7 inputs such flips are certain."""
+    import torch
+    ctx_cpu = _ctx_on(ctx, "cpu")
+    calls = []
+    for meth in ("linear", "linear_stack"):
+        def rec(mname, x_in, meth=meth, orig=getattr(ctx, meth), **kw):
+            out = orig(mname, x_in, **kw)
+            calls.append((meth, mname, x_in, kw, out))
+            return out
+        setattr(ctx, meth, rec)
+    aimc(p, x, cfg, ctx=ctx)
+    del ctx.linear, ctx.linear_stack
+    mvm_err = 0.0
+    for meth, mname, x_in, kw, out in calls:
+        want = getattr(ctx_cpu, meth)(mname, x_in.cpu(), **kw)
+        err = float((out.cpu() - want).abs().max())
+        check(err <= 1e-5 * max(1.0, float(want.abs().max())),
+              f"{name}: {meth} {mname} card vs CPU (plain) {err}")
+        mvm_err = max(mvm_err, err)
+    del calls
+    cpu_p = ({k: [t.cpu() for t in v] for k, v in p.items()}
+             if name.startswith("CNN") else p)
+    y_cpu, _ = aimc(cpu_p, x.cpu(), cfg, ctx=ctx_cpu)
+    err = float((y.cpu() - y_cpu).abs().max())
+    if not name.startswith("CNN"):
+        check(err <= 1e-4, f"{name}: card vs CPU (plain) output {err}")
+    return {"mvm_err": mvm_err, "card_vs_cpu_err": err,
+            "card_vs_cpu_top1": float((y.cpu().argmax(-1)
+                                       == y_cpu.argmax(-1)).float().mean())}
+
+
+def staged_v1_phase(dev):
+    """The v1 staged entry on the card: the MLP's programmed layers through
+    `ops.aimc_matmul` with a bulk `noise.read_noise` operand (kernel K1),
+    relu digital. Counts zeroed just before, read just after: 2 K1
+    launches, no other kernel. Fed the counter stream materialised, K1
+    equals K2's in-kernel counter noise."""
+    import torch
+
+    from repro_torch.core import noise as noise_lib
+    from repro_torch.core import prng
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.quant import sym_scale
+    from repro_torch.kernels import aimc_mvm, cprng, ops
+    from repro_torch.models import paper_nets
+
+    cfg = AimcConfig(noise=paper_noise())
+    key = prng.PRNGKey(SEED + 3)
+    prog = paper_nets.mlp_program(paper_nets.mlp_init(key, MLP_N, device=dev),
+                                  cfg, key)
+    x = prng.normal(prng.fold_in(key, 1), (MLP_B, MLP_N), device=dev)
+    sigma = noise_lib.read_sigma_lsb(cfg.tile_rows, cfg.noise)
+
+    def forward():
+        h = x
+        for i, name in enumerate(prog.names):
+            st = prog[name]
+            kb, m, np_ = st.w_q.shape
+            h = torch.nn.functional.pad(h, (0, kb * m - h.shape[1]))
+            s_x = sym_scale(h).reshape(1, 1)
+            rn = noise_lib.read_noise(prng.fold_in(key, 100 + i),
+                                      (kb, h.shape[0], np_), m, cfg.noise,
+                                      device=dev)
+            h = torch.relu(ops.aimc_matmul(h, st.w_q, st.s_w, s_x, rn,
+                                           adc_step=cfg.adc_step)[:, :st.n])
+        return h
+
+    aimc_mvm.reset_counts()
+    y = forward()
+    torch.cuda.synchronize(dev)
+    counts = dict(aimc_mvm.LAUNCHES)
+    check(counts["aimc_mvm_v1"] == 2
+          and sum(counts.values()) == counts["aimc_mvm_v1"],
+          f"staged MLP launches {counts}")
+    check(bool(torch.isfinite(y).all()) and tuple(y.shape) == (MLP_B, MLP_N),
+          "bad staged MLP output")
+    st = prog["fc1"]
+    kb, m, np_ = st.w_q.shape
+    x = torch.nn.functional.pad(x, (0, kb * m - x.shape[1]))
+    s_x = sym_scale(x).reshape(1, 1)
+    rn = sigma * cprng.read_noise_array(NOISE_SEED, kb, MLP_B, np_,
+                                        device=dev)
+    y1 = ops.aimc_matmul(x, st.w_q, st.s_w, s_x, rn, adc_step=cfg.adc_step)
+    y2 = ops.aimc_matmul_v2(x, st.w_q, st.s_w, s_x, NOISE_SEED,
+                            adc_step=cfg.adc_step, sigma=sigma)
+    torch.cuda.synchronize(dev)
+    err = float((y1 - y2).abs().max())
+    check(err <= 1e-5 * max(1.0, float(y2.abs().max())),
+          f"K1 on materialised counter noise vs K2: {err}")
+    ms, _ = timed(forward, dev)
+    print(f"[staged] MLP {MLP_N} B={MLP_B} through ops.aimc_matmul + "
+          f"noise.read_noise: launches {counts}; {ms:.3f} ms per forward; "
+          f"K1 on the materialised counter stream vs K2: max|err| {err:.3g}"
+          f"{' (bit-equal)' if err == 0.0 else ''}", flush=True)
+    return {"launches": counts, "forward_ms": ms, "k1_vs_k2_err": err}
+
+
+def paper_nets_phase(dev):
+    """The paper's networks at their published widths through `AimcContext`
+    and the `paper_nets` entry points, noise off and with the NOISY read
+    noise of bench_accuracy under both noise sources. Launch counts zeroed
+    just before and read just after each apply-only forward; fidelity
+    against the digital fp32 path; noise off, the card's outputs against
+    the same programmed nets run on the CPU through the plain versions."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.models import paper_nets as pn
+
+    key = prng.PRNGKey(7)
+
+    def fk(i):
+        return prng.fold_in(key, i)
+
+    cfgs = {"off": AimcConfig(tile_rows=512)}
+    for src in ("counter", "hw"):
+        cfgs[src] = AimcConfig(tile_rows=512, noise=paper_noise(),
+                               noise_source=src)
+    nets = []
+    p = pn.mlp_init(key, MLP_N, device=dev)
+    x = prng.normal(fk(1), (MLP_B, MLP_N), device=dev)
+    nets.append(("MLP", p, x, 2, pn.mlp_forward_digital,
+                 lambda p, x, c, k=None, ctx=None: pn.mlp_forward_aimc(
+                     p, x, c, k, ctx), {"aimc_mvm_v2": 2}))
+    p = pn.lstm_init(fk(3), LSTM_NH, LSTM_X, LSTM_X, device=dev)
+    xs = prng.normal(fk(4), (LSTM_T, LSTM_B, LSTM_X), device=dev)
+    for fused in (False, True):
+        nets.append(
+            (f"LSTM {'fused' if fused else 'side-by-side'}", p, xs, 5,
+             lambda p, x: pn.lstm_forward_digital(p, x, LSTM_NH),
+             lambda p, x, c, k=None, ctx=None, f=fused: pn.lstm_forward_aimc(
+                 p, x, LSTM_NH, c, k, ctx, fuse_gates=f),
+             {"aimc_mvm_stacked": LSTM_T, "aimc_mvm_v2": LSTM_T} if fused
+             else {"aimc_mvm_v2": 2 * LSTM_T}))
+    for v in ("F", "M", "S"):
+        p = pn.cnn_init(fk(6), v, CNN_IMG, CNN_CLASSES, device=dev)
+        x = prng.normal(fk(7), (CNN_B, CNN_IMG, CNN_IMG, 3), device=dev)
+        nets.append((f"CNN-{v}", p, x, 8,
+                     lambda p, x, v=v: pn.cnn_forward(p, x, v),
+                     lambda p, x, c, k=None, ctx=None, v=v: pn.cnn_forward(
+                         p, x, v, c, key=k, ctx=ctx), {"aimc_mvm_v2": 5}))
+
+    results, off_outputs, hw_launches = {}, {}, 0
+    for name, p, x, kfold, digital, aimc, per_fwd in nets:
+        y_dig = digital(p, x)
+        res = {"digital_ms": timed(lambda: digital(p, x), dev, reps=2)[0]}
+        outs = {}
+        for src, cfg in cfgs.items():
+            t0 = time.perf_counter()
+            y, ctx = aimc(p, x, cfg, fk(kfold))   # programs, then applies
+            torch.cuda.synchronize(dev)
+            first_s = time.perf_counter() - t0
+            aimc_mvm.reset_counts()
+            y2, _ = aimc(p, x, cfg, ctx=ctx)       # apply only
+            torch.cuda.synchronize(dev)
+            counts = {k: v for k, v in aimc_mvm.LAUNCHES.items() if v}
+            want = ({f"{k}_hw": v for k, v in per_fwd.items()}
+                    if src == "hw" else per_fwd)
+            check(counts == want, f"{name} {src}: launches {counts} != "
+                  f"{want} per forward")
+            hw_launches += sum(v for k, v in counts.items()
+                               if k.endswith("_hw"))
+            check(bool(torch.isfinite(y).all())
+                  and tuple(y.shape) == tuple(y_dig.shape),
+                  f"{name} {src}: bad output {tuple(y.shape)}")
+            ms, _ = timed(lambda: aimc(p, x, cfg, ctx=ctx), dev, reps=2)
+            entry = {"launches_per_forward": counts, "first_call_s": first_s,
+                     "apply_ms": ms, "snr_db": snr_db(y_dig, y)}
+            if src == "off":
+                check(torch.equal(y, y2), f"{name}: noise-off apply-only "
+                      f"forward differs from the first")
+                entry.update(card_vs_cpu(name, p, x, cfg, aimc, ctx, y))
+            else:
+                entry["profile"] = device_profile(
+                    lambda: aimc(p, x, cfg, ctx=ctx), dev)
+            if name.startswith("LSTM"):
+                entry["top1"] = float((y.argmax(-1) == y_dig.argmax(-1))
+                                      .float().mean())
+            if name.startswith("CNN"):
+                agree = y.argmax(-1) == y_dig.argmax(-1)
+                top2 = torch.sort(y_dig, -1).values[:, -2:]
+                margins = top2[:, 1] - top2[:, 0]
+                err_scale = (y - y_dig).abs().amax(-1)
+                entry["top1"] = float(agree.float().mean())
+                entry["margin_ok"] = bool((agree | (margins < err_scale))
+                                          .all())
+            outs[src] = y
+            res[src] = entry
+            print(f"[paper] {name} {src}: {counts} per forward; first call "
+                  f"(programs) {first_s:.2f} s, apply {ms:.2f} ms; SNR vs "
+                  f"digital {entry['snr_db']:.2f} dB"
+                  + (f", top-1 {entry['top1']:.0%}" if "top1" in entry
+                     else "")
+                  + (f", flips inside the noise margin: "
+                     f"{entry['margin_ok']}" if "margin_ok" in entry else "")
+                  + (f"; card vs CPU (plain): per MVM max|err| "
+                     f"{entry['mvm_err']:.3g}, output max|err| "
+                     f"{entry['card_vs_cpu_err']:.3g}"
+                     if "card_vs_cpu_err" in entry else ""), flush=True)
+            if "profile" in entry:
+                print_profile("paper", entry["profile"])
+        if not name.startswith("CNN"):
+            gap = abs(res["hw"]["snr_db"] - res["counter"]["snr_db"])
+            check(gap <= 1.0, f"{name}: hw SNR {res['hw']['snr_db']} vs "
+                  f"counter {res['counter']['snr_db']} dB")
+        results[name] = res
+        off_outputs[name] = outs["off"]
+    check(torch.equal(off_outputs["LSTM fused"],
+                      off_outputs["LSTM side-by-side"]),
+          "fused LSTM differs from side-by-side (noise off)")
+    print("[paper] fused LSTM bit-equal to side-by-side with noise off",
+          flush=True)
+    return results, hw_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -475,6 +948,9 @@ def main() -> int:
 
     rows, worst = kernel_phase(dev, peaks, SLOTS, PROMPT)
     torch.cuda.empty_cache()
+    v1_rows, v1_worst = v1_hw_kernel_phase(dev, peaks)
+    hw_draws = hw_draw_phase(dev)
+    torch.cuda.empty_cache()
     small_err = small_model_phase(dev)
     run, serve_stats = serve_phase(dev)
     stacked = stacked_phase(run)
@@ -482,6 +958,10 @@ def main() -> int:
     gc.collect()                  # (the engine holds a reference cycle)
     torch.cuda.empty_cache()
     fused = fused_serve_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    staged = staged_v1_phase(dev)
+    paper, hw_launches = paper_nets_phase(dev)
 
     def decode_layer(kname, projs):
         sel = [r for r in rows if r["kernel"] == kname and r["B"] == SLOTS
@@ -498,6 +978,15 @@ def main() -> int:
     k2 = decode_layer("aimc_mvm_v2",
                       {"wq": 2, "wk": 2, "w_gate": 2, "w_down": 1})
     k3 = decode_layer("aimc_mvm_stacked", {"w_gu": 1})
+
+    def mlp_forward(kname):
+        # one MLP forward at its published width: two [16x1024]x[1024x1024]
+        row = next(r for r in v1_rows
+                   if r["kernel"] == kname and r["shape"] == "mlp fc")
+        return {key: 2 * row[key] for key in ("ms", "plain_ms", "bound_ms")
+                } | {"bound_by": row["bound_by"]}
+
+    k1, k4 = mlp_forward("aimc_mvm_v1"), mlp_forward("aimc_mvm_v2 hw")
     src_rel = "src/repro_torch/kernels/csrc/aimc_mvm.cu"
     record = {"kernels": [
         {"name": "aimc_mvm_v2", "route": "cuda", "source": src_rel,
@@ -511,12 +1000,27 @@ def main() -> int:
          "launches": fused["launches"]["aimc_mvm_stacked"],
          "max_abs_err": worst["aimc_mvm_stacked"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-         "bound_by": k3["bound_by"], "library_ms": None}]}
+         "bound_by": k3["bound_by"], "library_ms": None},
+        {"name": "aimc_mvm_v1", "route": "cuda", "source": src_rel,
+         "replaces": "src/repro/kernels/aimc_mvm.py:118",
+         "launches": staged["launches"]["aimc_mvm_v1"],
+         "max_abs_err": v1_worst["aimc_mvm_v1"], "ms": k1["ms"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": None},
+        {"name": "aimc_mvm_hw", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/philox.cuh",
+         "replaces": "src/repro/kernels/aimc_mvm.py:160",
+         "launches": hw_launches, "max_abs_err": v1_worst["aimc_mvm_hw"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+         "library_ms": None}]}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "torch": torch.__version__, "kernels": record,
-        "kernel_rows": rows, "small_model_max_err": small_err,
-        "serve": serve_stats, "stacked": stacked, "fused_serve": fused},
+        "kernel_rows": rows, "v1_hw_kernel_rows": v1_rows,
+        "hw_draws": hw_draws, "small_model_max_err": small_err,
+        "serve": serve_stats, "stacked": stacked, "fused_serve": fused,
+        "staged_v1": staged, "paper_nets": paper},
         indent=1))
     print(json.dumps(record))
     print(smi)

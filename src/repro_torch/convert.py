@@ -2,8 +2,9 @@
 
 `params_from_numpy` turns a reference parameter tree already converted to
 numpy (``jax.tree.map(np.asarray, params)`` on the JAX side) into the
-port's tree on ``device``: nested dicts stay nested dicts, arrays become
-tensors, and any object with ``w_q``/``s_w``/``k``/``n`` attributes (a
+port's tree on ``device``: nested dicts, lists and tuples keep their
+structure (a CNN holds ``"convs": [...]``), arrays become tensors, and any
+object with ``w_q``/``s_w``/``k``/``n`` attributes (a
 programmed state, matched by duck typing) becomes an `AimcLinearState`.
 `load_npz` reads a flat ``{"blocks/wq": array, ...}`` archive, the format
 ``launch.serve --weights`` takes.
@@ -24,6 +25,8 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_numpy(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device) for v in tree)
     if all(hasattr(tree, a) for a in ("w_q", "s_w", "k", "n")):
         return AimcLinearState(w_q=_tensor(tree.w_q, device),
                                s_w=_tensor(tree.s_w, device),

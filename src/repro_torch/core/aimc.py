@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import noise as noise_lib
+from repro_torch.core import prng
 from repro_torch.core.quant import QMAX, adc_step_lsb, sym_scale
 from repro_torch.kernels import ops as kernel_ops
 
@@ -34,6 +35,10 @@ class AimcConfig:
     # apply bias + activation inside the kernel's last row-block step
     # (False = the same math as separate ops after the kernel)
     fuse_epilogue: bool = True
+    # read-noise generator inside the kernel: "counter" (kernels/cprng,
+    # equal to the reference's bits) or "hw" (Philox on the card, held to
+    # the noise moments; no CPU version, as the reference's oracle has none)
+    noise_source: str = "counter"
 
     @property
     def adc_step(self) -> float:
@@ -79,7 +84,7 @@ def _pad_to(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
 
-def _program_into(w, cfg: AimcConfig, gen, w_q_out, s_w_out) -> None:
+def _program_into(w, cfg: AimcConfig, key, w_q_out, s_w_out) -> None:
     """CM_INITIALIZE of one [K, N] matrix into preallocated outputs."""
     k, n = w.shape
     kb, m, np_ = w_q_out.shape
@@ -89,18 +94,20 @@ def _program_into(w, cfg: AimcConfig, gen, w_q_out, s_w_out) -> None:
     w_blocks = w_blocks.reshape(kb, m, np_)
     s_w = sym_scale(w_blocks, dim=1).reshape(kb, np_)
     codes = w_blocks / s_w[:, None, :]
-    if cfg.noise.enabled and gen is not None:
-        codes = codes + noise_lib.programming_noise(gen, codes, cfg.noise)
+    if cfg.noise.enabled and key is not None:
+        codes = codes + noise_lib.programming_noise(key, codes, cfg.noise)
     w_q_out.copy_(torch.round(codes).clamp(-QMAX, QMAX).to(torch.int8))
     gain = cfg.noise.drift_gain() * cfg.noise.compensation_gain()
     s_w_out.copy_(s_w * gain if gain != 1.0 else s_w)
 
 
 def program_stacked(w: torch.Tensor, cfg: AimcConfig,
-                    gen: torch.Generator | None = None) -> AimcLinearState:
+                    key: torch.Tensor | None = None) -> AimcLinearState:
     """CM_INITIALIZE for a [..., K, N] weight; leading dims (layer stacks)
     are programmed one instance at a time, so the float temporaries are one
-    matrix large, never one stack large."""
+    matrix large, never one stack large. Instance i of a stack draws its
+    programming noise from ``split(key, instances)[i]``, as the reference
+    does; a single matrix draws from ``key`` itself."""
     *lead, k, n = w.shape
     m = cfg.tile_rows
     kb = _pad_to(k, m) // m
@@ -110,17 +117,20 @@ def program_stacked(w: torch.Tensor, cfg: AimcConfig,
     flat_w = w.reshape(-1, k, n)
     flat_q = w_q.reshape(-1, kb, m, np_)
     flat_s = s_w.reshape(-1, kb, np_)
+    keys = [key] * flat_w.shape[0]
+    if lead and key is not None:
+        keys = prng.split(key, flat_w.shape[0])
     for i in range(flat_w.shape[0]):
-        _program_into(flat_w[i], cfg, gen, flat_q[i], flat_s[i])
+        _program_into(flat_w[i], cfg, keys[i], flat_q[i], flat_s[i])
     return AimcLinearState(w_q=w_q, s_w=s_w, k=k, n=n)
 
 
 def program_linear(w: torch.Tensor, cfg: AimcConfig,
-                   gen: torch.Generator | None = None) -> AimcLinearState:
+                   key: torch.Tensor | None = None) -> AimcLinearState:
     """CM_INITIALIZE: quantize + (noisily) program a [K, N] weight."""
     if w.dim() != 2:
         raise ValueError(f"program_linear takes [K, N], got {tuple(w.shape)}")
-    return program_stacked(w, cfg, gen)
+    return program_stacked(w, cfg, key)
 
 
 def _flatten_pad_input(x: torch.Tensor, state: AimcLinearState,
@@ -143,10 +153,10 @@ def _flatten_pad_input(x: torch.Tensor, state: AimcLinearState,
     return xf, s_x, lead
 
 
-def _noise_args(cfg: AimcConfig, gen, active_rows: int):
+def _noise_args(cfg: AimcConfig, key, active_rows: int):
     """(seed, sigma) for the in-kernel PRNG; (None, 0.0) turns noise off."""
-    if cfg.noise.enabled and gen is not None and cfg.noise.sigma_read > 0.0:
-        return (noise_lib.derive_read_seed(gen),
+    if cfg.noise.enabled and key is not None and cfg.noise.sigma_read > 0.0:
+        return (noise_lib.derive_read_seed(key),
                 noise_lib.read_sigma_lsb(active_rows, cfg.noise))
     return None, 0.0
 
@@ -161,20 +171,21 @@ def _pad_bias(bias, n: int, np_: int):
 
 
 def aimc_apply(state: AimcLinearState, x: torch.Tensor, cfg: AimcConfig,
-               gen: torch.Generator | None = None, *, bias=None,
+               key: torch.Tensor | None = None, *, bias=None,
                activation: str = "none") -> torch.Tensor:
     """CM_QUEUE + CM_PROCESS + CM_DEQUEUE on a programmed layer:
     x [..., K] -> [..., N]. The epilogue runs inside the kernel when
     ``cfg.fuse_epilogue``, as the same f32 ops after it otherwise."""
     kb, m, np_ = state.w_q.shape
     xf, s_x, lead = _flatten_pad_input(x, state, cfg)
-    seed, sigma = _noise_args(cfg, gen, m)
+    seed, sigma = _noise_args(cfg, key, m)
     fuse = cfg.fuse_epilogue
     y = kernel_ops.aimc_matmul_v2(
         xf, state.w_q, state.s_w, s_x, seed,
         _pad_bias(bias, state.n, np_) if fuse else None,
         adc_step=cfg.adc_step, sigma=sigma,
-        activation=activation if fuse else "none")
+        activation=activation if fuse else "none",
+        noise_source=cfg.noise_source)
     y = y[:, :state.n]
     if not fuse:
         if bias is not None:
@@ -205,7 +216,7 @@ def stack_states(states, dim: int = 0) -> AimcLinearState:
 
 
 def aimc_apply_stacked(stack: AimcLinearState, x: torch.Tensor,
-                       cfg: AimcConfig, gen: torch.Generator | None = None, *,
+                       cfg: AimcConfig, key: torch.Tensor | None = None, *,
                        biases=None, activations="none") -> torch.Tensor:
     """Gate-fused multi-MVM on a `[G, ...]` stack: x [..., K] ->
     [G, ..., N] in ONE kernel launch sharing x and its DAC scale. Noise off,
@@ -216,7 +227,7 @@ def aimc_apply_stacked(stack: AimcLinearState, x: torch.Tensor,
     g_ = stack.stack_shape[0]
     kb, m, np_ = stack.w_q.shape[-3:]
     xf, s_x, lead = _flatten_pad_input(x, stack, cfg)
-    seed, sigma = _noise_args(cfg, gen, m)
+    seed, sigma = _noise_args(cfg, key, m)
     if isinstance(activations, str):
         activations = (activations,) * g_
     activations = tuple(activations)
@@ -233,7 +244,8 @@ def aimc_apply_stacked(stack: AimcLinearState, x: torch.Tensor,
     y = kernel_ops.aimc_matmul_stacked(
         xf, stack.w_q, stack.s_w, s_x, seed, bias_arg,
         adc_step=cfg.adc_step, sigma=sigma,
-        activations=activations if fuse else "none")
+        activations=activations if fuse else "none",
+        noise_source=cfg.noise_source)
     y = y[:, :, :stack.n]
     if not fuse:
         if biases is not None:

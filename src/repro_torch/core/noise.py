@@ -9,9 +9,9 @@
   * conductance drift — G(t) = G(t0) * (t/t0)^(-nu), with optional digital
     compensation.
 
-Random draws come from a `torch.Generator` where the reference takes a JAX
-PRNG key. The two give different numbers for the same seed; bit-compatible
-JAX keys are later work (ROADMAP.md). Serving runs with `DISABLED`.
+Random draws take the reference's JAX PRNG keys (`core/prng.py`): the
+same key gives the same bits as `jax.random`, and Gaussians within a few
+ulps of it. Serving runs with `DISABLED`.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.quant import QMAX
 
 
@@ -100,17 +101,28 @@ def unit_hash(*ints: int) -> float:
     return h / float(1 << 64)
 
 
-def programming_noise(gen: torch.Generator, w_codes: torch.Tensor,
+def programming_noise(key: torch.Tensor, w_codes: torch.Tensor,
                       nm: NoiseModel) -> torch.Tensor:
-    """Additive write error on conductance codes (float; caller rounds).
-    ``gen`` must live on ``w_codes``' device."""
+    """Additive write error on conductance codes (float; caller rounds),
+    drawn on ``w_codes``' device from ``key``."""
     if not nm.enabled:
         return torch.zeros_like(w_codes, dtype=torch.float32)
     level = w_codes.to(torch.float32).abs() / QMAX
     sigma = (nm.sigma_prog_min
              + (nm.sigma_prog_max - nm.sigma_prog_min) * level) * QMAX
-    return sigma * torch.randn(w_codes.shape, generator=gen,
-                               device=w_codes.device, dtype=torch.float32)
+    return sigma * prng.normal(key, w_codes.shape, device=w_codes.device)
+
+
+def read_noise(key: torch.Tensor, shape, active_rows: int, nm: NoiseModel,
+               device=None) -> torch.Tensor:
+    """Additive bit-line noise in accumulator LSBs for one CM_PROCESS, as a
+    bulk tensor: the operand of the v1 kernel K1 (`ops.aimc_matmul`). The
+    execution path draws its noise inside kernel K2/K3 from a scalar seed."""
+    if not nm.enabled or nm.sigma_read == 0.0:
+        return torch.zeros(shape, dtype=torch.float32,
+                           device=key.device if device is None else device)
+    sigma = read_sigma_lsb(active_rows, nm)
+    return sigma * prng.normal(key, shape, device=device)
 
 
 def read_sigma_lsb(active_rows: int, nm: NoiseModel) -> float:
@@ -121,8 +133,10 @@ def read_sigma_lsb(active_rows: int, nm: NoiseModel) -> float:
     return float(nm.sigma_read * QMAX * (active_rows ** 0.5))
 
 
-def derive_read_seed(gen: torch.Generator) -> int:
-    """One uint32 draw: the scalar seed the kernel expands per element.
-    A host int, so passing it to a launch costs no device sync."""
-    return int(torch.randint(0, 1 << 32, (), generator=gen,
-                             dtype=torch.int64, device=gen.device))
+def derive_read_seed(key: torch.Tensor) -> int:
+    """`jax.random.bits(key, uint32)`: the scalar seed the kernel expands
+    per element. A host int, so passing it to a launch costs no device
+    sync (the key's words are read on the host)."""
+    k0, k1 = prng.key_words(key)
+    y0, y1 = prng.threefry2x32(k0, k1, 0, 0)
+    return y0 ^ y1

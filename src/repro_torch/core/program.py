@@ -26,8 +26,9 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core import isa
-from repro_torch.core.aimc import AimcConfig, AimcLinearState, program_stacked
+from repro_torch.core import isa, prng
+from repro_torch.core.aimc import (AimcConfig, AimcLinearState,
+                                   program_linear, program_stacked)
 from repro_torch.core.tile import TileAllocator, TileMap
 
 
@@ -94,22 +95,30 @@ class ProgramBuilder:
         self._entries: dict[str, AimcLinearState] = {}
         self._context_of: dict[str, int] = {}
 
-    def _allocate(self, name: str, k: int, n: int, instances: int) -> int:
+    def _place(self, name: str, desc: str, place) -> int:
+        """Run ``place(alloc)`` on the least-loaded context, then check its
+        capacity: one placement policy for matrices and gate groups."""
         ctx = min(range(len(self._allocs)),
                   key=lambda i: self._allocs[i].n_tiles)
         alloc = self._allocs[ctx]
-        for i in range(instances):
-            alloc.map_matrix(name if instances == 1 else f"{name}[{i}]", k, n)
+        place(alloc)
         if (self.tiles_per_context is not None
                 and alloc.n_tiles > self.tiles_per_context):
             raise CapacityError(
-                f"mapping {name!r} ({instances}x[{k}x{n}]) overflows context "
-                f"{ctx}: {alloc.n_tiles} tiles > cap {self.tiles_per_context}")
+                f"mapping {desc} overflows context {ctx}: {alloc.n_tiles} "
+                f"tiles > cap {self.tiles_per_context}")
         self._context_of[name] = ctx
         return ctx
 
+    def _allocate(self, name: str, k: int, n: int, instances: int) -> int:
+        def place(alloc):
+            for i in range(instances):
+                alloc.map_matrix(name if instances == 1 else f"{name}[{i}]",
+                                 k, n)
+        return self._place(name, f"{name!r} ({instances}x[{k}x{n}])", place)
+
     def add(self, name: str, w: torch.Tensor,
-            gen: torch.Generator | None = None) -> AimcLinearState:
+            key: torch.Tensor | None = None) -> AimcLinearState:
         """Program one (possibly stacked [..., K, N]) weight matrix."""
         if name in self._entries:
             raise ValueError(f"matrix {name!r} already mapped")
@@ -119,7 +128,25 @@ class ProgramBuilder:
         for d in w.shape[:-2]:
             instances *= d
         self._allocate(name, w.shape[-2], w.shape[-1], instances)
-        state = program_stacked(w, self.cfg, gen)
+        state = program_stacked(w, self.cfg, key)
+        self._entries[name] = state
+        return state
+
+    def add_gates(self, name: str, gates, key: torch.Tensor | None = None
+                  ) -> AimcLinearState:
+        """Place same-height gate matrices side by side: one queue and one
+        CM_PROCESS serve all of them (the paper's LSTM trick, §VIII-D)."""
+        if name in self._entries:
+            raise ValueError(f"matrix {name!r} already mapped")
+        rows = gates[0].shape[0]
+        if any(g.shape[0] != rows for g in gates):
+            raise ValueError("gate matrices must share in_features")
+        cols = gates[0].shape[1]
+        self._place(
+            name, f"gates {name!r} ({len(gates)}x[{rows}x{cols}])",
+            lambda alloc: alloc.map_side_by_side(
+                [f"{name}.g{i}" for i in range(len(gates))], rows, cols))
+        state = program_linear(torch.cat(list(gates), dim=1), self.cfg, key)
         self._entries[name] = state
         return state
 
@@ -216,27 +243,18 @@ class AimcProgram:
         return f"<{self.summary()}>"
 
 
-def _fold_seed(seed: int, idx: int) -> int:
-    """Per-matrix generator seed (the port's `jax.random.fold_in`)."""
-    return (int(seed) * 0x9E3779B1 + idx + 1) & ((1 << 63) - 1)
-
-
 def program_model(params, plan: MappingPlan | None, cfg: AimcConfig,
-                  seed: int | None = None) -> AimcProgram:
+                  key: torch.Tensor | None = None) -> AimcProgram:
     """CM_INITIALIZE an entire model: program every plan-selected weight.
-    Matrix i draws its programming noise from a generator seeded by
-    ``(seed, fold index i)`` on the weight's device; ``seed=None`` (or a
-    disabled noise model) programs noise-free. Pair with
-    ``program.install(params)``."""
+    Matrix i draws its programming noise from ``fold_in(key, i)``, i its
+    fold index, as the reference does; ``key=None`` (or a disabled noise
+    model) programs noise-free. Pair with ``program.install(params)``."""
     plan = plan or MappingPlan()
     builder = ProgramBuilder(cfg, n_contexts=plan.n_contexts,
                              tiles_per_context=plan.tiles_per_context)
     for pkey, w, idx in iter_mapped_leaves(params, plan):
-        gen = None
-        if seed is not None and cfg.noise.enabled:
-            gen = torch.Generator(device=w.device).manual_seed(
-                _fold_seed(seed, idx))
-        builder.add(pkey, w, gen)
+        builder.add(pkey, w,
+                    prng.fold_in(key, idx) if key is not None else None)
     return builder.build()
 
 

@@ -42,6 +42,10 @@ def quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.round(x / scale).clamp(QMIN, QMAX).to(torch.int8)
 
 
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale.to(torch.float32)
+
+
 def adc_step_lsb(tile_rows: int, adc_alpha: float) -> float:
     """ADC quantization step in int32-accumulator LSBs: an 8-bit ADC whose
     full scale covers the statistical bit-line range sqrt(M) * 127 * 127."""

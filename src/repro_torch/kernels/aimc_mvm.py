@@ -1,18 +1,25 @@
 """ctypes wrappers of the Hopper AIMC MVM kernels (`csrc/aimc_mvm.cu`).
 
+  * `aimc_mvm_v1`      — kernel K1, replaces `aimc_matmul_pallas`
+    (`repro/kernels/aimc_mvm.py:118`): read noise from an explicit
+    `[KB, B, Np]` operand, no epilogue.
   * `aimc_mvm_v2`      — kernel K2, replaces `aimc_matmul_pallas_v2`
     (`repro/kernels/aimc_mvm.py:228`): one programmed projection.
   * `aimc_mvm_stacked` — kernel K3, replaces `aimc_matmul_pallas_stacked`
     (`repro/kernels/aimc_mvm.py:349`): a `[G, ...]` gate stack sharing x.
+  * K4, ``noise_source="hw"`` on K2/K3 — replaces the hardware-PRNG branch
+    of `_in_kernel_noise` (`repro/kernels/aimc_mvm.py:160-170`) with
+    Philox4x32-10 (`csrc/philox.cuh`).
 
 The shared library is compiled with `nvcc` for `sm_90a` at first use, into
 ``build/`` beside this file (listed in `.gitignore`), named by a hash of its
 sources so an edited kernel is rebuilt. Each wrapper checks its operands,
 launches on PyTorch's current stream without synchronising, raises if the
 launch was refused, and adds one to `LAUNCHES[name]` per launch: a run can
-read the counts to prove its path went through the kernels. Nothing here
-falls back to the plain version (`kernels/ref.py`); `kernels/ops.py`
-chooses by the device of the input.
+read the counts to prove its path went through the kernels; K2/K3
+launches that draw "hw" noise (sigma > 0, K4) count under the `_hw` names.
+Nothing here falls back to the plain version (`kernels/ref.py`);
+`kernels/ops.py` chooses by the device of the input.
 """
 
 from __future__ import annotations
@@ -28,9 +35,11 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.ref import NOISE_SOURCES
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "build"
-_SOURCES = ("aimc_mvm.cu", "cprng.cuh")
+_SOURCES = ("aimc_mvm.cu", "cprng.cuh", "philox.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -39,7 +48,8 @@ _ACT_CODES = {"none": 0, "relu": 1, "sigmoid": 2, "tanh": 3}
 MAX_GATES = 16
 
 # kernel name -> launches since the last `reset_counts()`
-LAUNCHES = {"aimc_mvm_v2": 0, "aimc_mvm_stacked": 0}
+LAUNCHES = {"aimc_mvm_v1": 0, "aimc_mvm_v2": 0, "aimc_mvm_stacked": 0,
+            "aimc_mvm_v2_hw": 0, "aimc_mvm_stacked_hw": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -97,10 +107,11 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             fn = lib.aimc_mvm_launch
-            fn.argtypes = ([ctypes.c_void_p] * 6
+            fn.argtypes = ([ctypes.c_void_p] * 7
                            + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_float, ctypes.c_uint,
-                              ctypes.c_int, ctypes.c_uint, ctypes.c_void_p])
+                              ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+                              ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -120,8 +131,9 @@ def _check(t: torch.Tensor, name: str, dtype, device, ndim: int):
 
 
 def _launch(name, x, w_q, s_w, s_x, seed, bias, adc_step, sigma, acts,
-            stacked):
-    """w_q [G, KB, M, Np], s_w [G, KB, Np], bias [G, Np] or None."""
+            stacked, noise_source="counter", noise=None):
+    """w_q [G, KB, M, Np], s_w [G, KB, Np], bias [G, Np] or None, noise
+    [KB, B, Np] or None (K1)."""
     if not x.is_cuda:
         raise ValueError(f"{name} launches on a CUDA tensor; x is on "
                          f"{x.device}")
@@ -142,6 +154,13 @@ def _launch(name, x, w_q, s_w, s_x, seed, bias, adc_step, sigma, acts,
         raise ValueError("s_x must be one f32 value on x's device")
     if sigma > 0.0 and seed is None:
         raise ValueError("sigma > 0 requires a seed")
+    if noise_source not in NOISE_SOURCES:
+        raise ValueError(f"unknown noise_source {noise_source!r}")
+    if noise is not None:
+        _check(noise, "read_noise", torch.float32, x.device, 3)
+        if tuple(noise.shape) != (kb, b, np_):
+            raise ValueError(f"read_noise {tuple(noise.shape)} != "
+                             f"{(kb, b, np_)}")
     if bias is not None:
         _check(bias, "bias", torch.float32, x.device, 2)
         if tuple(bias.shape) != (g, np_):
@@ -156,33 +175,50 @@ def _launch(name, x, w_q, s_w, s_x, seed, bias, adc_step, sigma, acts,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.aimc_mvm_launch(
             x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
-            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            noise.data_ptr() if noise is not None else None, out.data_ptr(),
             b, kb, m, np_, g, float(adc_step), float(sigma),
-            int(seed or 0) & 0xFFFFFFFF, int(stacked), packed, stream)
+            int(seed or 0) & 0xFFFFFFFF, int(stacked), packed,
+            int(noise_source == "hw"), stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name + ("_hw" if noise_source == "hw" and sigma > 0.0
+                     else "")] += 1
     return out
 
 
+def aimc_mvm_v1(x, w_q, s_w, s_x, read_noise, *, adc_step: float):
+    """K1: x f32 [B, KB*M], w_q int8 [KB, M, Np], s_w [KB, Np], s_x one f32
+    device value, read_noise f32 [KB, B, Np] in accumulator LSBs -> f32
+    [B, Np]; no epilogue."""
+    y = _launch("aimc_mvm_v1", x, w_q.unsqueeze(0), s_w.unsqueeze(0), s_x,
+                None, None, adc_step, 0.0, ("none",), stacked=False,
+                noise=read_noise)
+    return y[0]
+
+
 def aimc_mvm_v2(x, w_q, s_w, s_x, seed=None, bias=None, *, adc_step: float,
-                sigma: float = 0.0, activation: str = "none"):
+                sigma: float = 0.0, activation: str = "none",
+                noise_source: str = "counter"):
     """K2: x f32 [B, KB*M], w_q int8 [KB, M, Np], s_w [KB, Np], s_x one f32
-    device value, bias [Np] or None -> f32 [B, Np], epilogue applied."""
+    device value, bias [Np] or None -> f32 [B, Np], epilogue applied; K4
+    when ``noise_source="hw"``."""
     if activation not in _ACT_CODES:
         raise ValueError(f"unknown epilogue {activation!r}")
     np_ = w_q.shape[-1]
     y = _launch("aimc_mvm_v2", x, w_q.unsqueeze(0), s_w.unsqueeze(0), s_x,
                 seed, None if bias is None else bias.reshape(1, np_),
-                adc_step, sigma, (activation,), stacked=False)
+                adc_step, sigma, (activation,), stacked=False,
+                noise_source=noise_source)
     return y[0]
 
 
 def aimc_mvm_stacked(x, w_q, s_w, s_x, seed=None, bias=None, *,
                      adc_step: float, sigma: float = 0.0,
-                     activations="none"):
+                     activations="none", noise_source: str = "counter"):
     """K3: w_q int8 [G, KB, M, Np], s_w [G, KB, Np], bias [G, Np] or None ->
-    f32 [G, B, Np]; gate g draws noise under `cprng.stack_seed(seed, g)`."""
+    f32 [G, B, Np]; gate g draws noise under `cprng.stack_seed(seed, g)`
+    (counter or, K4, Philox)."""
     g = w_q.shape[0]
     if isinstance(activations, str):
         activations = (activations,) * g
@@ -192,4 +228,5 @@ def aimc_mvm_stacked(x, w_q, s_w, s_x, seed=None, bias=None, *,
         if a not in _ACT_CODES:
             raise ValueError(f"unknown epilogue {a!r}")
     return _launch("aimc_mvm_stacked", x, w_q, s_w, s_x, seed, bias,
-                   adc_step, sigma, tuple(activations), stacked=True)
+                   adc_step, sigma, tuple(activations), stacked=True,
+                   noise_source=noise_source)

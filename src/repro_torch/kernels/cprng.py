@@ -54,15 +54,21 @@ def stack_seed(seed: int, g: int) -> int:
     return int(mix32(torch.tensor(v, dtype=torch.int64)))
 
 
-def gauss_from_counter(seed, ctr: torch.Tensor) -> torch.Tensor:
-    """Standard-normal f32 draws, one per uint32 counter element: two
-    chained hash streams feed Box-Muller; u1 in (0, 1], u2 in [0, 1)."""
-    h1 = mix32(_u32(ctr) ^ _u32(seed, ctr.device))
-    h2 = mix32((h1 + GOLDEN) & _M32)
+def box_muller(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """Standard-normal f32 draws from two uint32 words per element (the
+    reference kernel's own mapping): u1 in (0, 1], u2 in [0, 1)."""
     u1 = ((h1 >> 8).to(torch.float32) + 1.0) * _U24
     u2 = (h2 >> 8).to(torch.float32) * _U24
     r = torch.sqrt(-2.0 * torch.log(u1))
     return r * torch.cos(_TWO_PI * u2)
+
+
+def gauss_from_counter(seed, ctr: torch.Tensor) -> torch.Tensor:
+    """Standard-normal f32 draws, one per uint32 counter element: two
+    chained hash streams feed Box-Muller."""
+    h1 = mix32(_u32(ctr) ^ _u32(seed, ctr.device))
+    h2 = mix32((h1 + GOLDEN) & _M32)
+    return box_muller(h1, h2)
 
 
 def noise_tile(seed, k: int, row0: int, col0: int, bb: int, bn: int,

@@ -2,17 +2,25 @@
 // noise -> ADC -> dequant -> row-block accumulate -> bias + activation.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/aimc_mvm.py:
+//   K1  aimc_matmul_pallas          (body _aimc_mvm_kernel, :83)
 //   K2  aimc_matmul_pallas_v2       (body _aimc_mvm_kernel_v2, :186)
 //   K3  aimc_matmul_pallas_stacked  (body _aimc_mvm_kernel_stacked, :297)
+//   K4  the noise_source="hw" branch of _in_kernel_noise (:160-170)
 // K3 is K2 with a gate index (blockIdx.z): gate g reads w_q[g], s_w[g],
 // bias[g], draws noise under stack_seed(seed, g) and applies its own
-// activation; x and its DAC scale are shared. The plain PyTorch versions
-// are repro_torch/kernels/ref.py (aimc_matmul_ref_v2 / _stacked_ref).
+// activation; x and its DAC scale are shared. K1 is K2 with the noise read
+// from an explicit [KB, B, Np] operand and no epilogue. K4 is K2/K3 with
+// the per-element noise drawn by Philox4x32-10 (philox.cuh) in place of
+// the counter hash. The plain PyTorch versions are
+// repro_torch/kernels/ref.py (aimc_matmul_ref, aimc_matmul_ref_v2,
+// aimc_matmul_stacked_ref; noise_source="hw" for K4).
 //
 // Bound on an H100 SXM: decode moves the int8 weight panel once, so the
-// kernel is bound by bytes (w_q + s_w + x + out over 3.35 TB/s); at a
-// prefill batch of 16 the int8 MACs are still far below the card's int8
-// rate. This first version does not reach that bound: it uses CUDA-core
+// kernel is bound by bytes (w_q + s_w + x + out over 3.35 TB/s; K1 adds its
+// f32 noise operand, KB*B*Np*4 bytes, several times the int8 panel at
+// square shapes); at a prefill batch of 16 the int8 MACs are still far
+// below the card's int8 rate; the CNNs' im2col convolutions (B up to ~95k
+// patch rows) are bound by operations. This first version does not reach that bound: it uses CUDA-core
 // IMADs and 4-byte weight loads, no wgmma, no TMA, and launches one block
 // per 32 columns, so narrow projections (wk/wv, 1024 columns) fill only a
 // few dozen SMs. Measured times are in PERF.md.
@@ -32,7 +40,9 @@
 //    sums of the 32 slices are reduced exactly (integer adds) by warp
 //    shuffles and shared memory, so the ADC sees the whole row block.
 //  * Noise: counter (k*b_logical + row)*Np + col in uint32 wraparound,
-//    Box-Muller with logf/sqrtf/cosf (cprng.cuh).
+//    Box-Muller with logf/sqrtf/cosf (cprng.cuh); or Philox keyed
+//    (seed, k) at counter (row, col >> 1) (philox.cuh, K4); or K1's
+//    operand noise[k, row, col].
 //  * ADC + dequant: codes = clip(rintf((acc + sigma*noise) / adc_step));
 //    out += codes * (s_w[k,n] * (adc_step * s_x)), the Pallas kernel's
 //    association. Built with --fmad=false so no multiply-add is contracted.
@@ -40,6 +50,7 @@
 #include <stdint.h>
 
 #include "cprng.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -80,9 +91,11 @@ template <int BB>
 __global__ void __launch_bounds__(kThreads)
 aimc_mvm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w_q,
                 const float* __restrict__ s_w, const float* __restrict__ s_x,
-                const float* __restrict__ bias, float* __restrict__ out,
+                const float* __restrict__ bias,
+                const float* __restrict__ noise, float* __restrict__ out,
                 int B, int b_logical, int KB, int M, int Np, float adc_step,
-                float sigma, uint32_t seed, int stacked, uint32_t acts) {
+                float sigma, uint32_t seed, int stacked, uint32_t acts,
+                int philox) {
   extern __shared__ __align__(16) unsigned char smem[];
   int32_t* part = reinterpret_cast<int32_t*>(smem);  // [kWarps][BB][kBN]
   int8_t* xq = reinterpret_cast<int8_t*>(smem + kWarps * BB * kBN * 4);
@@ -167,11 +180,21 @@ aimc_mvm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w_q,
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) a += part[(w * BB + r) * kBN + c];
         float af = (float)a;
-        if (sigma > 0.0f) {
-          const uint32_t ctr =
-              ((uint32_t)k * (uint32_t)b_logical + (uint32_t)(row0 + r)) *
-                  (uint32_t)Np + (uint32_t)(n0 + c);
-          af = af + sigma * aimc::gauss_from_counter(seed_g, ctr);
+        if (noise != nullptr) {
+          if (row0 + r < B)
+            af = af + noise[((size_t)k * B + row0 + r) * Np + n0 + c];
+        } else if (sigma > 0.0f) {
+          float z;
+          if (philox) {
+            z = aimc::gauss_philox(seed_g, (uint32_t)k, (uint32_t)(row0 + r),
+                                   (uint32_t)(n0 + c));
+          } else {
+            const uint32_t ctr =
+                ((uint32_t)k * (uint32_t)b_logical + (uint32_t)(row0 + r)) *
+                    (uint32_t)Np + (uint32_t)(n0 + c);
+            z = aimc::gauss_from_counter(seed_g, ctr);
+          }
+          af = af + sigma * z;
         }
         const float code = fminf(fmaxf(rintf(af / adc_step), -127.0f), 127.0f);
         const float contrib = code * (swg[(size_t)k * Np + n0 + c] * scale_xs);
@@ -200,9 +223,10 @@ aimc_mvm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w_q,
 
 template <int BB>
 int launch(const float* x, const int8_t* w_q, const float* s_w,
-           const float* s_x, const float* bias, float* out, int B, int KB,
-           int M, int Np, int G, float adc_step, float sigma, uint32_t seed,
-           int stacked, uint32_t acts, cudaStream_t stream) {
+           const float* s_x, const float* bias, const float* noise,
+           float* out, int B, int KB, int M, int Np, int G, float adc_step,
+           float sigma, uint32_t seed, int stacked, uint32_t acts,
+           int philox, cudaStream_t stream) {
   const size_t smem = (size_t)kWarps * BB * kBN * 4 + (size_t)M * BB;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -212,8 +236,8 @@ int launch(const float* x, const int8_t* w_q, const float* s_w,
   }
   const dim3 grid(Np / kBN, (B + BB - 1) / BB, G);
   aimc_mvm_kernel<BB><<<grid, kThreads, smem, stream>>>(
-      x, w_q, s_w, s_x, bias, out, B, B, KB, M, Np, adc_step, sigma, seed,
-      stacked, acts);
+      x, w_q, s_w, s_x, bias, noise, out, B, B, KB, M, Np, adc_step, sigma,
+      seed, stacked, acts, philox);
   return (int)cudaGetLastError();
 }
 
@@ -221,15 +245,19 @@ int launch(const float* x, const int8_t* w_q, const float* s_w,
 
 // C entry point bound with ctypes (repro_torch/kernels/aimc_mvm.py).
 // x f32 [B, KB*M] contiguous, w_q int8 [G, KB, M, Np], s_w f32 [G, KB, Np],
-// s_x f32 [1], bias f32 [G, Np] or null, out f32 [G, B, Np]; Np % 32 == 0.
+// s_x f32 [1], bias f32 [G, Np] or null, noise f32 [KB, B, Np] or null (K1:
+// G = 1, sigma = 0), out f32 [G, B, Np]; Np % 32 == 0.
 // stacked = 0 is K2 (G must be 1, seed used as is), 1 is K3.
 // acts packs a 2-bit activation code per gate (0 none, 1 relu, 2 sigmoid,
-// 3 tanh). Returns cudaGetLastError() after the launch (0 = launched).
+// 3 tanh). philox = 1 draws the sigma-scaled noise with Philox (K4), 0
+// with the counter hash. Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int aimc_mvm_launch(const void* x, const void* w_q, const void* s_w,
-                               const void* s_x, const void* bias, void* out,
-                               int B, int KB, int M, int Np, int G,
-                               float adc_step, float sigma, unsigned int seed,
-                               int stacked, unsigned int acts, void* stream) {
+                               const void* s_x, const void* bias,
+                               const void* noise, void* out, int B, int KB,
+                               int M, int Np, int G, float adc_step,
+                               float sigma, unsigned int seed, int stacked,
+                               unsigned int acts, int philox, void* stream) {
   if (B <= 0) return 0;
   if (Np % kBN != 0 || G < 1 || G > kMaxGates || M < 1 || KB < 1)
     return (int)cudaErrorInvalidValue;
@@ -238,20 +266,21 @@ extern "C" int aimc_mvm_launch(const void* x, const void* w_q, const void* s_w,
   const float* sw = static_cast<const float*>(s_w);
   const float* sx = static_cast<const float*>(s_x);
   const float* b = static_cast<const float*>(bias);
+  const float* nz = static_cast<const float*>(noise);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 1)
-    return launch<1>(xf, w, sw, sx, b, o, B, KB, M, Np, G, adc_step, sigma,
-                     seed, stacked, acts, st);
+    return launch<1>(xf, w, sw, sx, b, nz, o, B, KB, M, Np, G, adc_step,
+                     sigma, seed, stacked, acts, philox, st);
   if (B <= 2)
-    return launch<2>(xf, w, sw, sx, b, o, B, KB, M, Np, G, adc_step, sigma,
-                     seed, stacked, acts, st);
+    return launch<2>(xf, w, sw, sx, b, nz, o, B, KB, M, Np, G, adc_step,
+                     sigma, seed, stacked, acts, philox, st);
   if (B <= 4)
-    return launch<4>(xf, w, sw, sx, b, o, B, KB, M, Np, G, adc_step, sigma,
-                     seed, stacked, acts, st);
+    return launch<4>(xf, w, sw, sx, b, nz, o, B, KB, M, Np, G, adc_step,
+                     sigma, seed, stacked, acts, philox, st);
   if (B <= 8)
-    return launch<8>(xf, w, sw, sx, b, o, B, KB, M, Np, G, adc_step, sigma,
-                     seed, stacked, acts, st);
-  return launch<16>(xf, w, sw, sx, b, o, B, KB, M, Np, G, adc_step, sigma,
-                    seed, stacked, acts, st);
+    return launch<8>(xf, w, sw, sx, b, nz, o, B, KB, M, Np, G, adc_step,
+                     sigma, seed, stacked, acts, philox, st);
+  return launch<16>(xf, w, sw, sx, b, nz, o, B, KB, M, Np, G, adc_step,
+                    sigma, seed, stacked, acts, philox, st);
 }

@@ -134,10 +134,11 @@ def main(argv=None) -> ServeRun:
         # CM_INITIALIZE: program the whole network once, outside the
         # serving loop (paper §IV-B); the raw float weights of the mapped
         # projections are dropped with the raw tree
+        from repro_torch.core.prng import PRNGKey
         from repro_torch.core.program import MappingPlan, program_model
         t0 = time.time()
         program = program_model(params, MappingPlan(), aimc_cfg,
-                                seed=args.seed + 2)
+                                PRNGKey(args.seed + 2))
         params = program.install(params)
         if args.fuse_gates:
             params = model.fuse_gate_stacks(params)

@@ -93,3 +93,54 @@ def test_stacked_per_gate_activations_match_pallas(sigma):
     assert tuple(y_t.shape) == (3, 7, 256)
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=0,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("b,kb,m,np_", [
+    (8, 1, 128, 128), (5, 2, 128, 256), (16, 3, 64, 384), (1, 1, 256, 128)])
+def test_v1_noise_operand_matches_pallas_interpret(b, kb, m, np_):
+    """Kernel K1's plain version through `ops.aimc_matmul` with a noise
+    tensor, against the reference's v1 Pallas kernel in interpret mode."""
+    x, w_q, s_w, s_x, _ = _operands(b, kb, m, np_, seed=5)
+    noise = (np.random.default_rng(6).standard_normal((kb, b, np_))
+             * 40.0).astype(np.float32)
+    step = adc_step_lsb(m, 1.0)
+    y_j = jops.aimc_matmul(jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(s_w),
+                           jnp.asarray(s_x), jnp.asarray(noise),
+                           adc_step=step, impl="pallas_interpret",
+                           block_b=8, block_n=128)
+    xt, wt, swt, sxt, nt = _t(x, w_q, s_w, s_x, noise)
+    y_t = tops.aimc_matmul(xt, wt, swt, sxt, nt, adc_step=step)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=0,
+                               atol=ATOL)
+
+
+def test_v1_without_noise_routes_to_v2():
+    x, w_q, s_w, s_x, _ = _operands(6, 2, 64, 128, seed=7)
+    step = adc_step_lsb(64, 1.0)
+    xt, wt, swt, sxt = _t(x, w_q, s_w, s_x)
+    y = tops.aimc_matmul(xt, wt, swt, sxt, None, adc_step=step)
+    assert torch.equal(y, tops.aimc_matmul_v2(xt, wt, swt, sxt,
+                                              adc_step=step))
+    y_j = jops.aimc_matmul(jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(s_w),
+                           jnp.asarray(s_x), None, adc_step=step)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_hw_noise_raises_on_cpu_in_both_packages(stacked):
+    """Neither the reference's oracle nor a CPU tensor has the "hw"
+    generator: with read noise on, both packages refuse instead of drawing
+    counter noise; with it off, "hw" is the noise-free kernel."""
+    x, w_q, s_w, s_x, _ = _operands(4, 1, 64, 128, g=2 if stacked else None)
+    kw = dict(adc_step=8.0, sigma=10.0, noise_source="hw")
+    j_fn = jops.aimc_matmul_stacked if stacked else jops.aimc_matmul_v2
+    t_fn = tops.aimc_matmul_stacked if stacked else tops.aimc_matmul_v2
+    with pytest.raises(ValueError, match="hw"):
+        j_fn(jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(s_w),
+             jnp.asarray(s_x), jnp.uint32(1), **kw)
+    xt, wt, swt, sxt = _t(x, w_q, s_w, s_x)
+    with pytest.raises(ValueError, match="hw"):
+        t_fn(xt, wt, swt, sxt, 1, **kw)
+    kw["sigma"] = 0.0
+    assert torch.equal(t_fn(xt, wt, swt, sxt, 1, **kw),
+                       t_fn(xt, wt, swt, sxt, adc_step=8.0))

@@ -24,7 +24,9 @@ def _modules():
 def test_every_module_is_listed():
     mods = _modules()
     for must in ("repro_torch.kernels.aimc_mvm", "repro_torch.runtime.engine",
-                 "repro_torch.launch.serve", "repro_torch.convert"):
+                 "repro_torch.launch.serve", "repro_torch.convert",
+                 "repro_torch.core.prng", "repro_torch.core.aimclib",
+                 "repro_torch.models.paper_nets"):
         assert must in mods
 
 

@@ -1,6 +1,6 @@
-"""Card-only checks of the Hopper AIMC kernels K2/K3 (`repro_torch/kernels/
-csrc/aimc_mvm.cu`) against their plain PyTorch versions on the same CUDA
-tensors. Without a CUDA device every test here skips; run them on the card
+"""Card-only checks of the Hopper AIMC kernels K1-K4 (`repro_torch/kernels/
+csrc/aimc_mvm.cu`, `philox.cuh`) against their plain PyTorch versions on the
+same CUDA tensors. Without a CUDA device every test here skips; run them on the card
 with ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
 
 This file imports no JAX (the card's machine has none); the CPU parity of
@@ -10,7 +10,10 @@ Tolerance: the kernel adds each row block's dequantized contribution in
 turn (the Pallas kernel's association) while the plain version sums the
 codes times s_w first and scales once, so outputs agree to f32 rounding of
 a KB-term sum: |err| <= 1e-5 * max(1, max|y|). ADC and DAC codes are equal,
-and a stacked gate is bit-equal to its single-gate launch.
+and a stacked gate is bit-equal to its single-gate launch, under either
+noise source. K4's raw Philox draws are held to the moments of N(0, 1):
+mean within 4 sigma/sqrt(n), std within 1%, |lag-1 and gate-to-gate
+correlation| < 0.01 over 2^21 draws.
 """
 
 import numpy as np
@@ -95,12 +98,106 @@ def test_k3_bit_equal_to_per_gate_k2(dev, sigma):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,kb,m,np_", [
+    (16, 2, 512, 1024), (8, 2, 512, 3072), (8, 2, 512, 128), (5, 3, 64, 384),
+    (1000, 1, 512, 128)])
+def test_k1_matches_plain(dev, b, kb, m, np_):
+    x, w_q, s_w, s_x, _ = _operands(b, kb, m, np_, device=dev)
+    noise = 57.5 * torch.randn((kb, b, np_), device=dev,
+                               generator=torch.Generator(dev).manual_seed(1))
+    step = adc_step_lsb(m, 1.0)
+    y = aimc_mvm.aimc_mvm_v1(x, w_q, s_w, s_x, noise, adc_step=step)
+    want = ref.aimc_matmul_ref(x, w_q, s_w, s_x, noise, adc_step=step)
+    torch.cuda.synchronize()
+    _close(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kb,m,np_", [
+    (4, 8, 512, 4096), (16, 2, 512, 1024), (5, 3, 64, 384), (33, 2, 128, 256)])
+def test_k4_matches_plain_philox(dev, b, kb, m, np_):
+    x, w_q, s_w, s_x, bias = _operands(b, kb, m, np_, device=dev)
+    step = adc_step_lsb(m, 1.0)
+    y = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, 0xC0FFEE, bias, adc_step=step,
+                             sigma=57.5, activation="relu",
+                             noise_source="hw")
+    want = ref.aimc_matmul_ref_v2(x, w_q, s_w, s_x, 0xC0FFEE, bias,
+                                  adc_step=step, sigma=57.5,
+                                  activation="relu", noise_source="hw")
+    torch.cuda.synchronize()
+    _close(y, want)
+    again = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, 0xC0FFEE, bias,
+                                 adc_step=step, sigma=57.5, activation="relu",
+                                 noise_source="hw")
+    other = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, 0xC0FFEF, bias,
+                                 adc_step=step, sigma=57.5, activation="relu",
+                                 noise_source="hw")
+    assert torch.equal(y, again) and not torch.equal(y, other)
+
+
+def _raw_noise(dev, seed, noise_source, g=1, b=512, np_=4096):
+    """The kernel's raw standard-normal draws, [g, b, np_]: with zero
+    weights, unit scales and a unit ADC step, each output is the ADC code
+    rint(16 * z) of its draw z (|16 z| < 127 for every draw here)."""
+    x = torch.ones((b, 64), device=dev)
+    w_q = torch.zeros((g, 1, 64, np_), dtype=torch.int8, device=dev)
+    s_w = torch.ones((g, 1, np_), device=dev)
+    s_x = torch.ones((1, 1), device=dev)
+    y = aimc_mvm.aimc_mvm_stacked(x, w_q, s_w, s_x, seed, adc_step=1.0,
+                                  sigma=16.0, noise_source=noise_source)
+    return y.double() / 16.0
+
+
+@pytest.mark.cuda
+def test_k4_raw_draw_moments(dev):
+    z = _raw_noise(dev, 0x5EED, "hw", g=2)
+    flat = z[0].flatten()
+    n = flat.numel()
+    assert abs(float(flat.mean())) < 4.0 / n ** 0.5
+    assert abs(float(flat.std()) - 1.0) < 0.01
+    lag1 = float(torch.corrcoef(torch.stack([flat[:-1], flat[1:]]))[0, 1])
+    gates = float(torch.corrcoef(torch.stack([flat, z[1].flatten()]))[0, 1])
+    assert abs(lag1) < 0.01 and abs(gates) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_source", ["counter", "hw"])
+def test_k3_gate_bit_equal_to_k2_per_noise_source(dev, noise_source):
+    x, w_q, s_w, s_x, bias = _operands(8, 2, 512, 768, g=4, device=dev)
+    step = adc_step_lsb(512, 1.0)
+    acts = ("sigmoid", "sigmoid", "tanh", "sigmoid")
+    y = aimc_mvm.aimc_mvm_stacked(x, w_q, s_w, s_x, 77, bias, adc_step=step,
+                                  sigma=57.5, activations=acts,
+                                  noise_source=noise_source)
+    for g in range(4):
+        yg = aimc_mvm.aimc_mvm_v2(x, w_q[g], s_w[g], s_x,
+                                  cprng.stack_seed(77, g), bias[g],
+                                  adc_step=step, sigma=57.5,
+                                  activation=acts[g],
+                                  noise_source=noise_source)
+        assert torch.equal(y[g], yg)
+    want = ref.aimc_matmul_stacked_ref(x, w_q, s_w, s_x, 77, bias,
+                                       adc_step=step, sigma=57.5,
+                                       activations=acts,
+                                       noise_source=noise_source)
+    _close(y, want)
+
+
+@pytest.mark.cuda
 def test_dispatch_counts_launches_and_never_falls_back(dev):
     x, w_q, s_w, s_x, _ = _operands(4, 1, 64, 128, device=dev)
     aimc_mvm.reset_counts()
     ops.aimc_matmul_v2(x, w_q, s_w, s_x, adc_step=8.0)
     ops.aimc_matmul_stacked(x, w_q[None], s_w[None], s_x, adc_step=8.0)
-    assert aimc_mvm.LAUNCHES == {"aimc_mvm_v2": 1, "aimc_mvm_stacked": 1}
+    ops.aimc_matmul(x, w_q, s_w, s_x, torch.zeros((1, 4, 128), device=dev),
+                    adc_step=8.0)
+    ops.aimc_matmul_v2(x, w_q, s_w, s_x, 3, adc_step=8.0, sigma=1.0,
+                       noise_source="hw")
+    ops.aimc_matmul_stacked(x, w_q[None], s_w[None], s_x, 3, adc_step=8.0,
+                            sigma=1.0, noise_source="hw")
+    assert aimc_mvm.LAUNCHES == {
+        "aimc_mvm_v1": 1, "aimc_mvm_v2": 1, "aimc_mvm_stacked": 1,
+        "aimc_mvm_v2_hw": 1, "aimc_mvm_stacked_hw": 1}
     with pytest.raises(ValueError):
         ops.aimc_matmul_v2(x, w_q.cpu(), s_w, s_x, adc_step=8.0)
     assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] == 1

@@ -9,6 +9,7 @@ import torch
 from repro.core import noise as jn
 from repro.runtime import fault_tolerance as jf
 from repro_torch.core import noise as tn
+from repro_torch.core.prng import PRNGKey
 from repro_torch.runtime import fault_tolerance as tf
 
 
@@ -38,13 +39,13 @@ def test_drift_only_and_unit_hash_equal():
 
 def test_programming_noise_level_dependent_sigma():
     codes = torch.tensor([[0.0] * 4000, [127.0] * 4000])
-    gen = torch.Generator().manual_seed(0)
-    z = tn.programming_noise(gen, codes, tn.NoiseModel())
+    key = PRNGKey(0)
+    z = tn.programming_noise(key, codes, tn.NoiseModel())
     std = z.std(dim=1).numpy()
     np.testing.assert_allclose(std, [0.010 * 127, 0.025 * 127], rtol=0.05)
-    assert torch.equal(tn.programming_noise(gen, codes, tn.DISABLED),
+    assert torch.equal(tn.programming_noise(key, codes, tn.DISABLED),
                        torch.zeros_like(codes))
-    seed = tn.derive_read_seed(torch.Generator().manual_seed(1))
+    seed = tn.derive_read_seed(PRNGKey(1))
     assert 0 <= seed < 2**32
 
 
