@@ -36,12 +36,10 @@ class AimcContext:
     """One context ~ the set of AIMC tiles private to a core (paper Fig. 2).
     ``key`` defaults to ``PRNGKey(0)`` on the CPU, as in the reference."""
 
-    def __init__(self, cfg: AimcConfig, key: torch.Tensor | None = None,
-                 n_contexts: int = 1, tiles_per_context: int | None = None):
+    def __init__(self, cfg: AimcConfig, key: torch.Tensor | None = None):
         self.cfg = cfg
         self._key = key if key is not None else prng.PRNGKey(0)
-        self._builder = ProgramBuilder(cfg, n_contexts=n_contexts,
-                                       tiles_per_context=tiles_per_context)
+        self._builder = ProgramBuilder(cfg)
         self._counts: dict[str, isa.CmCounts] = {}
         self._pending: dict[str, torch.Tensor] = {}   # queued inputs
 
@@ -124,19 +122,7 @@ class AimcContext:
         return self._builder.build()
 
     def tile_map(self) -> TileMap:
-        maps = self.program().tile_maps
-        if len(maps) == 1:
-            return maps[0]
-        # multi-context views merge for reporting: offset tile ids per context
-        placements, n_tiles = [], 0
-        for tm in maps:
-            for p in tm.placements:
-                placements.append(
-                    type(p)(p.matrix_id, p.tile_id + n_tiles, p.row_off,
-                            p.col_off, p.rows, p.cols, p.src_row, p.src_col))
-            n_tiles += tm.n_tiles
-        return TileMap(self.cfg.tile_rows, self.cfg.tile_cols,
-                       tuple(placements), n_tiles)
+        return self.program().tile_maps[0]
 
     def instruction_counts(self) -> isa.CmCounts:
         return isa.total(self._counts.values())
