@@ -8,13 +8,20 @@ kernels K1-K4.
 
 Phases (any failure exits non-zero; nothing falls back to a plain version):
   1. build — nvcc builds the kernel library from src/repro_torch/kernels/csrc
-     (sm_90a) and the compiler's register/spill report is printed.
+     (sm_90a); the compiler's register/spill report is printed, and
+     `cuobjdump -sass` must show tensor-core (IMMA/HMMA) instructions in the
+     MVM kernel (`aimc_mvm_mma_kernel`).
   2. kernels — K2 (`aimc_mvm_v2`) and K3 (`aimc_mvm_stacked`) at every
      granite-8b projection shape, at the decode slot count and the prompt
      pad, noise off and on, every epilogue with a bias: each held against
      its plain PyTorch version (`kernels/ref.py`) on the same CUDA tensors
      within |err| <= 1e-5 * max(1, max|y|) (f32 association of the
      row-block sum), and timed with CUDA events, L2 flushed per launch.
+     Then the launcher's three grid modes at granite wk (split over row
+     blocks at B 4; unsplit with 16 rows per block at B 1000 and with 64 at
+     B 4099), each timed and held to its plain version; with s_x fixed,
+     x[:4] on the split grid equals the first 4 rows of the unsplit B 4099
+     launch bit for bit, noise off and under "hw" noise.
   3. small model — the granite smoke config served on the card (kernels);
      its prefill logits within 1e-4 of the same programmed weights run on
      the CPU (plain versions).
@@ -34,7 +41,10 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      operand), K2 with counter noise and K4 (K2/K3 with "hw" Philox noise)
      at every MVM shape of the paper nets at their published widths, K1
      also at the granite decode shapes: each held to its plain version
-     within 1e-5 * max(1, max|y|) and timed as in phase 2. K4's raw draws
+     within 1e-5 * max(1, max|y|) and timed as in phase 2. Where B > 16,
+     `torch._int_mm` on the int8 codes is timed beside K2 as a yardstick
+     for the int8 MAC alone (not the same function; the port never calls
+     it). K4's raw draws
      are held to N(0, 1) moments; same seed, same output; K3 hw gates equal
      K2 hw launches bit for bit.
   8. staged — the MLP through the v1 staged entry `ops.aimc_matmul` with a
@@ -114,11 +124,20 @@ def peaks_for(name: str):
     fail(f"no published peaks for card {name!r}")
 
 
+def flush_buffer(dev):
+    """The L2 flush of `time_ms`: reading 256 MB evicts the 50 MB L2 and
+    keeps the card busy ~80 us, longer than the host takes to enqueue one
+    wrapper call (checks, allocations, a ctypes call issuing up to three
+    kernels), so the events bracket device time, not the host's enqueue."""
+    import torch
+    return torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+
 def time_ms(fn, flush, reps: int) -> float:
     """Mean device time of ``fn`` with the L2 cache flushed before each
     launch (decode reads each weight panel once per step, cold). The flush
-    READS a 64 MB buffer: a write would leave dirty lines whose write-back
-    the timed kernel would pay."""
+    READS its buffer: a write would leave dirty lines whose write-back the
+    timed kernel would pay."""
     import torch
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
@@ -145,6 +164,61 @@ def bound_ms(b, k_pad, np_, g, peaks, bias: bool, noise_bytes: int = 0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def build_report(lib: Path, report: str) -> dict:
+    """Per CUDA kernel of the library: registers, stack and spill bytes from
+    the ptxas report, and the tensor-core instructions (IMMA/HMMA class) in
+    its SASS (`cuobjdump -sass`). Fails if the MVM kernel has none."""
+    import re
+
+    from repro_torch.kernels import aimc_mvm
+
+    def short(mangled):
+        m = re.search(r"(aimc_(?:dac|mvm_mma|rowblock_sum)_kernel)"
+                      r"(?:I((?:Li\d+E)+)E)?", mangled)
+        if m is None:
+            return mangled
+        args = re.findall(r"Li(\d+)E", m.group(2) or "")
+        return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+    kernels: dict = {}
+    cur = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = kernels.setdefault(short(m.group(1)), {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    cuobjdump = Path(aimc_mvm._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300).stdout
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = kernels.setdefault(short(m.group(1)), {})
+            cur["tensor_core_instructions"] = {}
+        m = re.search(r"\b([IH]MMA\.\S+)", line)
+        if m and cur is not None:
+            ops = cur["tensor_core_instructions"]
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    for name, info in kernels.items():
+        print(f"[build] {name}: {info.get('registers')} registers, "
+              f"{info.get('spill_store_bytes')} bytes spill stores, "
+              f"{info.get('spill_load_bytes')} bytes spill loads; tensor-core "
+              f"SASS {info.get('tensor_core_instructions')}", flush=True)
+    mma = [v for k, v in kernels.items() if k.startswith("aimc_mvm_mma")]
+    check(bool(mma) and all(v.get("tensor_core_instructions") for v in mma),
+          "the MVM kernel has no IMMA/HMMA instruction in its SASS")
+    return kernels
+
+
 def kernel_phase(dev, peaks, slots: int, prompt_pad: int):
     import torch
 
@@ -155,7 +229,7 @@ def kernel_phase(dev, peaks, slots: int, prompt_pad: int):
     cfg = AimcConfig()
     step = cfg.adc_step
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = flush_buffer(dev)
     # (name, K, N, G) at granite-8b width: wq/wo, wk/wv, w_gate/w_up,
     # w_down on K2 and the fused w_gu stack on K3
     shapes = [("wq", 4096, 4096, 1), ("wk", 4096, 1024, 1),
@@ -197,7 +271,9 @@ def kernel_phase(dev, peaks, slots: int, prompt_pad: int):
                       f"max |err| {err} > {tol}")
                 worst[kname] = max(worst[kname], err)
                 row = {"kernel": kname, "proj": name, "K": k, "N": n, "G": g,
-                       "B": b, "sigma": sigma, "max_abs_err": err, "tol": tol}
+                       "B": b, "sigma": sigma, "max_abs_err": err, "tol": tol,
+                       "plan": aimc_mvm.launch_plan(dev, b, k // 512, 512,
+                                                    np_, g)}
                 if sigma == 0.0:
                     row["ms"] = time_ms(kern, flush, KERNEL_REPS)
                     row["plain_ms"] = time_ms(plain, flush, 3)
@@ -205,7 +281,8 @@ def kernel_phase(dev, peaks, slots: int, prompt_pad: int):
                         b, k, np_, g, peaks, bias=True)
                 rows.append(row)
                 print(f"[kernels] {kname} {name} [{b}x{k}]x[{k}x{n}]"
-                      f"{f' G={g}' if g > 1 else ''} sigma={sigma}: max|err| "
+                      f"{f' G={g}' if g > 1 else ''} sigma={sigma} "
+                      f"({plan_str(row['plan'])}): max|err| "
                       f"{err:.3g} (tol {tol:.3g})"
                       + (f"; kernel {row['ms']:.4f} ms, plain "
                          f"{row['plain_ms']:.4f} ms, bound "
@@ -240,7 +317,96 @@ def kernel_phase(dev, peaks, slots: int, prompt_pad: int):
         worst["aimc_mvm_v2"] = max(worst["aimc_mvm_v2"], err)
         print(f"[kernels] epilogue {act} with bias, noise on: max|err| "
               f"{err:.3g}; K3 gate bit-equal to K2", flush=True)
+    del st
+    rows += grid_mode_checks(dev, peaks, flush, gen)
     return rows, worst
+
+
+def plan_str(plan) -> str:
+    return (f"{plan['rows_per_block']} rows/block, "
+            f"{'split' if plan['split'] else 'unsplit'}, "
+            f"{plan['kernels_per_call']} kernels/call")
+
+
+def host_us_per_call(fn, calls: int = 100) -> float:
+    """Host-clock us to enqueue one wrapper call (checks, allocations, the
+    ctypes call and its kernel launches), over ``calls`` calls issued
+    without a synchronise in between."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return host / calls * 1e6
+
+
+def grid_mode_checks(dev, peaks, flush, gen):
+    """The launcher's grid modes at granite wk (K 4096, Np 1024, relu, a
+    bias): split over row blocks at B = 4 (16 rows per block), unsplit at
+    B = 1000 (16 rows) and at B = 4099 (64 rows), each timed (device, and
+    the host's enqueue per call) and held to its
+    plain version; and with s_x fixed, x[:4] on the split grid bit-equal to
+    the first 4 rows of the unsplit B = 4099 launch, noise off and under
+    Philox ("hw") noise, whose draws do not depend on B."""
+    import torch
+
+    from repro_torch.core.aimc import AimcConfig, program_stacked
+    from repro_torch.kernels import aimc_mvm, ref
+
+    k, n = 4096, 1024
+    step = AimcConfig().adc_step
+    st = program_stacked(torch.randn((1, k, n), generator=gen, device=dev)
+                         * (2.0 / (k + n)) ** 0.5, AimcConfig())
+    w_q, s_w = st.w_q[0], st.s_w[0]
+    bias = torch.randn((n,), generator=gen, device=dev)
+    x = torch.randn((4099, k), generator=gen, device=dev)
+    s_x = (x.abs().max() / 127).reshape(1, 1)
+    rows, modes = [], set()
+    for b in (4, 1000, 4099):
+        plan = aimc_mvm.launch_plan(dev, b, k // 512, 512, n)
+        modes.add((plan["rows_per_block"], plan["split"]))
+        xb = x[:b]
+        kern = functools.partial(aimc_mvm.aimc_mvm_v2, xb, w_q, s_w, s_x,
+                                 None, bias, adc_step=step, activation="relu")
+        plain = functools.partial(ref.aimc_matmul_ref_v2, xb, w_q, s_w, s_x,
+                                  None, bias, adc_step=step,
+                                  activation="relu")
+        y, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((y - want).abs().max())
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        check(err <= tol, f"grid mode B={b}: max |err| {err} > {tol}")
+        row = {"kernel": "aimc_mvm_v2", "proj": "wk grid mode", "K": k,
+               "N": n, "G": 1, "B": b, "sigma": 0.0, "max_abs_err": err,
+               "tol": tol, "plan": plan,
+               "ms": time_ms(kern, flush, KERNEL_REPS),
+               "plain_ms": time_ms(plain, flush, 3)}
+        row["bound_ms"], row["bound_by"] = bound_ms(b, k, n, 1, peaks,
+                                                    bias=True)
+        row["host_us_per_call"] = host_us_per_call(kern)
+        rows.append(row)
+        print(f"[grid] wk [{b}x{k}]x[{k}x{n}] ({plan_str(plan)}): max|err| "
+              f"{err:.3g}; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); host enqueue "
+              f"{row['host_us_per_call']:.1f} us per call", flush=True)
+    check(modes == {(16, True), (16, False), (64, False)},
+          f"grid modes covered: {modes}")
+    for src, sigma in (("counter", 0.0), ("hw", 57.5)):
+        kw = dict(adc_step=step, sigma=sigma, noise_source=src,
+                  activation="tanh")
+        small = aimc_mvm.aimc_mvm_v2(x[:4], w_q, s_w, s_x, 5, bias, **kw)
+        big = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, 5, bias, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(small, big[:4]),
+              f"split rows differ from unsplit rows (sigma {sigma})")
+    print("[grid] x[:4] on the split grid bit-equal to the first 4 rows of "
+          "the unsplit B=4099 launch, noise off and under hw noise",
+          flush=True)
+    return rows
 
 
 def small_model_phase(dev):
@@ -324,8 +490,8 @@ def device_profile(fn, dev):
     return {"profiled_ms": wall_us / 1e3,
             "device_busy_ms": busy_us / 1e3 if spans else None,
             "device_idle_share": 1.0 - busy_us / wall_us if spans else None,
-            "top_kernels_ms": {n[:80]: v / 1e3 for n, v in sorted(
-                by_name.items(), key=lambda kv: -kv[1])[:6]}}
+            "top_kernels_ms": {n[:100]: v / 1e3 for n, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:8]}}
 
 
 def print_profile(tag, prof):
@@ -552,7 +718,7 @@ def v1_hw_kernel_phase(dev, peaks):
     step = cfg.adc_step
     sigma = noise_lib.read_sigma_lsb(cfg.tile_rows, cfg.noise)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = flush_buffer(dev)
     granite = [(f"granite {p}", SLOTS, k, n, 1) for p, k, n in
                (("wq", 4096, 4096), ("wk", 4096, 1024),
                 ("w_gate", 4096, 14336), ("w_down", 14336, 4096))]
@@ -610,14 +776,41 @@ def v1_hw_kernel_phase(dev, peaks):
             row["bound_ms"], row["bound_by"] = bound_ms(
                 b, kb * m, np_, g, peaks, bias=False,
                 noise_bytes=noise_bytes)
+            row["plan"] = aimc_mvm.launch_plan(dev, b, kb, m, np_, g)
+            if kname == "aimc_mvm_v2 counter" and b > 16:
+                row["int_mm_ms"] = int_mm_yardstick(x, w_q, s_x, flush)
             rows.append(row)
             print(f"[v1/hw] {kname} {name} [{b}x{k}]x[{k}x{n}]"
-                  f"{f' G={g}' if g > 1 else ''}: max|err| {err:.3g} (tol "
+                  f"{f' G={g}' if g > 1 else ''} ({plan_str(row['plan'])}): "
+                  f"max|err| {err:.3g} (tol "
                   f"{tol:.3g}); kernel {row['ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                  f"({row['bound_by']})", flush=True)
+                  f"({row['bound_by']})"
+                  + (f"; torch._int_mm on the int8 codes (the MAC alone, "
+                     f"not the same function) {row['int_mm_ms']:.4f} ms"
+                     if row.get("int_mm_ms") is not None else ""),
+                  flush=True)
         del st, x, runs
     return rows, worst
+
+
+def int_mm_yardstick(x, w_q, s_x, flush):
+    """Device ms of `torch._int_mm` on the DAC codes of x and the programmed
+    panel as one [K, Np] int8 matrix: a yardstick for the int8 MAC alone
+    (no DAC, noise, per-row-block ADC or dequant; not the same function,
+    and the port never calls it). None where cuBLAS refuses the shapes."""
+    import torch
+
+    from repro_torch.core.quant import quantize
+    codes = quantize(x, s_x.reshape(())).to(torch.int8)
+    w = w_q.reshape(-1, w_q.shape[-1])
+    try:
+        torch._int_mm(codes, w)
+    except RuntimeError as e:
+        print(f"[v1/hw] torch._int_mm refused {tuple(codes.shape)} x "
+              f"{tuple(w.shape)}: {str(e).splitlines()[0]}", flush=True)
+        return None
+    return time_ms(lambda: torch._int_mm(codes, w), flush, KERNEL_REPS)
 
 
 def hw_draw_phase(dev):
@@ -1016,6 +1209,7 @@ def main() -> int:
     lib = aimc_mvm.build()
     print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f}s\n"
           f"{aimc_mvm.BUILD_LOG.get('report', '(cached build)')}", flush=True)
+    build = build_report(lib, aimc_mvm.BUILD_LOG.get("report", ""))
 
     rows, worst = kernel_phase(dev, peaks, SLOTS, PROMPT)
     torch.cuda.empty_cache()
@@ -1088,6 +1282,7 @@ def main() -> int:
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "torch": torch.__version__, "kernels": record,
+        "build": build,
         "kernel_rows": rows, "v1_hw_kernel_rows": v1_rows,
         "hw_draws": hw_draws, "small_model_max_err": small_err,
         "serve": serve_stats, "stacked": stacked, "fused_serve": fused,

@@ -14,10 +14,14 @@
 The shared library is compiled with `nvcc` for `sm_90a` at first use, into
 ``build/`` beside this file (listed in `.gitignore`), named by a hash of its
 sources so an edited kernel is rebuilt. Each wrapper checks its operands,
-launches on PyTorch's current stream without synchronising, raises if the
-launch was refused, and adds one to `LAUNCHES[name]` per launch: a run can
-read the counts to prove its path went through the kernels; K2/K3
-launches that draw "hw" noise (sigma > 0, K4) count under the `_hw` names.
+allocates the output and the launch's workspace (int8 DAC codes, and the
+per-row-block scratch of a split grid) with `torch.empty`, launches on
+PyTorch's current stream without synchronising, raises if a launch was
+refused, and adds one to `LAUNCHES[name]` per wrapper call, whatever number
+of CUDA kernels the call issues (the DAC pass, the tensor-core MVM and, on
+a split grid, the row-block sum): a run can read the counts to prove its
+path went through the kernels; K2/K3 calls that draw "hw" noise
+(sigma > 0, K4) count under the `_hw` names.
 Nothing here falls back to the plain version (`kernels/ref.py`);
 `kernels/ops.py` chooses by the device of the input.
 """
@@ -25,6 +29,7 @@ Nothing here falls back to the plain version (`kernels/ref.py`);
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -111,10 +116,35 @@ def _load():
                            + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_float, ctypes.c_uint,
                               ctypes.c_int, ctypes.c_uint, ctypes.c_int,
-                              ctypes.c_void_p])
+                              ctypes.c_void_p, ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            lib.aimc_mvm_plan.argtypes = (
+                [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)])
+            lib.aimc_mvm_plan.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(device_index: int, b: int, kb: int, m: int, np_: int,
+          g: int) -> tuple[int, int]:
+    """(plan code, workspace bytes) of the launcher for this shape; the plan
+    depends on the device's SM count."""
+    work = ctypes.c_longlong(0)
+    with torch.cuda.device(device_index):
+        code = _load().aimc_mvm_plan(b, kb, m, np_, g, ctypes.byref(work))
+    return int(code), int(work.value)
+
+
+def launch_plan(device, b: int, kb: int, m: int, np_: int, g: int = 1):
+    """The launcher's choice for a call of this shape on ``device``: rows
+    per block (16 or 64), whether the grid splits over row blocks, the CUDA
+    kernels the call issues (DAC pass, MVM, and the row-block sum when
+    split) and the workspace bytes."""
+    code, work = _plan(torch.device(device).index or 0, b, kb, m, np_, g)
+    split = bool(code & 256)
+    return {"rows_per_block": code & 255, "split": split,
+            "kernels_per_call": 3 if split else 2, "workspace_bytes": work}
 
 
 def _check(t: torch.Tensor, name: str, dtype, device, ndim: int):
@@ -171,6 +201,8 @@ def _launch(name, x, w_q, s_w, s_x, seed, bias, adc_step, sigma, acts,
     out = torch.empty((g, b, np_), dtype=torch.float32, device=x.device)
     s_x = s_x.reshape(1)
     lib = _load()
+    work = torch.empty(_plan(x.device.index or 0, b, kb, m, np_, g)[1],
+                       dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.aimc_mvm_launch(
@@ -179,7 +211,7 @@ def _launch(name, x, w_q, s_w, s_x, seed, bias, adc_step, sigma, acts,
             noise.data_ptr() if noise is not None else None, out.data_ptr(),
             b, kb, m, np_, g, float(adc_step), float(sigma),
             int(seed or 0) & 0xFFFFFFFF, int(stacked), packed,
-            int(noise_source == "hw"), stream)
+            int(noise_source == "hw"), stream, work.data_ptr())
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name + ("_hw" if noise_source == "hw" and sigma > 0.0

@@ -56,10 +56,16 @@ def stack_seed(seed: int, g: int) -> int:
 
 def box_muller(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
     """Standard-normal f32 draws from two uint32 words per element (the
-    reference kernel's own mapping): u1 in (0, 1], u2 in [0, 1)."""
+    reference kernel's own mapping): u1 in (0, 1], u2 in [0, 1).
+
+    The square root is taken in f64 and rounded once to f32: that is the
+    correctly rounded f32 root (53 >= 2 * 24 + 2 bits, so the double
+    rounding is exact), which the card's `sqrtf` gives too, and it keeps
+    off PyTorch's f32 CPU `sqrt`, whose first call in a process has
+    returned values 1e-4 off."""
     u1 = ((h1 >> 8).to(torch.float32) + 1.0) * _U24
     u2 = (h2 >> 8).to(torch.float32) * _U24
-    r = torch.sqrt(-2.0 * torch.log(u1))
+    r = torch.sqrt((-2.0 * torch.log(u1)).double()).to(torch.float32)
     return r * torch.cos(_TWO_PI * u2)
 
 

@@ -38,11 +38,15 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
   return c;
 }
 
-// One standard-normal f32 draw of "hw" read noise for element (k, row, col).
-__device__ __forceinline__ float gauss_philox(uint32_t seed, uint32_t k,
-                                              uint32_t row, uint32_t col) {
-  const uint4 w = philox4x32_10(make_uint4(row, col >> 1, 0u, 0u), seed, k);
-  return (col & 1u) ? box_muller(w.z, w.w) : box_muller(w.x, w.y);
+// The two standard-normal f32 draws of "hw" read noise for elements
+// (k, row, 2*pair) and (k, row, 2*pair + 1): one Philox block serves both.
+__device__ __forceinline__ void gauss_philox_pair(uint32_t seed, uint32_t k,
+                                                  uint32_t row, uint32_t pair,
+                                                  float& z_even,
+                                                  float& z_odd) {
+  const uint4 w = philox4x32_10(make_uint4(row, pair, 0u, 0u), seed, k);
+  z_even = box_muller(w.x, w.y);
+  z_odd = box_muller(w.z, w.w);
 }
 
 }  // namespace aimc

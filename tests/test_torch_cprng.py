@@ -69,3 +69,22 @@ def test_counter_noise_moments():
     z2 = tc.read_noise_array(124, 8, 64, 512)
     corr = float((z * z2).mean() / (z.std() * z2.std()))
     assert abs(corr) < 0.01
+
+
+def test_box_muller_sqrt_is_correctly_rounded():
+    """The plain Box-Muller's radius is the correctly rounded f32 square
+    root (what `sqrtf` gives on the card): over 2^16 draws, `box_muller`
+    equals an oracle that takes the root in f64 and rounds once, the log
+    and cos being the same f32 ops."""
+    rng = np.random.default_rng(2024)
+    h = rng.integers(0, 2**32, (2, 2**16), dtype=np.uint64).astype(np.int64)
+    h1, h2 = torch.from_numpy(h[0]), torch.from_numpy(h[1])
+    z = tc.box_muller(h1, h2).numpy()
+    u1 = ((h1 >> 8).to(torch.float32) + 1.0) * float(2 ** -24)
+    u2 = (h2 >> 8).to(torch.float32) * float(2 ** -24)
+    t = (-2.0 * torch.log(u1)).numpy()
+    r = np.sqrt(t.astype(np.float64)).astype(np.float32)
+    c = torch.cos(6.283185307179586 * u2).numpy()
+    want = r * c
+    assert z.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(z, want)

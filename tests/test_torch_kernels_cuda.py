@@ -6,6 +6,11 @@ with ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
 This file imports no JAX (the card's machine has none); the CPU parity of
 the plain versions with the JAX reference is `test_torch_aimc_mvm.py`.
 
+The launcher tiles by batch (16 or 64 rows per block) and splits narrow
+grids over row blocks (a scratch and a row-block sum kernel);
+`test_k2_tilings_match_plain` runs every mode and ragged edge, and a split
+grid's rows equal an unsplit grid's bit for bit.
+
 Tolerance: the kernel adds each row block's dequantized contribution in
 turn (the Pallas kernel's association) while the plain version sums the
 codes times s_w first and scales once, so outputs agree to f32 rounding of
@@ -63,6 +68,84 @@ def test_k2_matches_plain(dev, b, kb, m, np_, sigma):
                                   sigma=sigma)
     torch.cuda.synchronize()
     _close(y, want)
+
+
+def _device_operands(dev, b, kb, np_, seed, m=512):
+    """K2 operands made on the card (the largest case holds 58.8M x values)."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((b, kb * m), generator=gen, device=dev)
+    w_q = torch.randint(-127, 128, (kb, m, np_), generator=gen, device=dev,
+                        dtype=torch.int8)
+    s_w = (torch.rand((kb, np_), generator=gen, device=dev) + 0.5) * 1e-3
+    bias = torch.randn((np_,), generator=gen, device=dev)
+    return x, w_q, s_w, bias
+
+
+def _splits(x, w_q):
+    """Whether the launcher splits this K2 call over row blocks."""
+    return aimc_mvm.launch_plan(x.device, x.shape[0], *w_q.shape)["split"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kb,np_,g,rows,split", [
+    (4, 8, 1024, 1, 16, True),        # granite wk at decode
+    (16, 28, 4096, 1, 16, True),      # granite w_down, prompt pad
+    (4, 8, 14336, 2, 16, True),       # granite w_gu stack (K3)
+    (8, 2, 750 + 18, 4, 16, True),    # LSTM gate stack, Np padded
+    (1352, 5, 256, 1, 16, False),     # CNN-F conv2-4
+    (23328, 5, 256, 1, 64, False),    # CNN-M conv1
+    (4, 1, 1024, 1, 16, False)])      # one row block: nothing to split
+def test_launch_plan(dev, b, kb, np_, g, rows, split):
+    """The launcher's tiling and split choice at the main paths' shapes
+    (as on a 132-SM H100) and the workspace it asks the wrapper for."""
+    np_ = -(-np_ // 128) * 128
+    plan = aimc_mvm.launch_plan(dev, b, kb, 512, np_, g)
+    assert plan["rows_per_block"] == rows and plan["split"] == split
+    assert plan["kernels_per_call"] == (3 if split else 2)
+    codes = b * kb * 512
+    assert plan["workspace_bytes"] == -(-codes // 256) * 256 + (
+        g * kb * b * np_ * 4 if split else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("np_", [128, 1024])
+@pytest.mark.parametrize("kb", [1, 3, 28])
+@pytest.mark.parametrize("b", [1, 3, 4, 5, 15, 16, 17, 100, 4099])
+@pytest.mark.parametrize("sigma", [0.0, 57.5])
+def test_k2_tilings_match_plain(dev, b, kb, np_, sigma):
+    """Both row tilings (16 and 64 rows), split and unsplit grids and every
+    ragged batch edge, noise off and on."""
+    x, w_q, s_w, bias = _device_operands(dev, b, kb, np_, seed=b * 131 + kb)
+    s_x = sym_scale(x).reshape(1, 1)
+    step = adc_step_lsb(512, 1.0)
+    kw = dict(adc_step=step, sigma=sigma, activation="relu")
+    y = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, 0xC0FFEE, bias, **kw)
+    want = ref.aimc_matmul_ref_v2(x, w_q, s_w, s_x, 0xC0FFEE, bias, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    _close(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kb,np_", [(3, 1024), (8, 4096), (28, 128)])
+@pytest.mark.parametrize("noise_source", ["off", "hw"])
+def test_split_rows_bit_equal_to_unsplit(dev, kb, np_, noise_source):
+    """With s_x fixed, a row's output does not depend on B (noise off, or
+    Philox noise, which is addressed by the logical element): x[:4] runs
+    on a split grid and the same rows padded to B = 4099 on an unsplit
+    one, and the two agree bit for bit."""
+    x, w_q, s_w, bias = _device_operands(dev, 4099, kb, np_, seed=kb)
+    s_x = sym_scale(x).reshape(1, 1)
+    kw = dict(adc_step=adc_step_lsb(512, 1.0), activation="tanh",
+              sigma=0.0 if noise_source == "off" else 57.5,
+              noise_source="counter" if noise_source == "off" else "hw")
+    assert _splits(x[:4], w_q) and not _splits(x, w_q)
+    small = aimc_mvm.aimc_mvm_v2(x[:4].contiguous(), w_q, s_w, s_x, 5, bias,
+                                 **kw)
+    big = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, 5, bias, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(small, big[:4])
+    _close(big, ref.aimc_matmul_ref_v2(x, w_q, s_w, s_x, 5, bias, **kw))
 
 
 @pytest.mark.cuda
