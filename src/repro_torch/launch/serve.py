@@ -12,9 +12,14 @@ the crossbar kernel K2 on the stationary int8 codes; ``--fuse-gates`` runs
 w_gate + w_up as one gate-fused launch of K3 per layer instead. The run prints the
 program summary, decode ms/step and the CM_* ledger reconciliation, and
 exits non-zero if the per-request ledgers do not close exactly.
+``--cores N`` spreads the programmed matrices over N per-core tile contexts
+(`MappingPlan(n_contexts=N)`) and prints the per-core CM_*/comm ledgers of
+`CoreSchedule.from_program` and its modeled latency per token vector;
+``--pipeline`` prices that schedule with the position-pipelined law.
 
-Weights are random from ``--seed`` unless ``--weights FILE.npz`` gives a
-flat ``"blocks/wq"``-keyed archive (`convert.load_npz`). Load shapes:
+Weights are random from ``--seed`` (`transformer.init(PRNGKey(seed))`, the
+reference's weights for the same seed) unless ``--weights FILE.npz`` gives
+a flat ``"blocks/wq"``-keyed archive (`convert.load_npz`). Load shapes:
 synchronized arrivals (default) or ``--trace poisson:RATE``. The
 reference's multi-tenant, paged, drift/chaos, placement, mesh and int8
 paths are later slices.
@@ -52,6 +57,15 @@ def parse_args(argv=None):
                     help="with --exec aimc: stack w_gate + w_up (and MHA "
                          "wq/wk/wv) so each group runs as ONE gate-fused "
                          "kernel launch per layer (bit-equal, noise off)")
+    ap.add_argument("--cores", type=int, default=1,
+                    help="virtual AIMC cores: the MappingPlan spreads the "
+                         "programmed matrices over this many per-core tile "
+                         "contexts and the run reports per-core CM_*/comm "
+                         "ledgers (core.schedule)")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="price the multi-core schedule with the "
+                         "position-pipelined latency law instead of the "
+                         "sequential mutex chain")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; cpu must be asked for explicitly")
@@ -86,12 +100,14 @@ def resolve_device(name: str) -> torch.device:
 
 @dataclasses.dataclass
 class ServeRun:
-    """What `main` served: the report plus the engine and program behind it
-    (so a caller can reuse the installed parameters)."""
+    """What `main` served: the report plus the engine, program and
+    schedule behind it (so a caller can reuse the installed parameters)."""
     report: object
     engine: object
     program: object
     requests: list
+    schedule: object = None
+    init_s: float = 0.0
 
 
 def main(argv=None) -> ServeRun:
@@ -99,8 +115,13 @@ def main(argv=None) -> ServeRun:
     if args.fuse_gates and args.exec_mode != "aimc":
         raise SystemExit("--fuse-gates stacks programmed states: it needs "
                          "--exec aimc")
+    if (args.cores > 1 or args.pipeline) and args.exec_mode != "aimc":
+        raise SystemExit("--cores/--pipeline require the programmed AIMC "
+                         "path (--exec aimc): the multi-core schedule lowers "
+                         "an installed AimcProgram")
     from repro_torch.configs import get_arch
     from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.prng import PRNGKey
     from repro_torch.models.layers import Execution
     from repro_torch.runtime.batcher import reconcile
     from repro_torch.runtime.engine import ServeEngine
@@ -123,22 +144,25 @@ def main(argv=None) -> ServeRun:
         from repro_torch.convert import load_npz
         params = load_npz(args.weights, device)
     else:
-        gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = model.init(gen, cfg)
+        params = model.init(PRNGKey(args.seed), cfg, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    init_s = time.time() - t0
     print(f"[serve] {spec.arch_id} ({cfg.n_layers}L d_model={cfg.d_model} "
           f"d_ff={cfg.d_ff} vocab={cfg.vocab}) on {device}: weights ready in "
-          f"{time.time() - t0:.2f}s")
+          f"{init_s:.2f}s")
 
-    program = None
+    program = schedule = None
     if args.exec_mode == "aimc":
         # CM_INITIALIZE: program the whole network once, outside the
         # serving loop (paper §IV-B); the raw float weights of the mapped
-        # projections are dropped with the raw tree
-        from repro_torch.core.prng import PRNGKey
+        # projections are dropped with the raw tree. --cores spreads the
+        # matrices over per-core tile contexts (paper Fig. 2).
         from repro_torch.core.program import MappingPlan, program_model
+        from repro_torch.core.schedule import CoreSchedule
         t0 = time.time()
-        program = program_model(params, MappingPlan(), aimc_cfg,
-                                PRNGKey(args.seed + 2))
+        program = program_model(params, MappingPlan(n_contexts=args.cores),
+                                aimc_cfg, PRNGKey(args.seed + 2))
         params = program.install(params)
         if args.fuse_gates:
             params = model.fuse_gate_stacks(params)
@@ -146,6 +170,9 @@ def main(argv=None) -> ServeRun:
             torch.cuda.synchronize(device)
         print(f"[serve] programmed in {time.time() - t0:.2f}s: "
               f"{program.summary()}")
+        schedule = CoreSchedule.from_program(program, pipelined=args.pipeline)
+        if args.cores > 1 or args.pipeline:
+            print(f"[serve] {schedule.summary()}")
     print(f"[serve] {spec.arch_id} exec={args.exec_mode} requests={b}"
           + (" (gate-fused stacks)" if args.fuse_gates else ""))
 
@@ -188,6 +215,7 @@ def main(argv=None) -> ServeRun:
               f"static accounting: {ok}")
         if not ok:
             raise SystemExit(1)
+        _print_schedule(args, schedule)
     for rid in sorted(report.records)[:3]:
         rec = report.records[rid]
         print(f"  req{rid}: arrival={rec.request.arrival * 1e3:.1f}ms "
@@ -196,7 +224,27 @@ def main(argv=None) -> ServeRun:
               f"({rec.finish_reason}) ttft={rec.ttft * 1e3:.1f}ms "
               f"latency={rec.latency * 1e3:.1f}ms tokens={rec.tokens[:6]}...")
     return ServeRun(report=report, engine=engine, program=program,
-                    requests=requests)
+                    requests=requests, schedule=schedule, init_s=init_s)
+
+
+def _print_schedule(args, schedule):
+    """Per-core ledgers of one token vector and the modeled latency of the
+    schedule on the paper's Table I-A system (a model, not a measurement)."""
+    if schedule is None or not (args.cores > 1 or args.pipeline):
+        return
+    from repro_torch.core.schedule import pipelined_latency, sequential_latency
+    print("  per-core ledgers, one token vector "
+          "(queue/process/dequeue, comm bytes, load+store bytes):")
+    for led in schedule.ledgers():
+        print(f"    core{led.core}: {led.cm.queue}/{led.cm.process}/"
+              f"{led.cm.dequeue}  comm={led.comm_bytes}B  "
+              f"io={led.load_bytes + led.store_bytes}B")
+    times = schedule.phase_times()
+    print(f"  modeled latency/vector (Table I-A system): "
+          f"sequential={sequential_latency(times) * 1e6:.1f}us  "
+          f"pipelined={pipelined_latency(times) * 1e6:.1f}us  "
+          f"(law in effect: "
+          f"{'pipelined' if args.pipeline else 'sequential'})")
 
 
 if __name__ == "__main__":

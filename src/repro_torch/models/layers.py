@@ -20,6 +20,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.aimc import (AimcConfig, AimcLinearState, aimc_apply,
                                    aimc_apply_stacked)
 from repro_torch.kernels.ref import EPILOGUE_FNS
@@ -185,14 +186,23 @@ def swiglu(x, w_gate, w_up, w_down, exe: Execution):
     return linear(torch.nn.functional.silu(g) * u, w_down, exe)
 
 
-def dense_init(gen: torch.Generator, k: int, n: int, *lead: int,
-               dtype=torch.float32):
-    """N(0, 2/(k+n)) weights of shape [*lead, k, n] on ``gen``'s device."""
-    w = torch.randn((*lead, k, n), generator=gen, dtype=dtype,
-                    device=gen.device)
-    return w.mul_((2.0 / (k + n)) ** 0.5)
+def _f32_only(dtype):
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"weight init draws f32 normals on JAX's keys; {dtype} is not "
+            f"ported yet")
 
 
-def embed_init(gen: torch.Generator, v: int, d: int, dtype=torch.float32):
-    w = torch.randn((v, d), generator=gen, dtype=dtype, device=gen.device)
-    return w.mul_(0.02)
+def dense_init(key: torch.Tensor, k: int, n: int, dtype=torch.float32,
+               device="cuda") -> torch.Tensor:
+    """N(0, 2/(k+n)) weights [k, n] from a JAX-compatible key
+    (`core.prng`), the reference's draw and f32 scaling."""
+    _f32_only(dtype)
+    return prng.normal(key, (k, n), device=device) * (2.0 / (k + n)) ** 0.5
+
+
+def embed_init(key: torch.Tensor, v: int, d: int, dtype=torch.float32,
+               device="cuda") -> torch.Tensor:
+    """N(0, 0.02^2) embeddings [v, d] from a JAX-compatible key."""
+    _f32_only(dtype)
+    return prng.normal(key, (v, d), device=device) * 0.02

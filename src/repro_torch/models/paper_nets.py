@@ -1,5 +1,5 @@
-"""The paper's exploration networks (§VII-IX) in PyTorch; port of the
-single-core functions of `repro/models/paper_nets.py`.
+"""The paper's exploration networks (§VII-IX) in PyTorch; port of
+`repro/models/paper_nets.py`.
 
 MLP (1024, 1024) + ReLU, the PTB character LSTM and CNN-F/M/S, each in
 digital fp32 and on programmed AIMC crossbars through `core.aimclib`:
@@ -16,8 +16,13 @@ digital fp32 and on programmed AIMC crossbars through `core.aimclib`:
 Weights are drawn with the reference's keys (`core.prng`), so the same key
 gives the same weights as the JAX package (within a few ulps). The
 ``*_init`` functions place them on ``device``, the card unless the caller
-asks for the CPU; every forward runs where its inputs lie. The multi-core
-variants wait for `core/schedule.py`.
+asks for the CPU; every forward runs where its inputs lie.
+
+The ``*_forward_multicore`` variants execute the paper's multi-core
+mappings (MLP cases 3/4, LSTM cases 3/4, the pipelined CNN) through
+`core.schedule.CoreSchedule`: column-split crossbar shards per core, one K2
+launch per shard, with per-core CM_*/comm ledgers; noise off they equal
+the single-core programmed path bit for bit.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core import schedule as schedule_lib
 from repro_torch.core.aimc import AimcConfig
 from repro_torch.core.aimclib import AimcContext
 
@@ -57,11 +63,25 @@ def mlp_forward_aimc(params, x, cfg: AimcConfig, key=None, ctx=None):
 
 
 def mlp_program(params, cfg: AimcConfig, key=None):
-    """Program the two MLP matrices (entries fc1/fc2)."""
+    """Program the two MLP matrices (entries fc1/fc2): the registry both the
+    single-core ctx path and the multi-core schedules execute from."""
     ctx = AimcContext(cfg, key)
     ctx.map_matrix("fc1", params["w1"])
     ctx.map_matrix("fc2", params["w2"])
     return ctx.program()
+
+
+def mlp_forward_multicore(params, x, cfg: AimcConfig, cores: int = 1,
+                          key=None, schedule=None):
+    """Paper Fig. 6 multi-core mappings through `core.schedule`: cores=1 ->
+    case 1, cores=2 -> case 3 (layer per core), cores=4 -> case 4 (each
+    layer column-split over two cores). Reuse the returned schedule across
+    calls for program-once semantics."""
+    if schedule is None:
+        schedule = schedule_lib.mlp_schedule(mlp_program(params, cfg, key),
+                                             cores)
+    h = torch.relu(schedule.apply("fc1", x))
+    return torch.relu(schedule.apply("fc2", h)), schedule
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +180,28 @@ def lstm_program(params, cfg: AimcConfig, key=None):
     return ctx.program()
 
 
+def lstm_forward_multicore(params, xs, nh: int, cfg: AimcConfig,
+                           cores: int = 1, key=None, schedule=None):
+    """Paper Table II-B multi-core mappings through `core.schedule`:
+    cores=1 -> case 1/2, cores=2 -> case 3 (cell core + dense core),
+    cores=5 -> case 4 (cell gate-sliced over four cores + a dense core).
+    Gate slices reassemble to the full pre-activation vector, so the cell
+    math and the whole sequence output match single-core exactly."""
+    if schedule is None:
+        schedule = schedule_lib.lstm_schedule(
+            lstm_program(params, cfg, key), cores, nh,
+            x_dim=xs.shape[-1], y_dim=params["w_y"].shape[1])
+    b = xs.shape[1]
+    h = torch.zeros((b, nh), device=xs.device)
+    c = torch.zeros((b, nh), device=xs.device)
+    ys = []
+    for x_t in xs:
+        gates = schedule.apply("cell", torch.cat([h, x_t], dim=-1))
+        h, c = _lstm_cell_math(gates, c, nh)
+        ys.append(torch.softmax(schedule.apply("dense", h), dim=-1))
+    return torch.stack(ys), schedule
+
+
 # ---------------------------------------------------------------------------
 # CNN-F/M/S (paper Fig. 12): conv layers on crossbars via im2col
 # ---------------------------------------------------------------------------
@@ -230,6 +272,15 @@ def _im2col(x, k, stride, pad):
     return patches.reshape(b, ho * wo, k * k * c), ho, wo
 
 
+def _dense_head(params, x):
+    """The digital dense head (paper §IX-A): relu, relu, softmax."""
+    h = x.reshape(x.shape[0], -1)
+    for j, w in enumerate(params["dense"]):
+        h = h @ w
+        h = torch.relu(h) if j < 2 else torch.softmax(h, dim=-1)
+    return h
+
+
 def cnn_forward(params, x, variant: str, cfg: AimcConfig | None = None,
                 key=None, ctx=None):
     """x: [B, H, W, 3]. cfg=None -> digital; else conv layers on AIMC.
@@ -254,10 +305,7 @@ def cnn_forward(params, x, variant: str, cfg: AimcConfig | None = None,
         if lrn:
             x = _lrn(x)
         x = _pool(x, pool)
-    h = x.reshape(x.shape[0], -1)
-    for j, w in enumerate(params["dense"]):      # dense: digital (paper §IX-A)
-        h = h @ w
-        h = torch.relu(h) if j < 2 else torch.softmax(h, dim=-1)
+    h = _dense_head(params, x)
     return (h, ctx) if ctx is not None else h
 
 
@@ -267,3 +315,43 @@ def cnn_program(params, variant: str, cfg: AimcConfig, key=None):
     for i, w in enumerate(params["convs"]):
         ctx.map_matrix(f"conv{i}", w.reshape(-1, w.shape[-1]))
     return ctx.program()
+
+
+def cnn_pipeline_stages(params, variant: str, cfg: AimcConfig, schedule):
+    """Per-core stage callables of the §IX-A pipeline: stage i runs conv
+    layer i on core i (im2col -> crossbar -> relu/lrn/pool); the final
+    digital stage runs the dense head. Feed to `core.schedule.pipeline_run`
+    to measure per-stage times, or chain them: values are identical either
+    way (pipelining changes timing, not math)."""
+    spec = CNN_SPECS[variant]
+
+    def make(i, row):
+        _cin, k, cout, stride, pad, lrn, pool = row
+
+        def stage(x):
+            patches, ho, wo = _im2col(x, k, stride, pad)
+            b, npos, kdim = patches.shape
+            y = schedule.apply(f"conv{i}", patches.reshape(b * npos, kdim))
+            x2 = torch.relu(y.reshape(b, ho, wo, cout))
+            if lrn:
+                x2 = _lrn(x2)
+            return _pool(x2, pool)
+
+        return stage
+
+    return ([make(i, row) for i, row in enumerate(spec)]
+            + [lambda x: _dense_head(params, x)])
+
+
+def cnn_forward_multicore(params, x, variant: str, cfg: AimcConfig,
+                          key=None, schedule=None):
+    """The pipelined CNN mapping executed through `core.schedule`: one conv
+    layer per core, position-level pipelined in the timing model (the
+    schedule's `pipelined_latency` law); dense head digital."""
+    if schedule is None:
+        schedule = schedule_lib.cnn_schedule(
+            cnn_program(params, variant, cfg, key), CNN_SPECS[variant],
+            img=x.shape[1])
+    for stage in cnn_pipeline_stages(params, variant, cfg, schedule):
+        x = stage(x)
+    return x, schedule

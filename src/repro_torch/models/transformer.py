@@ -20,6 +20,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.aimc import AimcLinearState, stack_states
 from repro_torch.models.layers import (Execution, decode_attention,
                                        dense_init, embed_init,
@@ -46,32 +47,53 @@ class TransformerConfig:
         return self.d_model // self.n_heads
 
 
-def init(gen: torch.Generator, cfg: TransformerConfig,
-         dtype=torch.float32) -> dict:
-    """Random weights from ``gen`` on its device (N(0, 2/(k+n)) projections,
-    N(0, 0.02^2) embeddings, unit norms)."""
+def _stack_init(key: torch.Tensor, l: int, k: int, n: int, dtype,
+                device) -> torch.Tensor:
+    """``vmap(dense_init)(split(key, l))``: layer i from ``split(key, l)[i]``,
+    drawn one layer at a time into the preallocated [l, k, n] stack."""
+    out = torch.empty((l, k, n), dtype=dtype, device=device)
+    for i, ki in enumerate(prng.split(key, l)):
+        out[i] = dense_init(ki, k, n, dtype, device)
+    return out
+
+
+def init(key: torch.Tensor, cfg: TransformerConfig, dtype=torch.float32,
+         device="cuda") -> dict:
+    """Random weights from a JAX-compatible key on ``device``, key for key
+    the reference's `init` (`repro/models/transformer.py:75`): ``ks =
+    split(key, 16)``; embed from ks[0], wq..wo from ks[1..4], w_gate/w_up/
+    w_down from ks[9..11], unembed from ks[12]; unit norms. The same key
+    gives the reference's weights within a few ulps (`prng.normal`)."""
+    for flag in ("qkv_bias", "tie_embeddings", "n_experts"):
+        if getattr(cfg, flag, False):
+            raise NotImplementedError(
+                f"{flag} is not ported yet (dense granite family only)")
     l, d, hq, hkv, hd, ff = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                              cfg.n_kv_heads, cfg.hd, cfg.d_ff)
-    dev = gen.device
+    ks = prng.split(key, 16)
 
-    def stack(k, n):
-        return dense_init(gen, k, n, l, dtype=dtype)
+    def stack(i, k, n):
+        return _stack_init(ks[i], l, k, n, dtype, device)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
 
     params = {
-        "embed": embed_init(gen, cfg.vocab, d, dtype),
-        "final_norm": torch.ones((d,), dtype=dtype, device=dev),
+        "embed": embed_init(ks[0], cfg.vocab, d, dtype, device),
+        "final_norm": ones(d),
         "blocks": {
-            "ln1": torch.ones((l, d), dtype=dtype, device=dev),
-            "ln2": torch.ones((l, d), dtype=dtype, device=dev),
-            "wq": stack(d, hq * hd),
-            "wk": stack(d, hkv * hd),
-            "wv": stack(d, hkv * hd),
-            "wo": stack(hq * hd, d),
+            "ln1": ones(l, d),
+            "ln2": ones(l, d),
+            "wq": stack(1, d, hq * hd),
+            "wk": stack(2, d, hkv * hd),
+            "wv": stack(3, d, hkv * hd),
+            "wo": stack(4, hq * hd, d),
+            "w_gate": stack(9, d, ff),
+            "w_up": stack(10, d, ff),
+            "w_down": stack(11, ff, d),
         },
     }
-    params["blocks"] |= {"w_gate": stack(d, ff), "w_up": stack(d, ff),
-                         "w_down": stack(ff, d)}
-    params["unembed"] = dense_init(gen, d, cfg.vocab, dtype=dtype)
+    params["unembed"] = dense_init(ks[12], d, cfg.vocab, dtype, device)
     return params
 
 

@@ -52,7 +52,7 @@ def weights():
     return SPEC.model_module().init(jax.random.PRNGKey(SEED), CFG)
 
 
-def _jax_serve(params, mode):
+def _jax_serve(params, mode, trace=None):
     if mode == "aimc":
         cfg = ja.AimcConfig(impl="ref")
         program = jp.program_model(params, jp.MappingPlan(), cfg)
@@ -66,7 +66,7 @@ def _jax_serve(params, mode):
                   cache_dtype=jnp.float32, family=SPEC.family,
                   module=SPEC.module, program=program)
     eng.warmup()
-    return eng.serve(_trace()), params, exe
+    return eng.serve(trace or _trace()), params, exe
 
 
 def _min_margin(params, exe, report):
@@ -133,6 +133,24 @@ def test_serve_main_on_cpu_matches_reference(weights, mode, tmp_path):
     for rid, rec in rep_j.records.items():
         assert run.report.tokens(rid) == rec.tokens
     assert (run.program is None) == (mode == "digital")
+
+
+@pytest.mark.parametrize("mode", ["digital", "aimc"])
+def test_serve_from_seed_alone_matches_reference(weights, mode):
+    """No weights carried across: the port draws granite's smoke weights
+    from ``--seed`` on JAX's keys (`transformer.init(PRNGKey(seed))`) and
+    serves the JAX engine's tokens on the same synchronized trace."""
+    run = tserve.main(["--arch", "granite-8b", "--smoke", "--exec", mode,
+                       "--requests", str(N_REQ), "--prompt-len", str(PROMPT),
+                       "--gen", str(GEN), "--slots", "4", "--seed", str(SEED),
+                       "--device", "cpu"])
+    trace = jb.synchronized_trace(N_REQ, prompt_len=PROMPT, max_new=GEN,
+                                  seed=SEED, vocab=CFG.vocab)
+    assert [r.prompt for r in run.requests] == [r.prompt for r in trace]
+    rep_j, jparams_inst, jexe = _jax_serve(weights, mode, trace)
+    assert _min_margin(jparams_inst, jexe, rep_j) >= MARGIN
+    for rid, rec in rep_j.records.items():
+        assert run.report.tokens(rid) == rec.tokens, f"request {rid}"
 
 
 @pytest.mark.parametrize("chunk", [1, 3, 4])

@@ -26,7 +26,9 @@ def test_every_module_is_listed():
     for must in ("repro_torch.kernels.aimc_mvm", "repro_torch.runtime.engine",
                  "repro_torch.launch.serve", "repro_torch.convert",
                  "repro_torch.core.prng", "repro_torch.core.aimclib",
-                 "repro_torch.models.paper_nets"):
+                 "repro_torch.models.paper_nets",
+                 "repro_torch.core.costmodel", "repro_torch.core.workloads",
+                 "repro_torch.core.schedule", "repro_torch.core.coupling"):
         assert must in mods
 
 

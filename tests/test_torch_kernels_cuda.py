@@ -286,6 +286,49 @@ def test_dispatch_counts_launches_and_never_falls_back(dev):
     assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] == 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("np_", [512, 640])
+@pytest.mark.parametrize("m", [700, 1024])
+@pytest.mark.parametrize("kb", [1, 2, 3])
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("sigma", [0.0, 57.5])
+def test_k2_multicore_shapes_match_plain(dev, b, kb, m, np_, sigma):
+    """The multi-core mappings' row heights (M 1024: MLP/CNN tiles; M 700:
+    the LSTM at n_h 600, whose codes rows pad to 768 and whose weight rows
+    end mid-tile), B 1 and 16, and the 512/640-column shards of a split."""
+    x, w_q, s_w, bias = _device_operands(dev, b, kb, np_,
+                                         seed=m * 7 + kb * 3 + b, m=m)
+    s_x = sym_scale(x).reshape(1, 1)
+    step = adc_step_lsb(m, 1.0)
+    kw = dict(adc_step=step, sigma=sigma, activation="relu")
+    y = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, 0xBEEF, bias, **kw)
+    want = ref.aimc_matmul_ref_v2(x, w_q, s_w, s_x, 0xBEEF, bias, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    _close(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cores", [2, 4])
+def test_column_split_mlp_bit_equal_to_one_core_on_card(dev, cores):
+    """The MLP case-3/case-4 mappings on the card (one K2 launch per shard)
+    equal the 1-core run bit for bit, noise off, at the reference's
+    multi-core configuration (n 1024, 1024-row tiles, B 1)."""
+    from repro_torch.core import prng
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.models import paper_nets as pn
+    cfg = AimcConfig(tile_rows=1024, tile_cols=1024)
+    key = prng.PRNGKey(0)
+    p = pn.mlp_init(key, 1024, device=dev)
+    x = prng.normal(prng.fold_in(key, 1), (1, 1024), device=dev)
+    y1, _ = pn.mlp_forward_multicore(p, x, cfg, 1)
+    aimc_mvm.reset_counts()
+    ym, sched = pn.mlp_forward_multicore(p, x, cfg, cores)
+    torch.cuda.synchronize()
+    assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] == len(sched.shards)
+    assert torch.equal(ym, y1)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     x, w_q, s_w, s_x, _ = _operands(2, 1, 64, 128)
     with pytest.raises(ValueError, match="CUDA"):

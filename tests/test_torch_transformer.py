@@ -21,6 +21,7 @@ from repro.models.layers import Execution as JExe
 from repro_torch.configs import get_arch as tget
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import aimc as ta
+from repro_torch.core import prng
 from repro_torch.core import program as tp
 from repro_torch.models import layers as tl
 from repro_torch.models.layers import Execution as TExe
@@ -145,7 +146,7 @@ def test_mha_fuses_qkv_bit_equal():
     fused prefill stays bit-equal to the unfused one."""
     import dataclasses
     cfg = dataclasses.replace(TCFG, n_kv_heads=TCFG.n_heads)
-    params = TM.init(torch.Generator().manual_seed(3), cfg)
+    params = TM.init(prng.PRNGKey(3), cfg, device="cpu")
     acfg = ta.AimcConfig()
     inst = tp.program_model(params, tp.MappingPlan(), acfg).install(params)
     fused = TM.fuse_gate_stacks(inst)
@@ -157,6 +158,64 @@ def test_mha_fuses_qkv_bit_equal():
                        valid_len=torch.from_numpy(vl))[0]
             for p in (inst, fused)]
     assert torch.equal(outs[0], outs[1])
+
+
+def _ulps(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return np.abs(a.view(np.int32).astype(np.int64)
+                  - b.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_init_on_keys_matches_reference(seed):
+    """`init(PRNGKey(s))` draws the reference's weights: the unit norms
+    exactly, every drawn leaf within 4 ulps (`prng.normal`: XLA's CPU
+    `log1p` is not PyTorch's). Programmed noise-free, the int8 codes are
+    equal; an ulp can move a code only where w / s_w sits on a rounding tie,
+    so every differing code must be such a tie, and the ties are counted and
+    named (none occur at these seeds)."""
+    jparams = JM.init(jax.random.PRNGKey(seed), CFG)
+    tparams = TM.init(prng.PRNGKey(seed), TCFG, device="cpu")
+    jflat = dict(jax.tree_util.tree_flatten_with_path(jparams)[0])
+    jleaves = {"/".join(str(getattr(k, "key", k)) for k in path): v
+               for path, v in jflat.items()}
+    tleaves = dict(tp._flatten(tparams))
+    assert sorted(tleaves) == sorted(jleaves)
+    for path, t in tleaves.items():
+        j = np.asarray(jleaves[path])
+        assert tuple(t.shape) == j.shape and t.dtype == torch.float32, path
+        if "ln" in path or "norm" in path:
+            np.testing.assert_array_equal(t.numpy(), j)
+        else:
+            assert _ulps(t.numpy(), j).max() <= 4, path
+    cfg_j, cfg_t = ja.AimcConfig(impl="ref"), ta.AimcConfig()
+    pj = jp.program_model(jparams, jp.MappingPlan(), cfg_j)
+    pt = tp.program_model(tparams, tp.MappingPlan(), cfg_t)
+    assert pt.names == pj.names
+    ties = []
+    for name in pj.names:
+        cj, ct = np.asarray(pj[name].w_q), pt[name].w_q.numpy()
+        for idx in zip(*np.nonzero(cj != ct)):
+            ties.append(f"{name}{list(idx)}")
+        np.testing.assert_array_equal(pt[name].s_w.numpy() != 0,
+                                      np.asarray(pj[name].s_w) != 0)
+    assert not ties, f"{len(ties)} codes differ (rounding ties): {ties[:8]}"
+
+
+def test_init_keeps_no_generator_and_refuses_unported():
+    import inspect
+    src = inspect.getsource(TM) + inspect.getsource(tl)
+    assert "Generator" not in src
+    with pytest.raises(NotImplementedError):
+        tl.dense_init(prng.PRNGKey(0), 4, 4, dtype=torch.bfloat16,
+                      device="cpu")
+    import dataclasses as dc
+
+    @dc.dataclass(frozen=True)
+    class Tied:
+        tie_embeddings: bool = True
+    with pytest.raises(NotImplementedError):
+        TM.init(prng.PRNGKey(0), Tied(), device="cpu")
 
 
 def test_unported_paths_raise():
