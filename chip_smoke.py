@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: serve granite-8b at its published
-width on programmed AIMC crossbars, and run the paper's MLP, LSTM and
-CNN-F/M/S at theirs with read noise on, single-core and in the paper's
-multi-core mappings, through the hand-written Hopper kernels K1-K4.
+"""Chip smoke of the PyTorch/CUDA port: serve granite-8b and the rest of
+the dense zoo (glm4-9b, llama3.2-3b, qwen1.5-110b, internvl2-1b) at their
+published widths on programmed AIMC crossbars, dense and paged, and run
+the paper's MLP, LSTM and CNN-F/M/S at theirs with read noise on,
+single-core and in the paper's multi-core mappings, through the
+hand-written Hopper kernels K1-K4.
 
     python3 chip_smoke.py        # one CUDA card; exits non-zero without one
 
@@ -86,6 +88,31 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      equals `loose_forward` at MLP 1024 B 1 and CNN-F conv1 B 8, both timed
      with their modelled global-memory bytes. Per-forward ms, a profiled
      forward's idle share and per-stage pipeline times are recorded.
+
+ 11. fidelity — bench_accuracy's own settings (key 7, NOISY, MLP 1024 B 16,
+     LSTM n_h 256, CNN-F 64 px B 8) on the card and on the CPU (plain):
+     SNRs within 0.05 dB, equal top-1 and flip-margin verdicts, the
+     benchmark's own checks (SNR >= 20 dB, LSTM top-1 >= 80%, CNN flips
+     inside the margin), printed beside BENCH_all.json's figures; then
+     CNN-M 224 px B 8 under counter and "hw" noise over 5 noise draws, the
+     flip-margin verdict per draw (recorded, not gated).
+ 12. zoo — `serve.main` on internvl2-1b (prompt 256 patch positions + 16),
+     llama3.2-3b, glm4-9b and qwen1.5-110b (published widths, 4 of 80
+     layers: its int8 codes exceed one card; random nonzero QKV biases),
+     --exec aimc, 4 Poisson requests. Launch counts zeroed just before and
+     read just after: K2 = 7 x layers x passes, no K3; ledgers reconcile,
+     tokens in the vocabulary, finite logits of the vocabulary's width.
+     K2 at each arch's projection shapes (B 4, with its bias) held to its
+     plain version and timed against its bytes bound; one decode step
+     timed and profiled.
+ 13. paged (after llama3.2-3b's zoo serve, on its installed weights) — the
+     dense and the paged engine (page size 16) on one synchronized trace:
+     tokens bit-equal, K2 = 7 x layers x passes, page ledger exact, no new
+     shapes after warmup; decode ms/step of both in turns and the page
+     gather's device time; then 8 requests sharing a 32-token prefix with
+     a fixed DAC scale on the prefix cache with 16-token legs, each
+     admission drained: tokens equal the dense engine's, the shared span
+     prefilled and billed once.
 
 The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
@@ -1738,6 +1765,463 @@ def coupling_checks(configs, dev, peaks):
     return out
 
 
+# the dense zoo at published widths: (arch, prompt pad, layers served; 0 =
+# all). internvl2's prompts start with its 256 patch positions; qwen1.5-
+# 110b's int8 codes alone (80 layers x 1.36e9 + embeddings) exceed one card,
+# so it serves 4 of its 80 layers.
+ZOO = (("internvl2-1b", 256 + PROMPT, 0), ("llama3.2-3b", PROMPT, 0),
+       ("glm4-9b", PROMPT, 0), ("qwen1.5-110b", PROMPT, 4))
+PAGE_SIZE, PREFIX_LEN, PREFIX_TAIL, PREFIX_REQ, LEG = 16, 32, 8, 8, 16
+PREFIX_SCALE = 0.05      # the prefix phase's fixed DAC scale (input_scale)
+BIAS_STD = 0.02          # qwen's random nonzero QKV biases
+# bench_accuracy's MLP / LSTM / CNN-F configuration (benchmarks/
+# bench_accuracy.py), and CNN-M's noise draws for the "hw" flip question
+BENCH_LSTM_NH, BENCH_IMG, FLIP_SEEDS = 256, 64, 5
+
+
+@contextlib.contextmanager
+def nonzero_qkv_bias(model, seed: int):
+    """Make ``model.init`` return random nonzero QKV biases (N(0, BIAS_STD^2)
+    from ``seed``) where it returns zeros, so a served qwen exercises K2's
+    bias epilogue (install leaves biases as they are)."""
+    import torch
+    orig = model.init
+
+    def init(*args, **kw):
+        params = orig(*args, **kw)
+        gen = None
+        for name in ("bq", "bk", "bv"):
+            b = params["blocks"].get(name)
+            if b is not None:
+                if gen is None:
+                    gen = torch.Generator(device=b.device).manual_seed(seed)
+                b.normal_(0.0, BIAS_STD, generator=gen)
+        return params
+
+    model.init = init
+    try:
+        yield
+    finally:
+        model.init = orig
+
+
+def zoo_k2_rows(arch, eng, peaks, flush, gen, card):
+    """K2 at each distinct projection shape of one served arch (layer 0's
+    programmed codes, decode slot count, noise off), with the layer's bias
+    where it has one: held to the plain version and timed against its
+    bytes bound."""
+    import torch
+
+    from repro_torch.core.quant import sym_scale
+    from repro_torch.kernels import aimc_mvm, ref
+
+    blocks = eng.params["blocks"]
+    step = eng.exe.aimc.adc_step
+    rows, seen = [], set()
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        st = blocks[name]
+        kb, m, np_ = st.w_q.shape[-3:]
+        bname = {"wq": "bq", "wk": "bk", "wv": "bv"}.get(name)
+        bias = blocks.get(bname) if bname else None
+        if (st.k, st.n, bias is not None) in seen:
+            continue
+        seen.add((st.k, st.n, bias is not None))
+        if bias is not None:
+            bias = torch.nn.functional.pad(bias[0].float(), (0, np_ - st.n))
+        x = torch.zeros((SLOTS, kb * m), device=eng.device)
+        x[:, :st.k] = torch.randn((SLOTS, st.k), generator=gen,
+                                  device=eng.device)
+        s_x = sym_scale(x).reshape(1, 1)
+        w_q, s_w = st.w_q[0], st.s_w[0]
+        kern = functools.partial(aimc_mvm.aimc_mvm_v2, x, w_q, s_w, s_x,
+                                 None, bias, adc_step=step)
+        plain = functools.partial(ref.aimc_matmul_ref_v2, x, w_q, s_w, s_x,
+                                  None, bias, adc_step=step)
+        y, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((y - want).abs().max())
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        check(err <= tol, f"{arch} K2 {name}: max |err| {err} > {tol}")
+        row = {"arch": arch, "proj": name, "K": st.k, "N": st.n, "B": SLOTS,
+               "KB": kb, "Np": np_, "bias": bias is not None,
+               "max_abs_err": err, "tol": tol,
+               "plan": aimc_mvm.launch_plan(eng.device, SLOTS, kb, m, np_),
+               "ms": time_ms(kern, flush, KERNEL_REPS),
+               "plain_ms": time_ms(plain, flush, 3),
+               "codes_mb": w_q.numel() / 1e6}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            SLOTS, kb, m, np_, 1, peaks, bias=bias is not None)
+        rows.append(row)
+        print(f"[zoo] {arch} K2 {name} [{SLOTS}x{st.k}]x[{st.k}x{st.n}] "
+              f"KB {kb}{' + bias' if row['bias'] else ''} "
+              f"({plan_str(row['plan'])}; {row['codes_mb']:.0f} MB codes): "
+              f"max|err| {err:.3g}; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) on {card}", flush=True)
+        del x, y, want
+    return rows
+
+
+def zoo_serve(dev, peaks, arch, prompt, layers, card):
+    """One arch of the dense zoo through the CLI entry point at its
+    published widths, --exec aimc, 4 Poisson requests: launch counts
+    zeroed just before and read just after (K2 = 7 x layers x passes, no
+    K3), ledgers reconcile, tokens in the vocabulary, finite logits of the
+    vocabulary's width; then its K2 shapes and a decode step timed."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch import serve
+    from repro_torch.runtime.batcher import reconcile
+
+    spec = get_arch(arch)
+    pub = spec.model_cfg
+    args = ["--arch", arch, "--exec", "aimc", "--requests", str(N_REQ),
+            "--prompt-len", str(prompt), "--gen", str(GEN), "--slots",
+            str(SLOTS), "--trace", f"poisson:{RATE:g}", "--seed", str(SEED),
+            "--device", str(dev)] + (["--layers", str(layers)] if layers
+                                     else [])
+    print(f"[zoo] python -m repro_torch.launch.serve {' '.join(args)}"
+          + (f"  (depth cut: {layers} of {pub.n_layers} layers at the "
+             f"published widths; all {pub.n_layers} would need "
+             f"~{pub.n_layers * _layer_codes_gb(pub):.0f} GB of int8 codes)"
+             if layers else ""), flush=True)
+    bias = (nonzero_qkv_bias(spec.model_module(), SEED) if pub.qkv_bias
+            else contextlib.nullcontext())
+    torch.cuda.reset_peak_memory_stats(dev)
+    with bias:
+        aimc_mvm.reset_counts()
+        t0 = time.perf_counter()
+        run = serve.main(args)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts = dict(aimc_mvm.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    eng, rep, prog = run.engine, run.report, run.program
+    cfg, n_layers, passes = eng.cfg, eng.cfg.n_layers, eng.forward_passes
+    check(dataclasses.replace(cfg, n_layers=pub.n_layers) == pub
+          and n_layers == (layers or pub.n_layers),
+          f"{arch}: not the published widths: {cfg}")
+    check(counts["aimc_mvm_v2"] == 7 * n_layers * passes
+          and counts["aimc_mvm_stacked"] == 0,
+          f"{arch}: launches {counts} != 7 x {n_layers} x {passes} K2")
+    led, static = reconcile(prog, rep.records, rep.observed_vectors)
+    check(led == static, f"{arch}: CM_* ledgers do not reconcile")
+    check(len(rep.records) == N_REQ, f"{arch}: requests lost")
+    for rec in rep.records.values():
+        check(1 <= len(rec.tokens) <= rec.request.max_new
+              and all(0 <= t < cfg.vocab for t in rec.tokens),
+              f"{arch}: bad tokens for request {rec.request.rid}")
+    if spec.family == "vlm":
+        check(min(len(r.prompt) for r in run.requests) >= cfg.n_patches,
+              f"{arch}: a prompt shorter than its patch prefix")
+    if pub.qkv_bias:
+        check(all(float(eng.params["blocks"][b].abs().min()) > 0
+                  for b in ("bq", "bk", "bv")), f"{arch}: zero QKV bias")
+    tokens, vl = eng._pad_prompt(run.requests[0].prompt)
+    pe = (torch.zeros((1, cfg.n_patches, cfg.d_model), device=dev)
+          if spec.family == "vlm" else None)
+    logits, _ = eng.model.prefill(eng.params, tokens, cfg, eng.exe,
+                                  max_seq=eng.max_seq, valid_len=vl,
+                                  patch_embeds=pe)
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (1, 1, cfg.vocab),
+          f"{arch}: bad logits {tuple(logits.shape)}")
+    print(f"[zoo] {arch}: {n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}{', QKV bias (random, nonzero)' if pub.qkv_bias else ''}"
+          f"{', tied embeddings' if pub.tie_embeddings else ''}"
+          f"{f', {cfg.n_patches} patch positions' if cfg.n_patches else ''}"
+          f"; {wall:.1f}s wall (init {run.init_s:.2f}s) on {card}, {passes} "
+          f"passes, launches {counts}, peak {peak_gb:.2f} GB; ledgers "
+          f"reconcile, tokens in vocab, logits finite", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = flush_buffer(dev)
+    k2 = zoo_k2_rows(arch, eng, peaks, flush, gen, card)
+    del flush
+    print(f"[zoo] {arch} decode step and prefill on {card}:", flush=True)
+    times = step_times(eng, run.requests[0].prompt)
+    return run, {"wall_s": wall, "init_s": run.init_s, "layers": n_layers,
+                 "published_layers": pub.n_layers, "forward_passes": passes,
+                 "launches": counts, "peak_gb": peak_gb, "k2_rows": k2,
+                 **times, "report": rep.summary(),
+                 "program": prog.summary()}
+
+
+def _layer_codes_gb(cfg) -> float:
+    """int8 code bytes of one layer's seven projections (512-row blocks,
+    128-lane columns), in GB."""
+    def codes(k, n):
+        return (-(-k // 512) * 512) * (-(-n // 128) * 128)
+    d, hd = cfg.d_model, cfg.hd
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    return (codes(d, q) + 2 * codes(d, kv) + codes(q, d)
+            + 2 * codes(d, cfg.d_ff) + codes(cfg.d_ff, d)) / 1e9
+
+
+def session_decode_ms(eng, reqs, steps: int = 5) -> float:
+    """Host-clock ms of one synchronous decode step with every request of
+    ``reqs`` admitted (`admit` then `step`, each step ending in the
+    chunk's readback), after one warm step; the session then drains."""
+    import torch
+    sess = eng.begin()
+    now = 0.0
+    for r in reqs:
+        now = eng.admit(sess, r, now)
+    now = eng.step(sess, now)
+    torch.cuda.synchronize(eng.device)
+    t = time.perf_counter()
+    for _ in range(steps):
+        now = eng.step(sess, now)
+    ms = (time.perf_counter() - t) / steps * 1e3
+    while sess.slots.n_busy:
+        now = eng.step(sess, now)
+    eng.finish(sess, now)
+    return ms
+
+
+def paged_phase(dev, run, peaks, card):
+    """llama3.2-3b at full width on the paged engine, on the zoo run's
+    installed parameters: (1) the dense and the paged engine (page_size 16)
+    on one synchronized trace, tokens bit-equal, K2 = 7 x layers x passes;
+    decode ms/step of both in turns and the device time of the page gather;
+    (2) 8 requests sharing a 32-token prefix, with a fixed DAC scale, on
+    the prefix-cache engine with 16-token prefill legs, each admission
+    drained before the next: tokens equal the dense engine's, the shared
+    span is prefilled and billed once, the page ledger is exact and no
+    closure saw a new shape after warmup."""
+    import random
+
+    import torch
+
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.runtime.batcher import (Request, reconcile,
+                                             synchronized_trace)
+    from repro_torch.runtime.engine import ServeEngine
+
+    eng, prog = run.engine, run.program
+    model, cfg, n_layers = eng.model, eng.cfg, eng.cfg.n_layers
+
+    def build(exe, **kw):
+        e = ServeEngine(model, cfg, exe, eng.params, program=prog,
+                        family=eng.family, module=eng.module, **kw)
+        return e, e.warmup()
+
+    def served(e, fn):
+        aimc_mvm.reset_counts()
+        p0 = e.forward_passes
+        rep = fn()
+        torch.cuda.synchronize(dev)
+        counts, passes = dict(aimc_mvm.LAUNCHES), e.forward_passes - p0
+        check(counts["aimc_mvm_v2"] == 7 * n_layers * passes,
+              f"paged: K2 launches {counts} != 7 x {n_layers} x {passes}")
+        led, static = reconcile(prog, rep.records, rep.observed_vectors)
+        check(led == static and rep.observed_vectors == rep.useful_vectors,
+              "paged: CM_* or vector books do not close")
+        return rep, counts, passes
+
+    kw = dict(n_slots=SLOTS, prompt_pad=PROMPT, max_seq=PROMPT + GEN)
+    reqs = synchronized_trace(N_REQ, prompt_len=PROMPT, max_new=GEN,
+                              seed=SEED + 1, vocab=cfg.vocab)
+    dense, _ = build(eng.exe, **kw)
+    paged, counts0 = build(eng.exe, page_size=PAGE_SIZE, **kw)
+    rd, _, _ = served(dense, lambda: dense.serve(list(reqs)))
+    rp, cp, pp = served(paged, lambda: paged.serve(list(reqs)))
+    for r in reqs:
+        check(rp.tokens(r.rid) == rd.tokens(r.rid),
+              f"paged decode differs from dense for request {r.rid}")
+    check(rp.page_ledger_exact and rp.page_ledger["held"] == 0
+          and paged.compile_counts() == counts0,
+          f"paged: ledger {rp.page_ledger}, shapes {paged.compile_counts()}")
+    print(f"[paged] page_size {PAGE_SIZE}: {len(reqs)} requests bit-equal "
+          f"to the dense engine ({rp.generated_tokens} tokens); {pp} passes, "
+          f"launches {cp}; page ledger exact, all pages freed, shapes "
+          f"{counts0} unchanged", flush=True)
+    times = {"dense": [session_decode_ms(dense, reqs)],
+             "paged": [session_decode_ms(paged, reqs)]}
+    times["paged"].append(session_decode_ms(paged, reqs))
+    times["dense"].append(session_decode_ms(dense, reqs))
+    sess = paged.begin()
+    now = 0.0
+    for r in reqs:
+        now = paged.admit(sess, r, now)
+    prof = device_profile(lambda: paged.step(sess, now), dev)
+    kp, vp, pt = sess.cache["kp"], sess.cache["vp"], sess.cache["pt"]
+    flush = flush_buffer(dev)
+    gather_ms = time_ms(lambda: model.paged_view(kp, vp, pt, paged.max_seq),
+                        flush, KERNEL_REPS)
+    del flush
+    view = SLOTS * paged.max_seq * cfg.n_kv_heads * cfg.hd * 4 * n_layers
+    gather_bound = 2 * 2 * view / peaks[0] * 1e3   # k and v, read + write
+    while sess.slots.n_busy:
+        now = paged.step(sess, now)
+    paged.finish(sess, now)
+    print(f"[paged] decode ms/step (host clock, {SLOTS} busy slots, in "
+          f"turns dense/paged/paged/dense): dense "
+          f"{', '.join(f'{t:.2f}' for t in times['dense'])}; paged "
+          f"{', '.join(f'{t:.2f}' for t in times['paged'])}; page gather "
+          f"(paged_view, [{n_layers}, {SLOTS}, {paged.max_seq}, "
+          f"{cfg.n_kv_heads}, {cfg.hd}] f32 x 2) {gather_ms:.4f} ms device "
+          f"per step vs {gather_bound:.4f} ms bytes bound; on {card}",
+          flush=True)
+    print_profile("paged", prof)
+
+    rng = random.Random(SEED)
+    shared = tuple(rng.randint(1, cfg.vocab - 1) for _ in range(PREFIX_LEN))
+    reqs2 = [Request(rid=i, prompt=shared + tuple(
+        rng.randint(1, cfg.vocab - 1) for _ in range(PREFIX_TAIL)),
+        max_new=GEN) for i in range(PREFIX_REQ)]
+    plen = PREFIX_LEN + PREFIX_TAIL
+    exe2 = dataclasses.replace(eng.exe, aimc=dataclasses.replace(
+        eng.exe.aimc, input_scale=PREFIX_SCALE))
+    kw2 = dict(n_slots=PREFIX_REQ, prompt_pad=plen + PREFIX_TAIL,
+               max_seq=plen + PREFIX_TAIL + GEN)
+    dense2, _ = build(exe2, **kw2)
+    legged, counts2 = build(exe2, page_size=PAGE_SIZE, prefix_cache=True,
+                            prefill_chunk=LEG, **kw2)
+    rd2, _, _ = served(dense2, lambda: dense2.serve(list(reqs2)))
+
+    def drained():
+        sess = legged.begin()
+        now = 0.0
+        for r in reqs2:
+            now = legged.admit(sess, r, now, drain=True)
+        while sess.slots.n_busy:
+            now = legged.step(sess, now)
+        return legged.finish(sess, now)
+
+    rl, cl, pl = served(legged, drained)
+    for r in reqs2:
+        check(rl.tokens(r.rid) == rd2.tokens(r.rid),
+              f"prefix-cache tokens differ from dense for request {r.rid}")
+    paid = [rl.records[r.rid].prefill_vectors for r in reqs2]
+    check(paid == [plen] + [plen - PREFIX_LEN] * (PREFIX_REQ - 1)
+          and rl.prefix_hits == PREFIX_REQ - 1
+          and rl.prefix_hit_vectors == (PREFIX_REQ - 1) * PREFIX_LEN,
+          f"shared span not billed exactly once: prefill vectors {paid}, "
+          f"hits {rl.prefix_hits} ({rl.prefix_hit_vectors} vectors)")
+    check(rl.page_ledger_exact
+          and rl.page_ledger["held"] == len(legged.prefix)
+          and legged.compile_counts() == counts2,
+          f"prefix: ledger {rl.page_ledger}, shapes "
+          f"{legged.compile_counts()} vs {counts2}")
+    leg_ms = rl.wall_prefill_s / rl.prefill_chunks * 1e3
+    print(f"[paged] prefix cache + {LEG}-token legs, DAC scale fixed at "
+          f"{PREFIX_SCALE}: {PREFIX_REQ} requests sharing {PREFIX_LEN} "
+          f"tokens equal the dense engine's tokens; prefill vectors {paid} "
+          f"(shared span billed once), {rl.prefix_hits} hits, "
+          f"{rl.prefill_chunks} legs at {leg_ms:.2f} ms per leg (host "
+          f"clock, synchronised, on {card}); {pl} passes, launches {cl}; "
+          f"page ledger "
+          f"exact, {rl.page_ledger['held']} pages held by the cache; shapes "
+          f"{counts2} unchanged", flush=True)
+    return {"launches": cp, "passes": pp, "decode_ms_per_step": times,
+            "gather_ms": gather_ms, "gather_bound_ms": gather_bound,
+            "profile": prof, "prefix_launches": cl, "prefix_passes": pl,
+            "prefill_vectors": paid, "prefix_hits": rl.prefix_hits,
+            "legs": rl.prefill_chunks, "ms_per_leg": leg_ms,
+            "page_ledger": rl.page_ledger}
+
+
+def fidelity_phase(dev):
+    """bench_accuracy's own configuration (key 7 and its folds, the NOISY
+    model, MLP 1024 B 16, LSTM n_h 256, CNN-F at 64 px B 8) on the card,
+    beside the same forwards on the CPU (plain versions) and the figures
+    BENCH_all.json records for the reference; then CNN-M at 224 px under
+    both noise sources over FLIP_SEEDS noise draws: the flip-margin
+    verdict per draw."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.models import paper_nets as pn
+
+    key = prng.PRNGKey(7)
+
+    def fk(i):
+        return prng.fold_in(key, i)
+
+    noisy = AimcConfig(tile_rows=512, noise=paper_noise())
+
+    def verdict(y_dig, y):
+        agree = y.argmax(-1) == y_dig.argmax(-1)
+        out = {"snr_db": snr_db(y_dig, y),
+               "top1": float(agree.float().mean())}
+        if y.dim() == 2:
+            top2 = torch.sort(y_dig, -1).values[:, -2:]
+            margins = top2[:, 1] - top2[:, 0]
+            err = (y - y_dig).abs().amax(-1)
+            out["margin_ok"] = bool((agree | (margins < err)).all())
+            out["decided_flips"] = int((~agree & (margins >= err)).sum())
+        return out
+
+    def nets(device):
+        p = pn.mlp_init(key, device=device)
+        x = prng.normal(fk(1), (16, 1024), device=device)
+        yield "MLP", pn.mlp_forward_digital(p, x), \
+            pn.mlp_forward_aimc(p, x, noisy, fk(2))[0]
+        nh = BENCH_LSTM_NH
+        p = pn.lstm_init(fk(3), nh, device=device)
+        xs = prng.normal(fk(4), (20, 8, 50), device=device)
+        yield "LSTM", pn.lstm_forward_digital(p, xs, nh), \
+            pn.lstm_forward_aimc(p, xs, nh, noisy, fk(5))[0]
+        p = pn.cnn_init(fk(6), "F", img=BENCH_IMG, device=device)
+        x = prng.normal(fk(7), (8, BENCH_IMG, BENCH_IMG, 3), device=device)
+        yield "CNN-F", pn.cnn_forward(p, x, "F"), \
+            pn.cnn_forward(p, x, "F", noisy, key=fk(8))[0]
+
+    card = {n: verdict(d, y) for n, d, y in nets(dev)}
+    cpu = {n: verdict(d, y) for n, d, y in nets("cpu")}
+    bench = json.loads((ROOT / "BENCH_all.json").read_text())
+    recorded = bench["modules"]["accuracy"]["results"]
+    rec = {"MLP": recorded["mlp_snr"], "LSTM": recorded["lstm_snr"],
+           "CNN-F": recorded["cnn_snr"]}
+    for n in card:
+        gap = abs(card[n]["snr_db"] - cpu[n]["snr_db"])
+        check(gap <= 0.05, f"fidelity {n}: card {card[n]['snr_db']} vs CPU "
+              f"{cpu[n]['snr_db']} dB")
+        check(card[n]["top1"] == cpu[n]["top1"]
+              and card[n].get("margin_ok") == cpu[n].get("margin_ok"),
+              f"fidelity {n}: card {card[n]} vs CPU {cpu[n]}")
+    check(card["MLP"]["snr_db"] >= 20 and card["LSTM"]["snr_db"] >= 20
+          and card["LSTM"]["top1"] >= 0.8 and card["CNN-F"]["margin_ok"],
+          f"bench_accuracy's checks fail on the card: {card}")
+    print("[fidelity] bench_accuracy settings (MLP 1024 B 16, LSTM n_h "
+          f"{BENCH_LSTM_NH}, CNN-F {BENCH_IMG} px B 8, NOISY, counter "
+          "noise), port on the card / CPU / BENCH_all.json (reference, "
+          "recorded): " + "; ".join(
+              f"{n} {card[n]['snr_db']:.2f} / {cpu[n]['snr_db']:.2f} / "
+              f"{rec[n]:.2f} dB" for n in card)
+          + f"; LSTM top-1 {card['LSTM']['top1']:.0%} (recorded "
+          f"{recorded['lstm_top1']:.0%}), CNN-F top-1 "
+          f"{card['CNN-F']['top1']:.0%} (recorded "
+          f"{recorded['cnn_top1']:.0%}), flips inside the margin: "
+          f"{card['CNN-F']['margin_ok']}", flush=True)
+
+    p = pn.cnn_init(fk(6), "M", CNN_IMG, CNN_CLASSES, device=dev)
+    x = prng.normal(fk(7), (CNN_B, CNN_IMG, CNN_IMG, 3), device=dev)
+    y_dig = pn.cnn_forward(p, x, "M")
+    draws = {}
+    for src in ("counter", "hw"):
+        cfg = AimcConfig(tile_rows=512, noise=paper_noise(),
+                         noise_source=src)
+        draws[src] = []
+        for s in range(FLIP_SEEDS):
+            k = fk(8) if s == 0 else prng.fold_in(fk(8), s)
+            draws[src].append(verdict(y_dig, pn.cnn_forward(
+                p, x, "M", cfg, key=k)[0]))
+    for src, vs in draws.items():
+        print(f"[fidelity] CNN-M {CNN_IMG} px B {CNN_B} {src} noise over "
+              f"{FLIP_SEEDS} draws (draw 0 = the paper-nets phase's key): "
+              f"margin verdicts {[v['margin_ok'] for v in vs]}, decided "
+              f"flips {[v['decided_flips'] for v in vs]}, top-1 "
+              f"{[round(v['top1'], 3) for v in vs]}, SNR "
+              f"{[round(v['snr_db'], 2) for v in vs]} dB", flush=True)
+    return {"card": card, "cpu": cpu, "recorded": rec,
+            "cnn_m_draws": draws}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1799,6 +2283,16 @@ def main() -> int:
     paper, hw_launches = phase("paper nets", paper_nets_phase, dev)
     free()
     multicore = phase("multi-core", multicore_phase, dev, peaks)
+    fidelity = phase("fidelity", fidelity_phase, dev)
+    free()
+    zoo, paged = {}, None
+    for arch, prompt, layers in ZOO:
+        zrun, zoo[arch] = phase(f"zoo {arch}", zoo_serve, dev, peaks, arch,
+                                prompt, layers, smi)
+        if arch == "llama3.2-3b":
+            paged = phase("paged", paged_phase, dev, zrun, peaks, smi)
+        del zrun
+        free()
 
     def decode_layer(kname, projs):
         sel = [r for r in rows if r["kernel"] == kname and r["B"] == SLOTS
@@ -1859,7 +2353,8 @@ def main() -> int:
         "hw_draws": hw_draws, "small_model_max_err": small_err,
         "serve": serve_stats, "stacked": stacked, "fused_serve": fused,
         "staged_v1": staged, "paper_nets": paper, "init": init,
-        "multicore": multicore, "phase_seconds": seconds},
+        "multicore": multicore, "fidelity": fidelity, "zoo": zoo,
+        "paged": paged, "phase_seconds": seconds},
         indent=1))
     print(json.dumps(record))
     print(smi)

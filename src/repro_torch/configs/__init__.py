@@ -1,9 +1,11 @@
 """Architecture registry (PyTorch port of `repro/configs/__init__.py`).
 
 Each ``configs/<arch>.py`` exports an ``ARCH: ArchSpec`` with the published
-configuration and a reduced same-family smoke config. Only granite-8b is
-ported; the reference's other nine architectures raise a clear error that
-points at ROADMAP.md.
+configuration and a reduced same-family smoke config, copied field for
+field from the reference. The dense decoders are ported (granite-8b,
+glm4-9b, llama3.2-3b, qwen1.5-110b, and internvl2-1b's language backbone
+behind its patch-embedding stub); the reference's MoE, recurrent and
+enc-dec architectures raise a clear error that points at ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -16,16 +18,20 @@ from typing import Any
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
+    family: str                    # dense | moe | hybrid | ssm | audio | vlm
     module: str                    # repro_torch.models.<module>
     model_cfg: Any
     smoke_cfg: Any
     source: str                    # provenance of the published config
+    cache_dtype: str = "bfloat16"  # KV cache dtype for serving
+    n_patches: int = 0             # vlm: image patch positions (stub embeds)
 
     def model_module(self):
         return importlib.import_module(f"repro_torch.models.{self.module}")
 
 
-PORTED = ("granite_8b",)
+PORTED = ("granite_8b", "glm4_9b", "llama32_3b", "qwen15_110b",
+          "internvl2_1b")
 # the reference's registry; everything not in PORTED is later work
 _ARCH_IDS = (
     "internvl2_1b", "granite_8b", "llama32_3b", "qwen15_110b", "glm4_9b",

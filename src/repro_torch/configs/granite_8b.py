@@ -8,6 +8,7 @@ from repro_torch.models.transformer import TransformerConfig
 
 ARCH = ArchSpec(
     arch_id="granite_8b",
+    family="dense",
     module="transformer",
     model_cfg=TransformerConfig(
         name="granite_8b", n_layers=36, d_model=4096, n_heads=32,

@@ -3,6 +3,13 @@ dense path of `repro/launch/serve.py`).
 
     python -m repro_torch.launch.serve --arch granite-8b --exec aimc \\
         --requests 4 --prompt-len 16 --gen 8 --slots 4 --trace poisson:20
+    python -m repro_torch.launch.serve --arch llama3.2-3b --smoke \\
+        --page-size 4 --prefix-cache --prefill-chunk 4 --shared-prefix 8 \\
+        --paged-verify --device cpu
+
+``--arch`` takes the ported dense decoders: granite-8b, glm4-9b,
+llama3.2-3b, qwen1.5-110b and internvl2-1b (whose prompts start with its
+patch positions: ``--prompt-len`` must cover them).
 
 Runs on the CUDA card by default (``--device cuda``) and refuses to start
 without one unless ``--device cpu`` is given. With ``--exec aimc`` every
@@ -20,9 +27,17 @@ exits non-zero if the per-request ledgers do not close exactly.
 Weights are random from ``--seed`` (`transformer.init(PRNGKey(seed))`, the
 reference's weights for the same seed) unless ``--weights FILE.npz`` gives
 a flat ``"blocks/wq"``-keyed archive (`convert.load_npz`). Load shapes:
-synchronized arrivals (default) or ``--trace poisson:RATE``. The
-reference's multi-tenant, paged, drift/chaos, placement, mesh and int8
-paths are later slices.
+synchronized arrivals (default) or ``--trace poisson:RATE``;
+``--shared-prefix K`` gives every prompt request 0's first K tokens.
+
+``--page-size P`` serves from a paged KV cache (bit-equal to the dense
+one); ``--prefix-cache`` reuses resident full prompt pages by content hash
+and ``--prefill-chunk C`` runs prefills as C-token legs between decode
+chunks; ``--paged-verify`` exits non-zero unless the page ledger is exact,
+every useful vector is booked, no closure saw a new shape after warmup
+and (synchronized, unchunked, with a shared prefix) the shared span was
+prefilled exactly once. The reference's multi-tenant, drift/chaos,
+placement, mesh, static and int8 paths are later slices.
 """
 
 from __future__ import annotations
@@ -39,6 +54,10 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="granite-8b")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced same-family config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the first N layers only: a depth cut for a "
+                         "config whose int8 codes exceed one card (widths "
+                         "stay as configured); 0 = every layer")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=12,
@@ -53,6 +72,36 @@ def parse_args(argv=None):
                     choices=["digital", "aimc"])
     ap.add_argument("--decode-chunk", dest="decode_chunk", type=int,
                     default=1, help="decode steps per host sync")
+    ap.add_argument("--page-size", dest="page_size", type=int, default=0,
+                    help="paged slot cache: KV pages of this many token rows "
+                         "behind a page table (bit-equal to the dense "
+                         "cache); 0 = dense")
+    ap.add_argument("--pages", type=int, default=0,
+                    help="page-pool size including the scratch page (0: "
+                         "sized so every slot can hold a max-length "
+                         "request)")
+    ap.add_argument("--prefix-cache", dest="prefix_cache",
+                    action="store_true",
+                    help="content-hashed prefix cache over full pages: a "
+                         "request whose prompt prefix is resident admits "
+                         "without re-running the shared span's prefill "
+                         "(needs --page-size)")
+    ap.add_argument("--prefill-chunk", dest="prefill_chunk", type=int,
+                    default=0,
+                    help="run prefills as bounded legs of this many tokens, "
+                         "interleaved with decode chunks (needs "
+                         "--page-size; 0 = one full-width prefill)")
+    ap.add_argument("--shared-prefix", dest="shared_prefix", type=int,
+                    default=0,
+                    help="make the first K prompt tokens identical across "
+                         "every request (a shared system prompt)")
+    ap.add_argument("--paged-verify", dest="paged_verify",
+                    action="store_true",
+                    help="exit nonzero unless the page ledger reconciles "
+                         "exactly, no closure saw a new shape after warmup, "
+                         "and (with --shared-prefix + --prefix-cache, "
+                         "synchronized, unchunked) the shared span was "
+                         "prefilled exactly once")
     ap.add_argument("--fuse-gates", dest="fuse_gates", action="store_true",
                     help="with --exec aimc: stack w_gate + w_up (and MHA "
                          "wq/wk/wv) so each group runs as ONE gate-fused "
@@ -71,23 +120,53 @@ def parse_args(argv=None):
                     help="torch device; cpu must be asked for explicitly")
     ap.add_argument("--weights", default="",
                     help="flat npz parameter archive (default: random)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.page_size < 0 or args.pages < 0 or args.prefill_chunk < 0 \
+            or args.shared_prefix < 0:
+        ap.error("--page-size/--pages/--prefill-chunk/--shared-prefix "
+                 "must be >= 0")
+    if args.page_size == 0 and (args.prefix_cache or args.prefill_chunk
+                                or args.pages or args.paged_verify):
+        ap.error("--prefix-cache/--prefill-chunk/--pages/--paged-verify "
+                 "require --page-size")
+    if args.shared_prefix and args.shared_prefix >= args.prompt_len:
+        ap.error(f"--shared-prefix {args.shared_prefix} must leave every "
+                 f"request a unique continuation (< --prompt-len "
+                 f"{args.prompt_len})")
+    return args
 
 
-def build_requests(args, vocab: int):
-    """The synthetic request stream the CLI serves."""
+def build_requests(args, vocab: int, min_prompt: int = 1):
+    """The synthetic request stream the CLI serves. ``min_prompt`` floors
+    the ragged prompt lengths (vlm prompts must cover the patch prefix)."""
     from repro_torch.runtime.batcher import poisson_trace, synchronized_trace
     n, p, g = args.requests, args.prompt_len, args.gen
+    if p < min_prompt:
+        raise SystemExit(f"--prompt-len {p} < minimum prompt length "
+                         f"{min_prompt} for this arch")
     if args.trace:
         kind, _, param = args.trace.partition(":")
         if kind != "poisson":
             raise SystemExit(f"unknown --trace kind {kind!r} "
                              "(supported: poisson:RATE)")
         return poisson_trace(n, float(param or "100"), seed=args.seed,
-                             prompt_len=(max(1, p // 2), p), max_new=(1, g),
-                             vocab=vocab)
+                             prompt_len=(max(min_prompt, p // 2), p),
+                             max_new=(1, g), vocab=vocab)
     return synchronized_trace(n, prompt_len=p, max_new=g, seed=args.seed,
                               vocab=vocab)
+
+
+def apply_shared_prefix(requests, k: int):
+    """Overwrite the first ``k`` tokens of every prompt with request 0's
+    (a shared system prompt). Prompts shorter than ``k`` become a prefix
+    of the shared span."""
+    if not k:
+        return requests
+    shared = requests[0].prompt[:k]
+    return [dataclasses.replace(
+        r, prompt=(shared + r.prompt[k:] if len(r.prompt) > k
+                   else shared[:len(r.prompt)]))
+        for r in requests]
 
 
 def resolve_device(name: str) -> torch.device:
@@ -129,6 +208,13 @@ def main(argv=None) -> ServeRun:
     device = resolve_device(args.device)
     spec = get_arch(args.arch)
     cfg = spec.smoke_cfg if args.smoke else spec.model_cfg
+    if args.layers:
+        if not 0 < args.layers <= cfg.n_layers:
+            raise SystemExit(f"--layers {args.layers} outside 1..{cfg.n_layers}")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if spec.family == "audio":
+        raise SystemExit("serve.py drives decoder-only LMs; the enc-dec "
+                         "audio family decodes via launch.steps")
     model = spec.model_module()
     aimc_cfg = AimcConfig()
     exe = (Execution(mode="aimc", aimc=aimc_cfg, compute_dtype="float32",
@@ -137,7 +223,10 @@ def main(argv=None) -> ServeRun:
            else Execution(compute_dtype="float32" if args.smoke
                           else "bfloat16"))
     b, p, g = args.requests, args.prompt_len, args.gen
-    requests = build_requests(args, cfg.vocab)
+    requests = build_requests(
+        args, cfg.vocab,
+        min_prompt=cfg.n_patches if spec.family == "vlm" else 1)
+    requests = apply_shared_prefix(requests, args.shared_prefix)
 
     t0 = time.time()
     if args.weights:
@@ -148,9 +237,12 @@ def main(argv=None) -> ServeRun:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     init_s = time.time() - t0
+    cut = (f", depth cut to {cfg.n_layers} of "
+           f"{(spec.smoke_cfg if args.smoke else spec.model_cfg).n_layers}"
+           if args.layers else "")
     print(f"[serve] {spec.arch_id} ({cfg.n_layers}L d_model={cfg.d_model} "
-          f"d_ff={cfg.d_ff} vocab={cfg.vocab}) on {device}: weights ready in "
-          f"{init_s:.2f}s")
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab}{cut}) on {device}: weights "
+          f"ready in {init_s:.2f}s")
 
     program = schedule = None
     if args.exec_mode == "aimc":
@@ -178,13 +270,25 @@ def main(argv=None) -> ServeRun:
 
     n_slots = args.slots or min(b, 8)
     engine = ServeEngine(model, cfg, exe, params, n_slots=n_slots,
-                         prompt_pad=p, max_seq=p + g, program=program,
-                         decode_chunk=args.decode_chunk)
+                         prompt_pad=p, max_seq=p + g,
+                         cache_dtype=torch.float32, family=spec.family,
+                         module=spec.module, program=program,
+                         decode_chunk=args.decode_chunk,
+                         page_size=args.page_size, n_pages=args.pages,
+                         prefix_cache=args.prefix_cache,
+                         prefill_chunk=args.prefill_chunk)
     t0 = time.time()
-    engine.warmup()
+    counts0 = engine.warmup()
     print(f"[serve] engine warmed up in {time.time() - t0:.2f}s "
           f"({n_slots} slots, prompt_pad={p}, max_seq={p + g}, "
-          f"decode_chunk={args.decode_chunk})")
+          f"decode_chunk={args.decode_chunk}; shapes {counts0})")
+    if engine.pages is not None:
+        print(f"[serve] paged cache: {engine.pages.n_pages} pages x "
+              f"{args.page_size} rows (+1 scratch in the count), "
+              f"prefix_cache={args.prefix_cache}, "
+              f"prefill_chunk={args.prefill_chunk or 'off'}"
+              + (f", shared_prefix={args.shared_prefix}"
+                 if args.shared_prefix else ""))
 
     report = engine.serve(requests)
     print(f"[serve] {report.summary()}")
@@ -216,6 +320,18 @@ def main(argv=None) -> ServeRun:
         if not ok:
             raise SystemExit(1)
         _print_schedule(args, schedule)
+    if engine.pages is not None:
+        led = report.page_ledger
+        print(f"  pages: {led.get('free', 0)} free / {led.get('held', 0)} "
+              f"held of {led.get('total', 0)} (ledger exact: "
+              f"{report.page_ledger_exact}); prefix hits "
+              f"{report.prefix_hits} ({report.prefix_hit_vectors} prompt "
+              f"vectors never re-prefilled), evictions "
+              f"{report.page_evictions}; prefill legs "
+              f"{report.prefill_chunks}, prompt-pad waste "
+              f"{report.prefill_pad_vectors} vectors")
+        if args.paged_verify:
+            _verify_paged(engine, report, requests, args, counts0)
     for rid in sorted(report.records)[:3]:
         rec = report.records[rid]
         print(f"  req{rid}: arrival={rec.request.arrival * 1e3:.1f}ms "
@@ -225,6 +341,59 @@ def main(argv=None) -> ServeRun:
               f"latency={rec.latency * 1e3:.1f}ms tokens={rec.tokens[:6]}...")
     return ServeRun(report=report, engine=engine, program=program,
                     requests=requests, schedule=schedule, init_s=init_s)
+
+
+def _verify_paged(engine, report, requests, args, counts0):
+    """Hard acceptance for a paged run: exit nonzero unless every request
+    retired, the page ledger reconciles exactly, no closure saw a new shape
+    after warmup, the vector books close, and (shared prefix + prefix
+    cache, synchronized, unchunked) the shared span was prefilled exactly
+    once across the whole trace."""
+    failures = []
+    if len(report.records) != len(requests):
+        lost = {r.rid for r in requests} - set(report.records)
+        failures.append(f"{len(lost)} request(s) never served: "
+                        f"{sorted(lost)}")
+    if not report.page_ledger_exact:
+        failures.append(f"page ledger does not reconcile: "
+                        f"{report.page_ledger}")
+    held = report.page_ledger.get("held", 0)
+    cached = len(engine.prefix) if engine.prefix is not None else 0
+    if held != cached:
+        failures.append(f"{held} pages held at finish but {cached} prefix "
+                        f"entries resident — a request leaked pages")
+    if report.observed_vectors != report.useful_vectors:
+        failures.append(f"device-loop vector count "
+                        f"{report.observed_vectors} != per-request books "
+                        f"{report.useful_vectors}")
+    counts = engine.compile_counts()
+    if counts != counts0:
+        failures.append(f"closures saw new shapes after warmup: {counts0} "
+                        f"-> {counts}")
+    exact_once = (args.shared_prefix and args.prefix_cache
+                  and not args.prefill_chunk and not args.trace)
+    if exact_once:
+        # synchronized + unchunked: admission is synchronous, so the
+        # exactly-once contract is exact, not statistical
+        span = (args.shared_prefix // args.page_size) * args.page_size
+        plen = args.prompt_len
+        paid = sorted(r.prefill_vectors for r in report.records.values())
+        want = sorted([plen] + [plen - span] * (len(requests) - 1))
+        if paid != want:
+            failures.append(
+                f"shared span not prefilled exactly once: per-request "
+                f"prefill vectors {paid}, want one producer at {plen} and "
+                f"{len(requests) - 1} sharers at {plen - span}")
+        if report.prefix_hits != len(requests) - 1:
+            failures.append(f"prefix hits {report.prefix_hits}, want "
+                            f"{len(requests) - 1}")
+    if failures:
+        for f in failures:
+            print(f"  PAGED FAILURE: {f}")
+        raise SystemExit(1)
+    print("  paged books close exactly: all requests served, page ledger "
+          "reconciles, no new shapes after warmup"
+          + (", shared span prefilled exactly once" if exact_once else ""))
 
 
 def _print_schedule(args, schedule):

@@ -9,8 +9,9 @@ The reference's third way, on-the-fly programming with a straight-through
 backward (noise-aware training), waits for the training slice.
 
 Attention is plain tensor ops following the reference's algorithm: a
-chunked online softmax for prefill and a masked softmax against the KV
-cache for decode. Activation sharding hints (`shard_act`) have no
+chunked online softmax for prefill (causal, with a query offset for
+prefill legs; the sliding window waits for the rglru slice) and a masked
+softmax against the KV cache for decode. Activation sharding hints (`shard_act`) have no
 counterpart on one card.
 """
 
@@ -99,8 +100,8 @@ def rope(x, positions, theta: float = 10000.0):
 NEG_INF = -1e30
 
 
-def _attn_chunk(q, k, v, q_pos, kv_pos, carry, scale, kv_valid):
-    """One (q-chunk x kv-chunk) causal online-softmax update.
+def _attn_chunk(q, k, v, q_pos, kv_pos, carry, scale, causal, kv_valid):
+    """One (q-chunk x kv-chunk) online-softmax update.
     q: [B, Hq, qc, D]; k/v: [B, Hkv, kc, D];
     carry = (m [B,Hq,qc], l [B,Hq,qc], acc [B,Hq,qc,D])."""
     m, l, acc = carry
@@ -110,7 +111,9 @@ def _attn_chunk(q, k, v, q_pos, kv_pos, carry, scale, kv_valid):
     qg = q.reshape(b, hkv, g, qc, d)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(torch.float32),
                      k.to(torch.float32)) * scale
-    mask = (kv_pos[None, :] < kv_valid) & (kv_pos[None, :] <= q_pos[:, None])
+    mask = (kv_pos[None, :] < kv_valid).expand(qc, -1)        # pad mask
+    if causal:
+        mask = mask & (kv_pos[None, :] <= q_pos[:, None])
     s = torch.where(mask[None, None, None], s, NEG_INF)
     s = s.reshape(b, hq, qc, -1)
     m_new = torch.maximum(m, s.amax(dim=-1))
@@ -124,9 +127,13 @@ def _attn_chunk(q, k, v, q_pos, kv_pos, carry, scale, kv_valid):
     return m_new, l_new, acc * corr[..., None] + pv
 
 
-def flash_attention(q, k, v, *, q_chunk=1024, kv_chunk=1024):
-    """Causal attention, q: [B, S, Hq, D]; k, v: [B, S, Hkv, D] ->
-    [B, S, Hq, D], chunked online softmax (memory O(qc*kc)), GQA-aware."""
+def flash_attention(q, k, v, *, causal=True, q_offset: int = 0,
+                    q_chunk=1024, kv_chunk=1024):
+    """q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D] -> [B, Sq, Hq, D], a
+    chunked online softmax (memory O(qc*kc)), GQA-aware. Query row i sits
+    at absolute position ``q_offset + i`` (a prefill leg attends over the
+    earlier legs' keys). The kv chunks reduce in the same order whatever
+    the query chunking, so a leg's rows equal dense prefill's."""
     b, sq0, hq, d = q.shape
     _, skv0, hkv, _ = k.shape
     qc = min(q_chunk, sq0)
@@ -145,7 +152,7 @@ def flash_attention(q, k, v, *, q_chunk=1024, kv_chunk=1024):
     outs = []
     for qi in range(sq // qc):
         q_blk = qh[:, :, qi * qc:(qi + 1) * qc]
-        q_pos = qi * qc + torch.arange(qc, device=dev)
+        q_pos = q_offset + qi * qc + torch.arange(qc, device=dev)
         carry = (torch.full((b, hq, qc), NEG_INF, device=dev),
                  torch.zeros((b, hq, qc), device=dev),
                  torch.zeros((b, hq, qc, d), device=dev))
@@ -153,7 +160,7 @@ def flash_attention(q, k, v, *, q_chunk=1024, kv_chunk=1024):
             kv_pos = j * kc + torch.arange(kc, device=dev)
             carry = _attn_chunk(q_blk, kh[:, :, j * kc:(j + 1) * kc],
                                 vh[:, :, j * kc:(j + 1) * kc], q_pos, kv_pos,
-                                carry, scale, skv0)
+                                carry, scale, causal, skv0)
         _, l, acc = carry
         outs.append((acc / l.clamp_min(1e-20)[..., None]).to(q.dtype))
     o = torch.cat(outs, dim=2)                            # [B, Hq, Sq, D]

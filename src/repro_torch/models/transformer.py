@@ -1,5 +1,6 @@
-"""Decoder-only dense transformer (granite family); PyTorch port of the
-dense serving path of `repro/models/transformer.py`.
+"""Decoder-only dense transformer (granite, glm4, llama3.2, qwen1.5 and the
+internvl2 backbone); PyTorch port of the serving path of
+`repro/models/transformer.py`.
 
 Parameters are a nested dict of tensors with the reference's keys and a
 leading layer axis on every block leaf (``blocks/wq`` is [L, D, Hq*hd]), so
@@ -10,8 +11,15 @@ programmed `AimcLinearState`) to one layer. After
 and runs on the crossbar kernel; `fuse_gate_stacks` then stacks w_gate and
 w_up into one `[G=2, ...]` state that runs as ONE kernel launch (K3).
 
-Tied embeddings, QKV biases, MoE, paged serving and the training
-`forward` are later slices.
+Config flags select QKV bias (qwen; the bias rides K2's fused epilogue),
+tied embeddings (llama3.2: the vocab head is ``embed.T``) and the VLM
+patch-embedding stub (internvl2: positions [0, n_patches) carry
+precomputed patch embeddings). The paged KV cache lives here too
+(`init_paged_cache`, `paged_view`, `prefill_chunk`; DESIGN.md §15): page
+gathers and scatters are plain tensor indexing, and only the projections
+inside a prefill leg reach the crossbar kernel.
+
+MoE and the training `forward` are later slices.
 """
 
 from __future__ import annotations
@@ -37,14 +45,30 @@ class TransformerConfig:
     n_kv_heads: int
     d_ff: int
     vocab: int
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    # MoE (not ported: `init` refuses n_experts > 0)
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_dense_residual: bool = False
+    moe_dense_ff: int = 0
+    # VLM frontend stub
+    n_patches: int = 0
+    # attention chunking
     q_chunk: int = 1024
     kv_chunk: int = 1024
 
     @property
     def hd(self) -> int:
-        return self.d_model // self.n_heads
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
 
 def _stack_init(key: torch.Tensor, l: int, k: int, n: int, dtype,
@@ -62,12 +86,13 @@ def init(key: torch.Tensor, cfg: TransformerConfig, dtype=torch.float32,
     """Random weights from a JAX-compatible key on ``device``, key for key
     the reference's `init` (`repro/models/transformer.py:75`): ``ks =
     split(key, 16)``; embed from ks[0], wq..wo from ks[1..4], w_gate/w_up/
-    w_down from ks[9..11], unembed from ks[12]; unit norms. The same key
-    gives the reference's weights within a few ulps (`prng.normal`)."""
-    for flag in ("qkv_bias", "tie_embeddings", "n_experts"):
-        if getattr(cfg, flag, False):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (dense granite family only)")
+    w_down from ks[9..11], unembed from ks[12] (none when the embeddings
+    are tied); unit norms; QKV biases (qkv_bias) are zeros and draw no key.
+    The same key gives the reference's weights within a few ulps
+    (`prng.normal`)."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "n_experts > 0 (MoE) is not ported yet; see ROADMAP.md")
     l, d, hq, hkv, hd, ff = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                              cfg.n_kv_heads, cfg.hd, cfg.d_ff)
     ks = prng.split(key, 16)
@@ -77,6 +102,9 @@ def init(key: torch.Tensor, cfg: TransformerConfig, dtype=torch.float32,
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     params = {
         "embed": embed_init(ks[0], cfg.vocab, d, dtype, device),
@@ -93,7 +121,12 @@ def init(key: torch.Tensor, cfg: TransformerConfig, dtype=torch.float32,
             "w_down": stack(11, ff, d),
         },
     }
-    params["unembed"] = dense_init(ks[12], d, cfg.vocab, dtype, device)
+    if cfg.qkv_bias:
+        params["blocks"] |= {"bq": zeros(l, hq * hd),
+                             "bk": zeros(l, hkv * hd),
+                             "bv": zeros(l, hkv * hd)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense_init(ks[12], d, cfg.vocab, dtype, device)
     return params
 
 
@@ -129,11 +162,13 @@ def _layer(blocks: dict, i: int) -> dict:
 def _qkv(h, blk, cfg: TransformerConfig, exe: Execution, positions):
     b, s, _ = h.shape
     if "wqkv" in blk:      # gate-fused stack (fuse_gate_stacks, MHA)
-        q, k, v = linear_stack(h, blk["wqkv"], exe)
+        biases = (torch.stack([blk["bq"], blk["bk"], blk["bv"]])
+                  if "bq" in blk else None)
+        q, k, v = linear_stack(h, blk["wqkv"], exe, biases=biases)
     else:
-        q = linear(h, blk["wq"], exe)
-        k = linear(h, blk["wk"], exe)
-        v = linear(h, blk["wv"], exe)
+        q = linear(h, blk["wq"], exe, bias=blk.get("bq"))
+        k = linear(h, blk["wk"], exe, bias=blk.get("bk"))
+        v = linear(h, blk["wv"], exe, bias=blk.get("bv"))
     q = rope(q.reshape(b, s, cfg.n_heads, cfg.hd), positions, cfg.rope_theta)
     k = rope(k.reshape(b, s, cfg.n_kv_heads, cfg.hd), positions,
              cfg.rope_theta)
@@ -147,12 +182,24 @@ def _ffn(h2, blk, exe: Execution):
     return swiglu(h2, blk["w_gate"], blk["w_up"], blk["w_down"], exe)
 
 
-def embed_tokens(params, tokens, exe: Execution):
-    return params["embed"][tokens].to(exe.cdtype)
+def embed_tokens(params, tokens, cfg: TransformerConfig, exe: Execution,
+                 patch_embeds=None):
+    h = params["embed"][tokens].to(exe.cdtype)
+    if cfg.n_patches and patch_embeds is not None:
+        # VLM frontend stub: positions [0, n_patches) carry precomputed
+        # patch embeddings instead of token embeddings
+        h = torch.cat([patch_embeds.to(exe.cdtype), h[:, cfg.n_patches:]],
+                      dim=1)
+    return h
 
 
-def unembed_matrix(params):
-    return params["unembed"]
+def unembed_matrix(params, cfg: TransformerConfig):
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+def _logits(params, h, cfg: TransformerConfig):
+    return h.to(torch.float32) @ unembed_matrix(params, cfg).to(
+        torch.float32)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
@@ -165,25 +212,26 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
 
 
 def prefill(params, tokens, cfg: TransformerConfig, exe: Execution = None,
-            max_seq: int | None = None, cache_dtype=torch.bfloat16,
-            valid_len=None):
+            max_seq: int | None = None, patch_embeds=None,
+            cache_dtype=torch.bfloat16, valid_len=None):
     """Full-sequence forward that also fills the KV cache.
 
     ``valid_len`` ([B] int32) serves right-padded ragged prompts at one
     shape: logits are taken at each row's own last valid position and the
-    cache lengths are set per row."""
+    cache lengths are set per row. ``patch_embeds`` ([B, n_patches, D])
+    feeds a vlm's patch prefix."""
     exe = exe or Execution()
     b, s = tokens.shape
     max_seq = max_seq or s
     dev = tokens.device
-    h = embed_tokens(params, tokens, exe)
+    h = embed_tokens(params, tokens, cfg, exe, patch_embeds)
     positions = torch.arange(s, device=dev).expand(b, s)
     cache = init_cache(cfg, b, max_seq, cache_dtype, dev)
     for i in range(cfg.n_layers):
         blk = _layer(params["blocks"], i)
         q, k, v = _qkv(rmsnorm(h, blk["ln1"], cfg.norm_eps), blk, cfg, exe,
                        positions)
-        att = flash_attention(q, k, v, q_chunk=cfg.q_chunk,
+        att = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
                               kv_chunk=cfg.kv_chunk)
         h = h + linear(att.reshape(b, s, -1), blk["wo"], exe)
         ff = _ffn(rmsnorm(h, blk["ln2"], cfg.norm_eps), blk, exe)
@@ -199,9 +247,7 @@ def prefill(params, tokens, cfg: TransformerConfig, exe: Execution = None,
         idx = (lens - 1).clamp(0, s - 1).long()
         h_last = h[torch.arange(b, device=dev), idx][:, None]     # [B, 1, D]
         cache["len"] = lens
-    logits = h_last.to(torch.float32) @ unembed_matrix(params).to(
-        torch.float32)
-    return logits, cache
+    return _logits(params, h_last, cfg), cache
 
 
 def decode_step(params, cache, tokens, cfg: TransformerConfig,
@@ -215,7 +261,7 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig,
     exe = exe or Execution()
     b = tokens.shape[0]
     dev = tokens.device
-    h = embed_tokens(params, tokens, exe)
+    h = params["embed"][tokens].to(exe.cdtype)
     lens = cache["len"]
     positions = lens[:, None]
     max_seq = cache["k"].shape[2]
@@ -239,12 +285,90 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig,
         ff = _ffn(rmsnorm(h, blk["ln2"], cfg.norm_eps), blk, exe)
         h = h + ff
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    logits = h.to(torch.float32) @ unembed_matrix(params).to(
-        torch.float32)
-    return logits, {"k": ks, "v": vs, "len": lens + 1}
+    return _logits(params, h, cfg), {"k": ks, "v": vs, "len": lens + 1}
 
 
 def _scatter_kv(cache_l, new, rows, idx):
     """In place: cache_l [B, S, H, D] row b at position idx[b] <- new
     [B, 1, H, D] (a row scatter, not a rewrite of the whole cache)."""
     cache_l[rows, idx] = new[:, 0].to(cache_l.dtype)
+
+
+# ---------------------------------------------------------------------------
+# serving: paged KV cache (DESIGN.md §15)
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg: TransformerConfig, n_pages: int, page_size: int,
+                     dtype=torch.float32, device=None) -> dict:
+    """Physical K/V page pools [L, n_pages, P, Hkv, hd]. Page 0 is the
+    engine's scratch page (`runtime.pages.SCRATCH`): writes for inactive
+    lanes land there and are never read unmasked."""
+    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
+            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_view(kp, vp, pt, max_seq: int):
+    """The dense per-slot K/V view gathered out of the page pools.
+
+    kp/vp: [L, n_pages, P, H, hd]; pt: [S, M] page table -> k/v
+    [L, S, max_seq, H, hd]. Rows past a slot's length map through whatever
+    page the (possibly stale) table names; `decode_attention` masks them
+    before the softmax, so they never contribute a bit."""
+    l, _, p, h, hd = kp.shape
+    s, m = pt.shape
+    k = kp[:, pt].reshape(l, s, m * p, h, hd)[:, :, :max_seq]
+    v = vp[:, pt].reshape(l, s, m * p, h, hd)[:, :, :max_seq]
+    return k, v
+
+
+def prefill_chunk(params, tokens, cfg: TransformerConfig, exe: Execution,
+                  kp, vp, pt_row, pos0: int, span: int, *, page_size: int,
+                  context_len: int):
+    """One bounded prefill leg writing straight into the page pools.
+
+    tokens: [1, C], the leg's window (rows past ``span`` are padding on the
+    final leg); ``pt_row``: [M] this request's page-table row; ``pos0`` /
+    ``span``: absolute start and valid width. Earlier legs' K/V are read
+    back from the pools (float32, so the readback is bit-identical to what
+    the producing leg computed), the leg attends with ``q_offset=pos0`` over
+    exactly ``context_len`` rows (the dense engine's prompt_pad, so the
+    attention chunks reduce in dense prefill's order), and the touched
+    pages [pos0 // P, (pos0 + span - 1) // P] are scattered back in place;
+    untouched page indices route to the scratch page 0. Returns
+    ``(tok [1, 1], kp, vp)``: tok is the argmax at the leg's last valid
+    row, meaningful on the final leg only."""
+    b, c = tokens.shape
+    m = pt_row.shape[0]
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    n_rows = m * page_size
+    dev = tokens.device
+    h = embed_tokens(params, tokens, cfg, exe)
+    positions = (pos0 + torch.arange(c, device=dev)).expand(b, c)
+    j = torch.arange(m, device=dev)
+    touched = (j >= pos0 // page_size) & (j <= (pos0 + span - 1) // page_size)
+    pids = torch.where(touched, pt_row, torch.zeros_like(pt_row))
+    pad = torch.zeros((c, hkv, hd), dtype=kp.dtype, device=dev)
+    for i in range(cfg.n_layers):
+        blk = _layer(params["blocks"], i)
+        q, k, v = _qkv(rmsnorm(h, blk["ln1"], cfg.norm_eps), blk, cfg, exe,
+                       positions)
+        # extend by C rows so the leg's write never runs past the end
+        kx = torch.cat([kp[i][pt_row].reshape(n_rows, hkv, hd), pad])
+        vx = torch.cat([vp[i][pt_row].reshape(n_rows, hkv, hd), pad])
+        kx[pos0:pos0 + c] = k[0].to(kx.dtype)
+        vx[pos0:pos0 + c] = v[0].to(vx.dtype)
+        att = flash_attention(q, kx[None, :context_len],
+                              vx[None, :context_len], causal=True,
+                              q_offset=pos0, q_chunk=cfg.q_chunk,
+                              kv_chunk=cfg.kv_chunk)
+        h = h + linear(att.reshape(b, c, -1), blk["wo"], exe)
+        ff = _ffn(rmsnorm(h, blk["ln2"], cfg.norm_eps), blk, exe)
+        kp[i][pids] = kx[:n_rows].reshape(m, page_size, hkv, hd)
+        vp[i][pids] = vx[:n_rows].reshape(m, page_size, hkv, hd)
+        h = h + ff
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    idx = min(max(span - 1, 0), c - 1)
+    logits = _logits(params, h[:, idx:idx + 1], cfg)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    return tok, kp, vp

@@ -1,5 +1,6 @@
 """ServeEngine: request-level continuous batching over a programmed AIMC
-model (PyTorch port of the dense mode of `repro/runtime/engine.py`).
+model (PyTorch port of the single-device `ServeEngine` of
+`repro/runtime/engine.py`).
 
   request lifecycle   queued -> admitted -> prefilled -> [slot i] decoding
                       -> retired (EOS / length / max_seq cap) -> slot reused
@@ -21,16 +22,30 @@ model (PyTorch port of the dense mode of `repro/runtime/engine.py`).
                       `serve()` double-buffers: chunk i+1 is launched before
                       chunk i's block is read.
 
-The reference compiles three closures once and asserts it
-(`compile_counts`); PyTorch runs eagerly, so there is no counterpart here.
+  paged KV            (``page_size > 0``, DESIGN.md §15) the slot cache is a
+                      pool of [P]-row pages behind a page table
+                      (`runtime.pages`); a decode step gathers the dense
+                      view, runs the same ragged `decode_step` and scatters
+                      each lane's written row back — bit-equal to the dense
+                      cache. ``prefix_cache`` reuses resident full prompt
+                      pages by content hash (the shared span is prefilled
+                      and billed once); ``prefill_chunk`` runs prefills as
+                      bounded legs writing pages in place, interleaved with
+                      decode chunks.
+
+  shape stability     the reference compiles each closure once and asserts
+                      it; in eager PyTorch `compile_counts` counts the
+                      distinct (closure, input shapes) pairs each closure
+                      has seen, with the reference's keys, so "nothing new
+                      after warmup" stays pinned.
 
 CM_* accounting: every useful token vector (prompt tokens at prefill, one
 vector per decode step a request rides in) is booked to its request;
 `batcher.reconcile` proves the per-request ledgers sum exactly to
 ``program.mvm_counts().scaled(observed_vectors)``.
 
-Paged KV, prefix cache, chunked prefill, drift/chaos resilience, rotation
-and the sharded engine are later slices.
+Recurrent snapshot pages, drift/chaos resilience, rotation and the sharded
+engine are later slices.
 """
 
 from __future__ import annotations
@@ -45,6 +60,10 @@ from repro_torch.runtime.batcher import (Batcher, Request, RequestRecord,
                                          SlotAllocator, percentile)
 from repro_torch.runtime.fault_tolerance import (StragglerMonitor,
                                                  resilient_step)
+from repro_torch.runtime.pages import (SCRATCH, PageAllocator, PrefixCache,
+                                       page_keys)
+
+RECURRENT_MODULES = ("xlstm", "rglru")
 
 
 @dataclasses.dataclass
@@ -64,6 +83,15 @@ class ServeReport:
     makespan_s: float = 0.0        # engine clock: last retirement - start
     retries: int = 0
     stragglers: list = dataclasses.field(default_factory=list)
+    # paged serving books: prefix reuse, prefill legs, and the page-pool
+    # ledger taken at finish() (`page_ledger_exact` is the allocator's
+    # exact-partition verify())
+    prefix_hits: int = 0           # admissions that reused >= 1 page
+    prefix_hit_vectors: int = 0    # prompt vectors NOT re-prefilled
+    prefill_chunks: int = 0        # prefill legs executed
+    page_evictions: int = 0
+    page_ledger: dict = dataclasses.field(default_factory=dict)
+    page_ledger_exact: bool = True
 
     @property
     def useful_vectors(self) -> int:
@@ -118,6 +146,12 @@ class EngineSession:
     # about admission depends on the value, so the read waits for the next
     # chunk sync instead of stalling the host behind the device
     lazy: list = dataclasses.field(default_factory=list)
+    # paged serving: queued prefill jobs (FIFO, one leg per serve-loop
+    # iteration), each busy slot's pages as (owned pids, shared-hit pids),
+    # and the prefix-cache counters at begin()
+    jobs: list = dataclasses.field(default_factory=list)
+    slot_pages: dict = dataclasses.field(default_factory=dict)
+    evictions0: int = 0
 
 
 # retirement codes emitted by the decode loop (0 = still running)
@@ -139,6 +173,45 @@ class _PendingChunk:
     n: int
 
 
+@dataclasses.dataclass
+class _PrefillJob:
+    """One admitted request whose legged prefill has not finished. The
+    slot is held for the job's whole life (its decode lane stays inactive)
+    until `_finalize_job` registers the page-table row and arms the lane."""
+    req: Request
+    rec: RequestRecord
+    slot: int
+    legs: list                # [(pos0, span, tokens [1, C])] in order
+    pt_row: torch.Tensor      # device [M] int32 page-table row
+    keys: list
+    f_eff: int = 0            # pages reused from the prefix cache
+    leg_i: int = 0
+    tok1: torch.Tensor | None = None   # [1, 1] first token of the last leg
+
+    @property
+    def done(self) -> bool:
+        return self.leg_i >= len(self.legs)
+
+
+def _signature(x):
+    """Shape signature of a closure input: tensors by shape and dtype,
+    containers by their items, host scalars by type (the reference traces
+    them as scalars)."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype
+    if isinstance(x, dict):
+        return tuple((k, _signature(v)) for k, v in sorted(x.items()))
+    if isinstance(x, (list, tuple)):
+        return tuple(_signature(v) for v in x)
+    return type(x).__name__
+
+
+def _wait(t: torch.Tensor):
+    """Block the host until the device has produced ``t``."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
 class ServeEngine:
     """Continuous-batching serving engine over one (installed) model.
 
@@ -150,27 +223,99 @@ class ServeEngine:
 
     def __init__(self, model, cfg, exe: Execution, params, *,
                  n_slots: int = 4, prompt_pad: int = 16, max_seq: int = 64,
-                 program=None, eos_id: int | None = None,
-                 decode_chunk: int = 1):
+                 cache_dtype=CACHE_DTYPE, family: str = "lm",
+                 module: str = "transformer", program=None,
+                 eos_id: int | None = None, decode_chunk: int = 1, page_size: int = 0,
+                 n_pages: int = 0, prefix_cache: bool = False,
+                 prefill_chunk: int = 0):
+        if family == "audio":
+            raise ValueError("ServeEngine serves decoder-only LMs; the "
+                             "enc-dec audio family decodes via launch.steps")
         if prompt_pad > max_seq:
             raise ValueError(f"prompt_pad {prompt_pad} > max_seq {max_seq}")
+        if family == "vlm" and prompt_pad < cfg.n_patches:
+            raise ValueError(
+                f"vlm prompts start with {cfg.n_patches} patch positions; "
+                f"prompt_pad {prompt_pad} cannot hold them")
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         self.model, self.cfg, self.exe, self.params = model, cfg, exe, params
         self.device = params["embed"].device
         self.n_slots, self.prompt_pad, self.max_seq = n_slots, prompt_pad, max_seq
+        self.cache_dtype = cache_dtype
+        self.family, self.module = family, module
         self.program = program
         self.eos_id = eos_id
         self.decode_chunk = decode_chunk
         self._ladder = self.chunk_ladder(decode_chunk)
+
+        # ---- paged KV / prefix cache / chunked prefill (DESIGN.md §15) ----
+        if page_size < 0 or n_pages < 0 or prefill_chunk < 0:
+            raise ValueError("page_size / n_pages / prefill_chunk >= 0")
+        if (prefix_cache or prefill_chunk) and page_size == 0:
+            raise ValueError("prefix_cache / prefill_chunk require "
+                             "page_size > 0")
+        if page_size > max_seq:
+            raise ValueError(f"page_size {page_size} > max_seq {max_seq}")
+        if module in RECURRENT_MODULES and page_size > 0:
+            raise NotImplementedError(
+                "recurrent snapshot pages and recurrent prefill legs are "
+                "not ported yet (no recurrent module is); see ROADMAP.md")
+        self.page_size = page_size
+        self.prefill_chunk = prefill_chunk
+        # _paged_kv: the slot KV cache lives in a page pool behind a page
+        # table; _use_legs: prefill runs as legs writing pages directly
+        # (both the prefix cache and chunked prefill need them)
+        self._paged_kv = page_size > 0
+        self._use_legs = self._paged_kv and (prefix_cache or prefill_chunk > 0)
+        self._chunked = prefill_chunk > 0
+        if self._paged_kv and module != "transformer":
+            raise ValueError(f"paged KV serves the transformer module; "
+                             f"got {module!r}")
+        self._pt_width = -(-max_seq // page_size) if self._paged_kv else 0
+        if self._use_legs:
+            if family == "vlm":
+                raise ValueError(
+                    "prefix_cache / prefill_chunk cannot serve vlm (patch "
+                    "embeds cannot ride a chunked prefill leg)")
+            if getattr(cfg, "is_moe", False):
+                raise ValueError(
+                    "prefix_cache / prefill_chunk cannot serve MoE models: "
+                    "capacity-factor routing mixes positions, so a chunked "
+                    "prefill is not bit-equal to the dense one")
+            if cache_dtype != torch.float32:
+                raise ValueError(
+                    "prefix_cache / prefill_chunk require cache_dtype "
+                    "float32: a page read back by a sharer must be bit-"
+                    "identical to what the producing leg computed")
+        self.pages = None
+        self.prefix = None
+        self._pool = None        # engine-lifetime (kp, vp) pool tensors
+        if self._paged_kv:
+            if n_pages == 0:
+                n_pages = (n_slots * self._pt_width + 1
+                           + (self._pt_width if prefix_cache else 0))
+            if n_pages < self._pt_width + 1:
+                raise ValueError(
+                    f"n_pages {n_pages} cannot hold one max-length request "
+                    f"({self._pt_width} pages + scratch): admission would "
+                    f"deadlock on an empty engine")
+            self.pages = PageAllocator(n_pages, page_size)
+            self.prefix = PrefixCache(self.pages) if prefix_cache else None
+        # transformer legs default to one full-prompt leg
+        self._leg_c = prefill_chunk or prompt_pad
+
         self.monitor = StragglerMonitor(threshold=STRAGGLER_THRESHOLD)
         self._retries = 0
         self._step_no = 0
         # model forward passes run by this engine, warmup included (each
-        # prefill and each decode step is one pass over every layer)
+        # prefill, prefill leg and decode step is one pass over every layer)
         self.forward_passes = 0
+        # closure name -> distinct input signatures seen (compile_counts)
+        self._seen: dict[str, set] = {}
+        decode = self._decode_paged_fn if self._paged_kv else self._decode_fn
         self._safe_decodes = {
-            n: resilient_step(self._decode_fn, max_retries=MAX_RETRIES,
+            n: resilient_step(decode, max_retries=MAX_RETRIES,
                               on_retry=lambda attempt, e: self._count_retry())
             for n in self._ladder}
 
@@ -185,25 +330,46 @@ class ServeEngine:
             p *= 2
         return tuple(sorted(ladder))
 
+    def _note(self, closure: str, *args, static=None):
+        self._seen.setdefault(closure, set()).add((static, _signature(args)))
+
+    def compile_counts(self) -> dict[str, int]:
+        """Distinct input signatures each device closure has seen, under
+        the reference's keys. After `warmup`, serving any trace must leave
+        prefill/insert at 1 and decode at ``len(chunk_ladder)``, plus
+        prefill_chunk/register at 1 when prefills run as legs."""
+        def n(name):
+            return len(self._seen.get(name, ()))
+        counts = {"prefill": n("prefill"),
+                  "insert": n("insert_paged" if self._paged_kv else "insert"),
+                  "decode": n("decode")}
+        if self._use_legs:
+            counts["prefill_chunk"] = n("prefill_chunk")
+            counts["register"] = n("register")
+        return counts
+
     # -- device functions ----------------------------------------------------
     def _prefill_fn(self, tokens, valid_len):
         """[1, prompt_pad] ragged prefill -> (first_tok [1,1], cache1)."""
+        self._note("prefill", tokens, valid_len)
+        kw = {}
+        if self.family == "vlm":
+            # patch positions are a prompt prefix; the engine serves the
+            # text path with zero patch embeddings (frontend-stub rule)
+            kw["patch_embeds"] = torch.zeros(
+                (tokens.shape[0], self.cfg.n_patches, self.cfg.d_model),
+                dtype=torch.float32, device=tokens.device)
         logits, cache = self.model.prefill(
             self.params, tokens, self.cfg, self.exe, max_seq=self.max_seq,
-            cache_dtype=CACHE_DTYPE, valid_len=valid_len)
+            cache_dtype=self.cache_dtype, valid_len=valid_len, **kw)
         self.forward_passes += 1
         tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return tok, cache
 
-    def _insert(self, sess: EngineSession, cache1, tok1, slot: int,
-                pos0: int, max_new: int):
-        """Write a prefilled request into decode lane ``slot``, including
-        its on-device retirement row (gen starts at 1: the prefill's token
-        counts against max_new). In place on the session's tensors, which
-        are stream-ordered after any chunk already launched on them."""
-        for name, dim in _CACHE_BATCH_DIM.items():
-            sess.cache[name].select(dim, slot).copy_(
-                cache1[name].select(dim, 0))
+    @staticmethod
+    def _arm(sess: EngineSession, tok1, slot: int, pos0: int, max_new: int):
+        """Point decode lane ``slot`` at its first token and retirement row
+        (gen starts at 1: the prefill's token counts against max_new)."""
         sess.tok_buf[slot] = tok1[0]
         st = sess.state
         st["active"][slot] = True
@@ -211,11 +377,87 @@ class ServeEngine:
         st["pos"][slot] = pos0
         st["max_new"][slot] = max_new
 
+    def _insert(self, sess: EngineSession, cache1, tok1, slot: int,
+                pos0: int, max_new: int):
+        """Write a prefilled request into decode lane ``slot``, in place on
+        the session's tensors (stream-ordered after any chunk already
+        launched on them)."""
+        self._note("insert", sess.cache, cache1, tok1)
+        for name, dim in _CACHE_BATCH_DIM.items():
+            sess.cache[name].select(dim, slot).copy_(
+                cache1[name].select(dim, 0))
+        self._arm(sess, tok1, slot, pos0, max_new)
+
+    def _insert_paged(self, sess: EngineSession, cache1, tok1, slot: int,
+                      pos0: int, max_new: int, pt_row, write_mask):
+        """Paged insert of a DENSE [1, max_seq] prefill cache: scatter it
+        into this request's pages and point the slot's page-table row at
+        them. ``write_mask`` keeps the allocated table entries; masked-off
+        pages (prompt padding never read) route to the scratch page."""
+        self._note("insert_paged", sess.cache, cache1, tok1, pt_row,
+                   write_mask)
+        p, m = self.page_size, self._pt_width
+        n_rows = m * p
+
+        def to_pages(leaf, pool):
+            x = leaf[:, 0].to(pool.dtype)           # [L, max_seq, H, hd]
+            if n_rows != self.max_seq:
+                x = torch.nn.functional.pad(
+                    x, (0, 0, 0, 0, 0, n_rows - self.max_seq))
+            return x.reshape(x.shape[0], m, p, *x.shape[2:])
+
+        pids = torch.where(write_mask, pt_row, torch.zeros_like(pt_row))
+        cache = sess.cache
+        cache["kp"][:, pids] = to_pages(cache1["k"], cache["kp"])
+        cache["vp"][:, pids] = to_pages(cache1["v"], cache["vp"])
+        cache["pt"][slot] = pt_row
+        cache["len"][slot] = pos0
+        self._arm(sess, tok1, slot, pos0, max_new)
+
+    def _register(self, sess: EngineSession, tok1, slot: int, pos0: int,
+                  max_new: int, pt_row):
+        """Arm a slot whose pages prefill legs filled in place: only the
+        page-table row, the length and the lane's rows change."""
+        self._note("register", sess.cache["pt"], sess.cache["len"], tok1,
+                   pt_row)
+        sess.cache["pt"][slot] = pt_row
+        sess.cache["len"][slot] = pos0
+        self._arm(sess, tok1, slot, pos0, max_new)
+
+    def _leg_fn(self, tokens, kp, vp, pt_row, pos0: int, span: int):
+        """One prefill leg writing straight into the page pools."""
+        self._note("prefill_chunk", tokens, kp, vp, pt_row, pos0, span)
+        out = self.model.prefill_chunk(
+            self.params, tokens, self.cfg, self.exe, kp, vp, pt_row, pos0,
+            span, page_size=self.page_size, context_len=self.prompt_pad)
+        self.forward_passes += 1
+        return out
+
+    def _retire_step(self, state, tokens, logits, active):
+        """The on-device retirement machine of one decode step: (tokens,
+        new state, ys row [3, S])."""
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        tokens = torch.where(active[:, None], tok, tokens)
+        emitted = tokens[:, 0]
+        step = active.to(torch.int32)
+        gen = state["gen"] + step
+        pos = state["pos"] + step
+        reason = torch.zeros_like(emitted)
+        reason = torch.where(pos >= self.max_seq, 3, reason)
+        reason = torch.where(gen >= state["max_new"], 1, reason)
+        if self.eos_id is not None:
+            reason = torch.where(emitted == self.eos_id, 2, reason)
+        reason = torch.where(active, reason, 0)
+        state = {"active": active & (reason == 0), "gen": gen, "pos": pos,
+                 "max_new": state["max_new"]}
+        return tokens, state, torch.stack([emitted, step, reason])
+
     def _decode_fn(self, cache, tok_buf, state, length: int):
         """``length`` dense decode steps; inactive lanes are bit-frozen and
         the retirement predicates run on the device. Returns (tok_buf,
         cache, state, ys) with ys int32 [length, 3, S] = (emitted token,
         active at entry, reason) per step. Inputs are not modified."""
+        self._note("decode", cache, tok_buf, state, static=length)
         rows = []
         tokens = tok_buf
         for _ in range(length):
@@ -226,27 +468,70 @@ class ServeEngine:
             cache = {name: mask_batch_select(new_cache[name], cache[name],
                                              active, dim)
                      for name, dim in _CACHE_BATCH_DIM.items()}
-            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-            tokens = torch.where(active[:, None], tok, tokens)
-            emitted = tokens[:, 0]
-            step = active.to(torch.int32)
-            gen = state["gen"] + step
-            pos = state["pos"] + step
-            reason = torch.zeros_like(emitted)
-            reason = torch.where(pos >= self.max_seq, 3, reason)
-            reason = torch.where(gen >= state["max_new"], 1, reason)
-            if self.eos_id is not None:
-                reason = torch.where(emitted == self.eos_id, 2, reason)
-            reason = torch.where(active, reason, 0)
-            rows.append(torch.stack([emitted, step, reason]))
-            state = {"active": active & (reason == 0), "gen": gen,
-                     "pos": pos, "max_new": state["max_new"]}
+            tokens, state, ys = self._retire_step(state, tokens, logits,
+                                                  active)
+            rows.append(ys)
         return tokens, cache, state, torch.stack(rows)
 
+    def _decode_paged_fn(self, cache, tok_buf, state, length: int):
+        """The paged twin of `_decode_fn`. Per step: gather the page table
+        into a dense [S, max_seq] view (`model.paged_view`), run the same
+        ragged `decode_step`, and scatter each lane's one written row back
+        to its page; inactive lanes write to the scratch page. The rows a
+        lane attends to are the dense cache's rows, so decode is bit-equal
+        to the dense engine. The pools are written in place (a retried
+        step rewrites the same rows); lengths, tokens and state are not."""
+        self._note("decode", cache, tok_buf, state, static=length)
+        kp, vp, pt, lens = cache["kp"], cache["vp"], cache["pt"], cache["len"]
+        p = self.page_size
+        lanes = torch.arange(self.n_slots, device=pt.device)
+        rows = []
+        tokens = tok_buf
+        for _ in range(length):
+            active = state["active"]
+            k_view, v_view = self.model.paged_view(kp, vp, pt, self.max_seq)
+            logits, new_cache = self.model.decode_step(
+                self.params, {"k": k_view, "v": v_view, "len": lens}, tokens,
+                self.cfg, self.exe, ragged=True)
+            self.forward_passes += 1
+            row = lens.clamp(0, self.max_seq - 1).long()
+            pid = pt.gather(1, (row // p)[:, None])[:, 0].long()
+            spid = torch.where(active, pid, SCRATCH)
+            soff = torch.where(active, row % p, 0)
+            kp[:, spid, soff] = new_cache["k"][:, lanes, row].to(kp.dtype)
+            vp[:, spid, soff] = new_cache["v"][:, lanes, row].to(vp.dtype)
+            lens = torch.where(active, new_cache["len"], lens)
+            tokens, state, ys = self._retire_step(state, tokens, logits,
+                                                  active)
+            rows.append(ys)
+        return tokens, {"kp": kp, "vp": vp, "pt": pt, "len": lens}, state, \
+            torch.stack(rows)
+
     # -- buffers -------------------------------------------------------------
+    def _fresh_pools(self):
+        pools = self.model.init_paged_cache(
+            self.cfg, self.pages.n_pages, self.page_size, self.cache_dtype,
+            self.device)
+        return pools["kp"], pools["vp"]
+
+    def _paged_cache_dict(self, kp, vp):
+        return {"kp": kp, "vp": vp,
+                "pt": torch.zeros((self.n_slots, self._pt_width),
+                                  dtype=torch.int32, device=self.device),
+                "len": torch.zeros((self.n_slots,), dtype=torch.int32,
+                                   device=self.device)}
+
     def _empty_cache(self):
+        if self._paged_kv:
+            # the pools outlive sessions (prefix pages stay resident across
+            # begin()s): they move into the session here and come back at
+            # finish()
+            kp, vp = self._pool if self._pool is not None \
+                else self._fresh_pools()
+            self._pool = None
+            return self._paged_cache_dict(kp, vp)
         return self.model.init_cache(self.cfg, self.n_slots, self.max_seq,
-                                     CACHE_DTYPE, self.device)
+                                     self.cache_dtype, self.device)
 
     def _empty_state(self):
         def z():
@@ -260,21 +545,47 @@ class ServeEngine:
         return torch.zeros((self.n_slots, 1), dtype=torch.int32,
                            device=self.device)
 
-    def warmup(self):
-        """Run every device path once (prefill, insert, one chunk of each
-        ladder length) outside the serving clock: kernels build and load,
-        allocator pools fill."""
+    def _session(self, cache) -> EngineSession:
+        px = self.prefix
+        return EngineSession(
+            report=ServeReport(records={}), slots=SlotAllocator(self.n_slots),
+            slot_rec={}, cache=cache, tok_buf=self._empty_tok_buf(),
+            state=self._empty_state(), retries0=self._retries,
+            flagged0=len(self.monitor.flagged),
+            evictions0=px.evictions if px is not None else 0)
+
+    def warmup(self) -> dict[str, int]:
+        """Run every device path once (prefill, insert, the prefill leg and
+        register when legged, one chunk of each ladder length) outside the
+        serving clock: kernels build and load, allocator pools fill.
+        Paged engines warm on throwaway pools (every write of warmup goes
+        to their scratch page anyway). Returns `compile_counts()`."""
         tokens = torch.zeros((1, self.prompt_pad), dtype=torch.int32,
                              device=self.device)
         vl = torch.ones((1,), dtype=torch.int32, device=self.device)
         tok1, cache1 = self._prefill_fn(tokens, vl)
-        sess = self.begin()
-        self._insert(sess, cache1, tok1, 0, 1, 1)
+        if self._paged_kv:
+            sess = self._session(self._paged_cache_dict(*self._fresh_pools()))
+            pt_row = torch.zeros((self._pt_width,), dtype=torch.int32,
+                                 device=self.device)
+            self._insert_paged(sess, cache1, tok1, 0, 1, 1, pt_row,
+                               torch.zeros((self._pt_width,), dtype=torch.bool,
+                                           device=self.device))
+            if self._use_legs:
+                leg = torch.zeros((1, self._leg_c), dtype=torch.int32,
+                                  device=self.device)
+                tokw, _, _ = self._leg_fn(leg, sess.cache["kp"],
+                                          sess.cache["vp"], pt_row, 0, 1)
+                self._register(sess, tokw, 0, 1, 1, pt_row)
+        else:
+            sess = self._session(self._empty_cache())
+            self._insert(sess, cache1, tok1, 0, 1, 1)
         tok_buf, cache, state = sess.tok_buf, sess.cache, sess.state
+        decode = self._decode_paged_fn if self._paged_kv else self._decode_fn
         for n in self._ladder:
-            tok_buf, cache, state, ys = self._decode_fn(cache, tok_buf,
-                                                        state, n)
+            tok_buf, cache, state, ys = decode(cache, tok_buf, state, n)
         ys.cpu()
+        return self.compile_counts()
 
     def _count_retry(self):
         self._retries += 1
@@ -284,6 +595,14 @@ class ServeEngine:
         if len(prompt) > self.prompt_pad:
             raise ValueError(f"prompt length {len(prompt)} exceeds "
                              f"prompt_pad {self.prompt_pad}")
+        if self.family == "vlm" and len(prompt) < self.cfg.n_patches:
+            # positions [0, n_patches) are patch embeddings wholesale; a
+            # shorter prompt would take its "last valid" logit inside the
+            # patch prefix and serve silently wrong
+            raise ValueError(
+                f"vlm prompt length {len(prompt)} < n_patches "
+                f"{self.cfg.n_patches}: the prompt must cover the patch "
+                f"positions")
         padded = list(prompt) + [PAD_ID] * (self.prompt_pad - len(prompt))
         return (torch.tensor([padded], dtype=torch.int32, device=self.device),
                 torch.tensor([len(prompt)], dtype=torch.int32,
@@ -303,26 +622,30 @@ class ServeEngine:
 
     # -- session primitives --------------------------------------------------
     def begin(self) -> EngineSession:
-        """Open a serving session: fresh slots, device buffers and books."""
-        return EngineSession(
-            report=ServeReport(records={}), slots=SlotAllocator(self.n_slots),
-            slot_rec={}, cache=self._empty_cache(),
-            tok_buf=self._empty_tok_buf(), state=self._empty_state(),
-            retries0=self._retries, flagged0=len(self.monitor.flagged))
+        """Open a serving session: fresh slots, device buffers and books
+        (a paged engine's pools, and the prefix pages in them, carry
+        over)."""
+        return self._session(self._empty_cache())
 
     @staticmethod
     def _retire(rec: RequestRecord, reason: str, at: float):
         rec.finish_reason = reason
         rec.t_done = at
 
-    def admit(self, sess: EngineSession, req: Request, now: float) -> float:
+    def admit(self, sess: EngineSession, req: Request, now: float,
+              drain: bool = True) -> float:
         """Admit one request at clock ``now``: prefill, book, and either
         retire at prefill (max_new=1 / instant EOS) or insert into a free
         slot. Returns the advanced clock; the caller guarantees a free
-        slot."""
+        slot (and, when paged, `can_admit`). Legged admission (prefix cache
+        / chunked prefill) runs every leg now with ``drain``, else queues
+        the job on ``sess.jobs`` for `serve()` to advance one leg per loop
+        iteration."""
         report = sess.report
         rec = RequestRecord(request=req, t_admit=now)
         report.records[req.rid] = rec
+        if req.max_new > 1 and self._use_legs:
+            return self._admit_legged(sess, req, rec, now, drain)
         lazy = self.eos_id is None
         tok1, cache1, first, dt = self._prefill_request(req, rec, lazy)
         now += dt
@@ -347,11 +670,216 @@ class ServeEngine:
         sess.slot_rec[slot] = rec
         sess.rem[slot] = min(req.max_new - 1, self.max_seq - len(req.prompt))
         t0 = time.perf_counter()
-        self._insert(sess, cache1, tok1, slot, len(req.prompt), req.max_new)
+        if self._paged_kv:
+            pt_row, mask, owned = self._alloc_pt_row(req)
+            sess.slot_pages[slot] = (owned, [])
+            self._insert_paged(sess, cache1, tok1, slot, len(req.prompt),
+                               req.max_new, pt_row, mask)
+        else:
+            self._insert(sess, cache1, tok1, slot, len(req.prompt),
+                         req.max_new)
         ins = time.perf_counter() - t0
         now += ins
         report.wall_prefill_s += ins
         return now
+
+    # -- paged admission (DESIGN.md §15) -------------------------------------
+    def _pages_span(self, req: Request) -> tuple[int, int]:
+        """(last row index + 1 this request can ever write, pages that
+        cover it): rows past ``end`` are never written or read."""
+        plen = len(req.prompt)
+        end = plen + min(req.max_new - 1, self.max_seq - plen)
+        return end, -(-end // self.page_size)
+
+    def _alloc_pages(self, n: int, owner, protect=()):
+        """``n`` pages, evicting sole-sharer prefix entries (LRU) to make
+        room. Raises on a genuine shortage — `can_admit` gates callers."""
+        pids = self.pages.alloc(n, owner=owner)
+        if pids is None and self.prefix is not None:
+            self.prefix.evict(n - self.pages.n_free, protect=protect)
+            pids = self.pages.alloc(n, owner=owner)
+        if pids is None:
+            raise RuntimeError(
+                f"page pool exhausted: {owner} needs {n} pages, "
+                f"{self.pages.n_free} free (gate admission on can_admit)")
+        return pids
+
+    def _row_tensor(self, row):
+        return torch.tensor(row, dtype=torch.int32, device=self.device)
+
+    def _alloc_pt_row(self, req: Request):
+        """Paged insert's page grab: all pages owned, no sharing."""
+        _, n_alloc = self._pages_span(req)
+        owned = self._alloc_pages(n_alloc, req.rid)
+        row = owned + [SCRATCH] * (self._pt_width - n_alloc)
+        mask = [j < n_alloc for j in range(self._pt_width)]
+        return (self._row_tensor(row),
+                torch.tensor(mask, dtype=torch.bool, device=self.device),
+                owned)
+
+    def _peek_prefix(self, prompt) -> tuple[int, list]:
+        """(f_eff, hit pids) an admission WOULD reuse: the longest run of
+        resident full pages, capped so the continuation keeps >= 1 token.
+        Leaves LRU order and stats untouched."""
+        if self.prefix is None:
+            return 0, []
+        got = self.prefix.lookup(page_keys(prompt, self.page_size),
+                                 peek=True)
+        f = 0
+        while f < len(got) and got[f] is not None:
+            f += 1
+        f = min(f, (len(prompt) - 1) // self.page_size)
+        return f, got[:f]
+
+    def can_admit(self, sess: EngineSession, req: Request) -> bool:
+        """Whether the page pool can cover ``req`` now (free pages plus
+        cache-only entries admission may evict, minus the hit pages about
+        to gain a sharer). Unpaged engines always admit."""
+        if not self._paged_kv or req.max_new <= 1:
+            return True
+        _, n_alloc = self._pages_span(req)
+        f_eff, hit_pids = self._peek_prefix(req.prompt)
+        have = self.pages.n_free
+        if self.prefix is not None:
+            have += self.prefix.evictable(protect=hit_pids)
+        return have >= n_alloc - f_eff
+
+    def _admit_legged(self, sess: EngineSession, req: Request,
+                      rec: RequestRecord, now: float, drain: bool) -> float:
+        """Admission via prefill legs: look up the shared prefix, allocate
+        the continuation's pages, split the rest of the prompt into legs,
+        and run them (now, or interleaved — see `admit`)."""
+        report = sess.report
+        p, c = self.page_size, self._leg_c
+        prompt = list(req.prompt)
+        plen = len(prompt)
+        if plen > self.prompt_pad:
+            raise ValueError(f"prompt length {plen} exceeds "
+                             f"prompt_pad {self.prompt_pad}")
+        keys = page_keys(prompt, p) if self.prefix is not None else []
+        f_eff, pids_hit = 0, []
+        if self.prefix is not None:
+            got = self.prefix.lookup(keys)
+            while f_eff < len(got) and got[f_eff] is not None:
+                f_eff += 1
+            # the continuation must keep >= 1 real token: the legs produce
+            # the first-token logits
+            f_eff = min(f_eff, (plen - 1) // p)
+            pids_hit = [got[j] for j in range(f_eff)]
+            for pid in pids_hit:
+                self.pages.retain(pid)    # sharer refs FIRST: eviction
+                                          # below must not free them
+        start = f_eff * p
+        _, n_alloc = self._pages_span(req)
+        try:
+            owned = self._alloc_pages(n_alloc - f_eff, req.rid,
+                                      protect=pids_hit)
+        except RuntimeError:
+            for pid in pids_hit:
+                self.pages.release(pid)
+            raise
+        pt_row = self._row_tensor(pids_hit + owned
+                                  + [SCRATCH] * (self._pt_width - n_alloc))
+        legs, pos = [], start
+        while pos < plen:
+            span = min(c, plen - pos)
+            toks = prompt[pos:pos + span] + [PAD_ID] * (c - span)
+            legs.append((pos, span, self._row_tensor(toks)[None]))
+            pos += span
+        report.n_prefills += 1
+        if start:
+            report.prefix_hits += 1
+            report.prefix_hit_vectors += start
+        slot = sess.slots.alloc(req.rid)
+        sess.slot_rec[slot] = rec
+        sess.slot_pages[slot] = (owned, pids_hit)
+        job = _PrefillJob(req=req, rec=rec, slot=slot, legs=legs,
+                          pt_row=pt_row, keys=keys, f_eff=f_eff)
+        if drain or not self._chunked:
+            while not job.done:
+                now = self._advance_leg(sess, job, now)
+        else:
+            sess.jobs.append(job)
+        return now
+
+    def _advance_leg(self, sess: EngineSession, job: _PrefillJob,
+                     now: float) -> float:
+        """Run ONE prefill leg; finalize the job after its last. Vector
+        books advance per leg, so a cut job's record matches what the
+        device observed."""
+        report = sess.report
+        pos0, span, toks = job.legs[job.leg_i]
+        t0 = time.perf_counter()
+        tok1, kp, vp = self._leg_fn(toks, sess.cache["kp"], sess.cache["vp"],
+                                    job.pt_row, pos0, span)
+        sess.cache["kp"], sess.cache["vp"] = kp, vp
+        _wait(tok1)
+        dt = time.perf_counter() - t0
+        now += dt
+        report.wall_prefill_s += dt
+        report.observed_vectors += span
+        report.prefill_chunks += 1
+        rec = job.rec
+        rec.prefill_vectors += span
+        rec.pad_vectors += self._leg_c - span
+        report.prefill_pad_vectors += self._leg_c - span
+        job.tok1 = tok1
+        job.leg_i += 1
+        if job.done:
+            now = self._finalize_job(sess, job, now)
+        return now
+
+    def _finalize_job(self, sess: EngineSession, job: _PrefillJob,
+                      now: float) -> float:
+        """Last leg done: register the produced prefix pages, deliver or
+        inspect the first token, and arm the decode lane."""
+        report = sess.report
+        req, rec, tok1 = job.req, job.rec, job.tok1
+        plen = len(req.prompt)
+        if self.prefix is not None:
+            # the cache takes one ref ON TOP of the producer's (released at
+            # retire), so the pages outlive the request; first producer
+            # wins, a racing duplicate's page stays request-owned
+            owned, shared = sess.slot_pages[job.slot]
+            pids_all = list(shared) + list(owned)
+            for j in range(job.f_eff, plen // self.page_size):
+                self.prefix.put(job.keys[j], pids_all[j])
+        rec.t_first = now
+        if self.eos_id is None:
+            sess.lazy.append((rec, tok1))
+        else:
+            first = int(tok1[0, 0])
+            if first == self.eos_id:
+                self._retire(rec, "eos", now)
+                self._free_slot(sess, job.slot)
+                return now
+            rec.tokens.append(first)
+        t0 = time.perf_counter()
+        self._register(sess, tok1, job.slot, plen, req.max_new, job.pt_row)
+        dt = time.perf_counter() - t0
+        now += dt
+        report.wall_prefill_s += dt
+        sess.rem[job.slot] = min(req.max_new - 1, self.max_seq - plen)
+        return now
+
+    def _advance_prefill(self, sess: EngineSession, now: float) -> float:
+        """Advance ONE leg of the oldest queued prefill job."""
+        job = sess.jobs[0]
+        now = self._advance_leg(sess, job, now)
+        if job.done:
+            sess.jobs.pop(0)
+        return now
+
+    def _release_slot_pages(self, sess: EngineSession, slot: int):
+        """Drop the retiring slot's page refs (owned allocations and the
+        sharer refs its prefix hits took); cache-registered pages survive
+        through the cache's own reference."""
+        held = sess.slot_pages.pop(slot, None)
+        if held is None:
+            return
+        owned, shared = held
+        for pid in list(owned) + list(shared):
+            self.pages.release(pid)
 
     def _pick_chunk(self, sess: EngineSession, responsive: bool = False) -> int:
         """Chunk length for the next dispatch: the largest ladder length not
@@ -384,6 +912,14 @@ class ServeEngine:
             sess.rem[slot] = max(0, sess.rem.get(slot, 0) - n)
         return _PendingChunk(ys=ys, t_wall=t0,
                              prefill0=sess.report.wall_prefill_s, n=n)
+
+    def step(self, sess: EngineSession, now: float) -> float:
+        """One SYNCHRONOUS decode chunk (dispatched and processed at once)
+        plus retirement bookkeeping; returns the advanced clock. The caller
+        guarantees a busy slot. With `admit(..., drain=True)` this drives a
+        session by hand: each admission completes before the next."""
+        n = self._pick_chunk(sess) or 1
+        return self._process_chunk(sess, self._dispatch_chunk(sess, n), now)
 
     def _process_chunk(self, sess: EngineSession, pend: _PendingChunk,
                        now: float) -> float:
@@ -420,11 +956,11 @@ class ServeEngine:
                     self._free_slot(sess, slot)
         return now
 
-    @staticmethod
-    def _free_slot(sess: EngineSession, slot: int):
+    def _free_slot(self, sess: EngineSession, slot: int):
         sess.slot_rec.pop(slot, None)
         sess.slots.release(slot)
         sess.rem.pop(slot, None)
+        self._release_slot_pages(sess, slot)
 
     @staticmethod
     def _resolve_firsts(sess: EngineSession):
@@ -436,9 +972,21 @@ class ServeEngine:
         sess.lazy.clear()
 
     def finish(self, sess: EngineSession, now: float) -> ServeReport:
-        """Close the session and return its report."""
+        """Close the session and return its report. A paged engine takes
+        its pools back (prefix pages stay resident for the next session)
+        and snapshots the allocator's exact-partition ledger."""
         self._resolve_firsts(sess)
         report = sess.report
+        for job in sess.jobs:     # a closed session holds nothing
+            self._retire(job.rec, "cap", now)
+            self._free_slot(sess, job.slot)
+        sess.jobs.clear()
+        if self._paged_kv:
+            self._pool = (sess.cache["kp"], sess.cache["vp"])
+            report.page_ledger = self.pages.ledger()
+            report.page_ledger_exact = self.pages.verify()
+        if self.prefix is not None:
+            report.page_evictions = self.prefix.evictions - sess.evictions0
         report.makespan_s = now
         report.retries = self._retries - sess.retries0
         report.stragglers = list(self.monitor.flagged[sess.flagged0:])
@@ -449,17 +997,29 @@ class ServeEngine:
         """Serve a trace to completion on the engine clock (starts at 0,
         advances by measured wall time, jumps to the next arrival when every
         slot is empty). Decode is double-buffered: chunk i+1 is launched
-        before chunk i's block is read back."""
+        before chunk i's block is read back; chunked-prefill legs run one
+        per loop iteration between chunks."""
         queue = Batcher(requests)
         sess = self.begin()
         now = 0.0
         pending: _PendingChunk | None = None
         while len(queue) or sess.slots.n_busy or pending is not None:
             while sess.slots.n_free:
-                req = queue.pop_ready(now)
-                if req is None:
-                    break
-                now = self.admit(sess, req, now)
+                if self._paged_kv:
+                    # ask the allocator BEFORE popping: a request that does
+                    # not fit waits at the head (an empty engine can always
+                    # cover one max-length request, ctor-checked)
+                    req = queue.peek_ready(now)
+                    if req is None or not self.can_admit(sess, req):
+                        break
+                    queue.pop_ready(now)
+                else:
+                    req = queue.pop_ready(now)
+                    if req is None:
+                        break
+                now = self.admit(sess, req, now, drain=not self._chunked)
+            if sess.jobs:
+                now = self._advance_prefill(sess, now)
             if not sess.slots.n_busy and pending is None:
                 nxt = queue.next_arrival()
                 if nxt is None:

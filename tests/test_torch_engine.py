@@ -235,3 +235,40 @@ def test_serve_fuse_gates_matches_unfused_and_needs_aimc():
     assert fused.report.useful_vectors == plain.report.useful_vectors
     with pytest.raises(SystemExit):
         tserve.main(["--smoke", "--device", "cpu", "--fuse-gates"])
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "llama3.2-3b", "qwen1.5-110b",
+                                  "internvl2-1b"])
+def test_zoo_serve_from_seed_matches_reference(arch):
+    """Each new arch's smoke config served through the port's CLI
+    (``--exec aimc --device cpu``, weights from ``--seed``) reconciles its
+    CM_* ledgers and emits the JAX engine's tokens on the same Poisson
+    trace (every request admitted before the first decode step); K2 runs
+    every projection, so a launch count of 7 per layer and pass is the
+    card's gate (chip_smoke.py)."""
+    argv = ["--arch", arch, "--smoke", "--exec", "aimc", "--requests", "4",
+            "--prompt-len", "10", "--gen", "4", "--slots", "4", "--trace",
+            f"poisson:{RATE:g}", "--seed", "1", "--device", "cpu"]
+    run = tserve.main(argv)
+    led, static = tb.reconcile(run.program, run.report.records,
+                               run.report.observed_vectors)
+    assert led == static
+    spec = get_arch(arch)
+    jparams = spec.model_module().init(jax.random.PRNGKey(1), spec.smoke_cfg)
+    cfg = ja.AimcConfig(impl="ref")
+    program = jp.program_model(jparams, jp.MappingPlan(), cfg,
+                               jax.random.PRNGKey(3))
+    eng = JEngine(spec.model_module(), spec.smoke_cfg,
+                  JExe(mode="aimc", aimc=cfg, compute_dtype="float32",
+                       programmed=True),
+                  program.install(jparams), n_slots=4, prompt_pad=10,
+                  max_seq=14, cache_dtype=jnp.float32, family=spec.family,
+                  module=spec.module, program=program)
+    eng.warmup()
+    rep_j = eng.serve([jb.Request(**dataclasses.asdict(r))
+                       for r in run.requests])
+    for rid, rec in rep_j.records.items():
+        assert run.report.tokens(rid) == rec.tokens, f"{arch} request {rid}"
+    if spec.family == "vlm":
+        assert min(len(r.prompt) for r in run.requests) >= \
+            spec.smoke_cfg.n_patches

@@ -28,7 +28,11 @@ def test_every_module_is_listed():
                  "repro_torch.core.prng", "repro_torch.core.aimclib",
                  "repro_torch.models.paper_nets",
                  "repro_torch.core.costmodel", "repro_torch.core.workloads",
-                 "repro_torch.core.schedule", "repro_torch.core.coupling"):
+                 "repro_torch.core.schedule", "repro_torch.core.coupling",
+                 "repro_torch.runtime.pages", "repro_torch.configs.glm4_9b",
+                 "repro_torch.configs.llama32_3b",
+                 "repro_torch.configs.qwen15_110b",
+                 "repro_torch.configs.internvl2_1b"):
         assert must in mods
 
 

@@ -19,6 +19,11 @@ and a stacked gate is bit-equal to its single-gate launch, under either
 noise source. K4's raw Philox draws are held to the moments of N(0, 1):
 mean within 4 sigma/sqrt(n), std within 1%, |lag-1 and gate-to-gate
 correlation| < 0.01 over 2^21 draws.
+
+The serving path on the card: K2's bias epilogue at qwen1.5-110b's decode
+shapes (d_model 8192, 64/8 heads) equals the plain version within the
+same bound, and a paged decode step serves the dense engine's tokens at
+smoke size (tokens equal).
 """
 
 import numpy as np
@@ -333,3 +338,64 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x, w_q, s_w, s_x, _ = _operands(2, 1, 64, 128)
     with pytest.raises(ValueError, match="CUDA"):
         aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, adc_step=8.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 1024], ids=["wq", "wk"])
+def test_k2_bias_epilogue_at_qwen_decode_shapes(dev, n):
+    """qwen's QKV projections at decode (B 4 slots, K 8192 = 16 row blocks
+    of 512): the bias rides the fused epilogue and equals the plain
+    version; it also equals the kernel without bias plus the bias."""
+    x, w_q, s_w, s_x, bias = _operands(4, 16, 512, n, seed=3, device=dev)
+    step = adc_step_lsb(512, 1.0)
+    y = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, None, bias, adc_step=step)
+    want = ref.aimc_matmul_ref_v2(x, w_q, s_w, s_x, None, bias,
+                                  adc_step=step)
+    _close(y, want)
+    plain = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, None, None, adc_step=step)
+    _close(y, plain + bias)
+
+
+@pytest.mark.cuda
+def test_paged_decode_on_card_equals_dense(dev):
+    """The llama3.2-3b smoke config programmed on the card: the paged
+    engine (page_size 4) and the legged prefix-cache engine (fixed DAC
+    scale) emit the dense engine's tokens, every projection on K2."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.program import MappingPlan, program_model
+    from repro_torch.models.layers import Execution
+    from repro_torch.runtime.batcher import Request, synchronized_trace
+    from repro_torch.runtime.engine import ServeEngine
+
+    spec = get_arch("llama3.2-3b")
+    cfg, model = spec.smoke_cfg, spec.model_module()
+    params = model.init(prng.PRNGKey(0), cfg, device=dev)
+    acfg = AimcConfig(input_scale=0.1)
+    prog = program_model(params, MappingPlan(), acfg, prng.PRNGKey(2))
+    inst = prog.install(params)
+    exe = Execution(mode="aimc", aimc=acfg, compute_dtype="float32",
+                    programmed=True)
+    shared = tuple(range(1, 9))
+    reqs = [dataclasses.replace(r, prompt=shared + r.prompt[8:])
+            for r in synchronized_trace(4, prompt_len=11, max_new=5,
+                                        seed=1, vocab=cfg.vocab)]
+    assert all(isinstance(r, Request) for r in reqs)
+    kw = dict(n_slots=4, prompt_pad=12, max_seq=20, program=prog,
+              family=spec.family, module=spec.module)
+    outs = []
+    for extra in ({}, {"page_size": 4},
+                  {"page_size": 4, "prefix_cache": True,
+                   "prefill_chunk": 4}):
+        eng = ServeEngine(model, cfg, exe, inst, **kw, **extra)
+        counts = eng.warmup()
+        aimc_mvm.reset_counts()
+        rep = eng.serve(list(reqs))
+        outs.append([rep.tokens(r.rid) for r in reqs])
+        assert eng.compile_counts() == counts
+        assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] > 0
+        assert rep.page_ledger_exact
+    assert outs[0] == outs[1] == outs[2]

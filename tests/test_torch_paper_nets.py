@@ -193,3 +193,77 @@ def test_params_from_numpy_carries_lists_and_tuples(nets):
     assert isinstance(got["dense"], tuple) and len(got["dense"]) == 3
     assert all(isinstance(t, torch.Tensor) for t in got["convs"])
     np.testing.assert_array_equal(got["dense"][2].numpy(), tree["dense"][2])
+
+
+def test_bench_accuracy_settings_match_reference():
+    """`benchmarks/bench_accuracy.py`'s own configuration (key 7 and its
+    folds, the NOISY model on 512-row tiles, MLP 1024 B 16, LSTM n_h 256
+    T 20 B 8, CNN-F at 64 px B 8) through both packages on the CPU: the
+    three output SNRs agree within 0.05 dB, the LSTM and CNN top-1
+    agreement is equal, and so is the CNN's flip-margin verdict. The
+    reference functions are called directly, as the benchmark calls them."""
+    noisy_j = JConfig(tile_rows=512, impl="ref",
+                      noise=JNoise(sigma_read=0.003))
+    noisy_t = TConfig(tile_rows=512, noise=TNoise(sigma_read=0.003))
+    kj, kt = jax.random.PRNGKey(7), prng.PRNGKey(7)
+
+    def fj(i):
+        return jax.random.fold_in(kj, i)
+
+    def ft(i):
+        return prng.fold_in(kt, i)
+
+    def snr(ref, test):
+        ref, test = np.asarray(ref, np.float64), np.asarray(test, np.float64)
+        return 20 * np.log10(np.linalg.norm(ref)
+                             / max(np.linalg.norm(ref - test), 1e-12))
+
+    def stats(y_dig, y_ana):
+        y_dig, y_ana = np.asarray(y_dig), np.asarray(y_ana)
+        agree = y_dig.argmax(-1) == y_ana.argmax(-1)
+        if y_dig.ndim != 2:
+            return snr(y_dig, y_ana), float(agree.mean())
+        top2 = np.sort(y_dig, -1)[:, -2:]
+        margins = top2[:, 1] - top2[:, 0]
+        err = np.abs(y_ana - y_dig).max(-1)
+        return (snr(y_dig, y_ana), float(agree.mean()),
+                bool(np.all(agree | (margins < err))))
+
+    out = {}
+    p = jpn.mlp_init(kj)
+    x = jax.random.normal(fj(1), (16, 1024))
+    y = jax.jit(lambda p, x, k: jpn.mlp_forward_aimc(p, x, noisy_j, k)[0])(
+        p, x, fj(2))
+    pt = tpn.mlp_init(kt, device="cpu")
+    xt = prng.normal(ft(1), (16, 1024))
+    out["mlp"] = (stats(jpn.mlp_forward_digital(p, x), y)[0],
+                  stats(tpn.mlp_forward_digital(pt, xt),
+                        tpn.mlp_forward_aimc(pt, xt, noisy_t, ft(2))[0])[0])
+
+    nh = 256
+    p = jpn.lstm_init(fj(3), nh)
+    xs = jax.random.normal(fj(4), (20, 8, 50))
+    y = jax.jit(lambda p, x, k: jpn.lstm_forward_aimc(
+        p, x, nh, noisy_j, k)[0])(p, xs, fj(5))
+    pt = tpn.lstm_init(ft(3), nh, device="cpu")
+    xst = prng.normal(ft(4), (20, 8, 50))
+    out["lstm"] = (stats(jpn.lstm_forward_digital(p, xs, nh), y),
+                   stats(tpn.lstm_forward_digital(pt, xst, nh),
+                         tpn.lstm_forward_aimc(pt, xst, nh, noisy_t,
+                                               ft(5))[0]))
+
+    p = jax.jit(lambda k: jpn.cnn_init(k, "F", img=64))(fj(6))
+    x = jax.random.normal(fj(7), (8, 64, 64, 3))
+    y_dig = jax.jit(lambda p, x: jpn.cnn_forward(p, x, "F", None))(p, x)
+    y = jax.jit(lambda p, x, k: jpn.cnn_forward(p, x, "F", noisy_j,
+                                                key=k)[0])(p, x, fj(8))
+    pt = tpn.cnn_init(ft(6), "F", img=64, device="cpu")
+    xt = prng.normal(ft(7), (8, 64, 64, 3))
+    out["cnn"] = (stats(y_dig, y),
+                  stats(tpn.cnn_forward(pt, xt, "F"),
+                        tpn.cnn_forward(pt, xt, "F", noisy_t,
+                                        key=ft(8))[0]))
+    (mj, mt), (lj, lt), (cj, ct) = out["mlp"], out["lstm"], out["cnn"]
+    assert abs(mj - mt) <= 0.05, out
+    assert abs(lj[0] - lt[0]) <= 0.05 and lj[1] == lt[1], out
+    assert abs(cj[0] - ct[0]) <= 0.05 and cj[1:] == ct[1:], out
