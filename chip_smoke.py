@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: serve granite-8b and the rest of
-the dense zoo (glm4-9b, llama3.2-3b, qwen1.5-110b, internvl2-1b) at their
-published widths on programmed AIMC crossbars, dense and paged, and run
-the paper's MLP, LSTM and CNN-F/M/S at theirs with read noise on,
-single-core and in the paper's multi-core mappings, through the
+"""Chip smoke of the PyTorch/CUDA port: serve granite-8b, the rest of the
+dense zoo (glm4-9b, llama3.2-3b, qwen1.5-110b, internvl2-1b) and the
+recurrent zoo (xlstm-350m, recurrentgemma-9b) at their published widths on
+programmed AIMC crossbars, dense, paged and through recurrent snapshot
+pages, and run the paper's MLP, LSTM and CNN-F/M/S at theirs with read
+noise on, single-core and in the paper's multi-core mappings, through the
 hand-written Hopper kernels K1-K4.
 
     python3 chip_smoke.py        # one CUDA card; exits non-zero without one
@@ -113,6 +114,27 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      a fixed DAC scale on the prefix cache with 16-token legs, each
      admission drained: tokens equal the dense engine's, the shared span
      prefilled and billed once.
+ 14. recurrent — first the xlstm-350m and recurrentgemma-9b smoke configs
+     held to the CPU as in phase 3; then at the published widths, uncut,
+     seed 0, noise off, 4 Poisson requests at 20 req/s (prompt <= 16, gen
+     <= 8, 4 slots) through `serve.main`, launch counts zeroed just before
+     and read just after: xlstm K2 = 132 x passes (11 per pair; a
+     recurrent prefill is one pass per prompt position), recurrentgemma
+     K2 = 292 x passes (8 per RG-LRU block, 7 per local-attention block);
+     ledgers reconcile, tokens in vocab, finite logits. xlstm with
+     --fuse-gates on synchronized arrivals: K3 = 36 x passes (w_ug G=2,
+     w_qkv G=3, w_ff_gu G=2), K2 = 48 x passes, tokens bit-equal to the
+     unfused engine on the same codes. With the DAC scale fixed at 0.05:
+     the xlstm engine equals `static_generate` bit for bit on a
+     synchronized trace, and 8 requests sharing a 12-token prefix (+4 own)
+     through snapshot pages of 4 with 8-token legs, each admission
+     drained, equal the dense engine's tokens, restore the reference
+     rule's 8 prompt tokens per follower, with an exact page ledger and no
+     new shapes after warmup. K2/K3 at every projection shape of both
+     models (layer 0's codes, B 4; rglru's w_a with a random bias in the
+     epilogue) held to the plain version and timed as in phase 2; a decode
+     step and a prefill of each timed and profiled; init seconds and peak
+     memory recorded.
 
 The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
@@ -462,14 +484,14 @@ def grid_mode_checks(dev, peaks, flush, gen):
     return rows
 
 
-def small_model_phase(dev):
+def small_model_phase(dev, arch=ARCH):
     """The smoke config served on the card (kernels); its prefill logits
     held against the same programmed weights on the CPU (plain versions)."""
     import torch
 
     from repro_torch.launch import serve
 
-    card = serve.main(["--arch", ARCH, "--smoke", "--exec", "aimc",
+    card = serve.main(["--arch", arch, "--smoke", "--exec", "aimc",
                        "--requests", "4", "--prompt-len", "8", "--gen", "6",
                        "--slots", "4", "--seed", str(SEED), "--device",
                        str(dev)])
@@ -487,9 +509,9 @@ def small_model_phase(dev):
         check(tuple(got.shape) == (1, 1, eng.cfg.vocab),
               f"smoke logits shape {tuple(got.shape)}")
         worst = max(worst, float((got.cpu() - want).abs().max()))
-    check(worst <= 1e-4, f"smoke prefill logits card vs CPU: {worst}")
-    print(f"[small] card (kernels) vs CPU (plain) prefill logits max|err| "
-          f"{worst:.3g} <= 1e-4", flush=True)
+    check(worst <= 1e-4, f"{arch} smoke prefill logits card vs CPU: {worst}")
+    print(f"[small] {arch}: card (kernels) vs CPU (plain) prefill logits "
+          f"max|err| {worst:.3g} <= 1e-4", flush=True)
     return worst
 
 
@@ -2124,6 +2146,317 @@ def paged_phase(dev, run, peaks, card):
             "page_ledger": rl.page_ledger}
 
 
+# the recurrent zoo (phase 14), at the published widths, uncut
+RECURRENT = ("xlstm-350m", "recurrentgemma-9b")
+SNAP_PAGE, SNAP_PREFIX, SNAP_TAIL, SNAP_REQ, SNAP_LEG = 4, 12, 4, 8, 8
+
+
+def recurrent_launches(cfg, module: str, fused: bool = False):
+    """(K2, K3) launches per forward pass: xlstm runs 7 projections per
+    mLSTM block and 4 per sLSTM block (fused: w_ug, w_qkv and w_ff_gu on
+    K3, the other 4 on K2); rglru 8 per recurrent block and 7 per local
+    attention block."""
+    if module == "xlstm":
+        n = cfg.n_pairs
+        return (4 * n, 3 * n) if fused else (11 * n, 0)
+    return (8 * (2 * cfg.n_units + cfg.n_tail) + 7 * cfg.n_units, 0)
+
+
+def recurrent_serve(dev, arch, extra, card):
+    """``serve.main`` on a recurrent arch at its published widths, 4
+    requests, prompt 16, gen 8, 4 slots: launch counts zeroed just before
+    and read just after (exact per-pass K2/K3), ledgers reconcile, vector
+    books close, tokens in the vocabulary, finite logits of its width."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch import serve
+    from repro_torch.runtime.batcher import reconcile
+
+    spec = get_arch(arch)
+    args = ["--arch", arch, "--exec", "aimc", "--requests", str(N_REQ),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--slots",
+            str(SLOTS), "--seed", str(SEED), "--device", str(dev), *extra]
+    print(f"[recurrent] python -m repro_torch.launch.serve {' '.join(args)}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    aimc_mvm.reset_counts()
+    t0 = time.perf_counter()
+    run = serve.main(args)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = dict(aimc_mvm.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    eng, rep, prog = run.engine, run.report, run.program
+    cfg, passes = eng.cfg, eng.forward_passes
+    check(cfg == spec.model_cfg, f"{arch}: not the published config: {cfg}")
+    k2, k3 = recurrent_launches(cfg, spec.module, "--fuse-gates" in extra)
+    check(counts["aimc_mvm_v2"] == k2 * passes
+          and counts["aimc_mvm_stacked"] == k3 * passes,
+          f"{arch}: launches {counts} != ({k2} K2, {k3} K3) x {passes}")
+    led, static = reconcile(prog, rep.records, rep.observed_vectors)
+    check(led == static and rep.observed_vectors == rep.useful_vectors,
+          f"{arch}: CM_* or vector books do not close")
+    check(len(rep.records) == N_REQ, f"{arch}: requests lost")
+    for rec in rep.records.values():
+        check(1 <= len(rec.tokens) <= rec.request.max_new
+              and all(0 <= t < cfg.vocab for t in rec.tokens),
+              f"{arch}: bad tokens for request {rec.request.rid}")
+    tokens, vl = eng._pad_prompt(run.requests[0].prompt)
+    logits, _ = eng.model.prefill(eng.params, tokens, cfg, eng.exe,
+                                  max_seq=eng.max_seq, valid_len=vl)
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (1, 1, cfg.vocab),
+          f"{arch}: bad logits {tuple(logits.shape)}")
+    print(f"[recurrent] {arch}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}; {wall:.1f}s wall (init "
+          f"{run.init_s:.2f}s) on {card}, {passes} passes, launches "
+          f"{counts} = ({k2} K2, {k3} K3) per pass, peak {peak_gb:.2f} GB; "
+          f"ledgers reconcile, tokens in vocab, logits finite", flush=True)
+    return run, {"wall_s": wall, "init_s": run.init_s, "forward_passes":
+                 passes, "launches": counts, "per_pass": [k2, k3],
+                 "peak_gb": peak_gb, "report": rep.summary(),
+                 "program": prog.summary()}
+
+
+def recurrent_kernel_rows(arch, params, peaks, flush, gen, card,
+                          stacks_only=False):
+    """K2 (and K3, on a gate stack) at each distinct projection shape of a
+    served recurrent arch: layer 0's programmed codes at the decode slot
+    count, noise off, with a random nonzero bias where the model has one
+    (rglru's b_a / b_x ride K2's epilogue): held to the plain version and
+    timed against its bytes bound. ``stacks_only`` skips single matrices
+    (a fused tree's K2 shapes are the unfused tree's)."""
+    import torch
+
+    from repro_torch.core.aimc import AimcConfig, AimcLinearState
+    from repro_torch.core.program import _flatten
+    from repro_torch.core.quant import sym_scale
+    from repro_torch.kernels import aimc_mvm, ref
+
+    step = AimcConfig().adc_step
+    rows, seen = [], set()
+    for path, st in _flatten(params):
+        if not isinstance(st, AimcLinearState):
+            continue
+        g = st.stack_shape[1] if len(st.stack_shape) == 2 else 1
+        if stacks_only and g == 1:
+            continue
+        name = path.rsplit("/", 1)[-1]
+        has_bias = name in ("w_a", "w_x")
+        if (st.k, st.n, g, has_bias) in seen:
+            continue
+        seen.add((st.k, st.n, g, has_bias))
+        w_q, s_w = st.w_q[0], st.s_w[0]
+        kb, m, np_ = w_q.shape[-3:]
+        x = torch.zeros((SLOTS, kb * m), device=w_q.device)
+        x[:, :st.k] = torch.randn((SLOTS, st.k), generator=gen,
+                                  device=w_q.device)
+        s_x = sym_scale(x).reshape(1, 1)
+        bias = (torch.nn.functional.pad(torch.randn(
+            (st.n,), generator=gen, device=w_q.device), (0, np_ - st.n))
+            if has_bias else None)
+        if g > 1:
+            kern = functools.partial(aimc_mvm.aimc_mvm_stacked, x, w_q, s_w,
+                                     s_x, adc_step=step)
+            plain = functools.partial(ref.aimc_matmul_stacked_ref, x, w_q,
+                                      s_w, s_x, adc_step=step)
+        else:
+            kern = functools.partial(aimc_mvm.aimc_mvm_v2, x, w_q, s_w, s_x,
+                                     None, bias, adc_step=step)
+            plain = functools.partial(ref.aimc_matmul_ref_v2, x, w_q, s_w,
+                                      s_x, None, bias, adc_step=step)
+        y, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, tol = _err(y, want)
+        kname = "aimc_mvm_stacked" if g > 1 else "aimc_mvm_v2"
+        check(err <= tol, f"{arch} {kname} {path}: max |err| {err} > {tol}")
+        row = {"arch": arch, "kernel": kname, "proj": path, "K": st.k,
+               "N": st.n, "G": g, "B": SLOTS, "KB": kb, "Np": np_,
+               "bias": has_bias, "max_abs_err": err, "tol": tol,
+               "plan": aimc_mvm.launch_plan(w_q.device, SLOTS, kb, m, np_, g),
+               "ms": time_ms(kern, flush, KERNEL_REPS),
+               "plain_ms": time_ms(plain, flush, 3)}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            SLOTS, kb, m, np_, g, peaks, bias=has_bias)
+        rows.append(row)
+        print(f"[recurrent] {arch} {kname} {path} [{SLOTS}x{st.k}]x"
+              f"[{st.k}x{st.n}]{f' G={g}' if g > 1 else ''} KB {kb} Np "
+              f"{np_}{' + bias' if has_bias else ''} ({plan_str(row['plan'])})"
+              f": max|err| {err:.3g} (tol {tol:.3g}); kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) on {card}",
+              flush=True)
+        del x, y, want
+    return rows
+
+
+def _snapshot_hit(prefix: int, plen: int, page: int, leg: int) -> int:
+    """Prompt tokens a follower restores under the reference's rule:
+    snapshots exist at page-aligned leg ends, a hit must lie inside the
+    shared prefix, and the deepest usable one stops short of the last
+    prompt token ((plen - 1) // page pages)."""
+    ends = [e for e in range(leg, plen + 1, leg) if e % page == 0]
+    cap = (plen - 1) // page * page
+    return max([e for e in ends if e <= prefix and e <= cap], default=0)
+
+
+def recurrent_phase(dev, peaks, card):
+    """xlstm-350m and recurrentgemma-9b at their published widths on the
+    card (see the module docstring, phase 14)."""
+    import random
+
+    import torch
+
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.runtime.batcher import (Request, reconcile,
+                                             synchronized_trace)
+    from repro_torch.runtime.engine import ServeEngine, static_generate
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # -- xlstm-350m: Poisson main path, then --fuse-gates on synchronized
+    # arrivals held to the unfused engine on the same installed codes
+    xrun, out["xlstm"] = recurrent_serve(
+        dev, "xlstm-350m", ["--trace", f"poisson:{RATE:g}"], card)
+    eng, prog = xrun.engine, xrun.program
+    model, cfg = eng.model, eng.cfg
+    frun, out["xlstm_fused"] = recurrent_serve(dev, "xlstm-350m",
+                                               ["--fuse-gates"], card)
+    check("w_qkv" in frun.engine.params["pairs"]["mlstm"],
+          "xlstm --fuse-gates built no w_qkv stack")
+    unfused = ServeEngine(model, cfg, eng.exe, eng.params, n_slots=SLOTS,
+                          prompt_pad=PROMPT, max_seq=PROMPT + GEN,
+                          program=prog, family=eng.family, module=eng.module)
+    aimc_mvm.reset_counts()
+    rep_u = unfused.serve([dataclasses.replace(r) for r in frun.requests])
+    torch.cuda.synchronize(dev)
+    for r in frun.requests:
+        check(rep_u.tokens(r.rid) == frun.report.tokens(r.rid),
+              f"xlstm fused tokens differ from unfused (request {r.rid})")
+    print(f"[recurrent] xlstm-350m fused (K3: w_ug G=2, w_qkv G=3, w_ff_gu "
+          f"G=2) == unfused bit for bit on synchronized arrivals "
+          f"({frun.report.generated_tokens} tokens); unfused launches "
+          f"{dict(aimc_mvm.LAUNCHES)} for {unfused.forward_passes} passes",
+          flush=True)
+    flush = flush_buffer(dev)
+    out["xlstm"]["kernel_rows"] = (
+        recurrent_kernel_rows("xlstm-350m", eng.params, peaks, flush, gen,
+                              card)
+        + recurrent_kernel_rows("xlstm-350m", frun.engine.params, peaks,
+                                flush, gen, card, stacks_only=True))
+    del flush
+    print(f"[recurrent] xlstm-350m decode step and prefill on {card}:",
+          flush=True)
+    out["xlstm"]["times"] = step_times(eng, xrun.requests[0].prompt)
+    del frun
+
+    # -- engine == static_generate, fixed DAC scale, synchronized
+    exe_f = dataclasses.replace(eng.exe, aimc=dataclasses.replace(
+        eng.exe.aimc, input_scale=PREFIX_SCALE))
+    reqs = synchronized_trace(N_REQ, prompt_len=PROMPT, max_new=GEN,
+                              seed=SEED + 1, vocab=cfg.vocab)
+    e = ServeEngine(model, cfg, exe_f, eng.params, n_slots=N_REQ,
+                    prompt_pad=PROMPT, max_seq=PROMPT + GEN, program=prog,
+                    family=eng.family, module=eng.module)
+    rep = e.serve(list(reqs))
+    prompts = torch.tensor([r.prompt for r in reqs], dtype=torch.int32,
+                           device=dev)
+    toks, (t_pre, t_dec) = static_generate(model, cfg, exe_f, eng.params,
+                                           prompts, GEN,
+                                           max_seq=PROMPT + GEN)
+    for r in reqs:
+        check(rep.tokens(r.rid) == toks[r.rid].tolist(),
+              f"xlstm engine != static_generate for request {r.rid}")
+    out["static"] = {"prefill_s": t_pre, "decode_s": t_dec,
+                     "tokens": rep.generated_tokens}
+    print(f"[recurrent] xlstm-350m engine == static_generate bit for bit "
+          f"(DAC scale fixed at {PREFIX_SCALE}, {len(reqs)} synchronized "
+          f"requests, {rep.generated_tokens} tokens); static prefill "
+          f"{t_pre:.2f} s, {GEN - 1} decode steps {t_dec:.2f} s (host "
+          f"clock, on {card})", flush=True)
+
+    # -- snapshot pages: shared prefix, page 4, 8-token legs, drained
+    rng = random.Random(SEED)
+    shared = tuple(rng.randint(1, cfg.vocab - 1) for _ in range(SNAP_PREFIX))
+    reqs2 = [Request(rid=i, prompt=shared + tuple(
+        rng.randint(1, cfg.vocab - 1) for _ in range(SNAP_TAIL)),
+        max_new=GEN) for i in range(SNAP_REQ)]
+    plen = SNAP_PREFIX + SNAP_TAIL
+    kw = dict(n_slots=SNAP_REQ, prompt_pad=plen, max_seq=plen + GEN,
+              program=prog, family=eng.family, module=eng.module)
+    dense = ServeEngine(model, cfg, exe_f, eng.params, **kw)
+    snap = ServeEngine(model, cfg, exe_f, eng.params, page_size=SNAP_PAGE,
+                       prefix_cache=True, prefill_chunk=SNAP_LEG, **kw)
+    counts0 = snap.warmup()
+    rd = dense.serve(list(reqs2))
+    aimc_mvm.reset_counts()
+    p0 = snap.forward_passes
+    sess = snap.begin()
+    now = 0.0
+    for r in reqs2:
+        now = snap.admit(sess, r, now, drain=True)
+    while sess.slots.n_busy:
+        now = snap.step(sess, now)
+    rs = snap.finish(sess, now)
+    torch.cuda.synchronize(dev)
+    counts, passes = dict(aimc_mvm.LAUNCHES), snap.forward_passes - p0
+    for r in reqs2:
+        check(rs.tokens(r.rid) == rd.tokens(r.rid),
+              f"snapshot tokens differ from dense for request {r.rid}")
+    hit = _snapshot_hit(SNAP_PREFIX, plen, SNAP_PAGE, SNAP_LEG)
+    paid = [rs.records[r.rid].prefill_vectors for r in reqs2]
+    check(hit > 0 and paid == [plen] + [plen - hit] * (SNAP_REQ - 1)
+          and rs.prefix_hits == SNAP_REQ - 1
+          and rs.prefix_hit_vectors == (SNAP_REQ - 1) * hit,
+          f"snapshot hits: prefill vectors {paid}, {rs.prefix_hits} hits "
+          f"({rs.prefix_hit_vectors} vectors), rule gives {hit} per follower")
+    check(rs.page_ledger_exact and rs.page_ledger["held"] == len(snap.prefix)
+          and snap.compile_counts() == counts0,
+          f"snapshot: ledger {rs.page_ledger}, shapes "
+          f"{snap.compile_counts()} vs {counts0}")
+    k2 = recurrent_launches(cfg, "xlstm")[0]
+    check(counts["aimc_mvm_v2"] == k2 * passes,
+          f"snapshot: launches {counts} != {k2} x {passes}")
+    led, static = reconcile(prog, rs.records, rs.observed_vectors)
+    check(led == static and rs.observed_vectors == rs.useful_vectors,
+          "snapshot: CM_* or vector books do not close")
+    out["snapshot"] = {"prefill_vectors": paid, "hit_per_follower": hit,
+                       "prefix_hits": rs.prefix_hits,
+                       "prefix_hit_vectors": rs.prefix_hit_vectors,
+                       "legs": rs.prefill_chunks, "launches": counts,
+                       "passes": passes, "page_ledger": {
+                           k: v for k, v in rs.page_ledger.items()
+                           if k != "by_owner"},
+                       "shapes": counts0,
+                       "ms_per_leg": rs.wall_prefill_s
+                       / max(rs.prefill_chunks, 1) * 1e3}
+    print(f"[recurrent] snapshot pages (page {SNAP_PAGE}, {SNAP_LEG}-token "
+          f"legs, DAC scale {PREFIX_SCALE}): {SNAP_REQ} requests sharing "
+          f"{SNAP_PREFIX} tokens equal the dense engine's tokens; prefill "
+          f"vectors {paid} ({hit} restored per follower), "
+          f"{rs.prefill_chunks} legs, {passes} passes, launches {counts}; "
+          f"page ledger exact, {rs.page_ledger['held']} snapshot pages "
+          f"held; shapes {counts0} unchanged", flush=True)
+    del xrun, eng, unfused, e, dense, snap, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- recurrentgemma-9b: Poisson main path, unfused
+    grun, out["rglru"] = recurrent_serve(
+        dev, "recurrentgemma-9b", ["--trace", f"poisson:{RATE:g}"], card)
+    flush = flush_buffer(dev)
+    out["rglru"]["kernel_rows"] = recurrent_kernel_rows(
+        "recurrentgemma-9b", grun.engine.params, peaks, flush, gen, card)
+    del flush
+    print(f"[recurrent] recurrentgemma-9b decode step and prefill on "
+          f"{card}:", flush=True)
+    out["rglru"]["times"] = step_times(grun.engine, grun.requests[0].prompt)
+    del grun
+    return out
+
+
 def fidelity_phase(dev):
     """bench_accuracy's own configuration (key 7 and its folds, the NOISY
     model, MLP 1024 B 16, LSTM n_h 256, CNN-F at 64 px B 8) on the card,
@@ -2293,6 +2626,11 @@ def main() -> int:
             paged = phase("paged", paged_phase, dev, zrun, peaks, smi)
         del zrun
         free()
+    recurrent = {"small_model_max_err": {
+        arch: phase(f"small {arch}", small_model_phase, dev, arch)
+        for arch in RECURRENT}}
+    recurrent |= phase("recurrent", recurrent_phase, dev, peaks, smi)
+    free()
 
     def decode_layer(kname, projs):
         sel = [r for r in rows if r["kernel"] == kname and r["B"] == SLOTS
@@ -2354,7 +2692,7 @@ def main() -> int:
         "serve": serve_stats, "stacked": stacked, "fused_serve": fused,
         "staged_v1": staged, "paper_nets": paper, "init": init,
         "multicore": multicore, "fidelity": fidelity, "zoo": zoo,
-        "paged": paged, "phase_seconds": seconds},
+        "paged": paged, "recurrent": recurrent, "phase_seconds": seconds},
         indent=1))
     print(json.dumps(record))
     print(smi)

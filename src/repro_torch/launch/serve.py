@@ -9,16 +9,22 @@ dense path of `repro/launch/serve.py`).
 
 ``--arch`` takes the ported dense decoders: granite-8b, glm4-9b,
 llama3.2-3b, qwen1.5-110b and internvl2-1b (whose prompts start with its
-patch positions: ``--prompt-len`` must cover them).
+patch positions: ``--prompt-len`` must cover them), and the recurrent
+xlstm-350m and recurrentgemma-9b, which serve through per-slot state
+insertion (no max_seq cap) and, with ``--page-size``, through recurrent
+snapshot pages and prefill legs.
 
 Runs on the CUDA card by default (``--device cuda``) and refuses to start
 without one unless ``--device cpu`` is given. With ``--exec aimc`` every
 stationary projection is programmed ONCE (CM_INITIALIZE), the program is
 installed into the parameter tree, and every token vector afterwards runs
 the crossbar kernel K2 on the stationary int8 codes; ``--fuse-gates`` runs
-w_gate + w_up as one gate-fused launch of K3 per layer instead. The run prints the
-program summary, decode ms/step and the CM_* ledger reconciliation, and
-exits non-zero if the per-request ledgers do not close exactly.
+each shared-input gate group as one launch of K3 instead (the arch module's
+own `fuse_gate_stacks`: w_gate + w_up per transformer layer; w_up + w_gate,
+w_q + w_k + w_v and the sLSTM FFN pair per xLSTM pair; rglru has none).
+The run prints the program summary, decode ms/step and the CM_* ledger
+reconciliation, and exits non-zero if the per-request ledgers do not close
+exactly.
 ``--cores N`` spreads the programmed matrices over N per-core tile contexts
 (`MappingPlan(n_contexts=N)`) and prints the per-core CM_*/comm ledgers of
 `CoreSchedule.from_program` and its modeled latency per token vector;
@@ -36,8 +42,11 @@ and ``--prefill-chunk C`` runs prefills as C-token legs between decode
 chunks; ``--paged-verify`` exits non-zero unless the page ledger is exact,
 every useful vector is booked, no closure saw a new shape after warmup
 and (synchronized, unchunked, with a shared prefix) the shared span was
-prefilled exactly once. The reference's multi-tenant, drift/chaos,
-placement, mesh, static and int8 paths are later slices.
+prefilled exactly once. ``--admission sjf`` admits the shortest decode
+budget first among arrived requests (default fifo). ``--static`` runs the
+legacy static-batch loop (`engine.static_generate`: one synchronized batch,
+lockstep decode) for A/B against the engine. The reference's multi-tenant,
+drift/chaos, placement, mesh and int8 paths are later slices.
 """
 
 from __future__ import annotations
@@ -70,6 +79,9 @@ def parse_args(argv=None):
                          "default synchronized")
     ap.add_argument("--exec", dest="exec_mode", default="digital",
                     choices=["digital", "aimc"])
+    ap.add_argument("--static", action="store_true",
+                    help="legacy monolithic static-batch loop (A/B baseline)")
+    ap.add_argument("--admission", default="fifo", choices=["fifo", "sjf"])
     ap.add_argument("--decode-chunk", dest="decode_chunk", type=int,
                     default=1, help="decode steps per host sync")
     ap.add_argument("--page-size", dest="page_size", type=int, default=0,
@@ -129,6 +141,15 @@ def parse_args(argv=None):
                                 or args.pages or args.paged_verify):
         ap.error("--prefix-cache/--prefill-chunk/--pages/--paged-verify "
                  "require --page-size")
+    if args.static and args.trace:
+        ap.error("--static serves one synchronized batch; staggered "
+                 "traces need the engine")
+    if args.static and args.decode_chunk > 1:
+        ap.error("--decode-chunk applies to the engine's decode loop; "
+                 "--static is the legacy lockstep baseline")
+    if args.page_size and args.static:
+        ap.error("--page-size serves through the slot engine; --static is "
+                 "the legacy dense-batch baseline")
     if args.shared_prefix and args.shared_prefix >= args.prompt_len:
         ap.error(f"--shared-prefix {args.shared_prefix} must leave every "
                  f"request a unique continuation (< --prompt-len "
@@ -187,6 +208,7 @@ class ServeRun:
     requests: list
     schedule: object = None
     init_s: float = 0.0
+    static_tokens: object = None     # [B, gen] tokens of a --static run
 
 
 def main(argv=None) -> ServeRun:
@@ -216,6 +238,9 @@ def main(argv=None) -> ServeRun:
         raise SystemExit("serve.py drives decoder-only LMs; the enc-dec "
                          "audio family decodes via launch.steps")
     model = spec.model_module()
+    if args.fuse_gates and not hasattr(model, "fuse_gate_stacks"):
+        raise SystemExit(f"--fuse-gates: {spec.arch_id} ({spec.module}) has "
+                         f"no gate stacks to fuse")
     aimc_cfg = AimcConfig()
     exe = (Execution(mode="aimc", aimc=aimc_cfg, compute_dtype="float32",
                      programmed=True)
@@ -240,8 +265,9 @@ def main(argv=None) -> ServeRun:
     cut = (f", depth cut to {cfg.n_layers} of "
            f"{(spec.smoke_cfg if args.smoke else spec.model_cfg).n_layers}"
            if args.layers else "")
+    d_ff = getattr(cfg, "d_ff", None) or getattr(cfg, "d_ff_s", None)
     print(f"[serve] {spec.arch_id} ({cfg.n_layers}L d_model={cfg.d_model} "
-          f"d_ff={cfg.d_ff} vocab={cfg.vocab}{cut}) on {device}: weights "
+          f"d_ff={d_ff} vocab={cfg.vocab}{cut}) on {device}: weights "
           f"ready in {init_s:.2f}s")
 
     program = schedule = None
@@ -267,12 +293,16 @@ def main(argv=None) -> ServeRun:
             print(f"[serve] {schedule.summary()}")
     print(f"[serve] {spec.arch_id} exec={args.exec_mode} requests={b}"
           + (" (gate-fused stacks)" if args.fuse_gates else ""))
+    if args.static:
+        return _run_static(args, cfg, exe, model, params, program, schedule,
+                           requests, device, init_s)
 
     n_slots = args.slots or min(b, 8)
     engine = ServeEngine(model, cfg, exe, params, n_slots=n_slots,
                          prompt_pad=p, max_seq=p + g,
                          cache_dtype=torch.float32, family=spec.family,
                          module=spec.module, program=program,
+                         admission=args.admission,
                          decode_chunk=args.decode_chunk,
                          page_size=args.page_size, n_pages=args.pages,
                          prefix_cache=args.prefix_cache,
@@ -343,6 +373,45 @@ def main(argv=None) -> ServeRun:
                     requests=requests, schedule=schedule, init_s=init_s)
 
 
+def _run_static(args, cfg, exe, model, params, program, schedule, requests,
+                device, init_s) -> ServeRun:
+    """The legacy monolithic path: one synchronized batch, lockstep
+    decode (`engine.static_generate`)."""
+    from repro_torch.runtime.engine import static_generate
+    b, p, g = args.requests, args.prompt_len, args.gen
+    prompts = torch.tensor([list(r.prompt) for r in requests],
+                           dtype=torch.int32, device=device)
+    gen_toks, (t_prefill, t_decode) = static_generate(
+        model, cfg, exe, params, prompts, g, max_seq=p + g,
+        cache_dtype=torch.float32)
+    print(f"  prefill: {b}x{p} tokens in {t_prefill:.2f}s")
+    if g <= 1:
+        print("  decode:  0 steps (prefill-only, --gen 1) — no decode "
+              "tok/s to report")
+    else:
+        print(f"  decode:  {g - 1} steps in {t_decode:.2f}s "
+              f"({b * (g - 1) / max(t_decode, 1e-9):.1f} tok/s batched, "
+              f"{t_decode / (g - 1) * 1e3:.1f} ms/step)")
+    if program is not None:
+        init = program.initialize_counts()
+        per_vec = program.mvm_counts()
+        n_vec = b * (p + g - 1)
+        roi = per_vec.scaled(n_vec)
+        print(f"  CM_INITIALIZE: {init.initialize} device writes, once "
+              f"per session — independent of the {g} generated tokens")
+        print(f"  CM_* in the serving ROI ({n_vec} token vectors): "
+              f"queue={roi.queue} process={roi.process} "
+              f"dequeue={roi.dequeue} (per vector: {per_vec.queue}/"
+              f"{per_vec.process}/{per_vec.dequeue})")
+    _print_schedule(args, schedule)
+    for i in range(min(b, 3)):
+        print(f"  req{i}: prompt={list(requests[i].prompt[:6])}... "
+              f"-> gen={gen_toks[i].tolist()}")
+    return ServeRun(report=None, engine=None, program=program,
+                    requests=requests, schedule=schedule, init_s=init_s,
+                    static_tokens=gen_toks)
+
+
 def _verify_paged(engine, report, requests, args, counts0):
     """Hard acceptance for a paged run: exit nonzero unless every request
     retired, the page ledger reconciles exactly, no closure saw a new shape
@@ -371,7 +440,8 @@ def _verify_paged(engine, report, requests, args, counts0):
         failures.append(f"closures saw new shapes after warmup: {counts0} "
                         f"-> {counts}")
     exact_once = (args.shared_prefix and args.prefix_cache
-                  and not args.prefill_chunk and not args.trace)
+                  and not args.prefill_chunk and not args.trace
+                  and not engine.recurrent)
     if exact_once:
         # synchronized + unchunked: admission is synchronous, so the
         # exactly-once contract is exact, not statistical

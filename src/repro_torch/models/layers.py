@@ -10,9 +10,11 @@ backward (noise-aware training), waits for the training slice.
 
 Attention is plain tensor ops following the reference's algorithm: a
 chunked online softmax for prefill (causal, with a query offset for
-prefill legs; the sliding window waits for the rglru slice) and a masked
-softmax against the KV cache for decode. Activation sharding hints (`shard_act`) have no
-counterpart on one card.
+prefill legs; the sliding window serves only the reference's training
+`forward` of rglru and waits for that slice) and a masked softmax against
+the KV cache for decode. `recurrent_prefill` scans a model's decode step
+over a prompt (xlstm, rglru). Activation sharding hints (`shard_act`) have
+no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -42,12 +44,45 @@ class Execution:
         return getattr(torch, self.compute_dtype)
 
 
+def layer_slice(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a dict of stacked leaves (tensors and programmed
+    states alike): the eager counterpart of `lax.scan`'s per-layer slice."""
+    return {name: leaf[i] for name, leaf in tree.items()}
+
+
 def mask_batch_select(new, old, active, dim: int = 0):
     """Per-request freeze: ``new`` where ``active`` ([B] bool), else
     ``old``; ``dim`` is the batch dim of the same-shape tensors."""
     shape = [1] * new.dim()
     shape[dim] = active.shape[0]
     return torch.where(active.reshape(shape), new, old)
+
+
+def recurrent_prefill(decode_fn, cache0, tokens, n_vocab, valid_len=None):
+    """Serving prefill for the O(1)-state archs (xlstm, rglru): run the
+    single-token decode step over a right-padded prompt batch.
+
+    ``decode_fn(cache, tok [B, 1]) -> (logits [B, 1, V], new_cache)``; the
+    cache is a flat dict whose leaves carry batch on dim 1, except
+    ``"len"`` (dim 0). Steps at positions >= ``valid_len`` are padding: the
+    cache is frozen through them (`mask_batch_select`), and the returned
+    logits are each row's own last valid step. ``valid_len`` is [B], one
+    int for every row, or None (the whole width)."""
+    b, s = tokens.shape
+    dev = tokens.device
+    vl = torch.as_tensor(s if valid_len is None else valid_len,
+                         dtype=torch.int32, device=dev).expand(b)
+    cache = cache0
+    last = torch.zeros((b, 1, n_vocab), dtype=torch.float32, device=dev)
+    for t in range(s):
+        logits, new_cache = decode_fn(cache, tokens[:, t:t + 1])
+        active = t < vl
+        cache = {k: mask_batch_select(new_cache[k], cache[k], active,
+                                      0 if k == "len" else 1)
+                 for k in new_cache}
+        last = torch.where((vl - 1 == t)[:, None, None],
+                           logits.to(torch.float32), last)
+    return last, cache
 
 
 def linear(x, w, exe: Execution, bias=None, activation: str = "none"):
@@ -78,9 +113,31 @@ def linear_stack(x, ws: AimcLinearState, exe: Execution, biases=None,
     return tuple(y[i] for i in range(ws.stack_shape[-1]))
 
 
-def rmsnorm(x, scale, eps: float = 1e-6):
+def row_sum(x, dim: int = -1):
+    """Sum over ``dim`` in one fixed pairwise order of elementwise adds
+    (zero-padded to a power of two). Each output's bits depend on its own
+    row alone: torch's reductions on the card pick their summation order
+    by the number of outputs, so a row summed in a batch of 4 can differ
+    by an ulp from the same row alone, and through the DAC that becomes a
+    different token. Batch-invariant serving (engine == `static_generate`)
+    takes this in every cross-feature sum."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def rmsnorm(x, scale, eps: float = 1e-6, batch_invariant: bool = False):
     x32 = x.to(torch.float32)
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    if batch_invariant:
+        var = (row_sum(x32 * x32) / x.shape[-1])[..., None]
+    else:
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
 
 
@@ -167,19 +224,33 @@ def flash_attention(q, k, v, *, causal=True, q_offset: int = 0,
     return o.transpose(1, 2)[:, :sq0]
 
 
-def decode_attention(q, k_cache, v_cache, kv_len):
+def decode_attention(q, k_cache, v_cache, kv_len,
+                     batch_invariant: bool = False):
     """Single-token attention against a KV cache.
-    q: [B, 1, Hq, D]; caches: [B, Skv, Hkv, D]; kv_len: [B] valid lengths."""
+    q: [B, 1, Hq, D]; caches: [B, Skv, Hkv, D]; kv_len: [B] valid lengths.
+    ``batch_invariant`` contracts with `row_sum` (products, then a fixed
+    pairwise sum; softmax as exp(s - max) / row_sum) instead of einsum and
+    softmax, so a row's bits do not depend on the batch."""
     b, _, hq, d = q.shape
     _, skv, hkv, _ = k_cache.shape
     g = hq // hkv
     scale = 1.0 / (d ** 0.5)
     # operands round to the cache dtype, products accumulate in f32 (the
     # reference's preferred_element_type=f32)
-    qg = q.reshape(b, hkv, g, d).to(k_cache.dtype)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg.to(torch.float32),
-                     k_cache.to(torch.float32)) * scale
+    qg = q.reshape(b, hkv, g, d).to(k_cache.dtype).to(torch.float32)
+    kf = k_cache.to(torch.float32)
     mask = torch.arange(skv, device=q.device)[None] < kv_len[:, None]
+    if batch_invariant:
+        # [B, Hkv, G, 1, D] x [B, Hkv, 1, Skv, D] -> [B, Hkv, G, Skv]
+        s = row_sum(qg[:, :, :, None] * kf.permute(0, 2, 1, 3)[:, :, None])
+        s = torch.where(mask[:, None, None], s * scale, NEG_INF)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e / row_sum(e)[..., None]
+        pv = p.to(v_cache.dtype).to(torch.float32)
+        vf = v_cache.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
+        o = row_sum(pv[..., None] * vf, dim=-2)          # over Skv
+        return o.reshape(b, 1, hq, d).to(q.dtype)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, kf) * scale
     s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).to(torch.float32),
@@ -213,3 +284,13 @@ def embed_init(key: torch.Tensor, v: int, d: int, dtype=torch.float32,
     """N(0, 0.02^2) embeddings [v, d] from a JAX-compatible key."""
     _f32_only(dtype)
     return prng.normal(key, (v, d), device=device) * 0.02
+
+
+def stack_init(key: torch.Tensor, l: int, k: int, n: int,
+               dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """``vmap(dense_init)(split(key, l))``: layer i from ``split(key, l)[i]``,
+    drawn one layer at a time into the preallocated [l, k, n] stack."""
+    out = torch.empty((l, k, n), dtype=dtype, device=device)
+    for i, ki in enumerate(prng.split(key, l)):
+        out[i] = dense_init(ki, k, n, dtype, device)
+    return out

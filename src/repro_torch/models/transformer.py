@@ -5,8 +5,8 @@ internvl2 backbone); PyTorch port of the serving path of
 Parameters are a nested dict of tensors with the reference's keys and a
 leading layer axis on every block leaf (``blocks/wq`` is [L, D, Hq*hd]), so
 tree paths and programmed names match the JAX package. A Python loop over
-layers takes the place of `lax.scan`; `_layer` slices each leaf (tensor or
-programmed `AimcLinearState`) to one layer. After
+layers takes the place of `lax.scan`; `layers.layer_slice` slices each leaf
+(tensor or programmed `AimcLinearState`) to one layer. After
 `core.program.AimcProgram.install`, every projection is a programmed state
 and runs on the crossbar kernel; `fuse_gate_stacks` then stacks w_gate and
 w_up into one `[G=2, ...]` state that runs as ONE kernel launch (K3).
@@ -33,7 +33,8 @@ from repro_torch.core.aimc import AimcLinearState, stack_states
 from repro_torch.models.layers import (Execution, decode_attention,
                                        dense_init, embed_init,
                                        flash_attention, linear, linear_stack,
-                                       rmsnorm, rope, swiglu)
+                                       layer_slice, rmsnorm, rope,
+                                       stack_init, swiglu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,16 +72,6 @@ class TransformerConfig:
         return self.n_experts > 0
 
 
-def _stack_init(key: torch.Tensor, l: int, k: int, n: int, dtype,
-                device) -> torch.Tensor:
-    """``vmap(dense_init)(split(key, l))``: layer i from ``split(key, l)[i]``,
-    drawn one layer at a time into the preallocated [l, k, n] stack."""
-    out = torch.empty((l, k, n), dtype=dtype, device=device)
-    for i, ki in enumerate(prng.split(key, l)):
-        out[i] = dense_init(ki, k, n, dtype, device)
-    return out
-
-
 def init(key: torch.Tensor, cfg: TransformerConfig, dtype=torch.float32,
          device="cuda") -> dict:
     """Random weights from a JAX-compatible key on ``device``, key for key
@@ -98,7 +89,7 @@ def init(key: torch.Tensor, cfg: TransformerConfig, dtype=torch.float32,
     ks = prng.split(key, 16)
 
     def stack(i, k, n):
-        return _stack_init(ks[i], l, k, n, dtype, device)
+        return stack_init(ks[i], l, k, n, dtype, device)
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -153,10 +144,6 @@ def fuse_gate_stacks(params):
             [blocks.pop(nm) for nm in names], dim=1)
     return dict(params, blocks=blocks)
 
-
-def _layer(blocks: dict, i: int) -> dict:
-    """Layer ``i`` of the stacked block leaves (tensors and states alike)."""
-    return {name: leaf[i] for name, leaf in blocks.items()}
 
 
 def _qkv(h, blk, cfg: TransformerConfig, exe: Execution, positions):
@@ -228,7 +215,7 @@ def prefill(params, tokens, cfg: TransformerConfig, exe: Execution = None,
     positions = torch.arange(s, device=dev).expand(b, s)
     cache = init_cache(cfg, b, max_seq, cache_dtype, dev)
     for i in range(cfg.n_layers):
-        blk = _layer(params["blocks"], i)
+        blk = layer_slice(params["blocks"], i)
         q, k, v = _qkv(rmsnorm(h, blk["ln1"], cfg.norm_eps), blk, cfg, exe,
                        positions)
         att = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
@@ -269,7 +256,7 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig,
     row_idx = lens.clamp(0, max_seq - 1).long()
     ks, vs = cache["k"].clone(), cache["v"].clone()
     for i in range(cfg.n_layers):
-        blk = _layer(params["blocks"], i)
+        blk = layer_slice(params["blocks"], i)
         q, k, v = _qkv(rmsnorm(h, blk["ln1"], cfg.norm_eps), blk, cfg, exe,
                        positions)
         kc, vc = ks[i], vs[i]
@@ -350,7 +337,7 @@ def prefill_chunk(params, tokens, cfg: TransformerConfig, exe: Execution,
     pids = torch.where(touched, pt_row, torch.zeros_like(pt_row))
     pad = torch.zeros((c, hkv, hd), dtype=kp.dtype, device=dev)
     for i in range(cfg.n_layers):
-        blk = _layer(params["blocks"], i)
+        blk = layer_slice(params["blocks"], i)
         q, k, v = _qkv(rmsnorm(h, blk["ln1"], cfg.norm_eps), blk, cfg, exe,
                        positions)
         # extend by C rows so the leg's write never runs past the end

@@ -33,6 +33,15 @@ model (PyTorch port of the single-device `ServeEngine` of
                       bounded legs writing pages in place, interleaved with
                       decode chunks.
 
+  recurrent state     (xlstm, rglru) each lane holds an O(1) state tree
+                      (batch on dim 1 of every leaf, ``"len"`` on dim 0)
+                      and no max_seq cap applies. With ``page_size > 0``
+                      "paging" means snapshot pages: prefills run as legs
+                      advancing a carried [1, ...] state, a page-aligned
+                      leg end stores the whole state in one page of a
+                      snapshot pool, and ``prefix_cache`` restores the
+                      deepest resident snapshot of a prompt's prefix.
+
   shape stability     the reference compiles each closure once and asserts
                       it; in eager PyTorch `compile_counts` counts the
                       distinct (closure, input shapes) pairs each closure
@@ -44,8 +53,9 @@ vector per decode step a request rides in) is booked to its request;
 `batcher.reconcile` proves the per-request ledgers sum exactly to
 ``program.mvm_counts().scaled(observed_vectors)``.
 
-Recurrent snapshot pages, drift/chaos resilience, rotation and the sharded
-engine are later slices.
+`static_generate` is the reference's monolithic loop (one synchronized
+batch, lockstep decode): the engine's bit-equality oracle and A/B baseline.
+Drift/chaos resilience, rotation and the sharded engine are later slices.
 """
 
 from __future__ import annotations
@@ -156,7 +166,6 @@ class EngineSession:
 
 # retirement codes emitted by the decode loop (0 = still running)
 _REASONS = {1: "length", 2: "eos", 3: "cap"}
-_CACHE_BATCH_DIM = {"k": 1, "v": 1, "len": 0}
 CACHE_DTYPE = torch.float32    # KV cache
 PAD_ID = 0                     # prompt right-padding token
 MAX_RETRIES = 2                # transient decode failures retried
@@ -177,16 +186,18 @@ class _PendingChunk:
 class _PrefillJob:
     """One admitted request whose legged prefill has not finished. The
     slot is held for the job's whole life (its decode lane stays inactive)
-    until `_finalize_job` registers the page-table row and arms the lane."""
+    until `_finalize_job` registers the page-table row (transformer) or
+    inserts the carried state (recurrent) and arms the lane."""
     req: Request
     rec: RequestRecord
     slot: int
     legs: list                # [(pos0, span, tokens [1, C])] in order
-    pt_row: torch.Tensor      # device [M] int32 page-table row
+    pt_row: torch.Tensor | None   # device [M] int32 page-table row
     keys: list
-    f_eff: int = 0            # pages reused from the prefix cache
+    f_eff: int = 0            # pages (or snapshot depth) reused
     leg_i: int = 0
     tok1: torch.Tensor | None = None   # [1, 1] first token of the last leg
+    carry: dict | None = None          # recurrent: state carried by the legs
 
     @property
     def done(self) -> bool:
@@ -204,6 +215,12 @@ def _signature(x):
     if isinstance(x, (list, tuple)):
         return tuple(_signature(v) for v in x)
     return type(x).__name__
+
+
+def _batch_dim(name: str) -> int:
+    """Batch dim of a slot-cache leaf: dim 1 under the layer stack for KV
+    and recurrent state alike, dim 0 for the per-row lengths."""
+    return 0 if name == "len" else 1
 
 
 def _wait(t: torch.Tensor):
@@ -225,7 +242,8 @@ class ServeEngine:
                  n_slots: int = 4, prompt_pad: int = 16, max_seq: int = 64,
                  cache_dtype=CACHE_DTYPE, family: str = "lm",
                  module: str = "transformer", program=None,
-                 eos_id: int | None = None, decode_chunk: int = 1, page_size: int = 0,
+                 eos_id: int | None = None, admission: str = "fifo",
+                 decode_chunk: int = 1, page_size: int = 0,
                  n_pages: int = 0, prefix_cache: bool = False,
                  prefill_chunk: int = 0):
         if family == "audio":
@@ -246,6 +264,7 @@ class ServeEngine:
         self.family, self.module = family, module
         self.program = program
         self.eos_id = eos_id
+        self.admission = admission
         self.decode_chunk = decode_chunk
         self._ladder = self.chunk_ladder(decode_chunk)
 
@@ -257,16 +276,19 @@ class ServeEngine:
                              "page_size > 0")
         if page_size > max_seq:
             raise ValueError(f"page_size {page_size} > max_seq {max_seq}")
-        if module in RECURRENT_MODULES and page_size > 0:
-            raise NotImplementedError(
-                "recurrent snapshot pages and recurrent prefill legs are "
-                "not ported yet (no recurrent module is); see ROADMAP.md")
+        self.recurrent = module in RECURRENT_MODULES
         self.page_size = page_size
         self.prefill_chunk = prefill_chunk
         # _paged_kv: the slot KV cache lives in a page pool behind a page
         # table; _use_legs: prefill runs as legs writing pages directly
-        # (both the prefix cache and chunked prefill need them)
-        self._paged_kv = page_size > 0
+        # (both the prefix cache and chunked prefill need them). Recurrent
+        # archs carry O(1) state, so for them paging means snapshot pages
+        # (_snap: one page holds a whole [1, ...] state at a page boundary)
+        # and prefill legs advancing a carried state (_legs_rec).
+        self._paged_kv = page_size > 0 and not self.recurrent
+        self._legs_rec = (self.recurrent and page_size > 0
+                          and (prefix_cache or prefill_chunk > 0))
+        self._snap = self._legs_rec and prefix_cache
         self._use_legs = self._paged_kv and (prefix_cache or prefill_chunk > 0)
         self._chunked = prefill_chunk > 0
         if self._paged_kv and module != "transformer":
@@ -288,28 +310,40 @@ class ServeEngine:
                     "prefix_cache / prefill_chunk require cache_dtype "
                     "float32: a page read back by a sharer must be bit-"
                     "identical to what the producing leg computed")
+        if self._snap and self._chunked and prefill_chunk % page_size:
+            raise ValueError(
+                "recurrent prefix_cache requires prefill_chunk to be a "
+                "multiple of page_size (snapshots are taken at leg ends, "
+                "which must land on page boundaries)")
         self.pages = None
         self.prefix = None
         self._pool = None        # engine-lifetime (kp, vp) pool tensors
-        if self._paged_kv:
+        self._pool_snap = None   # engine-lifetime recurrent snapshot pool
+        if self._paged_kv or self._snap:
             if n_pages == 0:
                 n_pages = (n_slots * self._pt_width + 1
-                           + (self._pt_width if prefix_cache else 0))
-            if n_pages < self._pt_width + 1:
+                           + (self._pt_width if prefix_cache else 0)
+                           if self._paged_kv
+                           else 1 + n_slots * max(1, prompt_pad // page_size))
+            if self._paged_kv and n_pages < self._pt_width + 1:
                 raise ValueError(
                     f"n_pages {n_pages} cannot hold one max-length request "
                     f"({self._pt_width} pages + scratch): admission would "
                     f"deadlock on an empty engine")
             self.pages = PageAllocator(n_pages, page_size)
             self.prefix = PrefixCache(self.pages) if prefix_cache else None
-        # transformer legs default to one full-prompt leg
-        self._leg_c = prefill_chunk or prompt_pad
+        # leg width: transformer legs default to one full-prompt leg,
+        # recurrent legs to one page (snapshot boundaries = leg ends)
+        self._leg_c = ((prefill_chunk or prompt_pad) if not self.recurrent
+                       else (prefill_chunk or page_size))
 
         self.monitor = StragglerMonitor(threshold=STRAGGLER_THRESHOLD)
         self._retries = 0
         self._step_no = 0
         # model forward passes run by this engine, warmup included (each
-        # prefill, prefill leg and decode step is one pass over every layer)
+        # prefill, prefill leg and decode step is one pass over every layer;
+        # a recurrent prefill or leg scans the decode step, one pass per
+        # token position it covers, padding included)
         self.forward_passes = 0
         # closure name -> distinct input signatures seen (compile_counts)
         self._seen: dict[str, set] = {}
@@ -337,7 +371,8 @@ class ServeEngine:
         """Distinct input signatures each device closure has seen, under
         the reference's keys. After `warmup`, serving any trace must leave
         prefill/insert at 1 and decode at ``len(chunk_ladder)``, plus
-        prefill_chunk/register at 1 when prefills run as legs."""
+        prefill_chunk (and register, transformer) at 1 when prefills run as
+        legs, and snapshot/restore at 1 with recurrent snapshot pages."""
         def n(name):
             return len(self._seen.get(name, ()))
         counts = {"prefill": n("prefill"),
@@ -346,6 +381,11 @@ class ServeEngine:
         if self._use_legs:
             counts["prefill_chunk"] = n("prefill_chunk")
             counts["register"] = n("register")
+        if self._legs_rec:
+            counts["prefill_chunk"] = n("prefill_chunk")
+        if self._snap:
+            counts["snapshot"] = n("snapshot")
+            counts["restore"] = n("restore")
         return counts
 
     # -- device functions ----------------------------------------------------
@@ -362,7 +402,7 @@ class ServeEngine:
         logits, cache = self.model.prefill(
             self.params, tokens, self.cfg, self.exe, max_seq=self.max_seq,
             cache_dtype=self.cache_dtype, valid_len=valid_len, **kw)
-        self.forward_passes += 1
+        self.forward_passes += tokens.shape[1] if self.recurrent else 1
         tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return tok, cache
 
@@ -383,9 +423,9 @@ class ServeEngine:
         the session's tensors (stream-ordered after any chunk already
         launched on them)."""
         self._note("insert", sess.cache, cache1, tok1)
-        for name, dim in _CACHE_BATCH_DIM.items():
-            sess.cache[name].select(dim, slot).copy_(
-                cache1[name].select(dim, 0))
+        for name, leaf in sess.cache.items():
+            dim = _batch_dim(name)
+            leaf.select(dim, slot).copy_(cache1[name].select(dim, 0))
         self._arm(sess, tok1, slot, pos0, max_new)
 
     def _insert_paged(self, sess: EngineSession, cache1, tok1, slot: int,
@@ -433,6 +473,30 @@ class ServeEngine:
         self.forward_passes += 1
         return out
 
+    def _leg_rec_fn(self, cache, tokens, span: int):
+        """One recurrent prefill leg advancing a carried [1, ...] state."""
+        self._note("prefill_chunk", cache, tokens, span)
+        logits, cache = self.model.prefill_chunk(
+            self.params, cache, tokens, self.cfg, self.exe, span)
+        self.forward_passes += tokens.shape[1]
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        return tok, cache
+
+    def _snap_put_fn(self, pool, cache1, pid: int):
+        """Store a [1, ...] recurrent state into snapshot page ``pid``, in
+        place."""
+        self._note("snapshot", pool, cache1, pid)
+        for name, leaf in pool.items():
+            dim = _batch_dim(name)
+            leaf.select(dim, pid).copy_(cache1[name].select(dim, 0))
+        return pool
+
+    def _snap_get_fn(self, pool, pid: int):
+        """Snapshot page ``pid`` as a fresh [1, ...] state tree."""
+        self._note("restore", pool, pid)
+        return {name: leaf.narrow(_batch_dim(name), pid, 1).clone()
+                for name, leaf in pool.items()}
+
     def _retire_step(self, state, tokens, logits, active):
         """The on-device retirement machine of one decode step: (tokens,
         new state, ys row [3, S])."""
@@ -443,7 +507,10 @@ class ServeEngine:
         gen = state["gen"] + step
         pos = state["pos"] + step
         reason = torch.zeros_like(emitted)
-        reason = torch.where(pos >= self.max_seq, 3, reason)
+        if not self.recurrent:
+            # the KV write position is bounded by max_seq; O(1)-state
+            # recurrent archs have no such cap
+            reason = torch.where(pos >= self.max_seq, 3, reason)
         reason = torch.where(gen >= state["max_new"], 1, reason)
         if self.eos_id is not None:
             reason = torch.where(emitted == self.eos_id, 2, reason)
@@ -460,14 +527,15 @@ class ServeEngine:
         self._note("decode", cache, tok_buf, state, static=length)
         rows = []
         tokens = tok_buf
+        kw = {} if self.recurrent else {"ragged": True}
         for _ in range(length):
             active = state["active"]
             logits, new_cache = self.model.decode_step(
-                self.params, cache, tokens, self.cfg, self.exe, ragged=True)
+                self.params, cache, tokens, self.cfg, self.exe, **kw)
             self.forward_passes += 1
-            cache = {name: mask_batch_select(new_cache[name], cache[name],
-                                             active, dim)
-                     for name, dim in _CACHE_BATCH_DIM.items()}
+            cache = {name: mask_batch_select(new_cache[name], leaf, active,
+                                             _batch_dim(name))
+                     for name, leaf in cache.items()}
             tokens, state, ys = self._retire_step(state, tokens, logits,
                                                   active)
             rows.append(ys)
@@ -533,6 +601,15 @@ class ServeEngine:
         return self.model.init_cache(self.cfg, self.n_slots, self.max_seq,
                                      self.cache_dtype, self.device)
 
+    def _snap_pool(self):
+        """The engine-lifetime recurrent snapshot pool, made at first use:
+        the slot cache's leaves with n_pages in the batch dim."""
+        if self._pool_snap is None:
+            self._pool_snap = self.model.init_cache(
+                self.cfg, self.pages.n_pages, self.max_seq, self.cache_dtype,
+                self.device)
+        return self._pool_snap
+
     def _empty_state(self):
         def z():
             return torch.zeros((self.n_slots,), dtype=torch.int32,
@@ -556,10 +633,11 @@ class ServeEngine:
 
     def warmup(self) -> dict[str, int]:
         """Run every device path once (prefill, insert, the prefill leg and
-        register when legged, one chunk of each ladder length) outside the
-        serving clock: kernels build and load, allocator pools fill.
-        Paged engines warm on throwaway pools (every write of warmup goes
-        to their scratch page anyway). Returns `compile_counts()`."""
+        register when legged, snapshot put/restore, one chunk of each
+        ladder length) outside the serving clock: kernels build and load,
+        allocator pools fill. Paged engines warm on throwaway pools (every
+        write of warmup goes to their scratch page anyway). Returns
+        `compile_counts()`."""
         tokens = torch.zeros((1, self.prompt_pad), dtype=torch.int32,
                              device=self.device)
         vl = torch.ones((1,), dtype=torch.int32, device=self.device)
@@ -579,6 +657,18 @@ class ServeEngine:
                 self._register(sess, tokw, 0, 1, 1, pt_row)
         else:
             sess = self._session(self._empty_cache())
+            if self._legs_rec:
+                leg = torch.zeros((1, self._leg_c), dtype=torch.int32,
+                                  device=self.device)
+                cache1 = self.model.init_cache(self.cfg, 1, self.max_seq,
+                                               self.cache_dtype, self.device)
+                tok1, cache1 = self._leg_rec_fn(cache1, leg, 1)
+                if self._snap:
+                    # page SCRATCH of the engine's own pool: a put writes
+                    # before any get reads, so nothing stale is ever served
+                    pool = self._snap_put_fn(self._snap_pool(), cache1,
+                                             SCRATCH)
+                    self._snap_get_fn(pool, SCRATCH)
             self._insert(sess, cache1, tok1, 0, 1, 1)
         tok_buf, cache, state = sess.tok_buf, sess.cache, sess.state
         decode = self._decode_paged_fn if self._paged_kv else self._decode_fn
@@ -644,7 +734,7 @@ class ServeEngine:
         report = sess.report
         rec = RequestRecord(request=req, t_admit=now)
         report.records[req.rid] = rec
-        if req.max_new > 1 and self._use_legs:
+        if req.max_new > 1 and (self._use_legs or self._legs_rec):
             return self._admit_legged(sess, req, rec, now, drain)
         lazy = self.eos_id is None
         tok1, cache1, first, dt = self._prefill_request(req, rec, lazy)
@@ -668,7 +758,7 @@ class ServeEngine:
             return now
         slot = sess.slots.alloc(req.rid)
         sess.slot_rec[slot] = rec
-        sess.rem[slot] = min(req.max_new - 1, self.max_seq - len(req.prompt))
+        sess.rem[slot] = self._decode_budget(req)
         t0 = time.perf_counter()
         if self._paged_kv:
             pt_row, mask, owned = self._alloc_pt_row(req)
@@ -682,6 +772,14 @@ class ServeEngine:
         now += ins
         report.wall_prefill_s += ins
         return now
+
+    def _decode_budget(self, req: Request) -> int:
+        """Decode steps the lane may take: max_new - 1, capped by the KV
+        rows left (no cap for O(1)-state recurrent archs)."""
+        rem = req.max_new - 1
+        if not self.recurrent:
+            rem = min(rem, self.max_seq - len(req.prompt))
+        return rem
 
     # -- paged admission (DESIGN.md §15) -------------------------------------
     def _pages_span(self, req: Request) -> tuple[int, int]:
@@ -747,8 +845,9 @@ class ServeEngine:
     def _admit_legged(self, sess: EngineSession, req: Request,
                       rec: RequestRecord, now: float, drain: bool) -> float:
         """Admission via prefill legs: look up the shared prefix, allocate
-        the continuation's pages, split the rest of the prompt into legs,
-        and run them (now, or interleaved — see `admit`)."""
+        the continuation's pages (transformer) or restore the deepest
+        resident snapshot (recurrent), split the rest of the prompt into
+        legs, and run them (now, or interleaved — see `admit`)."""
         report = sess.report
         p, c = self.page_size, self._leg_c
         prompt = list(req.prompt)
@@ -757,29 +856,46 @@ class ServeEngine:
             raise ValueError(f"prompt length {plen} exceeds "
                              f"prompt_pad {self.prompt_pad}")
         keys = page_keys(prompt, p) if self.prefix is not None else []
-        f_eff, pids_hit = 0, []
-        if self.prefix is not None:
-            got = self.prefix.lookup(keys)
-            while f_eff < len(got) and got[f_eff] is not None:
-                f_eff += 1
-            # the continuation must keep >= 1 real token: the legs produce
-            # the first-token logits
-            f_eff = min(f_eff, (plen - 1) // p)
-            pids_hit = [got[j] for j in range(f_eff)]
-            for pid in pids_hit:
-                self.pages.retain(pid)    # sharer refs FIRST: eviction
-                                          # below must not free them
+        f_eff, pids_hit, owned, pt_row, carry = 0, [], [], None, None
+        if self._use_legs:
+            if self.prefix is not None:
+                got = self.prefix.lookup(keys)
+                while f_eff < len(got) and got[f_eff] is not None:
+                    f_eff += 1
+                # the continuation must keep >= 1 real token: the legs
+                # produce the first-token logits
+                f_eff = min(f_eff, (plen - 1) // p)
+                pids_hit = [got[j] for j in range(f_eff)]
+                for pid in pids_hit:
+                    self.pages.retain(pid)    # sharer refs FIRST: eviction
+                                              # below must not free them
+            _, n_alloc = self._pages_span(req)
+            try:
+                owned = self._alloc_pages(n_alloc - f_eff, req.rid,
+                                          protect=pids_hit)
+            except RuntimeError:
+                for pid in pids_hit:
+                    self.pages.release(pid)
+                raise
+            pt_row = self._row_tensor(
+                pids_hit + owned + [SCRATCH] * (self._pt_width - n_alloc))
+        else:
+            # recurrent: ONE snapshot page restores the whole state at a
+            # page boundary; take the deepest resident one, short of the
+            # last token
+            hit_j = -1
+            if self.prefix is not None:
+                got = self.prefix.lookup(keys)
+                for j in range(min(len(got), (plen - 1) // p)):
+                    if got[j] is not None:
+                        hit_j = j
+            if hit_j >= 0:
+                carry = self._snap_get_fn(self._snap_pool(), got[hit_j])
+                f_eff = hit_j + 1
+            else:
+                carry = self.model.init_cache(self.cfg, 1, self.max_seq,
+                                              self.cache_dtype, self.device)
         start = f_eff * p
-        _, n_alloc = self._pages_span(req)
-        try:
-            owned = self._alloc_pages(n_alloc - f_eff, req.rid,
-                                      protect=pids_hit)
-        except RuntimeError:
-            for pid in pids_hit:
-                self.pages.release(pid)
-            raise
-        pt_row = self._row_tensor(pids_hit + owned
-                                  + [SCRATCH] * (self._pt_width - n_alloc))
         legs, pos = [], start
         while pos < plen:
             span = min(c, plen - pos)
@@ -792,9 +908,10 @@ class ServeEngine:
             report.prefix_hit_vectors += start
         slot = sess.slots.alloc(req.rid)
         sess.slot_rec[slot] = rec
-        sess.slot_pages[slot] = (owned, pids_hit)
+        if self._use_legs:
+            sess.slot_pages[slot] = (owned, pids_hit)
         job = _PrefillJob(req=req, rec=rec, slot=slot, legs=legs,
-                          pt_row=pt_row, keys=keys, f_eff=f_eff)
+                          pt_row=pt_row, keys=keys, f_eff=f_eff, carry=carry)
         if drain or not self._chunked:
             while not job.done:
                 now = self._advance_leg(sess, job, now)
@@ -810,9 +927,13 @@ class ServeEngine:
         report = sess.report
         pos0, span, toks = job.legs[job.leg_i]
         t0 = time.perf_counter()
-        tok1, kp, vp = self._leg_fn(toks, sess.cache["kp"], sess.cache["vp"],
-                                    job.pt_row, pos0, span)
-        sess.cache["kp"], sess.cache["vp"] = kp, vp
+        if self._use_legs:
+            tok1, kp, vp = self._leg_fn(toks, sess.cache["kp"],
+                                        sess.cache["vp"], job.pt_row, pos0,
+                                        span)
+            sess.cache["kp"], sess.cache["vp"] = kp, vp
+        else:
+            tok1, job.carry = self._leg_rec_fn(job.carry, toks, span)
         _wait(tok1)
         dt = time.perf_counter() - t0
         now += dt
@@ -825,9 +946,28 @@ class ServeEngine:
         report.prefill_pad_vectors += self._leg_c - span
         job.tok1 = tok1
         job.leg_i += 1
+        end = pos0 + span
+        if self._snap and end % self.page_size == 0:
+            self._register_snapshot(job, end)
         if job.done:
             now = self._finalize_job(sess, job, now)
         return now
+
+    def _register_snapshot(self, job: _PrefillJob, end: int):
+        """Store the carried recurrent state at a page-aligned leg end.
+        Best effort: an exhausted pool skips the snapshot, never the
+        request (restores need no sharer reference: an entry is the
+        snapshot's only holder)."""
+        key = job.keys[end // self.page_size - 1]
+        if key in self.prefix:
+            return
+        pids = self.pages.alloc(1, owner=("snap", job.req.rid))
+        if pids is None and self.prefix.evict(1):
+            pids = self.pages.alloc(1, owner=("snap", job.req.rid))
+        if pids is None:
+            return
+        self._snap_put_fn(self._snap_pool(), job.carry, pids[0])
+        self.prefix.put(key, pids[0], adopt=True)
 
     def _finalize_job(self, sess: EngineSession, job: _PrefillJob,
                       now: float) -> float:
@@ -836,7 +976,7 @@ class ServeEngine:
         report = sess.report
         req, rec, tok1 = job.req, job.rec, job.tok1
         plen = len(req.prompt)
-        if self.prefix is not None:
+        if self._use_legs and self.prefix is not None:
             # the cache takes one ref ON TOP of the producer's (released at
             # retire), so the pages outlive the request; first producer
             # wins, a racing duplicate's page stays request-owned
@@ -855,11 +995,15 @@ class ServeEngine:
                 return now
             rec.tokens.append(first)
         t0 = time.perf_counter()
-        self._register(sess, tok1, job.slot, plen, req.max_new, job.pt_row)
+        if self._use_legs:
+            self._register(sess, tok1, job.slot, plen, req.max_new,
+                           job.pt_row)
+        else:
+            self._insert(sess, job.carry, tok1, job.slot, plen, req.max_new)
         dt = time.perf_counter() - t0
         now += dt
         report.wall_prefill_s += dt
-        sess.rem[job.slot] = min(req.max_new - 1, self.max_seq - plen)
+        sess.rem[job.slot] = self._decode_budget(req)
         return now
 
     def _advance_prefill(self, sess: EngineSession, now: float) -> float:
@@ -983,6 +1127,7 @@ class ServeEngine:
         sess.jobs.clear()
         if self._paged_kv:
             self._pool = (sess.cache["kp"], sess.cache["vp"])
+        if self.pages is not None:
             report.page_ledger = self.pages.ledger()
             report.page_ledger_exact = self.pages.verify()
         if self.prefix is not None:
@@ -999,7 +1144,7 @@ class ServeEngine:
         slot is empty). Decode is double-buffered: chunk i+1 is launched
         before chunk i's block is read back; chunked-prefill legs run one
         per loop iteration between chunks."""
-        queue = Batcher(requests)
+        queue = Batcher(requests, policy=self.admission)
         sess = self.begin()
         now = 0.0
         pending: _PendingChunk | None = None
@@ -1041,3 +1186,33 @@ class ServeEngine:
         if self.program is None:
             raise ValueError("CM_* ledgers require an AimcProgram")
         return request_ledgers(self.program, report.records)
+
+
+# ---------------------------------------------------------------------------
+# the static-batch path (A/B baseline + bit-equality oracle)
+# ---------------------------------------------------------------------------
+
+def static_generate(model, cfg, exe: Execution, params, prompts, gen: int,
+                    max_seq: int | None = None, cache_dtype=torch.float32):
+    """The monolithic serve loop the engine replaced: one synchronized
+    batch, one prompt length, ``gen`` lockstep decode steps.
+
+    prompts: [B, P] int32 on the device of ``params``. Returns ([B, gen]
+    tokens, wall seconds (prefill_s, decode_s)). ``gen=1`` is prefill-only:
+    no decode loop runs and the decode time is 0.0."""
+    b, p = prompts.shape
+    max_seq = max_seq or (p + gen)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, prompts, cfg, exe, max_seq=max_seq,
+                                  cache_dtype=cache_dtype)
+    out = [logits[:, -1].argmax(-1).to(torch.int32)[:, None]]
+    _wait(out[-1])
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, cache = model.decode_step(params, cache, out[-1], cfg, exe)
+        out.append(logits[:, -1].argmax(-1).to(torch.int32)[:, None])
+    if gen > 1:
+        _wait(out[-1])
+    t_decode = time.perf_counter() - t0 if gen > 1 else 0.0
+    return torch.cat(out, dim=1), (t_prefill, t_decode)

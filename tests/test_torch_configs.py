@@ -13,9 +13,8 @@ from repro.configs import get_arch as jget
 from repro_torch import configs as tconfigs
 
 PORTED = ("granite_8b", "glm4_9b", "llama32_3b", "qwen15_110b",
-          "internvl2_1b")
-UNPORTED = ("arctic_480b", "olmoe_1b_7b", "recurrentgemma_9b", "xlstm_350m",
-            "seamless_m4t_large_v2")
+          "internvl2_1b", "xlstm_350m", "recurrentgemma_9b")
+UNPORTED = ("arctic_480b", "olmoe_1b_7b", "seamless_m4t_large_v2")
 
 
 def test_ported_list():
@@ -29,7 +28,15 @@ def test_config_equals_reference_field_for_field(arch):
     for which in ("model_cfg", "smoke_cfg"):
         jc, tc = getattr(j, which), getattr(t, which)
         assert dataclasses.asdict(tc) == dataclasses.asdict(jc), which
-        assert tc.hd == jc.hd and tc.is_moe == jc.is_moe is False
+        # derived widths too (hd, n_units, d_ff_s, ...): every property
+        props = [n for n in dir(type(jc))
+                 if isinstance(getattr(type(jc), n), property)]
+        assert props and props == [
+            n for n in dir(type(tc))
+            if isinstance(getattr(type(tc), n), property)]
+        for name in props:
+            assert getattr(tc, name) == getattr(jc, name), (which, name)
+        assert getattr(tc, "is_moe", False) is False
     for field in ("arch_id", "family", "module", "source", "cache_dtype",
                   "n_patches"):
         assert getattr(t, field) == getattr(j, field), field
@@ -39,7 +46,8 @@ def test_config_equals_reference_field_for_field(arch):
 @pytest.mark.parametrize("alias,arch", [
     ("glm4-9b", "glm4_9b"), ("llama3.2-3b", "llama32_3b"),
     ("qwen1.5-110b", "qwen15_110b"), ("internvl2-1b", "internvl2_1b"),
-    ("granite-8b", "granite_8b"), ("llama32-3b", "llama32_3b")])
+    ("granite-8b", "granite_8b"), ("llama32-3b", "llama32_3b"),
+    ("xlstm-350m", "xlstm_350m"), ("recurrentgemma-9b", "recurrentgemma_9b")])
 def test_aliases_resolve_like_reference(alias, arch):
     assert tconfigs.get_arch(alias).arch_id == jget(alias).arch_id == arch
 

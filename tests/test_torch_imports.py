@@ -32,7 +32,10 @@ def test_every_module_is_listed():
                  "repro_torch.runtime.pages", "repro_torch.configs.glm4_9b",
                  "repro_torch.configs.llama32_3b",
                  "repro_torch.configs.qwen15_110b",
-                 "repro_torch.configs.internvl2_1b"):
+                 "repro_torch.configs.internvl2_1b",
+                 "repro_torch.models.xlstm", "repro_torch.models.rglru",
+                 "repro_torch.configs.xlstm_350m",
+                 "repro_torch.configs.recurrentgemma_9b"):
         assert must in mods
 
 

@@ -399,3 +399,89 @@ def test_paged_decode_on_card_equals_dense(dev):
         assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] > 0
         assert rep.page_ledger_exact
     assert outs[0] == outs[1] == outs[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kb,np_", [(4, 128), (1, 1408), (3, 1024)],
+                         ids=["w_if n8", "w_ff_gate n1365", "w_ff_down k1365"])
+def test_k2_at_xlstm_decode_shapes(dev, kb, np_):
+    """xlstm-350m's new K2 shapes at decode (B 4): w_if (2048 -> 8, padded
+    to 128 lanes), the sLSTM FFN (1024 -> 1365, 1408 lanes) and its down
+    projection (K 1365 in 3 row blocks, the last one partial: x is zero
+    past 1365)."""
+    x, w_q, s_w, s_x, _ = _operands(4, kb, 512, np_, seed=5, device=dev)
+    if kb == 3:
+        x[:, 1365:] = 0.0
+    step = adc_step_lsb(512, 1.0)
+    y = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, adc_step=step)
+    want = ref.aimc_matmul_ref_v2(x, w_q, s_w, s_x, adc_step=step)
+    _close(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,kb,np_", [(3, 4, 2048), (2, 2, 2048),
+                                      (2, 2, 1408)],
+                         ids=["w_qkv G3", "w_ug G2", "w_ff_gu G2"])
+def test_k3_at_xlstm_gate_stacks(dev, g, kb, np_):
+    """xlstm's fused stacks at decode (B 4): w_qkv is K3's first G=3 stack
+    on a serving path; each gate is bit-equal to its K2 launch and the
+    stack is within the bound of its plain version."""
+    x, w_q, s_w, s_x, _ = _operands(4, kb, 512, np_, g=g, seed=6, device=dev)
+    step = adc_step_lsb(512, 1.0)
+    y = aimc_mvm.aimc_mvm_stacked(x, w_q, s_w, s_x, adc_step=step)
+    for i in range(g):
+        assert torch.equal(y[i], aimc_mvm.aimc_mvm_v2(x, w_q[i], s_w[i], s_x,
+                                                      adc_step=step))
+    _close(y, ref.aimc_matmul_stacked_ref(x, w_q, s_w, s_x, adc_step=step))
+
+
+@pytest.mark.cuda
+def test_k2_bias_epilogue_at_rglru_gates(dev):
+    """recurrentgemma-9b's RG-LRU gates w_a / w_x at decode (B 4, 4096 ->
+    4096) with b_a / b_x in the fused epilogue."""
+    x, w_q, s_w, s_x, bias = _operands(4, 8, 512, 4096, seed=7, device=dev)
+    step = adc_step_lsb(512, 1.0)
+    y = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, None, bias, adc_step=step)
+    _close(y, ref.aimc_matmul_ref_v2(x, w_q, s_w, s_x, None, bias,
+                                     adc_step=step))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-350m", "recurrentgemma-9b"])
+def test_recurrent_serving_on_card_equals_static(dev, arch):
+    """The recurrent smoke configs programmed on the card with a fixed DAC
+    scale: the engine, the snapshot-paged engine and `static_generate`
+    emit the same tokens; xlstm's fused stacks too."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.program import MappingPlan, program_model
+    from repro_torch.models.layers import Execution
+    from repro_torch.runtime.batcher import synchronized_trace
+    from repro_torch.runtime.engine import ServeEngine, static_generate
+
+    spec = get_arch(arch)
+    cfg, model = spec.smoke_cfg, spec.model_module()
+    params = model.init(prng.PRNGKey(0), cfg, device=dev)
+    acfg = AimcConfig(input_scale=0.05)
+    prog = program_model(params, MappingPlan(), acfg, prng.PRNGKey(2))
+    inst = prog.install(params)
+    exe = Execution(mode="aimc", aimc=acfg, compute_dtype="float32",
+                    programmed=True)
+    reqs = synchronized_trace(3, prompt_len=8, max_new=5, seed=1,
+                              vocab=cfg.vocab)
+    prompts = torch.tensor([r.prompt for r in reqs], dtype=torch.int32,
+                           device=dev)
+    want = static_generate(model, cfg, exe, inst, prompts, 5,
+                           max_seq=16)[0].tolist()
+    trees = [inst] + ([model.fuse_gate_stacks(inst)]
+                      if hasattr(model, "fuse_gate_stacks") else [])
+    for params_, extra in [(t, {}) for t in trees] + [
+            (inst, {"page_size": 2, "prefix_cache": True})]:
+        eng = ServeEngine(model, cfg, exe, params_, n_slots=3, prompt_pad=8,
+                          max_seq=16, program=prog, family=spec.family,
+                          module=spec.module, **extra)
+        counts = eng.warmup()
+        rep = eng.serve(list(reqs))
+        assert [rep.tokens(r.rid) for r in reqs] == want
+        assert eng.compile_counts() == counts

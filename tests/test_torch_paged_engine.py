@@ -268,8 +268,9 @@ def test_paged_config_validation(params):
         make_engine(params, family="audio")
     with pytest.raises(ValueError, match="transformer module"):
         make_engine(params, page_size=4, module="encdec")
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        make_engine(params, page_size=4, prefix_cache=True, module="xlstm")
+    with pytest.raises(ValueError, match="multiple of page_size"):
+        make_engine(params, page_size=4, prefix_cache=True, prefill_chunk=6,
+                    module="xlstm")
     moe = dataclasses.replace(CFG, n_experts=4, top_k=2)
     with pytest.raises(ValueError, match="MoE"):
         make_engine(params, cfg=moe, page_size=4, prefix_cache=True)
