@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: serve granite-8b, the rest of the
-dense zoo (glm4-9b, llama3.2-3b, qwen1.5-110b, internvl2-1b) and the
-recurrent zoo (xlstm-350m, recurrentgemma-9b) at their published widths on
-programmed AIMC crossbars, dense, paged and through recurrent snapshot
-pages, and run the paper's MLP, LSTM and CNN-F/M/S at theirs with read
-noise on, single-core and in the paper's multi-core mappings, through the
-hand-written Hopper kernels K1-K4.
+dense zoo (glm4-9b, llama3.2-3b, qwen1.5-110b, internvl2-1b), the
+recurrent zoo (xlstm-350m, recurrentgemma-9b) and the MoE zoo
+(olmoe-1b-7b, arctic-480b) at their published widths on programmed AIMC
+crossbars, dense, paged and through recurrent snapshot pages, and run the
+paper's MLP, LSTM and CNN-F/M/S at theirs with read noise on, single-core
+and in the paper's multi-core mappings, through the hand-written Hopper
+kernels K1-K4 and K2's expert entry.
 
     python3 chip_smoke.py        # one CUDA card; exits non-zero without one
 
@@ -40,6 +41,9 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
   5. stacked — `fuse_gate_stacks` on the installed parameters: prefill
      logits and served tokens (all requests at t=0, so both runs decode the
      same batches) bit-equal to the unfused run; K3 runs 36 x passes.
+     static — on the same codes with the DAC scale fixed at 0.05, the
+     engine equals `static_generate` bit for bit on a synchronized trace
+     (the transformer path's batch invariance).
   6. fused serve — the phase-4 command with --fuse-gates, launch counts
      zeroed just before and read just after: K3 36 x passes, K2 5 x 36 x
      passes, ledgers reconcile. K3's launch count in the record is this
@@ -135,11 +139,31 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      epilogue) held to the plain version and timed as in phase 2; a decode
      step and a prefill of each timed and profiled; init seconds and peak
      memory recorded.
+ 15. moe — olmoe-1b-7b uncut (16 layers, d_model 2048, 64 experts top-8,
+     d_ff 1024, vocab 50304) and arctic-480b at its published widths with
+     the depth cut to 1 of 35 layers (d_model 7168, 56/8 heads, 128
+     experts top-2, d_ff 4864 + a 4864 dense residual, vocab 32000; one
+     layer is 56.3 GB of f32 weights + 13.8 GB of codes, two do not fit a
+     card), seed 0, noise off, 4 Poisson requests at 20 req/s (prompt <=
+     16, gen <= 8, 4 slots) through `serve.main`, launch counts zeroed just
+     before and read just after: per layer and pass olmoe 4 K2 + 3 expert
+     launches (`aimc_mvm_experts`, one per expert projection over the
+     whole [E] stack), arctic 7 K2 + 3 expert; ledgers reconcile, tokens in
+     vocab, finite logits. Layer 0's router and sort dispatch on the card
+     and on the CPU from the identical hidden state: gate_idx and slot_o
+     equal (rows at a router tie, gap < 1e-6, reported). olmoe with
+     --fuse-gates (wqkv G=3 on K3) on synchronized arrivals: tokens equal
+     the unfused engine's, 1 K3 + 1 K2 + 3 expert per layer and pass. The
+     expert entry at every expert shape the path ran (decode and prefill
+     capacity, layer 0's codes, one expert empty): bit-equal to E K2
+     launches and within 1e-5 x max(1, max|y|) of its plain version, timed
+     against its bytes bound; decode step, prefill and a profiled step
+     timed; init seconds and peak memory recorded.
 
 The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
 per-kernel JSON record (K2/K3 timed per granite layer at decode, K1/K4 per
-MLP forward). Each phase's seconds are printed as it ends. Details go to
+MLP forward, the expert entry per olmoe-1b-7b layer at decode). Each phase's seconds are printed as it ends. Details go to
 chiprun_out/chip_smoke.json.
 """
 
@@ -726,6 +750,47 @@ def stacked_phase(run):
     return {"unfused": {"launches": cu, "passes": pu,
                         "times": times["unfused"]},
             "fused": {"launches": cf, "passes": pf, "times": times["fused"]}}
+
+
+def static_gate_phase(run, card):
+    """granite-8b at full width, on the serve phase's installed codes, with
+    the DAC scale fixed at PREFIX_SCALE: the engine (one [1 x 16] prefill
+    per request, then decode steps over 4 slots) emits `static_generate`'s
+    tokens (one [4 x 16] prefill, lockstep decode) bit for bit on a
+    synchronized trace. A dynamic DAC scale depends on the batch by
+    design; with it fixed, only a batch-dependent reduction order in the
+    transformer's own ops could move a token."""
+    import torch
+
+    from repro_torch.runtime.batcher import synchronized_trace
+    from repro_torch.runtime.engine import ServeEngine, static_generate
+
+    eng = run.engine
+    model, cfg = eng.model, eng.cfg
+    exe_f = dataclasses.replace(eng.exe, aimc=dataclasses.replace(
+        eng.exe.aimc, input_scale=PREFIX_SCALE))
+    reqs = synchronized_trace(N_REQ, prompt_len=PROMPT, max_new=GEN,
+                              seed=SEED + 1, vocab=cfg.vocab)
+    e = ServeEngine(model, cfg, exe_f, eng.params, n_slots=N_REQ,
+                    prompt_pad=PROMPT, max_seq=PROMPT + GEN,
+                    program=eng.program)
+    rep = e.serve(list(reqs))
+    prompts = torch.tensor([r.prompt for r in reqs], dtype=torch.int32,
+                           device=eng.device)
+    toks, (t_pre, t_dec) = static_generate(model, cfg, exe_f, eng.params,
+                                           prompts, GEN,
+                                           max_seq=PROMPT + GEN)
+    got = {r.rid: rep.tokens(r.rid) for r in reqs}
+    want = {r.rid: toks[r.rid].tolist() for r in reqs}
+    check(got == want, f"granite-8b engine != static_generate at a fixed "
+          f"DAC scale: engine {got}, static {want}")
+    print(f"[static] granite-8b engine == static_generate bit for bit (DAC "
+          f"scale fixed at {PREFIX_SCALE}, {len(reqs)} synchronized "
+          f"requests, {rep.generated_tokens} tokens); static prefill "
+          f"{t_pre:.2f} s, {GEN - 1} decode steps {t_dec:.2f} s (host "
+          f"clock, on {card})", flush=True)
+    return {"tokens": rep.generated_tokens, "prefill_s": t_pre,
+            "decode_s": t_dec}
 
 
 def fused_serve_phase(dev):
@@ -2457,6 +2522,338 @@ def recurrent_phase(dev, peaks, card):
     return out
 
 
+MOE = (("olmoe-1b-7b", 0), ("arctic-480b", 1))    # (arch, --layers)
+GAP = 1e-6      # router k-th/(k+1)-th probability gap reported as a tie
+
+
+def moe_sizes(cfg):
+    """(f32 parameters of one layer, f32 parameters outside the layers,
+    int8 code bytes of one layer at 512-row blocks and 128-lane columns)."""
+    def codes(k, n):
+        return (-(-k // 512) * 512) * (-(-n // 128) * 128)
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    e, ff, dff = cfg.n_experts, cfg.d_ff, cfg.moe_dense_ff or cfg.d_ff
+    mats = [(d, q), (d, kv), (d, kv), (q, d)] + [(d, ff), (d, ff),
+                                                (ff, d)] * e
+    if cfg.moe_dense_residual:
+        mats += [(d, dff), (d, dff), (dff, d)]
+    per_layer = sum(k * n for k, n in mats) + d * e + 2 * d
+    outside = cfg.vocab * d * (1 if cfg.tie_embeddings else 2) + d
+    return per_layer, outside, sum(codes(k, n) for k, n in mats)
+
+
+def moe_launches(cfg, fused: bool = False):
+    """(K2, K3, expert-entry) launches per forward pass: attention wq, wk,
+    wv, wo on K2 (fused: wqkv on K3 + wo), arctic's dense residual w_gate,
+    w_up, w_down on K2, and one expert launch per expert projection."""
+    dense = 3 if cfg.moe_dense_residual else 0
+    l = cfg.n_layers
+    return ((1 if fused else 4) + dense) * l, (l if fused else 0), 3 * l
+
+
+def expert_bound_ms(e, b, kb, m, np_, peaks):
+    """Least time of one expert launch: each expert's x, codes, scales,
+    DAC scale and output moved once, against its int8 MACs."""
+    k_pad = kb * m
+    nbytes = e * (b * k_pad * 4 + k_pad * np_ + kb * np_ * 4 + b * np_ * 4
+                  + 4)
+    t_bytes = nbytes / peaks[0] * 1e3
+    t_ops = 2 * e * b * k_pad * np_ / peaks[1] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def moe_expert_rows(arch, eng, peaks, flush, gen, card, caps):
+    """The expert entry at each expert projection of layer 0, at each
+    capacity the main path ran (``caps``: label -> rows per expert), on
+    random inputs with expert 1 empty (DAC scale 1e-12 / 127): bit-equal
+    to E K2 launches (the oracle loop, never on the main path), within
+    1e-5 x max(1, max|y|) of its plain version, and timed (kernel, plain,
+    the E-launch loop) against its bytes bound."""
+    import torch
+
+    from repro_torch.core.quant import sym_scale
+    from repro_torch.kernels import aimc_mvm, ref
+
+    blocks = eng.params["blocks"]
+    step = eng.exe.aimc.adc_step
+    rows = []
+    for label, b in caps.items():
+        for name in ("we_gate", "we_down"):
+            st = blocks[name][0]                         # layer 0: [E]
+            e = st.stack_shape[0]
+            kb, m, np_ = st.w_q.shape[-3:]
+            x = torch.zeros((e, b, kb * m), device=eng.device)
+            x[:, :, :st.k] = torch.randn((e, b, st.k), generator=gen,
+                                         device=eng.device)
+            x[1] = 0.0
+            s_x = sym_scale(x.reshape(e, -1), dim=1).reshape(e)
+            w_q, s_w = st.w_q, st.s_w
+            kern = functools.partial(aimc_mvm.aimc_mvm_experts, x, w_q, s_w,
+                                     s_x, adc_step=step)
+            plain = functools.partial(ref.aimc_matmul_experts_ref, x, w_q,
+                                      s_w, s_x, adc_step=step)
+
+            def loop():
+                return [aimc_mvm.aimc_mvm_v2(x[i], w_q[i], s_w[i],
+                                             s_x[i:i + 1], adc_step=step)
+                        for i in range(e)]
+
+            y, want, per = kern(), plain(), torch.stack(loop())
+            torch.cuda.synchronize()
+            check(torch.equal(y, per), f"{arch} {name} [{label}]: the expert "
+                  f"launch differs from {e} K2 launches")
+            check(not y[1].any(), f"{arch} {name}: an empty expert's output "
+                  f"is not zero")
+            err = float((y - want).abs().max())
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            check(err <= tol, f"{arch} {name} [{label}]: max |err| {err} > "
+                  f"{tol}")
+            row = {"arch": arch, "proj": name, "phase": label, "E": e,
+                   "B": b, "K": st.k, "N": st.n, "KB": kb, "Np": np_,
+                   "max_abs_err": err, "tol": tol,
+                   "plan": aimc_mvm.launch_plan(eng.device, b, kb, m, np_, e,
+                                                experts=True),
+                   "ms": time_ms(kern, flush, KERNEL_REPS),
+                   "plain_ms": time_ms(plain, flush, 3),
+                   "e_k2_loop_ms": time_ms(loop, flush, 3),
+                   "codes_gb": w_q.numel() / 1e9}
+            row["bound_ms"], row["bound_by"] = expert_bound_ms(
+                e, b, kb, m, np_, peaks)
+            rows.append(row)
+            print(f"[moe] {arch} {name} {label} E {e} x [{b}x{st.k}]x"
+                  f"[{st.k}x{st.n}] KB {kb} ({plan_str(row['plan'])}; "
+                  f"{row['codes_gb']:.3f} GB codes): == {e} K2 launches bit "
+                  f"for bit, max|err| {err:.3g} vs plain; kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                  f"{e} K2 launches {row['e_k2_loop_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) on {card}",
+                  flush=True)
+            del x, y, want, per
+    return rows
+
+
+def moe_layer0_routing(eng, prompt, card, ffn_on_cpu: bool):
+    """Layer 0's router and sort dispatch on the card and on the CPU from
+    the identical hidden state (captured from a card prefill of
+    ``prompt``): gate_idx and slot_o equal, unless the rows that differ
+    all have a k-th/(k+1)-th probability gap under GAP (reported, not
+    failed). ``ffn_on_cpu``: layer 0's whole MoE FFN also runs on the CPU
+    (plain versions) from that state; its difference is recorded."""
+    import torch
+
+    from repro_torch.models import moe
+
+    seen = []
+    orig = moe.moe_ffn
+
+    def rec(x, *args, **kw):
+        if not seen:
+            seen.append((x.clone(), args, kw))
+        return orig(x, *args, **kw)
+
+    moe.moe_ffn = rec
+    try:
+        tokens, vl = eng._pad_prompt(prompt)
+        eng.model.prefill(eng.params, tokens, eng.cfg, eng.exe,
+                          max_seq=eng.max_seq, valid_len=vl)
+    finally:
+        moe.moe_ffn = orig
+    x, args, kw = seen[0]
+    router = args[0]
+    k, e = eng.cfg.top_k, router.shape[1]
+    cap = moe.capacity(x.shape[0], k, e, eng.cfg.capacity_factor)
+    _, idx_d, aux_d = moe.route(x, router, k)
+    _, idx_c, aux_c = moe.route(x.cpu(), router.cpu(), k)
+    probs = torch.softmax(x.cpu() @ router.cpu(), dim=-1)
+    top = probs.sort(dim=-1, descending=True).values
+    gaps = (top[:, k - 1] - top[:, k])
+    differ = (idx_d.cpu() != idx_c).any(dim=-1)
+    out = {"tokens": x.shape[0], "cap": cap, "min_gap": float(gaps.min()),
+           "rows_differ": int(differ.sum()),
+           "aux_abs_diff": float((aux_d.cpu() - aux_c).abs())}
+    if differ.any():
+        ties = gaps[differ]
+        check(bool((ties < GAP).all()), f"layer-0 routing differs card vs "
+              f"CPU at rows {differ.nonzero().flatten().tolist()} with "
+              f"gaps {ties.tolist()}")
+        print(f"[moe] layer-0 routing: {int(differ.sum())} rows differ at "
+              f"router ties (gaps {ties.tolist()} < {GAP}); slot_o not "
+              f"compared", flush=True)
+        return out
+    xe_d, slot_d = moe._dispatch_sort(x, idx_d, e, cap, k)
+    xe_c, slot_c = moe._dispatch_sort(x.cpu(), idx_c, e, cap, k)
+    check(torch.equal(slot_d.cpu(), slot_c) and torch.equal(xe_d.cpu(), xe_c),
+          "layer-0 slot_o or expert buffers differ card vs CPU")
+    out["dropped"] = int((slot_c == e * cap).sum())
+    if ffn_on_cpu:
+        y_d, _ = orig(x, *args, **kw)
+        y_c, _ = orig(x.cpu(), *(_to(a, "cpu") for a in args), **kw)
+        out["ffn_max_abs_diff"] = float((y_d.cpu() - y_c).abs().max())
+        out["ffn_max_abs"] = float(y_c.abs().max())
+    print(f"[moe] layer-0 routing card == CPU on {x.shape[0]} tokens (cap "
+          f"{cap}, {out['dropped']} assignments over capacity, smallest "
+          f"k-th/(k+1)-th gap {out['min_gap']:.3g})"
+          + (f"; the layer's MoE FFN card vs CPU max|diff| "
+             f"{out['ffn_max_abs_diff']:.3g} (|y| <= {out['ffn_max_abs']:.3g},"
+             f" recorded)" if ffn_on_cpu else "") + f" on {card}", flush=True)
+    return out
+
+
+def moe_serve(dev, peaks, arch, layers, card):
+    """One MoE arch through the CLI entry point at its published widths,
+    --exec aimc, 4 Poisson requests at 20 req/s: launch counts zeroed just
+    before and read just after (`moe_launches` x passes, exact), ledgers
+    reconcile, tokens in the vocabulary, finite logits; layer-0 routing
+    card == CPU; the expert entry at layer 0's shapes; a decode step, a
+    prefill and a profiled step timed; init seconds and peak memory."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch import serve
+    from repro_torch.models.moe import capacity
+    from repro_torch.runtime.batcher import reconcile
+
+    spec = get_arch(arch)
+    pub = spec.model_cfg
+    args = ["--arch", arch, "--exec", "aimc", "--requests", str(N_REQ),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--slots",
+            str(SLOTS), "--trace", f"poisson:{RATE:g}", "--seed", str(SEED),
+            "--device", str(dev)] + (["--layers", str(layers)] if layers
+                                     else [])
+    per_layer, outside, codes = moe_sizes(pub)
+    print(f"[moe] python -m repro_torch.launch.serve {' '.join(args)}"
+          + (f"  (depth cut: {layers} of {pub.n_layers} layers at the "
+             f"published widths and all {pub.n_experts} experts: "
+             f"{layers} layer(s) draw "
+             f"{(layers * per_layer + outside) / 1e9:.2f}e9 f32 parameters "
+             f"({(layers * per_layer + outside) * 4e-9:.1f} GB) and program "
+             f"{layers * codes / 1e9:.1f} GB of int8 codes; "
+             f"{layers + 1} layers need "
+             f"{((layers + 1) * per_layer + outside) * 4e-9:.1f} GB of f32 "
+             f"alone, more than one card)" if layers else ""), flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    aimc_mvm.reset_counts()
+    t0 = time.perf_counter()
+    run = serve.main(args)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = dict(aimc_mvm.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    eng, rep, prog = run.engine, run.report, run.program
+    cfg, n_layers, passes = eng.cfg, eng.cfg.n_layers, eng.forward_passes
+    check(dataclasses.replace(cfg, n_layers=pub.n_layers) == pub
+          and n_layers == (layers or pub.n_layers),
+          f"{arch}: not the published widths: {cfg}")
+    k2, k3, ex = moe_launches(cfg)
+    check(counts["aimc_mvm_v2"] == k2 * passes
+          and counts["aimc_mvm_stacked"] == k3 * passes
+          and counts["aimc_mvm_experts"] == ex * passes,
+          f"{arch}: launches {counts} != ({k2} K2, {k3} K3, {ex} expert) x "
+          f"{passes} passes")
+    led, static = reconcile(prog, rep.records, rep.observed_vectors)
+    check(led == static, f"{arch}: CM_* ledgers do not reconcile")
+    check(len(rep.records) == N_REQ, f"{arch}: requests lost")
+    for rec in rep.records.values():
+        check(1 <= len(rec.tokens) <= rec.request.max_new
+              and all(0 <= t < cfg.vocab for t in rec.tokens),
+              f"{arch}: bad tokens for request {rec.request.rid}")
+    tokens, vl = eng._pad_prompt(run.requests[0].prompt)
+    logits, _ = eng.model.prefill(eng.params, tokens, cfg, eng.exe,
+                                  max_seq=eng.max_seq, valid_len=vl)
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (1, 1, cfg.vocab),
+          f"{arch}: bad logits {tuple(logits.shape)}")
+    print(f"[moe] {arch}: {n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts "
+          f"top-{cfg.top_k}, d_ff {cfg.d_ff}"
+          f"{f' + dense residual {cfg.moe_dense_ff}' if cfg.moe_dense_residual else ''}"
+          f", vocab {cfg.vocab}; {wall:.1f}s wall (init {run.init_s:.2f}s) "
+          f"on {card}, {passes} passes, launches {counts} ({k2} K2 + {ex} "
+          f"expert per pass), peak {peak_gb:.2f} GB; {prog.summary()}; "
+          f"ledgers reconcile, tokens in vocab, logits finite", flush=True)
+    routing = moe_layer0_routing(eng, run.requests[0].prompt, card,
+                                 ffn_on_cpu=layers == 0)
+    caps = {"decode": capacity(SLOTS, cfg.top_k, cfg.n_experts,
+                               cfg.capacity_factor)}
+    prefill_cap = capacity(PROMPT, cfg.top_k, cfg.n_experts,
+                           cfg.capacity_factor)
+    if prefill_cap != caps["decode"]:
+        caps["prefill"] = prefill_cap
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = flush_buffer(dev)
+    rows = moe_expert_rows(arch, eng, peaks, flush, gen, card, caps)
+    del flush
+    print(f"[moe] {arch} decode step and prefill on {card}:", flush=True)
+    times = step_times(eng, run.requests[0].prompt)
+    return run, {"wall_s": wall, "init_s": run.init_s, "layers": n_layers,
+                 "published_layers": pub.n_layers, "forward_passes": passes,
+                 "launches": counts, "per_pass": [k2, k3, ex],
+                 "peak_gb": peak_gb, "routing": routing, "caps": caps,
+                 "expert_rows": rows, **times, "report": rep.summary(),
+                 "program": prog.summary()}
+
+
+def moe_fused(run, card):
+    """olmoe's --fuse-gates on the served codes (wq/wk/wv on one G=3 K3
+    stack; experts unfused), synchronized arrivals: tokens equal the
+    unfused engine's; launches per pass 1 K3 + 1 K2 + 3 expert per layer,
+    counts zeroed just before and read just after each run."""
+    import torch
+
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.runtime.engine import ServeEngine
+
+    eng = run.engine
+    fused = eng.model.fuse_gate_stacks(eng.params)
+    check("wqkv" in fused["blocks"] and "we_gate" in fused["blocks"],
+          "olmoe fuse_gate_stacks built no wqkv stack")
+    sync = [dataclasses.replace(r, arrival=0.0) for r in run.requests]
+    reports, counts = {}, {}
+    for name, params in (("unfused", eng.params), ("fused", fused)):
+        e = ServeEngine(eng.model, eng.cfg, eng.exe, params,
+                        n_slots=eng.n_slots, prompt_pad=eng.prompt_pad,
+                        max_seq=eng.max_seq, program=eng.program,
+                        family=eng.family)
+        aimc_mvm.reset_counts()
+        reports[name] = e.serve(sync)
+        torch.cuda.synchronize()
+        counts[name] = (dict(aimc_mvm.LAUNCHES), e.forward_passes)
+        del e
+    for name, (c, p) in counts.items():
+        k2, k3, ex = moe_launches(eng.cfg, fused=name == "fused")
+        check(c["aimc_mvm_v2"] == k2 * p and c["aimc_mvm_stacked"] == k3 * p
+              and c["aimc_mvm_experts"] == ex * p,
+              f"olmoe {name} launches {c} for {p} passes")
+    for r in sync:
+        check(reports["fused"].tokens(r.rid) == reports["unfused"].tokens(r.rid),
+              f"olmoe fused tokens differ for request {r.rid}")
+    (cu, pu), (cf, pf) = counts["unfused"], counts["fused"]
+    print(f"[moe] olmoe-1b-7b fused == unfused token for token on "
+          f"synchronized arrivals ({reports['fused'].generated_tokens} "
+          f"tokens); launches per pass: unfused K2 {cu['aimc_mvm_v2'] // pu}"
+          f" + expert {cu['aimc_mvm_experts'] // pu}, fused K3 "
+          f"{cf['aimc_mvm_stacked'] // pf} + K2 {cf['aimc_mvm_v2'] // pf} + "
+          f"expert {cf['aimc_mvm_experts'] // pf} (on {card})", flush=True)
+    return {"unfused": {"launches": cu, "passes": pu},
+            "fused": {"launches": cf, "passes": pf}}
+
+
+def moe_phase(dev, peaks, card):
+    """olmoe-1b-7b uncut (fused and unfused) and arctic-480b at 1 of 35
+    layers through `moe_serve`, each freed before the next."""
+    import torch
+    out = {}
+    for arch, layers in MOE:
+        run, out[arch] = moe_serve(dev, peaks, arch, layers, card)
+        if arch == "olmoe-1b-7b":
+            out["olmoe_fused"] = moe_fused(run, card)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def fidelity_phase(dev):
     """bench_accuracy's own configuration (key 7 and its folds, the NOISY
     model, MLP 1024 B 16, LSTM n_h 256, CNN-F at 64 px B 8) on the card,
@@ -2607,6 +3004,7 @@ def main() -> int:
     small_err = phase("small model", small_model_phase, dev)
     run, serve_stats = phase("serve", serve_phase, dev)
     stacked = phase("stacked", stacked_phase, run)
+    static = phase("static", static_gate_phase, run, smi)
     del run                       # free granite's weights before the next
     free()
     init = phase("init", init_phase, dev, serve_stats["init_s"])
@@ -2630,6 +3028,8 @@ def main() -> int:
         arch: phase(f"small {arch}", small_model_phase, dev, arch)
         for arch in RECURRENT}}
     recurrent |= phase("recurrent", recurrent_phase, dev, peaks, smi)
+    free()
+    moe = phase("moe", moe_phase, dev, peaks, smi)
     free()
 
     def decode_layer(kname, projs):
@@ -2656,6 +3056,17 @@ def main() -> int:
                 } | {"bound_by": row["bound_by"]}
 
     k1, k4 = mlp_forward("aimc_mvm_v1"), mlp_forward("aimc_mvm_v2 hw")
+
+    # per olmoe-1b-7b layer, one decode step (4 slots, 1 row per expert):
+    # the expert launches of we_gate, we_up (its shape) and we_down
+    olmoe = moe["olmoe-1b-7b"]
+    by = {r["proj"]: r for r in olmoe["expert_rows"]
+          if r["phase"] == "decode"}
+    kx = {key: 2 * by["we_gate"][key] + by["we_down"][key]
+          for key in ("ms", "plain_ms", "bound_ms")}
+    kx["bound_by"] = by["we_gate"]["bound_by"]
+    kx_err = max(r["max_abs_err"] for arch in ("olmoe-1b-7b", "arctic-480b")
+                 for r in moe[arch]["expert_rows"])
     src_rel = "src/repro_torch/kernels/csrc/aimc_mvm.cu"
     record = {"kernels": [
         {"name": "aimc_mvm_v2", "route": "cuda", "source": src_rel,
@@ -2682,6 +3093,12 @@ def main() -> int:
          "launches": hw_launches, "max_abs_err": v1_worst["aimc_mvm_hw"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+         "library_ms": None},
+        {"name": "aimc_mvm_experts", "route": "cuda", "source": src_rel,
+         "replaces": "src/repro/kernels/aimc_mvm.py:228",
+         "launches": olmoe["launches"]["aimc_mvm_experts"],
+         "max_abs_err": kx_err, "ms": kx["ms"], "plain_ms": kx["plain_ms"],
+         "bound_ms": kx["bound_ms"], "bound_by": kx["bound_by"],
          "library_ms": None}]}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
@@ -2689,7 +3106,8 @@ def main() -> int:
         "build": build,
         "kernel_rows": rows, "v1_hw_kernel_rows": v1_rows,
         "hw_draws": hw_draws, "small_model_max_err": small_err,
-        "serve": serve_stats, "stacked": stacked, "fused_serve": fused,
+        "serve": serve_stats, "stacked": stacked, "static": static,
+        "fused_serve": fused, "moe": moe,
         "staged_v1": staged, "paper_nets": paper, "init": init,
         "multicore": multicore, "fidelity": fidelity, "zoo": zoo,
         "paged": paged, "recurrent": recurrent, "phase_seconds": seconds},

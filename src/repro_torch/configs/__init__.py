@@ -5,8 +5,9 @@ configuration and a reduced same-family smoke config, copied field for
 field from the reference. The dense decoders are ported (granite-8b,
 glm4-9b, llama3.2-3b, qwen1.5-110b, and internvl2-1b's language backbone
 behind its patch-embedding stub), and so are the recurrent xlstm-350m and
-recurrentgemma-9b; the reference's MoE and enc-dec architectures raise a
-clear error that points at ROADMAP.md.
+recurrentgemma-9b and the MoE olmoe-1b-7b and arctic-480b; the
+reference's enc-dec architecture raises a clear error that points at
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ class ArchSpec:
 
 
 PORTED = ("granite_8b", "glm4_9b", "llama32_3b", "qwen15_110b",
-          "internvl2_1b", "xlstm_350m", "recurrentgemma_9b")
+          "internvl2_1b", "xlstm_350m", "recurrentgemma_9b", "olmoe_1b_7b",
+          "arctic_480b")
 # the reference's registry; everything not in PORTED is later work
 _ARCH_IDS = (
     "internvl2_1b", "granite_8b", "llama32_3b", "qwen15_110b", "glm4_9b",

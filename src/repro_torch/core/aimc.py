@@ -5,8 +5,10 @@ A dense weight matrix is *programmed* (CM_INITIALIZE) onto crossbar row
 blocks (`program_linear`); activations then flow through the fused
 DAC -> crossbar -> ADC pipeline (`aimc_apply` = CM_QUEUE/PROCESS/DEQUEUE),
 which on a CUDA tensor is the hand-written kernel K2 and, for a gate stack
-(`aimc_apply_stacked`), K3. The DAC scale ``s_x`` stays a device tensor:
-no projection waits on the host.
+(`aimc_apply_stacked`), K3; an MoE expert stack (`aimc_apply_experts`,
+the reference's `vmap` of `aimc_apply`) runs as one launch of K2's expert
+entry. The DAC scale ``s_x`` stays a device tensor: no projection waits
+on the host.
 
 Noise-aware training (`aimc_linear_ste`) waits for the training slice.
 """
@@ -253,3 +255,40 @@ def aimc_apply_stacked(stack: AimcLinearState, x: torch.Tensor,
         y = torch.stack([kernel_ops.EPILOGUE_FNS[a](y[g])
                          for g, a in enumerate(activations)])
     return y.reshape(g_, *lead, stack.n)
+
+
+def aimc_apply_experts(state: AimcLinearState, x: torch.Tensor,
+                       cfg: AimcConfig, key: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """`aimc_apply` on each expert of an `[E, ...]` programmed stack, each
+    on its own input, in ONE kernel launch: x [E, C, K] -> [E, C, N]. As
+    under the reference's `vmap`, expert e takes its own DAC scale
+    ``sym_scale(x[e])`` (an expert that got no token sees zeros and the
+    floor scale 1e-12 / 127), computed on the device. Noise off only."""
+    if len(state.stack_shape) != 1:
+        raise ValueError(f"aimc_apply_experts needs one leading expert dim, "
+                         f"got stack shape {state.stack_shape}")
+    e = state.stack_shape[0]
+    if x.dim() != 3 or x.shape[0] != e:
+        raise ValueError(f"expert inputs must be [{e}, C, K], got "
+                         f"{tuple(x.shape)}")
+    if _noise_args(cfg, key, cfg.tile_rows)[1] > 0.0:
+        raise NotImplementedError(
+            "read noise on programmed experts needs a read seed per expert; "
+            "noise-on experts come with the training slice (ROADMAP.md)")
+    _, c, k = x.shape
+    if k != state.k:
+        raise ValueError(f"in_features mismatch: {k} != {state.k}")
+    kb, m, _ = state.w_q.shape[-3:]
+    xf = x.to(torch.float32)
+    if k != kb * m:
+        xf = torch.nn.functional.pad(xf, (0, kb * m - k))
+    xf = xf.contiguous()
+    if cfg.input_scale > 0.0:
+        s_x = torch.full((e,), cfg.input_scale, dtype=torch.float32,
+                         device=x.device)
+    else:
+        s_x = sym_scale(xf.reshape(e, c * kb * m), dim=1).reshape(e)
+    y = kernel_ops.aimc_matmul_experts(xf, state.w_q, state.s_w, s_x,
+                                       adc_step=cfg.adc_step)
+    return y[:, :, :state.n]

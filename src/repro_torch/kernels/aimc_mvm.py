@@ -10,6 +10,10 @@
   * K4, ``noise_source="hw"`` on K2/K3 — replaces the hardware-PRNG branch
     of `_in_kernel_noise` (`repro/kernels/aimc_mvm.py:160-170`) with
     Philox4x32-10 (`csrc/philox.cuh`).
+  * `aimc_mvm_experts` — K2 over an `[E, ...]` expert stack, each expert
+    on its own input and DAC scale: the counterpart of `jax.vmap` over
+    `aimc_matmul_pallas_v2` in the MoE FFN (`repro/models/moe.py:74-86`),
+    one launch for all E experts.
 
 The shared library is compiled with `nvcc` for `sm_90a` at first use, into
 ``build/`` beside this file (listed in `.gitignore`), named by a hash of its
@@ -54,7 +58,8 @@ MAX_GATES = 16
 
 # kernel name -> launches since the last `reset_counts()`
 LAUNCHES = {"aimc_mvm_v1": 0, "aimc_mvm_v2": 0, "aimc_mvm_stacked": 0,
-            "aimc_mvm_v2_hw": 0, "aimc_mvm_stacked_hw": 0}
+            "aimc_mvm_v2_hw": 0, "aimc_mvm_stacked_hw": 0,
+            "aimc_mvm_experts": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -118,30 +123,41 @@ def _load():
                               ctypes.c_int, ctypes.c_uint, ctypes.c_int,
                               ctypes.c_void_p, ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            lib.aimc_mvm_plan.argtypes = (
-                [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)])
-            lib.aimc_mvm_plan.restype = ctypes.c_int
+            ex = lib.aimc_mvm_experts_launch
+            ex.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_void_p,
+                              ctypes.c_void_p])
+            ex.restype = ctypes.c_int
+            for plan in (lib.aimc_mvm_plan, lib.aimc_mvm_experts_plan):
+                plan.argtypes = ([ctypes.c_int] * 5
+                                 + [ctypes.POINTER(ctypes.c_longlong)])
+                plan.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
 @functools.lru_cache(maxsize=1024)
 def _plan(device_index: int, b: int, kb: int, m: int, np_: int,
-          g: int) -> tuple[int, int]:
+          g: int, experts: bool = False) -> tuple[int, int]:
     """(plan code, workspace bytes) of the launcher for this shape; the plan
     depends on the device's SM count."""
     work = ctypes.c_longlong(0)
+    lib = _load()
+    fn = lib.aimc_mvm_experts_plan if experts else lib.aimc_mvm_plan
     with torch.cuda.device(device_index):
-        code = _load().aimc_mvm_plan(b, kb, m, np_, g, ctypes.byref(work))
+        code = fn(b, kb, m, np_, g, ctypes.byref(work))
     return int(code), int(work.value)
 
 
-def launch_plan(device, b: int, kb: int, m: int, np_: int, g: int = 1):
+def launch_plan(device, b: int, kb: int, m: int, np_: int, g: int = 1,
+                experts: bool = False):
     """The launcher's choice for a call of this shape on ``device``: rows
     per block (16 or 64), whether the grid splits over row blocks, the CUDA
     kernels the call issues (DAC pass, MVM, and the row-block sum when
-    split) and the workspace bytes."""
-    code, work = _plan(torch.device(device).index or 0, b, kb, m, np_, g)
+    split) and the workspace bytes. ``experts``: the expert entry, with
+    ``g`` experts of ``b`` rows each."""
+    code, work = _plan(torch.device(device).index or 0, b, kb, m, np_, g,
+                       experts)
     split = bool(code & 256)
     return {"rows_per_block": code & 255, "split": split,
             "kernels_per_call": 3 if split else 2, "workspace_bytes": work}
@@ -262,3 +278,48 @@ def aimc_mvm_stacked(x, w_q, s_w, s_x, seed=None, bias=None, *,
     return _launch("aimc_mvm_stacked", x, w_q, s_w, s_x, seed, bias,
                    adc_step, sigma, tuple(activations), stacked=True,
                    noise_source=noise_source)
+
+
+def aimc_mvm_experts(x, w_q, s_w, s_x, *, adc_step: float,
+                     sigma: float = 0.0):
+    """K2 over an expert stack in one launch: x f32 [E, B, KB*M], w_q int8
+    [E, KB, M, Np], s_w f32 [E, KB, Np], s_x f32 [E] (each expert's own DAC
+    scale, on the device) -> f32 [E, B, Np], noise off, no epilogue. Expert
+    e equals `aimc_mvm_v2(x[e], w_q[e], s_w[e], s_x[e])` bit for bit."""
+    if sigma > 0.0:
+        raise NotImplementedError(
+            "read noise on the expert entry needs a read seed per expert; "
+            "serving runs noise off and noise-on experts come with the "
+            "training slice (see ROADMAP.md)")
+    if not x.is_cuda:
+        raise ValueError(f"aimc_mvm_experts launches on a CUDA tensor; x is "
+                         f"on {x.device}")
+    e, kb, m, np_ = w_q.shape
+    _check(x, "x", torch.float32, x.device, 3)
+    _check(w_q, "w_q", torch.int8, x.device, 4)
+    _check(s_w, "s_w", torch.float32, x.device, 3)
+    _check(s_x, "s_x", torch.float32, x.device, 1)
+    b = x.shape[1]
+    if x.shape[0] != e or x.shape[2] != kb * m:
+        raise ValueError(f"x {tuple(x.shape)} != {(e, b, kb * m)}")
+    if tuple(s_w.shape) != (e, kb, np_):
+        raise ValueError(f"s_w {tuple(s_w.shape)} != {(e, kb, np_)}")
+    if tuple(s_x.shape) != (e,):
+        raise ValueError(f"s_x {tuple(s_x.shape)} != {(e,)}")
+    if np_ % 128:
+        raise ValueError(f"Np={np_} is not 128-aligned (program_linear pads)")
+    out = torch.empty((e, b, np_), dtype=torch.float32, device=x.device)
+    lib = _load()
+    work = torch.empty(_plan(x.device.index or 0, b, kb, m, np_, e, True)[1],
+                       dtype=torch.uint8, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.aimc_mvm_experts_launch(
+            x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
+            out.data_ptr(), b, kb, m, np_, e, float(adc_step), stream,
+            work.data_ptr())
+    if err:
+        raise RuntimeError(f"aimc_mvm_experts launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["aimc_mvm_experts"] += 1
+    return out

@@ -6,14 +6,19 @@
 //   K2  aimc_matmul_pallas_v2       (body _aimc_mvm_kernel_v2, :186)
 //   K3  aimc_matmul_pallas_stacked  (body _aimc_mvm_kernel_stacked, :297)
 //   K4  the noise_source="hw" branch of _in_kernel_noise (:160-170)
+// and jax.vmap of K2 over an expert stack (the MoE FFN, src/repro/models/
+// moe.py:74-86): pallas_call's batching rule adds a grid axis, here the
+// gate index with a per-gate input and DAC scale.
 // K3 is K2 with a gate index: gate g reads w_q[g], s_w[g], bias[g], draws
 // noise under stack_seed(seed, g) and applies its own activation; x and its
-// DAC scale are shared. K1 is K2 with the noise read from an explicit
+// DAC scale are shared. The expert entry (aimc_mvm_experts_launch) is K2
+// over a [G] stack where gate g also reads its own x[g] and s_x[g], noise
+// off, no epilogue. K1 is K2 with the noise read from an explicit
 // [KB, B, Np] operand and no epilogue. K4 is K2/K3 with the per-element
 // noise drawn by Philox4x32-10 (philox.cuh) in place of the counter hash.
 // The plain PyTorch versions are repro_torch/kernels/ref.py
-// (aimc_matmul_ref, aimc_matmul_ref_v2, aimc_matmul_stacked_ref;
-// noise_source="hw" for K4).
+// (aimc_matmul_ref, aimc_matmul_ref_v2, aimc_matmul_stacked_ref,
+// aimc_matmul_experts_ref; noise_source="hw" for K4).
 //
 // What bounds it on an H100 SXM, by regime:
 //  * B <= 16 (granite decode and prefill pad, the MLP, the LSTM): the int8
@@ -85,6 +90,12 @@ constexpr int kBN = 128;          // columns per block
 constexpr int kMaxBK = 128;       // deepest k tile; codes rows pad to it
 constexpr int kStages = 4;        // cp.async ring depth
 constexpr int kMaxGates = 16;     // 2-bit activation codes in acts
+constexpr int kMaxGridZ = 65535;  // gates (x row blocks when split)
+
+// the 2-bit activation code of gate g; gates past kMaxGates carry none
+__device__ __forceinline__ int gate_act(uint32_t acts, int g) {
+  return g < kMaxGates ? (int)((acts >> (2 * g)) & 3u) : 0;
+}
 
 __device__ __forceinline__ float epilogue(float y, int act) {
   switch (act) {
@@ -146,18 +157,19 @@ __device__ __forceinline__ int w_offset(int row, int chunk) {
 }
 
 // DAC (CM_QUEUE): codes[row, k*Mp + m] = clip(rintf(x[row, k*M + m] / s_x))
-// for m < M, 0 for M <= m < Mp; four codes per thread.
+// for m < M, 0 for M <= m < Mp; four codes per thread. Row r takes the
+// scale s_x[r / rows_per_scale]: one scale for all rows, or one per expert.
 __global__ void aimc_dac_kernel(const float* __restrict__ x,
                                 const float* __restrict__ s_x,
-                                int8_t* __restrict__ codes, int B, int KB,
-                                int M, int Mp) {
+                                int8_t* __restrict__ codes, int rows, int KB,
+                                int M, int Mp, int rows_per_scale) {
   const size_t K = (size_t)KB * M;
   const int quads = KB * Mp / 4;
-  const size_t n = (size_t)B * quads;
-  const float sx = *s_x;
+  const size_t n = (size_t)rows * quads;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += (size_t)gridDim.x * blockDim.x) {
     const size_t row = e / quads;
+    const float sx = s_x[row / rows_per_scale];
     const int col = (int)(e - row * quads) * 4;
     const int k = col / Mp;
     const int m = col - k * Mp;
@@ -180,6 +192,8 @@ __global__ void aimc_dac_kernel(const float* __restrict__ x,
 // warps of 32 columns along the columns. part == nullptr: all row blocks,
 // bias + activation, store to out. Otherwise one row block (blockIdx.z =
 // g*KB + k) whose dequantized contribution goes to part [G, KB, B, Np].
+// per_gate_x: gate g reads codes [g, B, KB*Mp] and the scale s_x[g] (the
+// expert entry); otherwise every gate shares codes [B, KB*Mp] and s_x[0].
 template <int MT, int WM, int BK>
 __global__ void __launch_bounds__(WM * 128)
 aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
@@ -190,7 +204,7 @@ aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
                     const float* __restrict__ noise, float* __restrict__ out,
                     float* __restrict__ part, int B, int KB, int M, int Mp,
                     int Np, float adc_step, float sigma, uint32_t seed,
-                    int stacked, uint32_t acts, int philox) {
+                    int stacked, uint32_t acts, int philox, int per_gate_x) {
   constexpr int BM = 16 * MT * WM;
   constexpr int kThreads = WM * 128;
   constexpr int kAPitch = BK + 16;   // bytes per codes row in shared memory
@@ -219,9 +233,10 @@ aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
 
   const int8_t* wg = w_q + (size_t)g * KB * M * Np;
   const float* swg = s_w + (size_t)g * KB * Np;
+  const int8_t* xg = per_gate_x ? xq + (size_t)g * B * Kp : xq;
   const uint32_t seed_g = stacked ? aimc::stack_seed(seed, (uint32_t)g) : seed;
-  const int act = (acts >> (2 * g)) & 3;
-  const float sx = *s_x;
+  const int act = gate_act(acts, g);
+  const float sx = s_x[per_gate_x ? g : 0];
   const float scale_xs = adc_step * sx;
 
   auto load_tile = [&](int it) {
@@ -235,8 +250,8 @@ aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
       const int row = row0 + r;
       const bool ok = row < B;
       const int8_t* src =
-          ok ? xq + (size_t)row * Kp + (size_t)kk * Mp + kt * BK + ch * 16
-             : xq;
+          ok ? xg + (size_t)row * Kp + (size_t)kk * Mp + kt * BK + ch * 16
+             : xg;
       cp_async16(a + r * kAPitch + ch * 16, src, ok);
     }
     unsigned char* w = sW + stage * kWTile;
@@ -420,7 +435,7 @@ __global__ void aimc_rowblock_sum_kernel(const float* __restrict__ part,
     float y = p[0];
     for (int k = 1; k < KB; ++k) y = y + p[(size_t)k * plane];
     if (bias != nullptr) y = y + bias[(size_t)g * Np + rc % Np];
-    out[e] = epilogue(y, (acts >> (2 * g)) & 3);
+    out[e] = epilogue(y, gate_act(acts, g));
   }
 }
 
@@ -437,11 +452,12 @@ struct Plan {
   int bm;             // 16 or 64 rows per block
   bool split;         // one row block per block + aimc_rowblock_sum_kernel
   int Mp;             // M rounded up to kMaxBK
-  size_t codes_bytes; // int8 codes [B, KB*Mp], rounded up to 256 bytes
+  size_t codes_bytes; // int8 codes [B, KB*Mp] ([G, B, KB*Mp] per gate),
+                      // rounded up to 256 bytes
   size_t part_bytes;  // f32 scratch [G, KB, B, Np] when split
 };
 
-Plan make_plan(int B, int KB, int M, int Np, int G) {
+Plan make_plan(int B, int KB, int M, int Np, int G, int per_gate_x) {
   Plan p;
   const int sms = sm_count();
   const long long cols = (long long)(Np / kBN) * G;
@@ -449,7 +465,8 @@ Plan make_plan(int B, int KB, int M, int Np, int G) {
   const long long tiles = (long long)((B + p.bm - 1) / p.bm) * cols;
   p.split = KB > 1 && tiles < 2LL * sms && 8LL * B <= M;
   p.Mp = (M + kMaxBK - 1) / kMaxBK * kMaxBK;
-  p.codes_bytes = ((size_t)B * KB * p.Mp + 255) / 256 * 256;
+  const size_t rows = (size_t)B * (per_gate_x ? G : 1);
+  p.codes_bytes = (rows * KB * p.Mp + 255) / 256 * 256;
   p.part_bytes = p.split ? (size_t)G * KB * B * Np * sizeof(float) : 0;
   return p;
 }
@@ -459,7 +476,8 @@ int launch_mma(const int8_t* xq, const int8_t* w_q, const float* s_w,
                const float* s_x, const float* bias, const float* noise,
                float* out, float* part, int B, int KB, int M, int Mp, int Np,
                int G, float adc_step, float sigma, uint32_t seed, int stacked,
-               uint32_t acts, int philox, cudaStream_t stream) {
+               uint32_t acts, int philox, int per_gate_x,
+               cudaStream_t stream) {
   constexpr int BM = 16 * MT * WM;
   const size_t smem = (size_t)kStages * (BM * (BK + 16) + BK * kBN);
   if (smem > 48 * 1024) {
@@ -472,7 +490,7 @@ int launch_mma(const int8_t* xq, const int8_t* w_q, const float* s_w,
                   part != nullptr ? G * KB : G);
   aimc_mvm_mma_kernel<MT, WM, BK><<<grid, WM * 128, smem, stream>>>(
       xq, w_q, s_w, s_x, bias, noise, out, part, B, KB, M, Mp, Np, adc_step,
-      sigma, seed, stacked, acts, philox);
+      sigma, seed, stacked, acts, philox, per_gate_x);
   return (int)cudaGetLastError();
 }
 
@@ -480,6 +498,62 @@ int grid_for(size_t n, int threads) {
   const size_t blocks = (n + threads - 1) / threads;
   const size_t cap = (size_t)sm_count() * 16;
   return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
+}
+
+// DAC pass, MVM and (split) row-block sum of one call on `stream`.
+int launch_all(const void* x, const void* w_q, const void* s_w,
+               const void* s_x, const void* bias, const void* noise,
+               void* out, int B, int KB, int M, int Np, int G,
+               float adc_step, float sigma, unsigned int seed, int stacked,
+               unsigned int acts, int philox, int per_gate_x, void* stream,
+               void* work) {
+  if (B <= 0) return 0;
+  if (Np % kBN != 0 || G < 1 || M < 1 || KB < 1 || work == nullptr ||
+      reinterpret_cast<uintptr_t>(work) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(B, KB, M, Np, G, per_gate_x);
+  if ((long long)G * (p.split ? KB : 1) > kMaxGridZ)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* codes = static_cast<int8_t*>(work);
+  float* part = p.split ? reinterpret_cast<float*>(
+                              static_cast<unsigned char*>(work) +
+                              p.codes_bytes)
+                        : nullptr;
+  const int rows = per_gate_x ? G * B : B;
+  const size_t quads = (size_t)rows * KB * p.Mp / 4;
+  aimc_dac_kernel<<<grid_for(quads, 256), 256, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(s_x), codes,
+      rows, KB, M, p.Mp, B);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int8_t* w = static_cast<const int8_t*>(w_q);
+  const float* sw = static_cast<const float*>(s_w);
+  const float* sx = static_cast<const float*>(s_x);
+  const float* b = static_cast<const float*>(bias);
+  const float* nz = static_cast<const float*>(noise);
+  float* o = static_cast<float*>(out);
+  err = p.bm == 64
+            ? launch_mma<2, 2, 128>(codes, w, sw, sx, b, nz, o, part, B, KB,
+                                    M, p.Mp, Np, G, adc_step, sigma, seed,
+                                    stacked, acts, philox, per_gate_x, st)
+            : launch_mma<1, 1, 64>(codes, w, sw, sx, b, nz, o, part, B, KB,
+                                   M, p.Mp, Np, G, adc_step, sigma, seed,
+                                   stacked, acts, philox, per_gate_x, st);
+  if (err || !p.split) return err;
+  const size_t n = (size_t)G * B * Np;
+  aimc_rowblock_sum_kernel<<<grid_for(n, 256), 256, 0, st>>>(
+      part, b, o, B, KB, Np, G, acts);
+  return (int)cudaGetLastError();
+}
+
+int plan_code(int B, int KB, int M, int Np, int G, int per_gate_x,
+              long long* work_bytes) {
+  *work_bytes = 0;
+  if (B <= 0 || KB < 1 || M < 1 || G < 1) return 0;
+  const Plan p = make_plan(B, KB, M, Np, G, per_gate_x);
+  *work_bytes = (long long)(p.codes_bytes + p.part_bytes);
+  return p.bm | (p.split ? 256 : 0);
 }
 
 }  // namespace
@@ -490,11 +564,13 @@ int grid_for(size_t n, int threads) {
 // needs (the int8 DAC codes and, split, the f32 per-row-block scratch).
 extern "C" int aimc_mvm_plan(int B, int KB, int M, int Np, int G,
                              long long* work_bytes) {
-  *work_bytes = 0;
-  if (B <= 0 || KB < 1 || M < 1 || G < 1) return 0;
-  const Plan p = make_plan(B, KB, M, Np, G);
-  *work_bytes = (long long)(p.codes_bytes + p.part_bytes);
-  return p.bm | (p.split ? 256 : 0);
+  return plan_code(B, KB, M, Np, G, 0, work_bytes);
+}
+
+// The same for aimc_mvm_experts_launch (its codes are per expert).
+extern "C" int aimc_mvm_experts_plan(int B, int KB, int M, int Np, int G,
+                                     long long* work_bytes) {
+  return plan_code(B, KB, M, Np, G, 1, work_bytes);
 }
 
 // C entry point bound with ctypes (repro_torch/kernels/aimc_mvm.py).
@@ -515,39 +591,23 @@ extern "C" int aimc_mvm_launch(const void* x, const void* w_q, const void* s_w,
                                float sigma, unsigned int seed, int stacked,
                                unsigned int acts, int philox, void* stream,
                                void* work) {
-  if (B <= 0) return 0;
-  if (Np % kBN != 0 || G < 1 || G > kMaxGates || M < 1 || KB < 1 ||
-      work == nullptr || reinterpret_cast<uintptr_t>(work) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(B, KB, M, Np, G);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int8_t* codes = static_cast<int8_t*>(work);
-  float* part = p.split ? reinterpret_cast<float*>(
-                              static_cast<unsigned char*>(work) +
-                              p.codes_bytes)
-                        : nullptr;
-  const size_t quads = (size_t)B * KB * p.Mp / 4;
-  aimc_dac_kernel<<<grid_for(quads, 256), 256, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(s_x), codes, B,
-      KB, M, p.Mp);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const int8_t* w = static_cast<const int8_t*>(w_q);
-  const float* sw = static_cast<const float*>(s_w);
-  const float* sx = static_cast<const float*>(s_x);
-  const float* b = static_cast<const float*>(bias);
-  const float* nz = static_cast<const float*>(noise);
-  float* o = static_cast<float*>(out);
-  err = p.bm == 64
-            ? launch_mma<2, 2, 128>(codes, w, sw, sx, b, nz, o, part, B, KB,
-                                    M, p.Mp, Np, G, adc_step, sigma, seed,
-                                    stacked, acts, philox, st)
-            : launch_mma<1, 1, 64>(codes, w, sw, sx, b, nz, o, part, B, KB,
-                                   M, p.Mp, Np, G, adc_step, sigma, seed,
-                                   stacked, acts, philox, st);
-  if (err || !p.split) return err;
-  const size_t n = (size_t)G * B * Np;
-  aimc_rowblock_sum_kernel<<<grid_for(n, 256), 256, 0, st>>>(
-      part, b, o, B, KB, Np, G, acts);
-  return (int)cudaGetLastError();
+  if (G > kMaxGates) return (int)cudaErrorInvalidValue;
+  return launch_all(x, w_q, s_w, s_x, bias, noise, out, B, KB, M, Np, G,
+                    adc_step, sigma, seed, stacked, acts, philox, 0, stream,
+                    work);
+}
+
+// The expert entry: K2 over an [G] expert stack, expert g on its own input
+// and DAC scale. x f32 [G, B, KB*M], w_q int8 [G, KB, M, Np], s_w f32
+// [G, KB, Np], s_x f32 [G], out f32 [G, B, Np]; noise off, no epilogue
+// (the MoE experts' projections have neither); work holds the bytes
+// aimc_mvm_experts_plan gives. Equal bit for bit to G aimc_mvm_launch calls
+// on x[g], w_q[g], s_w[g], s_x[g].
+extern "C" int aimc_mvm_experts_launch(const void* x, const void* w_q,
+                                       const void* s_w, const void* s_x,
+                                       void* out, int B, int KB, int M,
+                                       int Np, int G, float adc_step,
+                                       void* stream, void* work) {
+  return launch_all(x, w_q, s_w, s_x, nullptr, nullptr, out, B, KB, M, Np,
+                    G, adc_step, 0.0f, 0u, 0, 0u, 0, 1, stream, work);
 }

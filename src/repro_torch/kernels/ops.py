@@ -77,3 +77,18 @@ def aimc_matmul_stacked(x, w_q, s_w, s_x, seed=None, bias=None, *,
     return _ref.aimc_matmul_stacked_ref(x, w_q, s_w, s_x, seed, bias,
                                         adc_step=adc_step, sigma=sigma,
                                         activations=activations)
+
+
+def aimc_matmul_experts(x, w_q, s_w, s_x, *, adc_step: float,
+                        sigma: float = 0.0):
+    """K2 over an `[E, ...]` expert stack, expert e on its own input x[e]
+    and DAC scale s_x[e]: x f32 [E, B, KB*M] -> f32 [E, B, Np], one launch
+    on the card (`aimc_mvm.aimc_mvm_experts`). Noise off only."""
+    if x.is_cuda:
+        return aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, adc_step=adc_step,
+                                         sigma=sigma)
+    if sigma > 0.0:
+        raise NotImplementedError(
+            "read noise on the expert entry needs a read seed per expert; "
+            "see ROADMAP.md")
+    return _ref.aimc_matmul_experts_ref(x, w_q, s_w, s_x, adc_step=adc_step)

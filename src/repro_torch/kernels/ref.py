@@ -18,6 +18,9 @@ Returns f32 [B, Np]: the sum over row blocks of
 exact here (|acc| <= M * 127^2 < 2^53) and runs on cuBLAS, which has no
 int32 GEMM.
 
+`aimc_matmul_experts_ref` is K2 over an `[E, ...]` expert stack, expert e
+on its own input x[e] and DAC scale s_x[e] (x [E, B, KB*M], s_x [E]).
+
 Read noise of the v2/stacked versions comes from a scalar seed, by
 ``noise_source``: "counter" (`kernels/cprng`, the reference's generator) or
 "hw", the Philox4x32-10 stream that stands in on Hopper for the TPU's
@@ -157,3 +160,12 @@ def aimc_matmul_stacked_ref(x, w_q, s_w, s_x, seed=None, bias=None, *,
             adc_step=adc_step, sigma=sigma, activation=activations[g],
             noise_source=noise_source)
         for g in range(g_)])
+
+
+def aimc_matmul_experts_ref(x, w_q, s_w, s_x, *, adc_step: float):
+    """Plain version of the expert entry: one plain K2 per expert on its own
+    input and DAC scale, noise off, no epilogue -> f32 [E, B, Np]."""
+    return torch.stack([
+        aimc_matmul_ref_v2(x[e], w_q[e], s_w[e], s_x[e].reshape(1, 1),
+                           adc_step=adc_step)
+        for e in range(w_q.shape[0])])

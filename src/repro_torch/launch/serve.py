@@ -9,10 +9,13 @@ dense path of `repro/launch/serve.py`).
 
 ``--arch`` takes the ported dense decoders: granite-8b, glm4-9b,
 llama3.2-3b, qwen1.5-110b and internvl2-1b (whose prompts start with its
-patch positions: ``--prompt-len`` must cover them), and the recurrent
+patch positions: ``--prompt-len`` must cover them), the recurrent
 xlstm-350m and recurrentgemma-9b, which serve through per-slot state
 insertion (no max_seq cap) and, with ``--page-size``, through recurrent
-snapshot pages and prefill legs.
+snapshot pages and prefill legs, and the MoE olmoe-1b-7b and arctic-480b
+(``--layers N`` cuts arctic's depth to fit one card), whose expert stacks
+run one kernel launch per expert projection (dense or paged KV; the
+prefix cache and chunked prefill refuse MoE, as the reference does).
 
 Runs on the CUDA card by default (``--device cuda``) and refuses to start
 without one unless ``--device cpu`` is given. With ``--exec aimc`` every
@@ -20,8 +23,10 @@ stationary projection is programmed ONCE (CM_INITIALIZE), the program is
 installed into the parameter tree, and every token vector afterwards runs
 the crossbar kernel K2 on the stationary int8 codes; ``--fuse-gates`` runs
 each shared-input gate group as one launch of K3 instead (the arch module's
-own `fuse_gate_stacks`: w_gate + w_up per transformer layer; w_up + w_gate,
-w_q + w_k + w_v and the sLSTM FFN pair per xLSTM pair; rglru has none).
+own `fuse_gate_stacks`: w_gate + w_up per dense transformer layer, wq + wk
++ wv where K/V are as wide as Q (olmoe); w_up + w_gate, w_q + w_k + w_v and
+the sLSTM FFN pair per xLSTM pair; rglru has none; expert stacks never
+fuse).
 The run prints the program summary, decode ms/step and the CM_* ledger
 reconciliation, and exits non-zero if the per-request ledgers do not close
 exactly.

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.aimc import (AimcConfig, AimcLinearState, aimc_apply,
-                                   aimc_apply_stacked)
+                                   aimc_apply_experts, aimc_apply_stacked)
 from repro_torch.kernels.ref import EPILOGUE_FNS
 
 
@@ -88,8 +88,15 @@ def recurrent_prefill(decode_fn, cache0, tokens, n_vocab, valid_len=None):
 def linear(x, w, exe: Execution, bias=None, activation: str = "none"):
     """The AIMC-or-digital projection. x: [..., K]; w: [K, N] or a
     programmed `AimcLinearState`, whose epilogue runs inside the kernel
-    (serving runs noise-off: no read-noise generator is passed)."""
+    (serving runs noise-off: no read-noise generator is passed). An
+    `[E, ...]` programmed expert stack takes x [E, C, K] (expert e on x[e],
+    the reference's `vmap` of `linear`) and runs as one launch; a raw
+    [E, K, N] stack multiplies batched."""
     if isinstance(w, AimcLinearState):
+        if w.stack_shape:
+            if bias is not None or activation != "none":
+                raise ValueError("expert stacks carry no epilogue")
+            return aimc_apply_experts(w, x, exe.aimc).to(exe.cdtype)
         return aimc_apply(w, x, exe.aimc, bias=bias,
                           activation=activation).to(exe.cdtype)
     if exe.mode == "aimc" and not exe.programmed:
@@ -293,4 +300,18 @@ def stack_init(key: torch.Tensor, l: int, k: int, n: int,
     out = torch.empty((l, k, n), dtype=dtype, device=device)
     for i, ki in enumerate(prng.split(key, l)):
         out[i] = dense_init(ki, k, n, dtype, device)
+    return out
+
+
+def expert_stack_init(key: torch.Tensor, l: int, e: int, k: int, n: int,
+                      dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """``vmap(vmap(dense_init))``: expert j of layer i from
+    ``split(split(key, l)[i], e)[j]``, the reference's MoE ``estack``
+    (`repro/models/transformer.py:103-108`), drawn one [k, n] matrix at a
+    time into the preallocated [l, e, k, n] stack (a whole-stack draw would
+    hold its bits and its floats at once)."""
+    out = torch.empty((l, e, k, n), dtype=dtype, device=device)
+    for i, ki in enumerate(prng.split(key, l)):
+        for j, kj in enumerate(prng.split(ki, e)):
+            out[i, j] = dense_init(kj, k, n, dtype, device)
     return out

@@ -1,6 +1,6 @@
-"""Decoder-only dense transformer (granite, glm4, llama3.2, qwen1.5 and the
-internvl2 backbone); PyTorch port of the serving path of
-`repro/models/transformer.py`.
+"""Decoder-only transformer (granite, glm4, llama3.2, qwen1.5, the
+internvl2 backbone, and the MoE olmoe and arctic); PyTorch port of the
+serving path of `repro/models/transformer.py`.
 
 Parameters are a nested dict of tensors with the reference's keys and a
 leading layer axis on every block leaf (``blocks/wq`` is [L, D, Hq*hd]), so
@@ -12,14 +12,17 @@ and runs on the crossbar kernel; `fuse_gate_stacks` then stacks w_gate and
 w_up into one `[G=2, ...]` state that runs as ONE kernel launch (K3).
 
 Config flags select QKV bias (qwen; the bias rides K2's fused epilogue),
-tied embeddings (llama3.2: the vocab head is ``embed.T``) and the VLM
+tied embeddings (llama3.2: the vocab head is ``embed.T``), the VLM
 patch-embedding stub (internvl2: positions [0, n_patches) carry
-precomputed patch embeddings). The paged KV cache lives here too
+precomputed patch embeddings) and the MoE FFN (``n_experts > 0``:
+`models/moe.py`, capacity-bucketed routing over programmed expert stacks,
+plus arctic's dense residual FFN). Serving drops the MoE aux loss, as the
+reference does. The paged KV cache lives here too
 (`init_paged_cache`, `paged_view`, `prefill_chunk`; DESIGN.md §15): page
 gathers and scatters are plain tensor indexing, and only the projections
 inside a prefill leg reach the crossbar kernel.
 
-MoE and the training `forward` are later slices.
+The training `forward` is a later slice.
 """
 
 from __future__ import annotations
@@ -30,11 +33,12 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.aimc import AimcLinearState, stack_states
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (Execution, decode_attention,
                                        dense_init, embed_init,
-                                       flash_attention, linear, linear_stack,
-                                       layer_slice, rmsnorm, rope,
-                                       stack_init, swiglu)
+                                       expert_stack_init, flash_attention,
+                                       linear, linear_stack, layer_slice,
+                                       rmsnorm, rope, stack_init, swiglu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +55,7 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
-    # MoE (not ported: `init` refuses n_experts > 0)
+    # MoE
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
@@ -79,11 +83,10 @@ def init(key: torch.Tensor, cfg: TransformerConfig, dtype=torch.float32,
     split(key, 16)``; embed from ks[0], wq..wo from ks[1..4], w_gate/w_up/
     w_down from ks[9..11], unembed from ks[12] (none when the embeddings
     are tied); unit norms; QKV biases (qkv_bias) are zeros and draw no key.
-    The same key gives the reference's weights within a few ulps
-    (`prng.normal`)."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "n_experts > 0 (MoE) is not ported yet; see ROADMAP.md")
+    MoE: the router from ks[5], the expert stacks we_gate/we_up/we_down
+    [L, E, ...] from ks[6..8] (`expert_stack_init`), and the dense residual
+    wd_* (moe_dense_residual) from ks[9..11]. The same key gives the
+    reference's weights within a few ulps (`prng.normal`)."""
     l, d, hq, hkv, hd, ff = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                              cfg.n_kv_heads, cfg.hd, cfg.d_ff)
     ks = prng.split(key, 16)
@@ -107,15 +110,33 @@ def init(key: torch.Tensor, cfg: TransformerConfig, dtype=torch.float32,
             "wk": stack(2, d, hkv * hd),
             "wv": stack(3, d, hkv * hd),
             "wo": stack(4, hq * hd, d),
-            "w_gate": stack(9, d, ff),
-            "w_up": stack(10, d, ff),
-            "w_down": stack(11, ff, d),
         },
     }
     if cfg.qkv_bias:
         params["blocks"] |= {"bq": zeros(l, hq * hd),
                              "bk": zeros(l, hkv * hd),
                              "bv": zeros(l, hkv * hd)}
+    if cfg.is_moe:
+        e = cfg.n_experts
+
+        def estack(i, k, n):
+            return expert_stack_init(ks[i], l, e, k, n, dtype, device)
+
+        params["blocks"] |= {
+            "router": stack(5, d, e),
+            "we_gate": estack(6, d, ff),
+            "we_up": estack(7, d, ff),
+            "we_down": estack(8, ff, d),
+        }
+        if cfg.moe_dense_residual:
+            dff = cfg.moe_dense_ff or ff
+            params["blocks"] |= {"wd_gate": stack(9, d, dff),
+                                 "wd_up": stack(10, d, dff),
+                                 "wd_down": stack(11, dff, d)}
+    else:
+        params["blocks"] |= {"w_gate": stack(9, d, ff),
+                             "w_up": stack(10, d, ff),
+                             "w_down": stack(11, ff, d)}
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(ks[12], d, cfg.vocab, dtype, device)
     return params
@@ -128,6 +149,7 @@ def fuse_gate_stacks(params):
       wq + wk + wv     -> wqkv  (MHA only — GQA K/V widths differ)
       w_gate + w_up    -> w_gu  (dense SwiGLU FFN)
 
+    MoE expert stacks (we_*) and arctic's dense residual (wd_*) never fuse.
     Gates stack at dim=1 (inside the layer dim). Groups that are not all
     programmed states of one shape pass through; outputs are bit-equal to
     the unfused path (noise off). The stack copies the codes, so the
@@ -162,11 +184,24 @@ def _qkv(h, blk, cfg: TransformerConfig, exe: Execution, positions):
     return q, k, v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
 
 
-def _ffn(h2, blk, exe: Execution):
-    if "w_gu" in blk:      # gate-fused stack (fuse_gate_stacks)
-        g, u = linear_stack(h2, blk["w_gu"], exe)
-        return linear(torch.nn.functional.silu(g) * u, blk["w_down"], exe)
-    return swiglu(h2, blk["w_gate"], blk["w_up"], blk["w_down"], exe)
+def _ffn(h2, blk, cfg: TransformerConfig, exe: Execution):
+    if not cfg.is_moe:
+        if "w_gu" in blk:  # gate-fused stack (fuse_gate_stacks)
+            g, u = linear_stack(h2, blk["w_gu"], exe)
+            return linear(torch.nn.functional.silu(g) * u, blk["w_down"], exe)
+        return swiglu(h2, blk["w_gate"], blk["w_up"], blk["w_down"], exe)
+    # MoE: every token position of the call (padding and inactive decode
+    # lanes included) is routed and takes capacity, as in the reference;
+    # serving drops the aux loss
+    b, s, d = h2.shape
+    y, _ = moe_lib.moe_ffn(
+        h2.reshape(b * s, d), blk["router"], blk["we_gate"], blk["we_up"],
+        blk["we_down"], top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+        exe=exe)
+    y = y.reshape(b, s, d)
+    if cfg.moe_dense_residual:
+        y = y + swiglu(h2, blk["wd_gate"], blk["wd_up"], blk["wd_down"], exe)
+    return y
 
 
 def embed_tokens(params, tokens, cfg: TransformerConfig, exe: Execution,
@@ -221,7 +256,7 @@ def prefill(params, tokens, cfg: TransformerConfig, exe: Execution = None,
         att = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
                               kv_chunk=cfg.kv_chunk)
         h = h + linear(att.reshape(b, s, -1), blk["wo"], exe)
-        ff = _ffn(rmsnorm(h, blk["ln2"], cfg.norm_eps), blk, exe)
+        ff = _ffn(rmsnorm(h, blk["ln2"], cfg.norm_eps), blk, cfg, exe)
         cache["k"][i, :, :s] = k.to(cache_dtype)
         cache["v"][i, :, :s] = v.to(cache_dtype)
         h = h + ff
@@ -269,7 +304,7 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig,
             vc.index_copy_(1, pos0, v.to(vc.dtype))
         att = decode_attention(q, kc, vc, kv_len=lens + 1)
         h = h + linear(att.reshape(b, 1, -1), blk["wo"], exe)
-        ff = _ffn(rmsnorm(h, blk["ln2"], cfg.norm_eps), blk, exe)
+        ff = _ffn(rmsnorm(h, blk["ln2"], cfg.norm_eps), blk, cfg, exe)
         h = h + ff
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, h, cfg), {"k": ks, "v": vs, "len": lens + 1}
@@ -350,7 +385,7 @@ def prefill_chunk(params, tokens, cfg: TransformerConfig, exe: Execution,
                               q_offset=pos0, q_chunk=cfg.q_chunk,
                               kv_chunk=cfg.kv_chunk)
         h = h + linear(att.reshape(b, c, -1), blk["wo"], exe)
-        ff = _ffn(rmsnorm(h, blk["ln2"], cfg.norm_eps), blk, exe)
+        ff = _ffn(rmsnorm(h, blk["ln2"], cfg.norm_eps), blk, cfg, exe)
         kp[i][pids] = kx[:n_rows].reshape(m, page_size, hkv, hd)
         vp[i][pids] = vx[:n_rows].reshape(m, page_size, hkv, hd)
         h = h + ff

@@ -13,8 +13,9 @@ from repro.configs import get_arch as jget
 from repro_torch import configs as tconfigs
 
 PORTED = ("granite_8b", "glm4_9b", "llama32_3b", "qwen15_110b",
-          "internvl2_1b", "xlstm_350m", "recurrentgemma_9b")
-UNPORTED = ("arctic_480b", "olmoe_1b_7b", "seamless_m4t_large_v2")
+          "internvl2_1b", "xlstm_350m", "recurrentgemma_9b", "olmoe_1b_7b",
+          "arctic_480b")
+UNPORTED = ("seamless_m4t_large_v2",)
 
 
 def test_ported_list():
@@ -36,7 +37,7 @@ def test_config_equals_reference_field_for_field(arch):
             if isinstance(getattr(type(tc), n), property)]
         for name in props:
             assert getattr(tc, name) == getattr(jc, name), (which, name)
-        assert getattr(tc, "is_moe", False) is False
+        assert getattr(tc, "is_moe", False) is (j.family == "moe")
     for field in ("arch_id", "family", "module", "source", "cache_dtype",
                   "n_patches"):
         assert getattr(t, field) == getattr(j, field), field
@@ -47,7 +48,8 @@ def test_config_equals_reference_field_for_field(arch):
     ("glm4-9b", "glm4_9b"), ("llama3.2-3b", "llama32_3b"),
     ("qwen1.5-110b", "qwen15_110b"), ("internvl2-1b", "internvl2_1b"),
     ("granite-8b", "granite_8b"), ("llama32-3b", "llama32_3b"),
-    ("xlstm-350m", "xlstm_350m"), ("recurrentgemma-9b", "recurrentgemma_9b")])
+    ("xlstm-350m", "xlstm_350m"), ("recurrentgemma-9b", "recurrentgemma_9b"),
+    ("olmoe-1b-7b", "olmoe_1b_7b"), ("arctic-480b", "arctic_480b")])
 def test_aliases_resolve_like_reference(alias, arch):
     assert tconfigs.get_arch(alias).arch_id == jget(alias).arch_id == arch
 

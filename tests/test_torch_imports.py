@@ -35,7 +35,9 @@ def test_every_module_is_listed():
                  "repro_torch.configs.internvl2_1b",
                  "repro_torch.models.xlstm", "repro_torch.models.rglru",
                  "repro_torch.configs.xlstm_350m",
-                 "repro_torch.configs.recurrentgemma_9b"):
+                 "repro_torch.configs.recurrentgemma_9b",
+                 "repro_torch.models.moe", "repro_torch.configs.olmoe_1b_7b",
+                 "repro_torch.configs.arctic_480b"):
         assert must in mods
 
 

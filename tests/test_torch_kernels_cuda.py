@@ -23,7 +23,10 @@ correlation| < 0.01 over 2^21 draws.
 The serving path on the card: K2's bias epilogue at qwen1.5-110b's decode
 shapes (d_model 8192, 64/8 heads) equals the plain version within the
 same bound, and a paged decode step serves the dense engine's tokens at
-smoke size (tokens equal).
+smoke size (tokens equal). The MoE expert entry (`aimc_mvm_experts`, K2
+over an [E] stack with a per-expert input and DAC scale) equals E K2
+launches bit for bit at olmoe's and arctic's shapes and past 16 experts,
+and olmoe's smoke config on the card matches the CPU.
 """
 
 import numpy as np
@@ -283,9 +286,12 @@ def test_dispatch_counts_launches_and_never_falls_back(dev):
                        noise_source="hw")
     ops.aimc_matmul_stacked(x, w_q[None], s_w[None], s_x, 3, adc_step=8.0,
                             sigma=1.0, noise_source="hw")
+    ops.aimc_matmul_experts(x[None], w_q[None], s_w[None], s_x.reshape(1),
+                            adc_step=8.0)
     assert aimc_mvm.LAUNCHES == {
         "aimc_mvm_v1": 1, "aimc_mvm_v2": 1, "aimc_mvm_stacked": 1,
-        "aimc_mvm_v2_hw": 1, "aimc_mvm_stacked_hw": 1}
+        "aimc_mvm_v2_hw": 1, "aimc_mvm_stacked_hw": 1,
+        "aimc_mvm_experts": 1}
     with pytest.raises(ValueError):
         ops.aimc_matmul_v2(x, w_q.cpu(), s_w, s_x, adc_step=8.0)
     assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] == 1
@@ -485,3 +491,78 @@ def test_recurrent_serving_on_card_equals_static(dev, arch):
         rep = eng.serve(list(reqs))
         assert [rep.tokens(r.rid) for r in reqs] == want
         assert eng.compile_counts() == counts
+
+
+def _expert_operands(e, b, kb, np_, seed, device, m=512):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(
+        rng.standard_normal((e, b, kb * m)).astype(np.float32)).to(device)
+    x[1] = 0.0                               # an expert that got no token
+    w_q = torch.from_numpy(rng.integers(-127, 128, (e, kb, m, np_),
+                                        dtype=np.int8)).to(device)
+    s_w = torch.from_numpy(
+        (rng.random((e, kb, np_), dtype=np.float32) + 0.5) * 1e-3).to(device)
+    s_x = sym_scale(x.reshape(e, -1), dim=1).reshape(e)
+    return x, w_q, s_w, s_x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,b,kb,np_", [
+    (64, 1, 4, 1024), (64, 2, 2, 2048), (128, 1, 14, 4864), (128, 1, 10, 7168),
+    (20, 3, 3, 384)],
+    ids=["olmoe we_gate decode", "olmoe we_down prefill",
+         "arctic we_gate decode", "arctic we_down decode", "E 20 > 16 gates"])
+def test_expert_entry_bit_equal_to_per_expert_k2(dev, e, b, kb, np_):
+    """`aimc_mvm_experts` (one launch over E experts, each on its own x[e]
+    and s_x[e]) equals E K2 launches bit for bit, and its plain version
+    within the bound; E is not capped at K3's 16 gates; sigma > 0 raises."""
+    x, w_q, s_w, s_x = _expert_operands(e, b, kb, np_, e + b, dev)
+    step = adc_step_lsb(512, 1.0)
+    y = aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, adc_step=step)
+    for i in range(e):
+        assert torch.equal(y[i], aimc_mvm.aimc_mvm_v2(
+            x[i], w_q[i], s_w[i], s_x[i:i + 1], adc_step=step)), i
+    _close(y, ref.aimc_matmul_experts_ref(x, w_q, s_w, s_x, adc_step=step))
+    assert not y[1].any()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, adc_step=step, sigma=1.0)
+
+
+@pytest.mark.cuda
+def test_moe_smoke_on_card_matches_cpu(dev):
+    """olmoe's smoke config programmed on the card: prefill logits within
+    1e-4 of the same codes on the CPU (plain versions), one expert launch
+    per expert projection and layer per pass, fused == unfused."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.program import MappingPlan, program_model
+    from repro_torch.models.layers import Execution
+
+    spec = get_arch("olmoe-1b-7b")
+    cfg, model = spec.smoke_cfg, spec.model_module()
+    params = model.init(prng.PRNGKey(0), cfg, device="cpu")
+    acfg = AimcConfig()
+    inst = program_model(params, MappingPlan(), acfg).install(params)
+    exe = Execution(mode="aimc", aimc=acfg, compute_dtype="float32",
+                    programmed=True)
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if hasattr(tree, "w_q"):
+            return type(tree)(w_q=tree.w_q.to(device), s_w=tree.s_w.to(device),
+                              k=tree.k, n=tree.n)
+        return tree.to(device)
+
+    toks = torch.randint(1, cfg.vocab, (1, 12), generator=torch.Generator()
+                         .manual_seed(0)).to(torch.int32)
+    want = model.prefill(inst, toks, cfg, exe)[0]
+    card = to(inst, dev)
+    aimc_mvm.reset_counts()
+    got = model.prefill(card, toks.to(dev), cfg, exe)[0]
+    assert aimc_mvm.LAUNCHES["aimc_mvm_experts"] == 3 * cfg.n_layers
+    assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] == 4 * cfg.n_layers
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    fused = model.fuse_gate_stacks(card)
+    assert torch.equal(model.prefill(fused, toks.to(dev), cfg, exe)[0], got)

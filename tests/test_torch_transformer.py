@@ -216,15 +216,14 @@ def test_init_keeps_no_generator_and_refuses_unported():
     with pytest.raises(NotImplementedError):
         tl.dense_init(prng.PRNGKey(0), 4, 4, dtype=torch.bfloat16,
                       device="cpu")
-    import dataclasses as dc
-    moe = dc.replace(TCFG, n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TM.init(prng.PRNGKey(0), moe, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tl.expert_stack_init(prng.PRNGKey(0), 1, 2, 4, 4,
+                             dtype=torch.bfloat16, device="cpu")
 
 
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
-        tget("olmoe-1b-7b")
+        tget("seamless-m4t-large-v2")
     with pytest.raises(KeyError):
         tget("no-such-arch")
     with pytest.raises(NotImplementedError):
