@@ -3,10 +3,11 @@
 dense zoo (glm4-9b, llama3.2-3b, qwen1.5-110b, internvl2-1b), the
 recurrent zoo (xlstm-350m, recurrentgemma-9b) and the MoE zoo
 (olmoe-1b-7b, arctic-480b) at their published widths on programmed AIMC
-crossbars, dense, paged and through recurrent snapshot pages, and run the
-paper's MLP, LSTM and CNN-F/M/S at theirs with read noise on, single-core
-and in the paper's multi-core mappings, through the hand-written Hopper
-kernels K1-K4 and K2's expert entry.
+crossbars, dense, paged and through recurrent snapshot pages, granite-8b
+also under chaos and drift with hot recalibration and int8-native, and
+run the paper's MLP, LSTM and CNN-F/M/S at theirs with read noise on,
+single-core and in the paper's multi-core mappings, through the
+hand-written Hopper kernels K1-K4 and K2's expert entry.
 
     python3 chip_smoke.py        # one CUDA card; exits non-zero without one
 
@@ -159,6 +160,32 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      launches and within 1e-5 x max(1, max|y|) of its plain version, timed
      against its bytes bound; decode step, prefill and a profiled step
      timed; init seconds and peak memory recorded.
+
+ 16. resilience — granite-8b at its published widths, --cores 2, the DAC
+     scale fixed at 0.1, noise off, unfused, on `make serve-chaos`'s
+     traffic (6 Poisson requests at 300 req/s, prompt <= 8, gen <= 6, 3
+     slots, decode chunk 2) through `serve.main`, launch counts zeroed
+     just before and read just after each leg: (a) unfaulted; (b) --chaos
+     "corrupt:0@1:0.5,kill:1@3": both events fire, recal reasons fault
+     then dead_core, core 1 drained, every request finished, tokens
+     bit-equal to (a), CM_* and recal books exact, K2 = 7 x 36 x passes
+     and expert launches = 7 x (probes + 1) (a probe of a [36] stack is
+     one expert-entry launch), every repaired state (rebuilt after the
+     serve, equal to the live program's) probes exactly 0.0 and so does
+     the next probe, the remap leaves every matrix one whole shard (no sum
+     re-associated) and a moved layer's K2 output bit-equal; one probe
+     timed, and its seven expert launches held within 1e-5 of their plain
+     version and timed against their bound; (c) --drift 0.3
+     --drift-t0 0.01, gen <= 4: every probe reads 1 - (age/t0)^-nu within
+     1e-5, past the threshold, drift recals fire and each repaired state
+     probes 0.0. Recal wall per event, health wall share, decode ms/step
+     of (a) and (b) and peak memory are printed.
+ 17. int8 — granite-8b served digital in bf16 and with --int8: a [1 x 16]
+     prompt's prefill logits at all 16 positions within the reference's
+     bar (cosine > 0.99, top-1 agreement > 0.9), the int8 tree < 0.45 of
+     the f32 bytes and <= 0.55 of bf16's, no kernel launched; decode
+     ms/step and peak memory of both; then --int8 --exec aimc: the
+     crossbars programmed from the codes, K2 = 7 x 36 x passes.
 
 The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
@@ -2952,6 +2979,413 @@ def fidelity_phase(dev):
             "cnn_m_draws": draws}
 
 
+# the resilience phase: `make serve-chaos`'s traffic at granite-8b's
+# published widths, 2 cores, the DAC scale fixed (batch-invariant tokens)
+CHAOS_N, CHAOS_PROMPT, CHAOS_GEN, CHAOS_SLOTS, CHAOS_RATE = 6, 8, 6, 3, 300.0
+CHAOS_SCALE, CHAOS_SPEC = 0.1, "corrupt:0@1:0.5,kill:1@3"
+DRIFT_NU, DRIFT_T0, DRIFT_GEN = 0.3, 0.01, 4
+
+
+def chaos_args(dev, gen=CHAOS_GEN):
+    return ["--arch", ARCH, "--exec", "aimc", "--requests", str(CHAOS_N),
+            "--prompt-len", str(CHAOS_PROMPT), "--gen", str(gen), "--slots",
+            str(CHAOS_SLOTS), "--trace", f"poisson:{CHAOS_RATE:g}",
+            "--decode-chunk", "2", "--cores", "2", "--input-scale",
+            str(CHAOS_SCALE), "--seed", str(SEED), "--device", str(dev)]
+
+
+def repaired_probes(health, events):
+    """Probe every state that ``events`` repaired, rebuilt after the serve
+    (`Recalibrator.fresh_state` is deterministic), so the check adds no
+    time to the engine's recal walls or its health share: each rebuilt
+    state must equal the live program's bit for bit, and its probe reads
+    the error a probe at the repair instant (age 0) would. Returns one
+    {core: error} per event."""
+    import torch
+
+    prog = health.program
+    by_name = {}
+    for name in sorted({n for ev in events for n in ev.names}):
+        fresh, live = health.recal.fresh_state(name), prog[name]
+        check(torch.equal(fresh.w_q, live.w_q)
+              and torch.equal(fresh.s_w, live.s_w),
+              f"{name}: the repaired state is not the fresh program's")
+        by_name[name] = max(health.measure({name: fresh}).values())
+        del fresh
+    ctx = dict(zip(prog.names, prog.contexts))
+    out = []
+    for ev in events:
+        errs = {}
+        for n in ev.names:
+            errs[ctx[n]] = max(errs.get(ctx[n], 0.0), by_name[n])
+        out.append(errs)
+    return out
+
+
+def probe_kernel_rows(health, peaks, card):
+    """The expert entry at each shape of the resilience path's probe: each
+    of granite-8b's seven programmed [36] layer stacks on its probe
+    vectors (x broadcast to [36, 2, K], the DAC scale the program's), as
+    `runtime.health.apply_state` launches it. The wrapper call on the
+    probe's own operands must give the probe's output bit for bit, lie
+    within 1e-5 x max(1, max|y|) of its plain version on the same
+    operands, and is timed (kernel, plain) against its bytes bound."""
+    import torch
+
+    from repro_torch.core.quant import sym_scale
+    from repro_torch.kernels import aimc_mvm, ref
+    from repro_torch.runtime.health import apply_state
+
+    prog, cfg = health.program, health.program.cfg
+    flush = flush_buffer(prog.states[0].w_q.device)
+    rows = []
+    for name, st in zip(prog.names, prog.states):
+        x = health._probes[name]
+        e, (kb, m, np_) = st.instances, st.w_q.shape[-3:]
+        w_q = st.w_q.reshape(e, kb, m, np_)
+        s_w = st.s_w.reshape(e, kb, np_)
+        xe = torch.nn.functional.pad(x.expand(e, *x.shape),
+                                     (0, kb * m - st.k)).contiguous()
+        if cfg.input_scale > 0.0:
+            s_x = torch.full((e,), cfg.input_scale, device=x.device)
+        else:
+            s_x = sym_scale(xe.reshape(e, -1), dim=1).reshape(e)
+        kern = functools.partial(aimc_mvm.aimc_mvm_experts, xe, w_q, s_w,
+                                 s_x, adc_step=cfg.adc_step)
+        plain = functools.partial(ref.aimc_matmul_experts_ref, xe, w_q, s_w,
+                                  s_x, adc_step=cfg.adc_step)
+        y = apply_state(st, x, cfg)
+        check(torch.equal(kern()[:, :, :st.n], y),
+              f"probe {name}: the timed operands are not the probe's")
+        want = plain()[:, :, :st.n]
+        err = float((y - want).abs().max())
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        check(err <= tol, f"probe {name}: max |err| {err} > {tol} against "
+              f"the plain version")
+        row = {"proj": name, "E": e, "B": x.shape[0], "K": st.k, "N": st.n,
+               "KB": kb, "Np": np_, "max_abs_err": err, "tol": tol,
+               "plan": aimc_mvm.launch_plan(x.device, x.shape[0], kb, m,
+                                            np_, e, experts=True),
+               "ms": time_ms(kern, flush, KERNEL_REPS),
+               "plain_ms": time_ms(plain, flush, 3),
+               "codes_gb": w_q.numel() / 1e9}
+        row["bound_ms"], row["bound_by"] = expert_bound_ms(
+            e, x.shape[0], kb, m, np_, peaks)
+        rows.append(row)
+        print(f"[resilience] probe {name} E {e} x [{x.shape[0]}x{st.k}]x"
+              f"[{st.k}x{st.n}] KB {kb} ({plan_str(row['plan'])}; "
+              f"{row['codes_gb']:.3f} GB codes): max|err| {err:.3g} vs "
+              f"plain (tol {tol:.3g}); kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) on {card}", flush=True)
+        del xe, y, want
+    return rows
+
+
+def resilience_serve(dev, extra, card, gen=CHAOS_GEN):
+    """``serve.main`` on the chaos traffic with ``extra`` flags, launch
+    counts zeroed just before and read just after: every request served
+    with tokens in the vocabulary, K2 = 7 x 36 x passes, CM_* books close.
+    Returns (run, stats)."""
+    import torch
+
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch import serve
+    from repro_torch.runtime.batcher import reconcile
+
+    args = chaos_args(dev, gen) + extra
+    print(f"[resilience] python -m repro_torch.launch.serve "
+          f"{' '.join(args)}", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    aimc_mvm.reset_counts()
+    t0 = time.perf_counter()
+    run = serve.main(args)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = dict(aimc_mvm.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    eng, rep = run.engine, run.report
+    cfg, passes = eng.cfg, eng.forward_passes
+    check(cfg.n_layers == 36 and cfg.d_model == 4096 and cfg.d_ff == 14336
+          and cfg.vocab == 49152, "not the published granite-8b width")
+    check(counts["aimc_mvm_v2"] == 7 * cfg.n_layers * passes,
+          f"K2 launches {counts['aimc_mvm_v2']} != 7 x 36 x {passes}")
+    check(len(rep.records) == CHAOS_N, f"requests lost: {len(rep.records)}")
+    for rec in rep.records.values():
+        check(rec.finish_reason == "length"
+              and len(rec.tokens) == rec.request.max_new
+              and all(0 <= t < cfg.vocab for t in rec.tokens),
+              f"request {rec.request.rid} did not finish: "
+              f"{rec.finish_reason} {rec.tokens}")
+    led, static = reconcile(eng.program, rep.records, rep.observed_vectors)
+    check(led == static, "CM_* ledgers do not reconcile")
+    stats = {"wall_s": wall, "init_s": run.init_s, "forward_passes": passes,
+             "launches": counts, "peak_gb": peak_gb,
+             "decode_ms_per_step": rep.wall_decode_s / max(rep.n_steps, 1)
+             * 1e3, "n_steps": rep.n_steps, "probes": rep.probes,
+             "n_recals": rep.n_recals, "wall_health_s": rep.wall_health_s,
+             "makespan_s": rep.makespan_s,
+             "health_share": rep.wall_health_s / max(rep.makespan_s, 1e-9),
+             "recal_events": [dataclasses.asdict(e)
+                              for e in rep.recal_events],
+             "fault_events": [e.describe() for e in rep.fault_events],
+             "tokens": {rid: r.tokens for rid, r in rep.records.items()},
+             "report": rep.summary()}
+    print(f"[resilience] {wall:.1f}s wall (init {run.init_s:.2f}s) on "
+          f"{card}, {passes} passes, launches {counts}, peak {peak_gb:.2f} "
+          f"GB; decode {stats['decode_ms_per_step']:.2f} ms/step over "
+          f"{rep.n_steps} steps; {rep.probes} probes, {rep.n_recals} recals, "
+          f"health wall {rep.wall_health_s:.3f}s = "
+          f"{stats['health_share']:.3f} of the {rep.makespan_s:.3f}s serve",
+          flush=True)
+    for ev in rep.recal_events:
+        print(f"[resilience]   hot recal [{ev.reason}] cores={list(ev.cores)} "
+              f"{len(ev.names)} matrices, CM_INITIALIZE={ev.initialize}, "
+              f"wall {ev.wall_s:.4f} s", flush=True)
+    return run, stats
+
+
+def _first_sample_after(history, t):
+    return next((smp for smp in history if smp.t > t), None)
+
+
+def resilience_phase(dev, peaks, card):
+    """Leg (a) unfaulted, leg (b) `CHAOS_SPEC` on the same trace, leg (c)
+    drift nu 0.3, t0 0.01 s: faults fire, recal reasons fault then
+    dead_core, core 1 drained, tokens bit-equal to leg (a), books and
+    recal books exact, every repaired state probes exactly 0.0; the drift
+    probe reads 1 - g(age) and recalibrates with reason drift. The probe's
+    expert launches are held against their plain version and timed."""
+    import torch
+
+    from repro_torch.core.aimc import aimc_apply
+    from repro_torch.core.program import installed_entries
+    from repro_torch.core.schedule import CoreSchedule
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.runtime.health import reconcile_recal
+
+    out = {}
+    run_a, out["a"] = resilience_serve(dev, [], card)
+    check(run_a.report.probes == 0 and out["a"]["launches"][
+        "aimc_mvm_experts"] == 0, "the unfaulted leg probed")
+    del run_a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    run_b, out["b"] = resilience_serve(
+        dev, ["--chaos", CHAOS_SPEC], card)
+    eng, rep, prog0 = run_b.engine, run_b.report, run_b.program
+    health = eng.health
+    check(eng.chaos.exhausted and len(rep.fault_events) == 2,
+          f"chaos events fired: {out['b']['fault_events']}")
+    reasons = [e.reason for e in rep.recal_events]
+    check(reasons == ["fault", "dead_core"], f"recal reasons {reasons}")
+    check(1 not in eng.program.contexts, "core 1 still holds matrices")
+    check(out["b"]["tokens"] == out["a"]["tokens"],
+          f"chaos tokens differ from the unfaulted run: "
+          f"{out['b']['tokens']} vs {out['a']['tokens']}")
+    check(reconcile_recal(eng.program, rep), "recal books do not close")
+    want_init = sum(eng.program.reprogram_counts(e.names).initialize
+                    for e in rep.recal_events)
+    check(rep.recal_initialize == want_init,
+          f"recal CM_INITIALIZE {rep.recal_initialize} != {want_init}")
+    n_probe = len(prog0.names)
+    check(out["b"]["launches"]["aimc_mvm_experts"]
+          == n_probe * (rep.probes + 1),
+          f"expert launches {out['b']['launches']['aimc_mvm_experts']} != "
+          f"{n_probe} x ({rep.probes} probes + the references)")
+    # every repaired state probes exactly 0.0 at its repair, and the next
+    # probe of the live tree (or, past the trace's end, a final one) too
+    after_b = repaired_probes(health, rep.recal_events)
+    check(all(e == 0.0 for errs in after_b for e in errs.values()),
+          f"repaired states probe {after_b}")
+    nxt = []
+    for ev in rep.recal_events:
+        smp = _first_sample_after(health.history, ev.t)
+        nxt.append(smp.errors if smp is not None else
+                   health.measure(installed_entries(eng.params)))
+    check(all(e == 0.0 for errs in nxt for e in errs.values()),
+          f"the probe after a recal reads {nxt}")
+    # the remap reshards no sum: each matrix is ONE whole shard before and
+    # after (one K2 on the whole state), and a moved layer's K2 output is
+    # bit-equal on the original and the repaired codes
+    before = CoreSchedule.from_program(prog0)
+    shards = [(s.name, s.cols, s.count) for s in before.shards]
+    check(shards == [(s.name, s.cols, s.count) for s in eng.schedule.shards]
+          and all(c is None for _, c, _ in shards),
+          "the remap changed a shard's columns")
+    moved = [n for n, c in zip(prog0.names, prog0.contexts) if c == 1]
+    x = torch.randn((CHAOS_SLOTS, prog0[moved[0]].k), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    check(torch.equal(aimc_apply(prog0[moved[0]][0], x, prog0.cfg),
+                      aimc_apply(eng.program[moved[0]][0], x, prog0.cfg)),
+          f"{moved[0]} layer 0 differs after the remap")
+    # one probe of the live tree, timed, with its launches
+    live = installed_entries(eng.params)
+    aimc_mvm.reset_counts()
+    health.measure(live)
+    per_probe = {k: v for k, v in aimc_mvm.LAUNCHES.items() if v}
+    probe_ms, _ = timed(lambda: health.measure(live), dev)
+    check(per_probe == {"aimc_mvm_experts": n_probe},
+          f"launches per probe {per_probe}")
+    probe_rows = probe_kernel_rows(health, peaks, card)
+    out["b"] |= {"probe_ms": probe_ms, "launches_per_probe": per_probe,
+                 "probe_rows": probe_rows,
+                 "probe_device_ms": sum(r["ms"] for r in probe_rows),
+                 "probe_bound_ms": sum(r["bound_ms"] for r in probe_rows),
+                 "after_recal_probe": after_b,
+                 "next_probe": nxt, "moved": moved,
+                 "quant_floor": health.quant_floor}
+    print(f"[resilience] chaos tokens bit-equal to the unfaulted run; "
+          f"recal reasons {reasons}; core 1 drained ({len(moved)} matrices "
+          f"moved, shards unchanged); every repaired state and the next "
+          f"probe read exactly 0.0; one probe {probe_ms:.3f} ms = "
+          f"{per_probe} (host clock; its launches "
+          f"{out['b']['probe_device_ms']:.4f} ms device, bound "
+          f"{out['b']['probe_bound_ms']:.4f} ms, on {card}); decode "
+          f"{out['a']['decode_ms_per_step']:.2f} ms/step unfaulted vs "
+          f"{out['b']['decode_ms_per_step']:.2f} chaos", flush=True)
+    del run_b, eng, health, live
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    run_c, out["c"] = resilience_serve(
+        dev, ["--drift", str(DRIFT_NU), "--drift-t0", str(DRIFT_T0)], card,
+        gen=DRIFT_GEN)
+    eng, rep = run_c.engine, run_c.report
+    health = eng.health
+    reasons = {e.reason for e in rep.recal_events}
+    check(rep.n_recals >= 1 and reasons == {"drift"},
+          f"drift recals {[e.reason for e in rep.recal_events]}")
+    # each probe reads 1 - g(age) of the decay law, age since the last recal
+    t_prog = {c: 0.0 for c in set(eng.program.contexts)}
+    recal_at = {ev.t: ev.cores for ev in rep.recal_events}
+    ages, worst = [], 0.0
+    for smp in health.history:
+        for c, err in smp.errors.items():
+            age = smp.t - t_prog[c]
+            g = health.noise.drift_gain_at(age)
+            worst = max(worst, abs(err - (1.0 - g)))
+            ages.append((age, err))
+        for c in recal_at.get(smp.t, ()):
+            t_prog[c] = smp.t
+    over = [a for a in ages if a[1] > health.policy.threshold]
+    check(worst <= 1e-5 and over,
+          f"drift probe vs 1 - g(age): worst {worst}, over threshold {over}")
+    after_c = repaired_probes(health, rep.recal_events)
+    check(all(e == 0.0 for errs in after_c for e in errs.values()),
+          f"drift-repaired states probe {after_c}")
+    out["c"] |= {"age_error": ages, "law_max_err": worst,
+                 "after_recal_probe": after_c}
+    print(f"[resilience] drift nu {DRIFT_NU} t0 {DRIFT_T0}s: {rep.probes} "
+          f"probes read 1 - (age/t0)^-nu within {worst:.2e} (largest "
+          f"{max(e for _, e in ages):.4f} at threshold "
+          f"{health.policy.threshold}); {rep.n_recals} drift recals, each "
+          f"repaired state probes 0.0", flush=True)
+    return out
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.core.aimc import AimcLinearState
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, AimcLinearState):
+        return tree_bytes({"w_q": tree.w_q, "s_w": tree.s_w})
+    return tree.numel() * tree.element_size()
+
+
+def int8_phase(dev, card):
+    """granite-8b at its published widths served digital in bf16 and with
+    --int8: the [1 x 16] prefill logits at all 16 positions within the
+    reference's bar (cosine > 0.99, top-1 agreement > 0.9), the int8 tree
+    about half of bf16's bytes; then --int8 --exec aimc: crossbars
+    programmed from the codes, K2 = 7 x 36 x passes."""
+    import torch
+
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch import serve
+    from repro_torch.runtime.batcher import synchronized_trace
+
+    base = ["--arch", ARCH, "--requests", str(N_REQ), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN), "--slots", str(SLOTS), "--trace",
+            f"poisson:{RATE:g}", "--seed", str(SEED), "--device", str(dev)]
+    vl = torch.arange(1, PROMPT + 1, dtype=torch.int32, device=dev)
+    out, logits = {}, {}
+    for name, extra in (("bf16", []), ("int8", ["--int8"]),
+                        ("int8 aimc", ["--int8", "--exec", "aimc"])):
+        args = base + extra
+        print(f"[int8] python -m repro_torch.launch.serve {' '.join(args)}",
+              flush=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        aimc_mvm.reset_counts()
+        t0 = time.perf_counter()
+        run = serve.main(args)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts = dict(aimc_mvm.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        eng, rep = run.engine, run.report
+        cfg, passes = eng.cfg, eng.forward_passes
+        check(cfg.n_layers == 36 and cfg.d_model == 4096
+              and cfg.vocab == 49152, "not the published granite-8b width")
+        check(len(rep.records) == N_REQ and all(
+            1 <= len(r.tokens) <= r.request.max_new
+            and all(0 <= t < cfg.vocab for t in r.tokens)
+            for r in rep.records.values()), f"{name}: bad serve")
+        k2 = 7 * cfg.n_layers * passes if "aimc" in name else 0
+        check(counts["aimc_mvm_v2"] == k2 and sum(counts.values()) == k2,
+              f"{name}: launches {counts}, want {k2} K2")
+        check(eng.exe.serve_int8 == (name == "int8"), f"{name}: exe")
+        stats = {"wall_s": wall, "init_s": run.init_s, "launches": counts,
+                 "forward_passes": passes, "peak_gb": peak_gb,
+                 "params_bytes": tree_bytes(eng.params),
+                 "report": rep.summary()}
+        if name != "int8 aimc":
+            stats |= step_times(eng, run.requests[0].prompt)
+            # one [1 x 16] prompt's logits at every position: row i of a
+            # [16 x 16] prefill ends at position i (valid_len i + 1)
+            prompt = synchronized_trace(1, prompt_len=PROMPT, max_new=1,
+                                        seed=SEED + 3,
+                                        vocab=cfg.vocab)[0].prompt
+            toks = torch.tensor([prompt] * PROMPT, dtype=torch.int32,
+                                device=dev)
+            lg, _ = eng.model.prefill(eng.params, toks, cfg, eng.exe,
+                                      max_seq=PROMPT, valid_len=vl)
+            check(bool(torch.isfinite(lg).all())
+                  and tuple(lg.shape) == (PROMPT, 1, cfg.vocab),
+                  f"{name}: bad logits {tuple(lg.shape)}")
+            logits[name] = lg[:, 0].float()
+        out[name] = stats
+        print(f"[int8] {name}: {wall:.1f}s wall (init {run.init_s:.2f}s) on "
+              f"{card}, {passes} passes, launches {counts}, params "
+              f"{stats['params_bytes'] / 1e9:.2f} GB, peak {peak_gb:.2f} GB"
+              + (f", decode {stats['decode_ms_per_step']:.2f} ms/step"
+                 if "decode_ms_per_step" in stats else ""), flush=True)
+        del run, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = logits["bf16"], logits["int8"]
+    cos = float((a * b).sum() / (a.norm() * b.norm() + 1e-9))
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    f32_bytes = out["bf16"]["params_bytes"]
+    ratio = out["int8"]["params_bytes"] / (f32_bytes / 2)
+    check(cos > 0.99 and agree > 0.9,
+          f"int8 logits vs bf16: cosine {cos}, top-1 agreement {agree}")
+    check(out["int8"]["params_bytes"] < 0.45 * f32_bytes and ratio <= 0.55,
+          f"int8 params {out['int8']['params_bytes']} bytes vs "
+          f"{f32_bytes} f32 ({ratio:.3f} of bf16)")
+    out["logits"] = {"cosine": cos, "top1_agreement": agree,
+                     "positions": PROMPT}
+    out["int8_over_bf16_bytes"] = ratio
+    print(f"[int8] [1 x {PROMPT}] prefill logits at all {PROMPT} positions, "
+          f"int8 vs bf16: cosine {cos:.5f} (> 0.99), top-1 agreement "
+          f"{agree:.3f} (> 0.9); int8 params {ratio:.3f} of bf16's bytes "
+          f"(the bf16 serve holds f32 weights, cast per call); decode "
+          f"{out['int8']['decode_ms_per_step']:.2f} ms/step int8 vs "
+          f"{out['bf16']['decode_ms_per_step']:.2f} bf16", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3031,6 +3465,10 @@ def main() -> int:
     free()
     moe = phase("moe", moe_phase, dev, peaks, smi)
     free()
+    resilience = phase("resilience", resilience_phase, dev, peaks, smi)
+    free()
+    int8 = phase("int8", int8_phase, dev, smi)
+    free()
 
     def decode_layer(kname, projs):
         sel = [r for r in rows if r["kernel"] == kname and r["B"] == SLOTS
@@ -3065,8 +3503,9 @@ def main() -> int:
     kx = {key: 2 * by["we_gate"][key] + by["we_down"][key]
           for key in ("ms", "plain_ms", "bound_ms")}
     kx["bound_by"] = by["we_gate"]["bound_by"]
-    kx_err = max(r["max_abs_err"] for arch in ("olmoe-1b-7b", "arctic-480b")
-                 for r in moe[arch]["expert_rows"])
+    kx_err = max([r["max_abs_err"] for arch in ("olmoe-1b-7b", "arctic-480b")
+                  for r in moe[arch]["expert_rows"]]
+                 + [r["max_abs_err"] for r in resilience["b"]["probe_rows"]])
     src_rel = "src/repro_torch/kernels/csrc/aimc_mvm.cu"
     record = {"kernels": [
         {"name": "aimc_mvm_v2", "route": "cuda", "source": src_rel,
@@ -3110,7 +3549,8 @@ def main() -> int:
         "fused_serve": fused, "moe": moe,
         "staged_v1": staged, "paper_nets": paper, "init": init,
         "multicore": multicore, "fidelity": fidelity, "zoo": zoo,
-        "paged": paged, "recurrent": recurrent, "phase_seconds": seconds},
+        "paged": paged, "recurrent": recurrent, "resilience": resilience,
+        "int8": int8, "phase_seconds": seconds},
         indent=1))
     print(json.dumps(record))
     print(smi)

@@ -140,3 +140,10 @@ def derive_read_seed(key: torch.Tensor) -> int:
     k0, k1 = prng.key_words(key)
     y0, y1 = prng.threefry2x32(k0, k1, 0, 0)
     return y0 ^ y1
+
+
+def apply_drift(w_analog: torch.Tensor, nm: NoiseModel) -> torch.Tensor:
+    """Deterministic conductance decay applied to programmed (noisy) codes:
+    the static ``drift_t_ratio`` law. Serving ages states on the serve
+    clock instead (`AimcProgram.drift_gains`)."""
+    return w_analog * nm.drift_gain()

@@ -13,9 +13,15 @@
   * ``ProgramBuilder`` — the incremental surface underneath.
 
 The tree walk visits leaves in JAX's flatten order (dict keys sorted), so
-``names`` and the per-matrix fold indices equal the reference's. The
-shared `TilePool`, program ages and drift views, context remapping and
-`install_subset` are later slices.
+``names`` and the per-matrix fold indices equal the reference's; an int8
+``{"q", "s"}`` pair is one leaf, programmed from its dequantized codes.
+
+The program also keeps a program-age clock (``t_programmed``, one serve
+clock stamp per matrix) with its drift views, hot reprogramming
+(``reprogrammed``, ``install_updates``) and the drain of a dead context
+onto the survivors (``remap_context``): the substrate of
+`runtime.health`. The shared `TilePool` and `install_subset` are later
+slices.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core import isa, prng
+from repro_torch.core import noise as noise_lib
 from repro_torch.core.aimc import (AimcConfig, AimcLinearState,
                                    program_linear, program_stacked)
 from repro_torch.core.tile import TileAllocator, TileMap
@@ -159,14 +166,22 @@ class ProgramBuilder:
 
 
 class AimcProgram:
-    """Path -> programmed-state registry with its static CM_* accounting."""
+    """Path -> programmed-state registry with its static CM_* accounting.
+    ``t_programmed`` is each matrix's programming instant on the serve
+    clock (seconds; all 0.0 for a fresh build): hot reprogramming stamps
+    the recal instant, which restarts that matrix's drift law."""
 
-    def __init__(self, states, names, cfg: AimcConfig, contexts, tile_maps):
+    def __init__(self, states, names, cfg: AimcConfig, contexts, tile_maps,
+                 t_programmed=None):
         self.states = tuple(states)
         self.names = tuple(names)
         self.cfg = cfg
         self.contexts = tuple(contexts)
         self.tile_maps: tuple[TileMap, ...] = tuple(tile_maps)
+        self.t_programmed = (tuple(0.0 for _ in self.names)
+                             if t_programmed is None else tuple(t_programmed))
+        if len(self.t_programmed) != len(self.names):
+            raise ValueError("t_programmed must have one entry per matrix")
 
     @property
     def entries(self) -> dict[str, AimcLinearState]:
@@ -190,13 +205,137 @@ class AimcProgram:
         the raw tree afterwards and its float weights are freed."""
         entries = self.entries
 
-        def walk(node, path):
-            if isinstance(node, dict):
-                return {k: walk(v, f"{path}/{k}" if path else str(k))
-                        for k, v in node.items()}
-            return entries.get(path, node)
+        def put(path, leaf):
+            if isinstance(leaf, AimcLinearState):
+                return leaf           # already installed: left as it is
+            return entries.get(path, leaf)
 
-        return walk(params, "")
+        return _map_leaves(params, put)
+
+    def install_updates(self, params, entries: dict[str, AimcLinearState]):
+        """Substitute refreshed states (drift views, corruptions, repairs)
+        into an already-installed tree, by their original path. Every
+        update has the shapes of what it replaces. An entry whose path
+        holds no installed state raises: a dropped update would serve stale
+        states while the books charge for fresh ones."""
+        unused = set(entries)
+
+        def swap(path, leaf):
+            if isinstance(leaf, AimcLinearState) and path in entries:
+                unused.discard(path)
+                return entries[path]
+            return leaf
+
+        out = _map_leaves(params, swap)
+        if unused:
+            raise KeyError(f"install_updates: no installed state at "
+                           f"{sorted(unused)}")
+        return out
+
+    # -- program-age clock + drift views (runtime.health's substrate) -------
+    def ages(self, t_now: float) -> dict[str, float]:
+        """Seconds since each matrix was (re)programmed, on the serve clock."""
+        return {n: t_now - t0 for n, t0 in zip(self.names, self.t_programmed)}
+
+    def drift_gains(self, t_now: float,
+                    nm: noise_lib.NoiseModel | None = None,
+                    seed: int = 0) -> dict[str, float]:
+        """Per-matrix conductance decay gain at serve time ``t_now``: the
+        power law off each matrix's own program age, with the exponent
+        drawn per core (`NoiseModel.per_core_nu`)."""
+        nm = self.cfg.noise if nm is None else nm
+        return {name: nm.drift_gain_at(t_now - t0, nm.per_core_nu(ctx, seed))
+                for name, t0, ctx in zip(self.names, self.t_programmed,
+                                         self.contexts)}
+
+    def aged_entries(self, t_now: float,
+                     nm: noise_lib.NoiseModel | None = None,
+                     seed: int = 0) -> dict[str, AimcLinearState]:
+        """Drift-decayed views of the states at ``t_now`` (`with_gain`:
+        codes untouched), for `install_updates`; empty when nothing has
+        drifted."""
+        return self.gained_entries(self.drift_gains(t_now, nm, seed))
+
+    def gained_entries(self, gains: dict[str, float]
+                       ) -> dict[str, AimcLinearState]:
+        """`with_gain` views of every state under its gain in ``gains``
+        (name -> gain); empty when every gain is 1.0."""
+        if all(g == 1.0 for g in gains.values()):
+            return {}
+        return {n: st.with_gain(gains[n])
+                for n, st in zip(self.names, self.states)}
+
+    def reprogrammed(self, entries: dict[str, AimcLinearState],
+                     t_now: float) -> "AimcProgram":
+        """Hot reprogram: freshly programmed states for ``entries``, their
+        program age stamped ``t_now``. The CM_INITIALIZE bill is the
+        caller's to charge (`runtime.health.Recalibrator`)."""
+        unknown = set(entries) - set(self.names)
+        if unknown:
+            raise KeyError(
+                f"reprogrammed: unmapped matrices {sorted(unknown)}")
+        states = tuple(entries.get(n, st)
+                       for n, st in zip(self.names, self.states))
+        ages = tuple(t_now if n in entries else t0
+                     for n, t0 in zip(self.names, self.t_programmed))
+        return AimcProgram(states, self.names, self.cfg, self.contexts,
+                           self.tile_maps, t_programmed=ages)
+
+    def remap_context(self, dead: int) -> "AimcProgram":
+        """Survivor placement after losing context (core) ``dead``: every
+        matrix on it is packed onto the least-loaded surviving context on
+        fresh spare tiles appended after that context's own (the dead
+        crossbars are retired, not reused), and the dead context's tile map
+        empties. States are unchanged (the caller reprograms the moved
+        matrices); MVM counts are shape-only, so the ledgers are invariant.
+        Packing runs the port's `TileAllocator`, which places like the
+        reference's in linear time."""
+        n_ctx = len(self.tile_maps)
+        if not 0 <= dead < n_ctx:
+            raise ValueError(f"context {dead} out of range 0..{n_ctx - 1}")
+        if n_ctx < 2:
+            raise CapacityError(
+                "remap_context: no surviving context to drain onto")
+        moved = [i for i, c in enumerate(self.contexts) if c == dead]
+        if not moved:
+            return self
+        survivors = [c for c in range(n_ctx) if c != dead]
+        extra = {c: TileAllocator(self.cfg.tile_rows, self.cfg.tile_cols)
+                 for c in survivors}
+        contexts = list(self.contexts)
+        for i in moved:
+            st = self.states[i]
+            ctx = min(survivors, key=lambda c: (self.tile_maps[c].n_tiles
+                                                + extra[c].n_tiles))
+            for j in range(st.instances):
+                extra[ctx].map_matrix(self.names[i] if st.instances == 1
+                                      else f"{self.names[i]}[{j}]",
+                                      st.k, st.n)
+            contexts[i] = ctx
+        tile_maps = []
+        for c, tm in enumerate(self.tile_maps):
+            if c == dead:
+                tile_maps.append(dataclasses.replace(tm, placements=(),
+                                                     n_tiles=0))
+            elif c in extra and extra[c].n_tiles:
+                new = extra[c].finalize()
+                shifted = tuple(dataclasses.replace(
+                    p, tile_id=p.tile_id + tm.n_tiles) for p in new.placements)
+                tile_maps.append(dataclasses.replace(
+                    tm, placements=tm.placements + shifted,
+                    n_tiles=tm.n_tiles + new.n_tiles))
+            else:
+                tile_maps.append(tm)
+        return AimcProgram(self.states, self.names, self.cfg, tuple(contexts),
+                           tuple(tile_maps), t_programmed=self.t_programmed)
+
+    def reprogram_counts(self, names) -> isa.CmCounts:
+        """CM_INITIALIZE for reprogramming just ``names``: what a hot
+        recalibration charges on top of `initialize_counts`."""
+        names = set(names)
+        return isa.total(
+            isa.initialize_counts(st.k, st.n).scaled(st.instances)
+            for n, st in zip(self.names, self.states) if n in names)
 
     # -- CM_* accounting (static: shapes fully determine the counts) --------
     def initialize_counts(self) -> isa.CmCounts:
@@ -258,27 +397,60 @@ def program_model(params, plan: MappingPlan | None, cfg: AimcConfig,
     return builder.build()
 
 
+def _is_quantized_leaf(x) -> bool:
+    """The int8 serving format {"q": codes, "s": scales} is one leaf."""
+    return isinstance(x, dict) and "q" in x and "s" in x
+
+
 def _flatten(params, path=""):
-    """(path, leaf) pairs in JAX's flatten order: dict keys sorted."""
-    if isinstance(params, dict):
+    """(path, leaf) pairs in JAX's flatten order: dict keys sorted, an int8
+    {"q", "s"} pair one leaf."""
+    if isinstance(params, dict) and not _is_quantized_leaf(params):
         for k in sorted(params):
             yield from _flatten(params[k], f"{path}/{k}" if path else str(k))
     else:
         yield path, params
 
 
+def _map_leaves(params, fn, path=""):
+    """A new tree with ``fn(path, leaf)`` at every leaf (int8 pairs and
+    programmed states are leaves); the dicts' own key order is kept."""
+    if isinstance(params, dict) and not _is_quantized_leaf(params):
+        return {k: _map_leaves(v, fn, f"{path}/{k}" if path else str(k))
+                for k, v in params.items()}
+    return fn(path, params)
+
+
+def _as_matrix(leaf):
+    """A float matrix view of a leaf (int8 codes dequantized in f32), or
+    None when the leaf is not a weight."""
+    if _is_quantized_leaf(leaf):
+        return leaf["q"].to(torch.float32) * leaf["s"].to(torch.float32)
+    if not isinstance(leaf, torch.Tensor) or leaf.dim() < 2:
+        return None
+    return leaf if leaf.is_floating_point() else None
+
+
+def installed_entries(params) -> dict[str, AimcLinearState]:
+    """path -> installed state of an installed tree: the live states
+    serving traffic (drifted, corrupted or repaired), what
+    `runtime.health.HealthMonitor.probe` measures."""
+    return {path: leaf for path, leaf in _flatten(params)
+            if isinstance(leaf, AimcLinearState)}
+
+
 def iter_mapped_leaves(params, plan: MappingPlan | None):
     """Yield ``(path, weight, fold_index)`` for every plan-selected float
-    leaf of ndim >= 2, in the order `program_model` programs them."""
+    leaf of ndim >= 2, in the order `program_model` programs them. This is
+    the key contract: matrix i is programmed under ``fold_in(key, i)``, so
+    `runtime.health.Recalibrator` replays this walk over the raw tree to
+    reprogram a matrix bit for bit."""
     plan = plan or MappingPlan()
     idx = 0
     for pkey, leaf in _flatten(params):
-        if not isinstance(leaf, torch.Tensor) or leaf.dim() < 2:
+        w = _as_matrix(leaf)
+        if w is None or not plan.selects(pkey, tuple(w.shape)):
             continue
-        if not leaf.is_floating_point():
-            continue
-        if not plan.selects(pkey, tuple(leaf.shape)):
-            continue
-        yield pkey, leaf, idx
+        yield pkey, w, idx
         idx += 1
 

@@ -56,3 +56,51 @@ def adc_quantize(acc: torch.Tensor, step: float) -> torch.Tensor:
     """Quantize a bit-line accumulation to int32 codes in [-127, 127]."""
     return torch.round(true_div(acc.to(torch.float32), step)).clamp(
         QMIN, QMAX).to(torch.int32)
+
+
+# Projection weight names, [..., K(reduce), N(out)]: the name sets of
+# `repro/launch/shardings.py:21-26`, copied (the port imports nothing of
+# the reference). `QUANTIZABLE` is what `--int8` packs.
+IN_PROJ = {"wq", "wk", "wv", "w_gate", "w_up", "w_in", "cq", "ck", "cv",
+           "router", "w_rnn_in", "w_a", "w_x", "w_q", "w_k", "w_v", "w_if",
+           "w_zifo", "w_ff_gate", "w_ff_up", "wd_gate", "wd_up"}
+OUT_PROJ = {"wo", "w_down", "w_out", "co", "w_ff_down", "wd_down"}
+EXPERT_IN = {"we_gate", "we_up"}
+EXPERT_OUT = {"we_down"}
+QUANTIZABLE = IN_PROJ | OUT_PROJ | EXPERT_IN | EXPERT_OUT | {"unembed"}
+
+
+def quantize_weight_int8(w: torch.Tensor) -> dict:
+    """Per-output-channel symmetric int8 quantization of a [..., K, N]
+    weight: {"q": int8 codes, "s": f32 scales [..., 1, N]}, the serving
+    number format `models.layers.as_weight` reads. A stack is packed one
+    [K, N] instance at a time, so the f32 temporaries are one matrix
+    large (each instance's scales depend on that instance alone)."""
+    *lead, k, n = w.shape
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty((*lead, 1, n), dtype=torch.float32, device=w.device)
+    flat_w, flat_q, flat_s = (w.reshape(-1, k, n), q.reshape(-1, k, n),
+                              s.reshape(-1, 1, n))
+    for i in range(flat_w.shape[0]):
+        wi = flat_w[i].to(torch.float32)
+        si = sym_scale(wi, dim=-2)
+        flat_s[i].copy_(si)
+        flat_q[i].copy_(quantize(wi, si))
+    return {"q": q, "s": s}
+
+
+def quantize_params_int8(params, quantizable=QUANTIZABLE, skip=("embed",)):
+    """Tree-wide int8 packing of the projection matrices named in
+    ``quantizable`` (by leaf name); every other float leaf is cast to
+    bf16, integer leaves pass through. A new tree; the input is left as it
+    is."""
+    def conv(name, leaf):
+        if isinstance(leaf, dict):
+            return {k: conv(k, v) for k, v in leaf.items()}
+        if not isinstance(leaf, torch.Tensor) or not leaf.is_floating_point():
+            return leaf
+        if name in quantizable and name not in skip and leaf.dim() >= 2:
+            return quantize_weight_int8(leaf)
+        return leaf.to(torch.bfloat16)
+
+    return conv("", params)

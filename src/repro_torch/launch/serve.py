@@ -50,8 +50,25 @@ and (synchronized, unchunked, with a shared prefix) the shared span was
 prefilled exactly once. ``--admission sjf`` admits the shortest decode
 budget first among arrived requests (default fifo). ``--static`` runs the
 legacy static-batch loop (`engine.static_generate`: one synchronized batch,
-lockstep decode) for A/B against the engine. The reference's multi-tenant,
-drift/chaos, placement, mesh and int8 paths are later slices.
+lockstep decode) for A/B against the engine. ``--arrivals`` gives each
+request an explicit arrival offset; ``--eos ID`` retires a lane early on
+that token; ``--tile-rows``/``--adc-alpha``/``--input-scale`` set the
+crossbar's word lines, ADC full scale and a fixed DAC scale.
+
+``--int8`` serves int8-native: every projection is packed into per-channel
+int8 codes + scales (`core.quant.quantize_params_int8`, other float
+leaves bf16) and dequantized per call on the digital path; with
+``--exec aimc`` the crossbars are programmed from those codes.
+
+``--drift NU`` ages the programmed conductances along the power law on the
+serve clock and ``--chaos kill:CORE@CHUNK,corrupt:CORE@CHUNK[:MAG]``
+injects deterministic faults on the chunk-dispatch clock (DESIGN.md §14):
+the engine probes the live states at chunk boundaries, drains dead cores
+onto peers, hot-reprograms past ``--health-threshold`` from the raw
+weights under their original keys, and the run exits nonzero unless every
+request retires, every fault fires, and the CM_* and recal CM_INITIALIZE
+books close exactly. ``--heartbeat PATH`` beats a liveness file per chunk.
+The reference's multi-tenant, placement and mesh paths are later slices.
 """
 
 from __future__ import annotations
@@ -82,6 +99,11 @@ def parse_args(argv=None):
     ap.add_argument("--trace", default="",
                     help="poisson:RATE (req/s, staggered ragged arrivals); "
                          "default synchronized")
+    ap.add_argument("--arrivals", default="",
+                    help="explicit comma-separated arrival offsets in "
+                         "seconds, one per request")
+    ap.add_argument("--eos", type=int, default=-1,
+                    help="EOS token id for early retirement (-1: disabled)")
     ap.add_argument("--exec", dest="exec_mode", default="digital",
                     choices=["digital", "aimc"])
     ap.add_argument("--static", action="store_true",
@@ -132,12 +154,71 @@ def parse_args(argv=None):
                     help="price the multi-core schedule with the "
                          "position-pipelined latency law instead of the "
                          "sequential mutex chain")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8-native weights: per-channel int8 codes + "
+                         "scales, dequantized per call (digital) or "
+                         "programmed from the codes (--exec aimc)")
+    ap.add_argument("--tile-rows", dest="tile_rows", type=int, default=0,
+                    help="crossbar word lines per physical tile "
+                         "(0: AimcConfig default, 512)")
+    ap.add_argument("--adc-alpha", dest="adc_alpha", type=float, default=0.0,
+                    help="ADC clipping alpha (0: AimcConfig default)")
+    ap.add_argument("--input-scale", dest="input_scale", type=float,
+                    default=0.0,
+                    help="fixed DAC scale (0: dynamic max-abs over the "
+                         "batch, which makes AIMC tokens depend on the "
+                         "batch composition)")
+    ap.add_argument("--drift", type=float, default=0.0,
+                    help="conductance drift exponent nu (power-law decay of "
+                         "the programmed weights on the serve clock); the "
+                         "health monitor probes at chunk boundaries and "
+                         "hot-reprograms cores whose output error passes "
+                         "--health-threshold. 0 = off")
+    ap.add_argument("--drift-t0", dest="drift_t0", type=float, default=0.05,
+                    help="drift reference time t0 in seconds (decay starts "
+                         "once program age exceeds t0)")
+    ap.add_argument("--chaos", default="",
+                    help="deterministic fault injection on the chunk-"
+                         "dispatch clock: kill:CORE@CHUNK / "
+                         "corrupt:CORE@CHUNK[:MAG], comma-joined (e.g. "
+                         "'corrupt:0@2:0.5,kill:1@4'); the run exits "
+                         "nonzero if any request is lost, any event never "
+                         "fires, or the recal ledger drifts")
+    ap.add_argument("--health-threshold", dest="health_threshold",
+                    type=float, default=0.05,
+                    help="per-core relative probe error that triggers hot "
+                         "recalibration")
+    ap.add_argument("--heartbeat", default="",
+                    help="liveness file beaten once per decode chunk with "
+                         "slot occupancy and the last-chunk wall timestamp "
+                         "(fault_tolerance.Heartbeat)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; cpu must be asked for explicitly")
     ap.add_argument("--weights", default="",
                     help="flat npz parameter archive (default: random)")
     args = ap.parse_args(argv)
+    if args.tile_rows < 0 or args.adc_alpha < 0 or args.input_scale < 0:
+        ap.error("--tile-rows/--adc-alpha/--input-scale must be >= 0")
+    if args.chaos or args.drift:
+        flag = "--chaos" if args.chaos else "--drift"
+        if args.exec_mode != "aimc":
+            ap.error(f"{flag} degrades/repairs PROGRAMMED crossbar states: "
+                     "it requires --exec aimc")
+        if args.static:
+            ap.error(f"{flag} runs through the engine's chunk-boundary "
+                     "resilience tick (drop --static)")
+        if args.fuse_gates:
+            ap.error(f"{flag} repairs the programmed matrices by their "
+                     "paths; gate-fused stacks replace them (drop "
+                     "--fuse-gates)")
+    if args.chaos and args.cores < 2:
+        ap.error("--chaos needs --cores >= 2: a killed core drains onto "
+                 "surviving peers, so there must be at least one")
+    if args.drift < 0:
+        ap.error(f"--drift must be >= 0, got {args.drift}")
+    if args.trace and args.arrivals:
+        ap.error("--trace and --arrivals are mutually exclusive")
     if args.page_size < 0 or args.pages < 0 or args.prefill_chunk < 0 \
             or args.shared_prefix < 0:
         ap.error("--page-size/--pages/--prefill-chunk/--shared-prefix "
@@ -146,9 +227,9 @@ def parse_args(argv=None):
                                 or args.pages or args.paged_verify):
         ap.error("--prefix-cache/--prefill-chunk/--pages/--paged-verify "
                  "require --page-size")
-    if args.static and args.trace:
+    if args.static and (args.trace or args.arrivals):
         ap.error("--static serves one synchronized batch; staggered "
-                 "traces need the engine")
+                 "traces/arrivals need the engine")
     if args.static and args.decode_chunk > 1:
         ap.error("--decode-chunk applies to the engine's decode loop; "
                  "--static is the legacy lockstep baseline")
@@ -178,8 +259,14 @@ def build_requests(args, vocab: int, min_prompt: int = 1):
         return poisson_trace(n, float(param or "100"), seed=args.seed,
                              prompt_len=(max(min_prompt, p // 2), p),
                              max_new=(1, g), vocab=vocab)
-    return synchronized_trace(n, prompt_len=p, max_new=g, seed=args.seed,
+    base = synchronized_trace(n, prompt_len=p, max_new=g, seed=args.seed,
                               vocab=vocab)
+    if args.arrivals:
+        offs = [float(x) for x in args.arrivals.split(",")]
+        if len(offs) != n:
+            raise SystemExit(f"--arrivals needs {n} offsets, got {len(offs)}")
+        base = [dataclasses.replace(r, arrival=t) for r, t in zip(base, offs)]
+    return base
 
 
 def apply_shared_prefix(requests, k: int):
@@ -246,12 +333,17 @@ def main(argv=None) -> ServeRun:
     if args.fuse_gates and not hasattr(model, "fuse_gate_stacks"):
         raise SystemExit(f"--fuse-gates: {spec.arch_id} ({spec.module}) has "
                          f"no gate stacks to fuse")
-    aimc_cfg = AimcConfig()
+    aimc_kw = {}
+    if args.tile_rows:
+        aimc_kw["tile_rows"] = args.tile_rows
+    if args.adc_alpha:
+        aimc_kw["adc_alpha"] = args.adc_alpha
+    aimc_cfg = AimcConfig(input_scale=args.input_scale, **aimc_kw)
     exe = (Execution(mode="aimc", aimc=aimc_cfg, compute_dtype="float32",
                      programmed=True)
            if args.exec_mode == "aimc"
            else Execution(compute_dtype="float32" if args.smoke
-                          else "bfloat16"))
+                          else "bfloat16", serve_int8=args.int8))
     b, p, g = args.requests, args.prompt_len, args.gen
     requests = build_requests(
         args, cfg.vocab,
@@ -267,6 +359,9 @@ def main(argv=None) -> ServeRun:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     init_s = time.time() - t0
+    if args.int8:
+        from repro_torch.core.quant import quantize_params_int8
+        params = quantize_params_int8(params)
     cut = (f", depth cut to {cfg.n_layers} of "
            f"{(spec.smoke_cfg if args.smoke else spec.model_cfg).n_layers}"
            if args.layers else "")
@@ -275,7 +370,7 @@ def main(argv=None) -> ServeRun:
           f"d_ff={d_ff} vocab={cfg.vocab}{cut}) on {device}: weights "
           f"ready in {init_s:.2f}s")
 
-    program = schedule = None
+    program = schedule = health = chaos = None
     if args.exec_mode == "aimc":
         # CM_INITIALIZE: program the whole network once, outside the
         # serving loop (paper §IV-B); the raw float weights of the mapped
@@ -284,8 +379,10 @@ def main(argv=None) -> ServeRun:
         from repro_torch.core.program import MappingPlan, program_model
         from repro_torch.core.schedule import CoreSchedule
         t0 = time.time()
-        program = program_model(params, MappingPlan(n_contexts=args.cores),
-                                aimc_cfg, PRNGKey(args.seed + 2))
+        plan = MappingPlan(n_contexts=args.cores)
+        prog_key = PRNGKey(args.seed + 2)
+        program = program_model(params, plan, aimc_cfg, prog_key)
+        params_raw = params
         params = program.install(params)
         if args.fuse_gates:
             params = model.fuse_gate_stacks(params)
@@ -296,22 +393,37 @@ def main(argv=None) -> ServeRun:
         schedule = CoreSchedule.from_program(program, pipelined=args.pipeline)
         if args.cores > 1 or args.pipeline:
             print(f"[serve] {schedule.summary()}")
-    print(f"[serve] {spec.arch_id} exec={args.exec_mode} requests={b}"
+        if args.drift or args.chaos:
+            # drift-aware serving (DESIGN.md §14): the raw weights and the
+            # programming keys are captured off the RAW tree, so a hot
+            # reprogram is bit-exact
+            health, chaos = _build_resilience(args, program, params_raw,
+                                              plan, prog_key)
+        del params_raw
+    print(f"[serve] {spec.arch_id} exec={args.exec_mode} int8={args.int8} "
+          f"requests={b}"
           + (" (gate-fused stacks)" if args.fuse_gates else ""))
     if args.static:
         return _run_static(args, cfg, exe, model, params, program, schedule,
                            requests, device, init_s)
 
     n_slots = args.slots or min(b, 8)
+    heartbeat = None
+    if args.heartbeat:
+        from repro_torch.runtime.fault_tolerance import Heartbeat
+        heartbeat = Heartbeat(args.heartbeat)
     engine = ServeEngine(model, cfg, exe, params, n_slots=n_slots,
                          prompt_pad=p, max_seq=p + g,
                          cache_dtype=torch.float32, family=spec.family,
                          module=spec.module, program=program,
+                         schedule=schedule,
+                         eos_id=None if args.eos < 0 else args.eos,
                          admission=args.admission,
                          decode_chunk=args.decode_chunk,
                          page_size=args.page_size, n_pages=args.pages,
                          prefix_cache=args.prefix_cache,
-                         prefill_chunk=args.prefill_chunk)
+                         prefill_chunk=args.prefill_chunk, health=health,
+                         chaos=chaos, heartbeat=heartbeat)
     t0 = time.time()
     counts0 = engine.warmup()
     print(f"[serve] engine warmed up in {time.time() - t0:.2f}s "
@@ -347,14 +459,16 @@ def main(argv=None) -> ServeRun:
               f"token vectors): queue={roi.queue} process={roi.process} "
               f"dequeue={roi.dequeue} (per vector: {per_vec.queue}/"
               f"{per_vec.process}/{per_vec.dequeue})")
-        led_sum, static_sum = reconcile(program, report.records,
+        led_sum, static_sum = reconcile(engine.program, report.records,
                                         report.observed_vectors)
         ok = led_sum == static_sum
         print(f"  per-request ledger sum reconciles with the program's "
               f"static accounting: {ok}")
         if not ok:
             raise SystemExit(1)
-        _print_schedule(args, schedule)
+        if health is not None:
+            _verify_resilience(engine, report, requests, chaos)
+        _print_schedule(args, engine.schedule)
     if engine.pages is not None:
         led = report.page_ledger
         print(f"  pages: {led.get('free', 0)} free / {led.get('held', 0)} "
@@ -376,6 +490,67 @@ def main(argv=None) -> ServeRun:
               f"latency={rec.latency * 1e3:.1f}ms tokens={rec.tokens[:6]}...")
     return ServeRun(report=report, engine=engine, program=program,
                     requests=requests, schedule=schedule, init_s=init_s)
+
+
+def _build_resilience(args, program, params_raw, plan, prog_key):
+    """(HealthMonitor, FaultInjector or None) for --drift / --chaos."""
+    from repro_torch.core import noise as noise_lib
+    from repro_torch.runtime.chaos import parse_chaos
+    from repro_torch.runtime.health import HealthPolicy, build_health
+    noise = (noise_lib.drift_only(nu=args.drift, t0=args.drift_t0)
+             if args.drift else None)
+    health = build_health(program, params_raw, plan, prog_key,
+                          policy=HealthPolicy(threshold=args.health_threshold),
+                          noise=noise)
+    chaos = parse_chaos(args.chaos) if args.chaos else None
+    what = " + ".join(
+        ([f"drift nu={args.drift:g} t0={args.drift_t0:g}s"]
+         if args.drift else [])
+        + ([f"chaos [{', '.join(e.describe() for e in chaos.events)}]"]
+           if chaos else []))
+    print(f"[serve] resilience: {what}; probe threshold "
+          f"{args.health_threshold:g}")
+    return health, chaos
+
+
+def _verify_resilience(engine, report, requests, chaos):
+    """Hard acceptance for a drift/chaos run: exit nonzero if any request
+    was lost, any scheduled fault never fired, the per-request CM_* books
+    fail against the (possibly remapped) program, or the recalibration
+    ledger does not close exactly."""
+    from repro_torch.runtime.batcher import reconcile
+    from repro_torch.runtime.health import reconcile_recal
+    for ev in report.fault_events:
+        print(f"  fault injected: {ev.describe()}")
+    for ev in report.recal_events:
+        print(f"  hot recal [{ev.reason}] cores={list(ev.cores)}: "
+              f"{len(ev.names)} matrices reprogrammed, "
+              f"CM_INITIALIZE={ev.initialize}, {ev.wall_s * 1e3:.0f}ms")
+    print(f"  health: {report.probes} probes, {report.n_recals} recals, "
+          f"recal CM_INITIALIZE={report.recal_initialize} (charged on top "
+          f"of the session's program-once bill), "
+          f"{report.wall_health_s:.2f}s health wall")
+    failures = []
+    if len(report.records) != len(requests):
+        lost = {r.rid for r in requests} - set(report.records)
+        failures.append(f"LOST {len(lost)} in-flight request(s): "
+                        f"{sorted(lost)}")
+    if chaos is not None and not chaos.exhausted:
+        left = [e.describe() for e in chaos.events if e not in chaos.fired]
+        failures.append(f"chaos events never fired: {left}")
+    led_sum, static_sum = reconcile(engine.program, report.records,
+                                    report.observed_vectors)
+    if led_sum != static_sum:
+        failures.append("per-request CM_* ledgers do not reconcile against "
+                        "the recovered program")
+    if not reconcile_recal(engine.program, report):
+        failures.append("recalibration CM_INITIALIZE books do not close")
+    if failures:
+        for f in failures:
+            print(f"  RESILIENCE FAILURE: {f}")
+        raise SystemExit(1)
+    print("  resilience books close exactly: no lost requests, every "
+          "fault fired, CM_* + recal ledgers reconcile")
 
 
 def _run_static(args, cfg, exe, model, params, program, schedule, requests,

@@ -37,6 +37,10 @@ class Execution:
     mode: str = "digital"                  # digital | aimc
     aimc: AimcConfig = AimcConfig()
     compute_dtype: str = "bfloat16"
+    # int8-native serving: projection weights arrive as {"q", "s"} int8
+    # codes + per-channel scales (`core.quant.quantize_params_int8`) and
+    # are dequantized per call (`as_weight`)
+    serve_int8: bool = False
     programmed: bool = False
 
     @property
@@ -45,9 +49,21 @@ class Execution:
 
 
 def layer_slice(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a dict of stacked leaves (tensors and programmed
-    states alike): the eager counterpart of `lax.scan`'s per-layer slice."""
-    return {name: leaf[i] for name, leaf in tree.items()}
+    """Layer ``i`` of a dict of stacked leaves (tensors, programmed states
+    and int8 {"q", "s"} pairs alike): the eager counterpart of
+    `lax.scan`'s per-layer slice."""
+    return {name: ({k: v[i] for k, v in leaf.items()}
+                   if isinstance(leaf, dict) else leaf[i])
+            for name, leaf in tree.items()}
+
+
+def as_weight(w, dtype: torch.dtype) -> torch.Tensor:
+    """A weight that may be stored as int8 codes + scales, materialised in
+    ``dtype``: ``q * s`` in ``dtype``, as the reference dequantizes (a
+    copy of the projection per call; a fused dequant is later work)."""
+    if isinstance(w, dict) and "q" in w:
+        return w["q"].to(dtype) * w["s"].to(dtype)
+    return w.to(dtype)
 
 
 def mask_batch_select(new, old, active, dim: int = 0):
@@ -104,7 +120,7 @@ def linear(x, w, exe: Execution, bias=None, activation: str = "none"):
             "on-the-fly AIMC programming (aimc_linear_ste, noise-aware "
             "training) is not ported yet; install an AimcProgram "
             "(programmed=True) or run digital — see ROADMAP.md")
-    y = x.to(exe.cdtype) @ w.to(exe.cdtype)
+    y = x.to(exe.cdtype) @ as_weight(w, exe.cdtype)
     if bias is not None:
         y = y + bias.to(exe.cdtype)
     return EPILOGUE_FNS[activation](y)

@@ -27,7 +27,7 @@ import os
 
 import torch
 
-from repro_torch.models.layers import Execution, linear
+from repro_torch.models.layers import Execution, as_weight, linear
 
 
 def top_k_stable(probs: torch.Tensor, k: int):
@@ -71,6 +71,9 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
             "noise-on experts (a read key per expert) come with the "
             "training slice; see ROADMAP.md")
     t, _ = x.shape
+    # an int8 router (--int8 packs "router", an IN_PROJ name) routes on its
+    # dequantized f32 weights; the reference raises there
+    router_w = as_weight(router_w, torch.float32)
     e = router_w.shape[1]
     cap = capacity(t, top_k, e, capacity_factor)
     gate_vals, gate_idx, aux = route(x, router_w, top_k)

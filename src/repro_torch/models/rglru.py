@@ -29,8 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
-from repro_torch.models.layers import (Execution, decode_attention,
-                                       dense_init, embed_init, layer_slice,
+from repro_torch.models.layers import (Execution, as_weight,
+                                       decode_attention, dense_init,
+                                       embed_init, layer_slice,
                                        linear, recurrent_prefill, rmsnorm,
                                        rope, stack_init)
 
@@ -296,7 +297,7 @@ def decode_step(params, cache, tokens, cfg: RglruConfig,
         new_cache |= {"tail_conv": torch.stack(tc),
                       "tail_r": torch.stack(tr)}
     h = _norm(h, params["final_norm"], cfg.norm_eps)
-    logits = h.to(torch.float32) @ params["unembed"].to(torch.float32)
+    logits = h.to(torch.float32) @ as_weight(params["unembed"], torch.float32)
     return logits, new_cache
 
 

@@ -34,8 +34,9 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.aimc import AimcLinearState, stack_states
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (Execution, decode_attention,
-                                       dense_init, embed_init,
+from repro_torch.models.layers import (Execution, as_weight,
+                                       decode_attention, dense_init,
+                                       embed_init,
                                        expert_stack_init, flash_attention,
                                        linear, linear_stack, layer_slice,
                                        rmsnorm, rope, stack_init, swiglu)
@@ -220,8 +221,8 @@ def unembed_matrix(params, cfg: TransformerConfig):
 
 
 def _logits(params, h, cfg: TransformerConfig):
-    return h.to(torch.float32) @ unembed_matrix(params, cfg).to(
-        torch.float32)
+    return h.to(torch.float32) @ as_weight(unembed_matrix(params, cfg),
+                                           torch.float32)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,

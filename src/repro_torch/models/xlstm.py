@@ -35,10 +35,10 @@ import torch.nn.functional as F
 
 from repro_torch.core import prng
 from repro_torch.core.aimc import AimcLinearState, stack_states
-from repro_torch.models.layers import (Execution, embed_init, dense_init,
-                                       layer_slice, linear, linear_stack,
-                                       recurrent_prefill, rmsnorm, row_sum,
-                                       stack_init)
+from repro_torch.models.layers import (Execution, as_weight, dense_init,
+                                       embed_init, layer_slice, linear,
+                                       linear_stack, recurrent_prefill,
+                                       rmsnorm, row_sum, stack_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,7 +323,7 @@ def decode_step(params, cache, tokens, cfg: XlstmConfig,
     new_cache = {name: torch.stack(ts) for name, ts in outs.items()}
     new_cache["len"] = cache["len"] + 1
     h = _norm(h, params["final_norm"], cfg.norm_eps)
-    logits = h.to(torch.float32) @ params["unembed"].to(torch.float32)
+    logits = h.to(torch.float32) @ as_weight(params["unembed"], torch.float32)
     return logits, new_cache
 
 

@@ -55,7 +55,14 @@ vector per decode step a request rides in) is booked to its request;
 
 `static_generate` is the reference's monolithic loop (one synchronized
 batch, lockstep decode): the engine's bit-equality oracle and A/B baseline.
-Drift/chaos resilience, rotation and the sharded engine are later slices.
+
+Resilience (DESIGN.md §14): at every chunk boundary `_resilience_tick`
+fires due chaos events (`runtime.chaos`), ages the installed states on the
+serve clock, probes them and hot-reprograms failing cores
+(`runtime.health`). It runs between dispatches, so a chunk in flight keeps
+the tree it was launched with; its wall is billed to ``wall_health_s``,
+not to decode. ``heartbeat`` beats a liveness file once per chunk.
+Rotation and the sharded engine are later slices.
 """
 
 from __future__ import annotations
@@ -65,11 +72,15 @@ import time
 
 import torch
 
+from repro_torch.core.program import installed_entries
+from repro_torch.core.schedule import CoreSchedule
 from repro_torch.models.layers import Execution, mask_batch_select
+from repro_torch.runtime import chaos as chaos_lib
 from repro_torch.runtime.batcher import (Batcher, Request, RequestRecord,
                                          SlotAllocator, percentile)
 from repro_torch.runtime.fault_tolerance import (StragglerMonitor,
                                                  resilient_step)
+from repro_torch.runtime.health import RecalEvent
 from repro_torch.runtime.pages import (SCRATCH, PageAllocator, PrefixCache,
                                        page_keys)
 
@@ -102,6 +113,16 @@ class ServeReport:
     page_evictions: int = 0
     page_ledger: dict = dataclasses.field(default_factory=dict)
     page_ledger_exact: bool = True
+    # drift-aware serving books (runtime.health / runtime.chaos): probes
+    # run, faults fired, hot recalibrations and the CM_INITIALIZE writes
+    # they charged (reconciled by health.reconcile_recal); wall_health_s is
+    # the probe+repair wall, billed apart from decode
+    probes: int = 0
+    n_recals: int = 0
+    recal_initialize: int = 0
+    recal_events: list = dataclasses.field(default_factory=list)
+    fault_events: list = dataclasses.field(default_factory=list)
+    wall_health_s: float = 0.0
 
     @property
     def useful_vectors(self) -> int:
@@ -180,6 +201,8 @@ class _PendingChunk:
     t_wall: float
     prefill0: float
     n: int
+    health0: float = 0.0   # report.wall_health_s at dispatch (overlap bill)
+    recals0: int = 0       # report.n_recals at dispatch (straggler exemption)
 
 
 @dataclasses.dataclass
@@ -234,18 +257,23 @@ class ServeEngine:
 
     ``params`` carries installed `AimcLinearState`s for the programmed AIMC
     path (``program.install(params)``); pass the `AimcProgram` as
-    ``program`` for CM_* ledger reconciliation. Everything runs on the
+    ``program`` for CM_* ledger reconciliation (and its ``schedule``,
+    which follows the program through a remap). Everything runs on the
     device of ``params["embed"]``; ``eos_id`` retires a lane when it emits
-    that token (the token is control, not payload)."""
+    that token (the token is control, not payload). ``health``
+    (`runtime.health.HealthMonitor`), ``chaos``
+    (`runtime.chaos.FaultInjector`) and ``heartbeat``
+    (`fault_tolerance.Heartbeat`) act at chunk boundaries."""
 
     def __init__(self, model, cfg, exe: Execution, params, *,
                  n_slots: int = 4, prompt_pad: int = 16, max_seq: int = 64,
                  cache_dtype=CACHE_DTYPE, family: str = "lm",
-                 module: str = "transformer", program=None,
+                 module: str = "transformer", program=None, schedule=None,
                  eos_id: int | None = None, admission: str = "fifo",
                  decode_chunk: int = 1, page_size: int = 0,
                  n_pages: int = 0, prefix_cache: bool = False,
-                 prefill_chunk: int = 0):
+                 prefill_chunk: int = 0, health=None, chaos=None,
+                 heartbeat=None):
         if family == "audio":
             raise ValueError("ServeEngine serves decoder-only LMs; the "
                              "enc-dec audio family decodes via launch.steps")
@@ -262,7 +290,7 @@ class ServeEngine:
         self.n_slots, self.prompt_pad, self.max_seq = n_slots, prompt_pad, max_seq
         self.cache_dtype = cache_dtype
         self.family, self.module = family, module
-        self.program = program
+        self.program, self.schedule = program, schedule
         self.eos_id = eos_id
         self.admission = admission
         self.decode_chunk = decode_chunk
@@ -340,6 +368,17 @@ class ServeEngine:
         self.monitor = StragglerMonitor(threshold=STRAGGLER_THRESHOLD)
         self._retries = 0
         self._step_no = 0
+        self._chunks_dispatched = 0    # lifetime chunk counter (chaos clock)
+        self.health, self.chaos, self.heartbeat = health, chaos, heartbeat
+        if health is not None:
+            if program is None:
+                raise ValueError("health monitoring requires an AimcProgram")
+            if tuple(health.program.names) != tuple(program.names):
+                raise ValueError("health monitor was built for a different "
+                                 "program (matrix names mismatch)")
+        if chaos is not None and health is None:
+            raise ValueError("chaos injection requires a HealthMonitor to "
+                             "detect and repair the faults it fires")
         # model forward passes run by this engine, warmup included (each
         # prefill, prefill leg and decode step is one pass over every layer;
         # a recurrent prefill or leg scans the decode step, one pass per
@@ -1054,14 +1093,19 @@ class ServeEngine:
             sess.cache, sess.tok_buf, sess.state, n)
         for slot in sess.slot_rec:
             sess.rem[slot] = max(0, sess.rem.get(slot, 0) - n)
+        self._chunks_dispatched += 1
         return _PendingChunk(ys=ys, t_wall=t0,
-                             prefill0=sess.report.wall_prefill_s, n=n)
+                             prefill0=sess.report.wall_prefill_s, n=n,
+                             health0=sess.report.wall_health_s,
+                             recals0=sess.report.n_recals)
 
     def step(self, sess: EngineSession, now: float) -> float:
         """One SYNCHRONOUS decode chunk (dispatched and processed at once)
-        plus retirement bookkeeping; returns the advanced clock. The caller
-        guarantees a busy slot. With `admit(..., drain=True)` this drives a
-        session by hand: each admission completes before the next."""
+        plus retirement bookkeeping, after the chunk-boundary resilience
+        tick; returns the advanced clock. The caller guarantees a busy
+        slot. With `admit(..., drain=True)` this drives a session by hand:
+        each admission completes before the next."""
+        now = self._resilience_tick(sess, now)
         n = self._pick_chunk(sess) or 1
         return self._process_chunk(sess, self._dispatch_chunk(sess, n), now)
 
@@ -1075,7 +1119,8 @@ class ServeEngine:
         ys = pend.ys.cpu()
         toks, acts, reasons = ys[:, 0], ys[:, 1], ys[:, 2]
         self._resolve_firsts(sess)
-        overlap = report.wall_prefill_s - pend.prefill0
+        overlap = ((report.wall_prefill_s - pend.prefill0)
+                   + (report.wall_health_s - pend.health0))
         dt = max(time.perf_counter() - pend.t_wall - overlap, 0.0)
         now += dt
         report.wall_decode_s += dt
@@ -1085,7 +1130,16 @@ class ServeEngine:
         report.observed_vectors += busy
         report.idle_vectors += self.n_slots * ran - busy
         self._step_no += ran
-        self.monitor.record(self._step_no, dt / max(ran, 1))
+        # a chunk whose window held a hot reprogram is slow by the engine's
+        # own doing: it is exempt from the straggler EWMA
+        self.monitor.record(self._step_no, dt / max(ran, 1),
+                            exempt=report.n_recals > pend.recals0)
+        if self.heartbeat is not None:
+            self.heartbeat.beat(
+                self._step_no, slots_busy=sess.slots.n_busy,
+                slots_free=sess.slots.n_free, chunk_len=ran,
+                last_chunk_s=time.time(), wall_decode_s=report.wall_decode_s,
+                n_recals=report.n_recals)
         for s in range(ran):
             for slot in list(sess.slot_rec):
                 if not acts[s, slot]:
@@ -1099,6 +1153,67 @@ class ServeEngine:
                     self._retire(rec, _REASONS[r], now)
                     self._free_slot(sess, slot)
         return now
+
+    # -- drift / health / chaos (DESIGN.md §14) ----------------------------
+    def _resilience_tick(self, sess: EngineSession, now: float) -> float:
+        """Chunk-boundary resilience work: fire due chaos events, advance
+        drift, probe the live states, hot-reprogram failing cores. A chunk
+        already in flight was launched against the previous tree and is
+        untouched; the wall spent here goes to ``wall_health_s`` (and out of
+        the overlapping chunk's decode bill). Every update keeps the
+        tree's shapes (drift scales s_w; a repaired state is shaped like
+        the one it replaces)."""
+        if self.health is None:
+            return now
+        t0 = time.perf_counter()
+        report = sess.report
+        forced = False
+        if self.chaos is not None:
+            for ev in self.chaos.due(self._chunks_dispatched):
+                prog = self.health.program
+                mag = 1.0 if ev.kind == chaos_lib.KILL else ev.magnitude
+                entries = chaos_lib.corrupt_entries(prog, ev.core, mag)
+                if ev.kind == chaos_lib.KILL:
+                    self.health.mark_dead(ev.core)
+                if entries:
+                    self.params = prog.install_updates(self.params, entries)
+                report.fault_events.append(ev)
+                forced = True
+        if forced or self.health.due(now):
+            drifted = self.health.drifted_entries(now)
+            if drifted:
+                self.params = self.health.program.install_updates(
+                    self.params, drifted)
+            sample = self.health.probe(installed_entries(self.params), now)
+            report.probes += 1
+            failing = self.health.failing_cores(sample)
+            if failing:
+                dead = set(failing) & self.health.dead
+                t_r = time.perf_counter()
+                entries, names, cm = self.health.recalibrate(failing, now)
+                if names:
+                    prog = self.health.program
+                    self.program = prog
+                    if (self.schedule is not None
+                            and self.schedule.name == "from_program"):
+                        self.schedule = CoreSchedule.from_program(
+                            prog, pipelined=self.schedule.pipelined)
+                    self.params = prog.install_updates(self.params, entries)
+                    _wait(next(iter(entries.values())).w_q)
+                    ev = RecalEvent(
+                        t=now,
+                        reason=("dead_core" if dead
+                                else "fault" if forced else "drift"),
+                        cores=tuple(failing), names=names,
+                        initialize=cm.initialize,
+                        wall_s=time.perf_counter() - t_r)
+                    self.health.events.append(ev)
+                    report.recal_events.append(ev)
+                    report.recal_initialize += cm.initialize
+                    report.n_recals += 1
+        wall = time.perf_counter() - t0
+        report.wall_health_s += wall
+        return now + wall
 
     def _free_slot(self, sess: EngineSession, slot: int):
         sess.slot_rec.pop(slot, None)
@@ -1165,6 +1280,7 @@ class ServeEngine:
                 now = self.admit(sess, req, now, drain=not self._chunked)
             if sess.jobs:
                 now = self._advance_prefill(sess, now)
+            now = self._resilience_tick(sess, now)
             if not sess.slots.n_busy and pending is None:
                 nxt = queue.next_arrival()
                 if nxt is None:

@@ -37,7 +37,8 @@ def test_every_module_is_listed():
                  "repro_torch.configs.xlstm_350m",
                  "repro_torch.configs.recurrentgemma_9b",
                  "repro_torch.models.moe", "repro_torch.configs.olmoe_1b_7b",
-                 "repro_torch.configs.arctic_480b"):
+                 "repro_torch.configs.arctic_480b",
+                 "repro_torch.runtime.health", "repro_torch.runtime.chaos"):
         assert must in mods
 
 

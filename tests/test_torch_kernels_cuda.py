@@ -26,7 +26,9 @@ same bound, and a paged decode step serves the dense engine's tokens at
 smoke size (tokens equal). The MoE expert entry (`aimc_mvm_experts`, K2
 over an [E] stack with a per-expert input and DAC scale) equals E K2
 launches bit for bit at olmoe's and arctic's shapes and past 16 experts,
-and olmoe's smoke config on the card matches the CPU.
+and olmoe's smoke config on the card matches the CPU. The health probe of
+a layer stack (one expert-entry launch) equals L K2 launches bit for bit,
+and a dead crossbar (`with_gain(0.0)`) reaches K2 as an all-zero scale.
 """
 
 import numpy as np
@@ -566,3 +568,58 @@ def test_moe_smoke_on_card_matches_cpu(dev):
     assert float((got.cpu() - want).abs().max()) <= 1e-4
     fused = model.fuse_gate_stacks(card)
     assert torch.equal(model.prefill(fused, toks.to(dev), cfg, exe)[0], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.0, 0.1], ids=["dynamic", "fixed 0.1"])
+def test_stacked_probe_equals_per_layer_k2(dev, scale):
+    """The health probe of an [L] layer stack (`runtime.health.apply_state`:
+    x broadcast to [L, B, K], ONE expert-entry launch) equals L K2 launches
+    bit for bit, so probe references and live probes agree exactly, and is
+    within 1e-5 x max(1, max|y|) of the same probe's plain version on the
+    CPU."""
+    from repro_torch.core.aimc import (AimcConfig, AimcLinearState,
+                                       aimc_apply, program_stacked)
+    from repro_torch.runtime.health import apply_state
+
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.standard_normal((6, 1100, 300)).astype(
+        np.float32) * 0.05).to(dev)
+    cfg = AimcConfig(input_scale=scale)
+    st = program_stacked(w, cfg)
+    x = torch.from_numpy(rng.standard_normal((2, 1100)).astype(
+        np.float32)).to(dev)
+    aimc_mvm.reset_counts()
+    y = apply_state(st, x, cfg)
+    assert aimc_mvm.LAUNCHES["aimc_mvm_experts"] == 1
+    assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] == 0
+    assert tuple(y.shape) == (6, 2, 300)
+    for i in range(6):
+        assert torch.equal(y[i], aimc_apply(st[i], x, cfg)), i
+    st_cpu = AimcLinearState(w_q=st.w_q.cpu(), s_w=st.s_w.cpu(), k=st.k,
+                             n=st.n)
+    _close(y.cpu(), apply_state(st_cpu, x.cpu(), cfg))
+
+
+@pytest.mark.cuda
+def test_zero_gain_reaches_k2_as_zero_scale(dev):
+    """A dead crossbar (`with_gain(0.0)`, what a chaos kill installs) runs
+    K2 on an all-zero scale and reads an all-zero output, so the probe
+    reads it as relative error 1.0."""
+    from repro_torch.core.aimc import AimcConfig, aimc_apply, program_linear
+    from repro_torch.runtime.health import rel_err
+
+    rng = np.random.default_rng(6)
+    w = torch.from_numpy(rng.standard_normal((700, 260)).astype(
+        np.float32)).to(dev)
+    cfg = AimcConfig()
+    st = program_linear(w, cfg)
+    dead = st.with_gain(0.0)
+    assert not dead.s_w.any() and torch.equal(dead.w_q, st.w_q)
+    x = torch.from_numpy(rng.standard_normal((3, 700)).astype(
+        np.float32)).to(dev)
+    aimc_mvm.reset_counts()
+    y = aimc_apply(dead, x, cfg)
+    assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] == 1
+    assert not y.any()
+    assert rel_err(y, aimc_apply(st, x, cfg)) == pytest.approx(1.0, abs=1e-9)
