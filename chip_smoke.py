@@ -4,7 +4,10 @@ dense zoo (glm4-9b, llama3.2-3b, qwen1.5-110b, internvl2-1b), the
 recurrent zoo (xlstm-350m, recurrentgemma-9b) and the MoE zoo
 (olmoe-1b-7b, arctic-480b) at their published widths on programmed AIMC
 crossbars, dense, paged and through recurrent snapshot pages, granite-8b
-also under chaos and drift with hot recalibration and int8-native, and
+also under chaos and drift with hot recalibration, int8-native and under
+a cost-model placement that rotates layer groups through a tile budget,
+granite-8b and xlstm-350m together on one tile pool behind the
+multi-tenant server, and
 run the paper's MLP, LSTM and CNN-F/M/S at theirs with read noise on,
 single-core and in the paper's multi-core mappings, through the
 hand-written Hopper kernels K1-K4 and K2's expert entry.
@@ -186,6 +189,33 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      the f32 bytes and <= 0.55 of bf16's, no kernel launched; decode
      ms/step and peak memory of both; then --int8 --exec aimc: the
      crossbars programmed from the codes, K2 = 7 x 36 x passes.
+ 18. placement — granite-8b at its published widths, 512x512 tiles,
+     --cores 1, DAC scale fixed at 0.1, noise off, through `serve.main
+     --placement auto:16128 --swap-every 1` (4 synchronized requests,
+     prompt 16, gen 8, 4 slots, decode chunk 1): the plan is the reference
+     algorithm's (w_gate hot; w_up | w_down | wo, wq, wk, wv), each prefill
+     and decode call (warmup included) launches 36 x the stacks resident in
+     the state in force (72, 72, 180 per pass), counts zeroed just before
+     and read just after; at least one swap, the swap books close per event
+     and in total, every state packs within the budget, no request lost;
+     each state's analog leaves (layer 0, [4 x K], scale 0.1) within 1e-5 x
+     max(1, max|y|) of their plain version; per state, a rotation engine
+     that never swaps equals a plain engine on `install_subset(state)` bit
+     for bit. The share of tokens equal to the all-digital
+     `static_generate` is printed, not gated; decode and prefill per state,
+     profiled, and peak memory are recorded.
+ 19. server — `serve.main --models granite-8b:aimc,xlstm-350m:aimc
+     --tenants premium:granite-8b:2,standard:granite-8b:1:sjf,
+     batch:xlstm-350m` (ci.sh's server traffic: 8 requests, prompt 8, gen
+     4, 2 slots, poisson:200), both at published widths on ONE TilePool,
+     DAC scale 0.1: K2 = 252 x granite passes + 132 x xlstm passes (counts
+     zeroed just before, read just after), ledgers reconcile, no tenant
+     starved, every request's tokens equal its model's `static_generate`
+     on its prompt alone, the pool's tiles are the two programs' with
+     labels granite-8b/… and xlstm-350m/… and no cell claimed twice; then
+     `build_server` at one tile below the pair's pack raises CapacityError
+     while programming. Per-tenant tok/s, TTFT/TPOT p50/p99, Jain's index
+     and peak memory are printed.
 
 The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
@@ -3386,6 +3416,341 @@ def int8_phase(dev, card):
     return out
 
 
+# the placement phase: granite-8b at its published widths under the
+# cost-model placer with a budget of 16128 tiles per context (just over
+# half of its 29952). From the reference's algorithm on these shapes: w_gate
+# stays hot, the rest rotate in three groups (each [36] stack is one leaf)
+PLACE_BUDGET, PLACE_SCALE = 16128, 0.1
+PLACE_HOT = ("blocks/w_gate",)
+PLACE_GROUPS = (("blocks/w_up",), ("blocks/w_down",),
+                ("blocks/wo", "blocks/wq", "blocks/wk", "blocks/wv"))
+# the server phase: ci.sh's server smoke, both models AIMC at their
+# published widths on one TilePool
+SERVER_MODELS = "granite-8b:aimc,xlstm-350m:aimc"
+SERVER_TENANTS = "premium:granite-8b:2,standard:granite-8b:1:sjf,batch:xlstm-350m"
+SERVER_REQ, SERVER_PROMPT, SERVER_GEN, SERVER_SLOTS = 8, 8, 4, 2
+SERVER_K2_PER_PASS = {"granite-8b": 252, "xlstm-350m": 132}
+
+
+@contextlib.contextmanager
+def k2_per_call(cls):
+    """While active, log every prefill and decode call of ``cls`` engines
+    as (closure, rotation state in force, forward passes, K2 launches)."""
+    from repro_torch.kernels import aimc_mvm
+    log = []
+    orig = {n: getattr(cls, n) for n in ("_prefill_fn", "_decode_fn")}
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def inner(self, *a, **kw):
+            k0, p0 = aimc_mvm.LAUNCHES["aimc_mvm_v2"], self.forward_passes
+            state = self.rotation_state
+            out = fn(self, *a, **kw)
+            log.append((name, state, self.forward_passes - p0,
+                        aimc_mvm.LAUNCHES["aimc_mvm_v2"] - k0))
+            return out
+        return inner
+
+    for n, fn in orig.items():
+        setattr(cls, n, wrap(n, fn))
+    try:
+        yield log
+    finally:
+        for n, fn in orig.items():
+            setattr(cls, n, fn)
+
+
+def state_leaf_rows(tree, names, state, dev):
+    """K2 on layer 0's codes of every analog leaf of one rotation state's
+    installed tree ([SLOTS x K], the path's fixed DAC scale), held to its
+    plain version within 1e-5 x max(1, max|y|)."""
+    import torch
+
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.kernels import aimc_mvm, ref
+
+    step = AimcConfig().adc_step
+    gen = torch.Generator(device=dev).manual_seed(SEED + state)
+    rows = []
+    for path in names:
+        st = tree["blocks"][path.split("/", 1)[1]]
+        kb, m, np_ = st.w_q.shape[-3:]
+        x = torch.zeros((SLOTS, kb * m), device=dev)
+        x[:, :st.k] = torch.randn((SLOTS, st.k), generator=gen, device=dev)
+        s_x = torch.full((1, 1), PLACE_SCALE, device=dev)
+        y = aimc_mvm.aimc_mvm_v2(x, st.w_q[0], st.s_w[0], s_x, None, None,
+                                 adc_step=step)
+        want = ref.aimc_matmul_ref_v2(x, st.w_q[0], st.s_w[0], s_x, None,
+                                      None, adc_step=step)
+        torch.cuda.synchronize(dev)
+        err = float((y - want).abs().max())
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        check(err <= tol, f"state {state} K2 {path}: max|err| {err} > {tol}")
+        rows.append({"state": state, "proj": path, "K": st.k, "N": st.n,
+                     "B": SLOTS, "max_abs_err": err, "tol": tol})
+    return rows
+
+
+def placement_phase(dev, card):
+    """granite-8b at its published widths through `serve.main --placement
+    auto:16128`: the 3-state rotation plan, K2 launches per pass matching
+    the state in force, exact swap books, every state within the budget,
+    each state's analog leaves held to their plain version, and each state
+    bit-equal to a plain engine on its own tree."""
+    import torch
+
+    from repro_torch.core.placement import reconcile_swaps
+    from repro_torch.core.tile import pack_contexts
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import ServeEngine, static_generate
+
+    args = ["--arch", ARCH, "--exec", "aimc", "--requests", str(N_REQ),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--slots",
+            str(SLOTS), "--decode-chunk", "1", "--seed", str(SEED),
+            "--cores", "1", "--input-scale", f"{PLACE_SCALE:g}",
+            "--placement", f"auto:{PLACE_BUDGET}", "--swap-every", "1",
+            "--device", str(dev)]
+    print(f"[placement] python -m repro_torch.launch.serve {' '.join(args)}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with k2_per_call(ServeEngine) as log:
+        aimc_mvm.reset_counts()
+        t0 = time.perf_counter()
+        run = serve.main(args)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts = dict(aimc_mvm.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    eng, rep, prog, res = run.engine, run.report, run.program, run.placement
+    cfg, rot = eng.cfg, eng.rotation
+    check(cfg.n_layers == 36 and cfg.d_model == 4096 and cfg.d_ff == 14336,
+          "not the published granite-8b width")
+    check(rot is not None and rot.hot == PLACE_HOT
+          and rot.groups == PLACE_GROUPS and rot.digital == (),
+          f"rotation plan {rot} is not the one the reference's algorithm "
+          f"gives at budget {PLACE_BUDGET}")
+    states = rot.states()
+    print(f"[placement] {res.summary()}", flush=True)
+    # K2 per pass = 36 x the stacks resident in the state in force
+    want = {i: cfg.n_layers * len(ns) for i, ns in enumerate(states)}
+    per_pass = {}
+    for name, state, passes, k2 in log:
+        check(passes > 0 and k2 == want[state] * passes,
+              f"{name} under state {state}: {k2} K2 launches over {passes} "
+              f"passes, want {want[state]} per pass")
+        per_pass[state] = k2 // passes
+    decodes = sum(p for n, _, p, _ in log if n == "_decode_fn")
+    check(counts["aimc_mvm_v2"] == sum(k for *_, k in log)
+          and sum(counts.values()) == counts["aimc_mvm_v2"],
+          f"launches {counts} outside the logged passes")
+    check(sorted(per_pass) == list(range(len(states))),
+          f"not every state ran a pass: {per_pass}")
+    print(f"[placement] K2 per pass by state {per_pass} (36 x resident "
+          f"stacks), {len(log)} prefill/decode calls, {decodes} decode "
+          f"passes; launches {counts}", flush=True)
+    # swap books, budget, requests
+    check(rep.n_swaps >= 1 and reconcile_swaps(prog, rep)
+          and all(ev.initialize == prog.reprogram_counts(ev.incoming).initialize
+                  for ev in rep.swap_events),
+          f"swap books: {rep.n_swaps} swaps, reconcile "
+          f"{reconcile_swaps(prog, rep)}")
+    packs = []
+    for ns in states:
+        per = pack_contexts([c.item for c in res.costs if c.path in set(ns)],
+                            rot.n_contexts, prog.cfg.tile_rows,
+                            prog.cfg.tile_cols)
+        packs.append(max(per))
+    check(max(packs) <= PLACE_BUDGET, f"state packs {packs} > budget")
+    check(len(rep.records) == N_REQ and all(
+        len(r.tokens) == GEN and all(0 <= t < cfg.vocab for t in r.tokens)
+        for r in rep.records.values()), "placement serve lost a request")
+    walls = [ev.wall_s * 1e3 for ev in rep.swap_events]
+    print(f"[placement] {rep.n_swaps} swaps, CM_INITIALIZE "
+          f"{rep.swap_initialize} (books close), swap wall ms {walls}; "
+          f"state packs {packs} <= {PLACE_BUDGET}; backing program "
+          f"{prog.n_tiles} tiles, {sum(st.w_q.numel() for st in prog.states) / 1e9:.2f}"
+          f" GB of codes", flush=True)
+    # each state's analog leaves against their plain version
+    raw = run.params_raw
+    trees = [prog.install_subset(raw, ns) for ns in states]
+    leaf_rows = [r for i, ns in enumerate(states)
+                 for r in state_leaf_rows(trees[i], ns, i, dev)]
+    worst = max(r["max_abs_err"] for r in leaf_rows)
+    print(f"[placement] {len(leaf_rows)} state leaves through K2 vs plain: "
+          f"max|err| {worst:.3g}", flush=True)
+    # per state: a rotation engine that never swaps == a plain engine on
+    # install_subset(states[i]), bit for bit
+    kw = dict(n_slots=SLOTS, prompt_pad=PROMPT, max_seq=PROMPT + GEN,
+              family=eng.family, module=eng.module, program=prog)
+    still = dataclasses.replace(rot, swap_every=10 ** 6)
+    per_state = []
+    for i in range(len(states)):
+        order = trees[i:] + trees[:i]
+        r_eng = ServeEngine(eng.model, cfg, eng.exe, order[0], rotation=still,
+                            rotation_params=order, **kw)
+        r_eng.warmup()
+        r_rep = r_eng.serve(run.requests)
+        p_eng = ServeEngine(eng.model, cfg, eng.exe, trees[i], **kw)
+        p_eng.warmup()
+        p_rep = p_eng.serve(run.requests)
+        same = all(r_rep.tokens(r.rid) == p_rep.tokens(r.rid)
+                   for r in run.requests)
+        check(r_rep.n_swaps == 0 and same,
+              f"state {i}: non-swapping rotation engine != plain engine "
+              f"({r_rep.n_swaps} swaps)")
+        per_state.append({"state": i, "tokens_equal": same,
+                          "tokens": {r.rid: p_rep.tokens(r.rid)
+                                     for r in run.requests}})
+        del r_eng, p_eng
+    print(f"[placement] every state: a non-swapping rotation engine equals "
+          f"a plain ServeEngine on install_subset(state) bit for bit", flush=True)
+    # the reference's all-digital claim, reported without a gate
+    prompts = torch.tensor([list(r.prompt) for r in run.requests],
+                           dtype=torch.int32, device=dev)
+    dig, _ = static_generate(eng.model, cfg,
+                             dataclasses.replace(eng.exe, mode="digital"),
+                             raw, prompts, GEN, max_seq=PROMPT + GEN,
+                             cache_dtype=torch.float32)
+    dig = dig.tolist()
+    n_eq = sum(a == b for i, r in enumerate(run.requests)
+               for a, b in zip(rep.tokens(r.rid), dig[i]))
+    share = n_eq / (len(run.requests) * GEN)
+    print(f"[placement] share of tokens equal to the all-digital "
+          f"static_generate: {share:.3f} (not gated: the reference's "
+          f"rotation == all-digital claim fails under jax 0.9.0 at its own "
+          f"locked smoke; an analog layer is a different function)",
+          flush=True)
+    # decode step and profile per state
+    times = {}
+    for i in range(len(states)):
+        eng._use_tree(i, trees[i])
+        print(f"[placement] state {i} ({len(states[i])} stacks analog):",
+              flush=True)
+        times[i] = step_times(eng, run.requests[0].prompt)
+    ms_step = rep.wall_decode_s / max(rep.n_steps, 1) * 1e3
+    print(f"[placement] serve decode {ms_step:.2f} ms/step over "
+          f"{rep.n_steps} steps; peak {peak_gb:.2f} GB on {card}", flush=True)
+    return {"args": args, "wall_s": wall, "init_s": run.init_s,
+            "summary": res.summary(), "rotation": rot.summary(),
+            "states": [list(ns) for ns in states], "packs": packs,
+            "launches": counts, "k2_per_pass": per_pass,
+            "n_swaps": rep.n_swaps, "swap_initialize": rep.swap_initialize,
+            "swap_wall_ms": walls, "leaf_rows": leaf_rows,
+            "per_state_equal": per_state, "digital_token_share": share,
+            "decode_ms_per_step": ms_step, "state_times": times,
+            "peak_gb": peak_gb, "report": rep.summary()}
+
+
+def server_phase(dev, card):
+    """granite-8b and xlstm-350m at their published widths co-programmed on
+    ONE TilePool through `serve.main --models/--tenants` (ci.sh's server
+    traffic): every request's tokens equal its model's `static_generate`
+    on its prompt alone, exact ledgers, no starved tenant, K2 per pass, the
+    pool's tiles and labels, and the --tile-budget frontier."""
+    import torch
+
+    from repro_torch.core.program import CapacityError
+    from repro_torch.core.tile import overlapping_placements
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import static_generate
+    from repro_torch.runtime.server import build_server
+
+    args = ["--models", SERVER_MODELS, "--tenants", SERVER_TENANTS,
+            "--requests", str(SERVER_REQ), "--prompt-len", str(SERVER_PROMPT),
+            "--gen", str(SERVER_GEN), "--slots", str(SERVER_SLOTS),
+            "--trace", "poisson:200", "--seed", str(SEED), "--device",
+            str(dev)]
+    print(f"[server] python -m repro_torch.launch.serve {' '.join(args)}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    aimc_mvm.reset_counts()
+    t0 = time.perf_counter()
+    run = serve.main(args)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = dict(aimc_mvm.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    srv, rep = run.server, run.report
+    engines = srv.engines
+    check(engines["granite-8b"].cfg.d_model == 4096
+          and engines["xlstm-350m"].cfg.d_model == 1024,
+          "not the published widths")
+    passes = {m: e.forward_passes for m, e in engines.items()}
+    k2 = sum(SERVER_K2_PER_PASS[m] * p for m, p in passes.items())
+    check(counts["aimc_mvm_v2"] == k2
+          and sum(counts.values()) == counts["aimc_mvm_v2"],
+          f"launches {counts}, want K2 = 252 x {passes['granite-8b']} + "
+          f"132 x {passes['xlstm-350m']} = {k2}")
+    check(all(run.reconciled.values()), f"ledgers: {run.reconciled}")
+    stats = rep.tenant_stats()
+    check(all(st.generated_tokens > 0 for st in stats.values()
+              if st.n_requests), "a tenant with requests was starved")
+    pool = srv.pool
+    own = sum(e.program.n_tiles for e in engines.values())
+    labels = {p.matrix_id.split("/", 1)[0] for p in pool.placements()}
+    check(pool.n_tiles == own and pool.labels == list(engines)
+          and labels == set(engines)
+          and not any(overlapping_placements(a.placements)
+                      for a in pool.allocators),
+          f"pool: {pool.n_tiles} tiles vs programs {own}, labels "
+          f"{pool.labels} / {labels}")
+    # every request against its model's static_generate on its prompt alone
+    n_req = 0
+    for m, mrep in rep.model_reports.items():
+        e = engines[m]
+        for rid, rec in mrep.records.items():
+            prompt = torch.tensor([list(rec.request.prompt)],
+                                  dtype=torch.int32, device=dev)
+            out, _ = static_generate(e.model, e.cfg, e.exe, e.params, prompt,
+                                     rec.request.max_new, max_seq=e.max_seq,
+                                     cache_dtype=torch.float32)
+            check(rec.tokens == out[0].tolist(),
+                  f"{m} request {rid}: engine {rec.tokens} != "
+                  f"static_generate {out[0].tolist()}")
+            n_req += 1
+    check(n_req == SERVER_REQ, f"{n_req} of {SERVER_REQ} requests served")
+    fair = {m: rep.fairness(m) for m in engines}
+    for st in stats.values():
+        print(f"[server]   {st.row()}", flush=True)
+    print(f"[server] {wall:.1f}s wall; {pool.summary()}; K2 {k2} = 252 x "
+          f"{passes['granite-8b']} + 132 x {passes['xlstm-350m']} passes; "
+          f"every request == static_generate alone; Jain {fair}; peak "
+          f"{peak_gb:.2f} GB on {card}", flush=True)
+    n_tiles = pool.n_tiles
+    out = {"args": args, "wall_s": wall, "launches": counts,
+           "forward_passes": passes, "pool": pool.summary(),
+           "pool_tiles": n_tiles, "fairness": fair, "peak_gb": peak_gb,
+           "tenants": {n: dataclasses.asdict(st) for n, st in stats.items()},
+           "makespan_s": rep.makespan_s, "report": rep.summary()}
+    del run, srv, rep, engines, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the capacity frontier: one tile below the pair's pack refuses at
+    # program time
+    t0 = time.perf_counter()
+    try:
+        build_server(serve.parse_models(SERVER_MODELS),
+                     serve.parse_tenants(SERVER_TENANTS,
+                                         serve.parse_models(SERVER_MODELS)),
+                     smoke=False, n_slots=SERVER_SLOTS,
+                     prompt_pad=SERVER_PROMPT,
+                     max_seq=SERVER_PROMPT + SERVER_GEN, seed=SEED,
+                     tiles_per_context=n_tiles - 1, device=dev)
+        refused = None
+    except CapacityError as e:
+        refused = str(e)
+    check(refused is not None,
+          f"--tile-budget {n_tiles - 1} did not raise CapacityError")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[server] --tile-budget {n_tiles - 1} refused at program time "
+          f"({time.perf_counter() - t0:.1f}s): {refused}", flush=True)
+    out["frontier"] = {"budget": n_tiles - 1, "refused": refused}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3469,6 +3834,10 @@ def main() -> int:
     free()
     int8 = phase("int8", int8_phase, dev, smi)
     free()
+    placement = phase("placement", placement_phase, dev, smi)
+    free()
+    server = phase("server", server_phase, dev, smi)
+    free()
 
     def decode_layer(kname, projs):
         sel = [r for r in rows if r["kernel"] == kname and r["B"] == SLOTS
@@ -3550,7 +3919,8 @@ def main() -> int:
         "staged_v1": staged, "paper_nets": paper, "init": init,
         "multicore": multicore, "fidelity": fidelity, "zoo": zoo,
         "paged": paged, "recurrent": recurrent, "resilience": resilience,
-        "int8": int8, "phase_seconds": seconds},
+        "int8": int8, "placement": placement, "server": server,
+        "phase_seconds": seconds},
         indent=1))
     print(json.dumps(record))
     print(smi)

@@ -20,8 +20,14 @@ The program also keeps a program-age clock (``t_programmed``, one serve
 clock stamp per matrix) with its drift views, hot reprogramming
 (``reprogrammed``, ``install_updates``) and the drain of a dead context
 onto the survivors (``remap_context``): the substrate of
-`runtime.health`. The shared `TilePool` and `install_subset` are later
-slices.
+`runtime.health`.
+
+`TilePool` is one crossbar budget several co-programmed models draw from
+(the multi-tenant server's capacity authority): ``program_model(...,
+pool=, label=)`` packs into the pool's shared allocators under
+label-prefixed matrix ids. ``install_subset`` installs only some of a
+program's matrices (the rest stay digital): the substrate of
+`core.placement`'s rotation states.
 """
 
 from __future__ import annotations
@@ -41,6 +47,69 @@ from repro_torch.core.tile import TileAllocator, TileMap
 
 class CapacityError(RuntimeError):
     """A MappingPlan asked for more crossbar tiles than a context provides."""
+
+
+class TilePool:
+    """A shared multi-context crossbar budget several programs draw from.
+
+    Every ``program_model(..., pool=..., label=...)`` call packs its
+    matrices into THE SAME per-context `TileAllocator`s, so capacity is
+    checked against everything programmed so far: two models that fit
+    alone but not together raise `CapacityError` instead of overlapping
+    tiles. Matrix ids are label-prefixed (``label/path``); re-using a label
+    raises. A failed co-program leaves its partial placements charged to
+    the pool (shelf packing has no rollback): rebuild the pool."""
+
+    def __init__(self, cfg: AimcConfig, n_contexts: int = 1,
+                 tiles_per_context: int | None = None):
+        if n_contexts < 1:
+            raise ValueError("n_contexts must be >= 1")
+        self.cfg = cfg
+        self.tiles_per_context = tiles_per_context
+        self.allocators = [TileAllocator(cfg.tile_rows, cfg.tile_cols)
+                           for _ in range(n_contexts)]
+        self.labels: list[str] = []            # programs resident, in order
+
+    @property
+    def n_contexts(self) -> int:
+        return len(self.allocators)
+
+    @property
+    def n_tiles(self) -> int:
+        """Physical tiles opened across all contexts so far."""
+        return sum(a.n_tiles for a in self.allocators)
+
+    @property
+    def capacity_tiles(self) -> int | None:
+        return (None if self.tiles_per_context is None
+                else self.tiles_per_context * self.n_contexts)
+
+    @property
+    def utilization(self) -> float:
+        """Used crossbar cells / capacity cells (opened tiles if uncapped)."""
+        used = sum(p.rows * p.cols for a in self.allocators
+                   for p in a.placements)
+        tiles = self.capacity_tiles or self.n_tiles
+        total = tiles * self.cfg.tile_rows * self.cfg.tile_cols
+        return used / total if total else 0.0
+
+    def placements(self):
+        """Every placement across the pool (for overlap/ownership audits)."""
+        return tuple(p for a in self.allocators for p in a.placements)
+
+    def claim(self, label: str):
+        if label in self.labels:
+            raise ValueError(f"program label {label!r} already resident in "
+                             f"the pool (labels: {self.labels})")
+        self.labels.append(label)
+
+    def summary(self) -> str:
+        cap = (f"/{self.capacity_tiles}" if self.capacity_tiles is not None
+               else "")
+        return (f"TilePool: {len(self.labels)} program(s) "
+                f"({', '.join(self.labels) or 'none'}) on {self.n_tiles}"
+                f"{cap} tiles across {self.n_contexts} context(s), "
+                f"utilization {self.utilization:.0%}")
 
 
 # Stationary-projection naming across the model zoo (the reference's
@@ -71,6 +140,19 @@ class MappingPlan:
             raise ValueError("n_contexts must be >= 1")
 
     @staticmethod
+    def for_names(names, *, n_contexts: int = 1,
+                  tiles_per_context: int | None = None) -> "MappingPlan":
+        """A plan selecting exactly the given tree paths (what
+        `core.placement` emits): each path is an escaped include pattern
+        full-matched against the whole path (a slash-free top-level path
+        gets an optional-slash prefix so it is still matched as a path);
+        nothing is excluded."""
+        pats = tuple(re.escape(p) if "/" in p else "/?" + re.escape(p)
+                     for p in names)
+        return MappingPlan(include=pats, exclude=(), n_contexts=n_contexts,
+                           tiles_per_context=tiles_per_context)
+
+    @staticmethod
     def _matches(patterns, path: str, name: str) -> bool:
         return any(re.fullmatch(pat, path if "/" in pat else name)
                    for pat in patterns)
@@ -91,16 +173,38 @@ class MappingPlan:
 
 class ProgramBuilder:
     """Programs matrices one by one, packing tiles per context
-    (least-loaded first; ``tiles_per_context`` is a hard capacity check)."""
+    (least-loaded first; ``tiles_per_context`` is a hard capacity check).
+    With ``pool`` (a `TilePool`) it packs into the pool's shared
+    allocators under ``label`` (the pool's cap supersedes the builder's):
+    allocator ids are ``label/name`` and the built program's tile maps
+    hold only this program's placements."""
 
     def __init__(self, cfg: AimcConfig, n_contexts: int = 1,
-                 tiles_per_context: int | None = None):
+                 tiles_per_context: int | None = None,
+                 pool: TilePool | None = None, label: str = ""):
         self.cfg = cfg
-        self.tiles_per_context = tiles_per_context
-        self._allocs = [TileAllocator(cfg.tile_rows, cfg.tile_cols)
-                        for _ in range(n_contexts)]
+        self.pool = pool
+        self.label = label
+        if pool is not None:
+            if (pool.cfg.tile_rows, pool.cfg.tile_cols) != (cfg.tile_rows,
+                                                            cfg.tile_cols):
+                raise ValueError(
+                    f"pool tiles {pool.cfg.tile_rows}x{pool.cfg.tile_cols} "
+                    f"!= program tiles {cfg.tile_rows}x{cfg.tile_cols}")
+            pool.claim(label or f"program{len(pool.labels)}")
+            self.label = self.label or pool.labels[-1]
+            self.tiles_per_context = pool.tiles_per_context
+            self._allocs = pool.allocators
+        else:
+            self.tiles_per_context = tiles_per_context
+            self._allocs = [TileAllocator(cfg.tile_rows, cfg.tile_cols)
+                            for _ in range(n_contexts)]
         self._entries: dict[str, AimcLinearState] = {}
         self._context_of: dict[str, int] = {}
+
+    def _matrix_id(self, name: str) -> str:
+        """The allocator-facing id: label-prefixed when pooled."""
+        return f"{self.label}/{name}" if self.pool is not None else name
 
     def _place(self, name: str, desc: str, place) -> int:
         """Run ``place(alloc)`` on the least-loaded context, then check its
@@ -111,16 +215,21 @@ class ProgramBuilder:
         place(alloc)
         if (self.tiles_per_context is not None
                 and alloc.n_tiles > self.tiles_per_context):
+            resident = (f" (co-resident programs: "
+                        f"{', '.join(self.pool.labels)})"
+                        if self.pool is not None and self.pool.labels else "")
             raise CapacityError(
                 f"mapping {desc} overflows context {ctx}: {alloc.n_tiles} "
-                f"tiles > cap {self.tiles_per_context}")
+                f"tiles > cap {self.tiles_per_context}" + resident)
         self._context_of[name] = ctx
         return ctx
 
     def _allocate(self, name: str, k: int, n: int, instances: int) -> int:
+        mid = self._matrix_id(name)
+
         def place(alloc):
             for i in range(instances):
-                alloc.map_matrix(name if instances == 1 else f"{name}[{i}]",
+                alloc.map_matrix(mid if instances == 1 else f"{mid}[{i}]",
                                  k, n)
         return self._place(name, f"{name!r} ({instances}x[{k}x{n}])", place)
 
@@ -149,20 +258,37 @@ class ProgramBuilder:
         if any(g.shape[0] != rows for g in gates):
             raise ValueError("gate matrices must share in_features")
         cols = gates[0].shape[1]
+        mid = self._matrix_id(name)
         self._place(
             name, f"gates {name!r} ({len(gates)}x[{rows}x{cols}])",
             lambda alloc: alloc.map_side_by_side(
-                [f"{name}.g{i}" for i in range(len(gates))], rows, cols))
+                [f"{mid}.g{i}" for i in range(len(gates))], rows, cols))
         state = program_linear(torch.cat(list(gates), dim=1), self.cfg, key)
         self._entries[name] = state
         return state
 
+    def _own_tile_maps(self) -> tuple[TileMap, ...]:
+        """Per-context tile maps restricted to THIS program's placements
+        (a pooled builder shares its allocators with co-resident
+        programs), counting only the tiles this program touches."""
+        prefix = f"{self.label}/"
+        maps = []
+        for alloc in self._allocs:
+            own = tuple(p for p in alloc.placements
+                        if p.matrix_id.startswith(prefix))
+            maps.append(TileMap(
+                tile_rows=self.cfg.tile_rows, tile_cols=self.cfg.tile_cols,
+                placements=own, n_tiles=len({p.tile_id for p in own})))
+        return tuple(maps)
+
     def build(self) -> "AimcProgram":
         names = tuple(sorted(self._entries))
+        tile_maps = (self._own_tile_maps() if self.pool is not None
+                     else tuple(a.finalize() for a in self._allocs))
         return AimcProgram(
             states=tuple(self._entries[n] for n in names), names=names,
             cfg=self.cfg, contexts=tuple(self._context_of[n] for n in names),
-            tile_maps=tuple(a.finalize() for a in self._allocs))
+            tile_maps=tile_maps)
 
 
 class AimcProgram:
@@ -203,7 +329,23 @@ class AimcProgram:
         """A new tree with every mapped leaf replaced by its programmed
         state; everything else is passed through (the same tensors). Drop
         the raw tree afterwards and its float weights are freed."""
-        entries = self.entries
+        return self.install_subset(params, self.names)
+
+    def install_subset(self, params, names):
+        """`install` restricted to ``names``: only those matrices' states
+        replace their raw leaves, every other mapped weight stays digital.
+        The rotation substrate (`core.placement`): one program holds every
+        layer that is ever analog, and each rotation state installs its
+        resident names, so a layer computes alike in every state that
+        carries it. Unknown names raise (a skipped name would serve digital
+        while the swap books bill analog reprogramming)."""
+        names = set(names)
+        unknown = names - set(self.names)
+        if unknown:
+            raise KeyError(f"install_subset: unmapped matrices "
+                           f"{sorted(unknown)}")
+        entries = {n: st for n, st in zip(self.names, self.states)
+                   if n in names}
 
         def put(path, leaf):
             if isinstance(leaf, AimcLinearState):
@@ -383,14 +525,19 @@ class AimcProgram:
 
 
 def program_model(params, plan: MappingPlan | None, cfg: AimcConfig,
-                  key: torch.Tensor | None = None) -> AimcProgram:
+                  key: torch.Tensor | None = None, *,
+                  pool: TilePool | None = None,
+                  label: str = "") -> AimcProgram:
     """CM_INITIALIZE an entire model: program every plan-selected weight.
     Matrix i draws its programming noise from ``fold_in(key, i)``, i its
     fold index, as the reference does; ``key=None`` (or a disabled noise
-    model) programs noise-free. Pair with ``program.install(params)``."""
+    model) programs noise-free. Pair with ``program.install(params)``.
+    ``pool`` co-programs the model into a shared `TilePool` under
+    ``label``: the pool's contexts and cap supersede the plan's."""
     plan = plan or MappingPlan()
     builder = ProgramBuilder(cfg, n_contexts=plan.n_contexts,
-                             tiles_per_context=plan.tiles_per_context)
+                             tiles_per_context=plan.tiles_per_context,
+                             pool=pool, label=label)
     for pkey, w, idx in iter_mapped_leaves(params, plan):
         builder.add(pkey, w,
                     prng.fold_in(key, idx) if key is not None else None)

@@ -68,7 +68,21 @@ onto peers, hot-reprograms past ``--health-threshold`` from the raw
 weights under their original keys, and the run exits nonzero unless every
 request retires, every fault fires, and the CM_* and recal CM_INITIALIZE
 books close exactly. ``--heartbeat PATH`` beats a liveness file per chunk.
-The reference's multi-tenant, placement and mesh paths are later slices.
+
+``--placement auto[:BUDGET]`` (with ``--exec aimc``) searches the
+analog/digital split per layer with the cost-model placer
+(`core.placement`, DESIGN.md §16); a model whose profitable layers exceed
+BUDGET tiles per context serves through a rotation plan, one installed tree
+per state, swapping every ``--swap-every`` decode chunks (each swap billed
+as CM_INITIALIZE). ``--placement-verify`` applies the reference's checks:
+every request served, tokens equal to the all-digital static oracle, every
+state within the budget, exact swap books, no new shapes after warmup.
+
+``--models NAME:EXEC[,...]`` serves several models on one shared `TilePool`
+through the multi-tenant `runtime.server.ModelServer`; ``--tenants
+NAME:MODEL[:WEIGHT[:ADMISSION]][,...]`` routes a mixed Poisson trace by
+tenant and ``--tile-budget N`` caps the pool. The run exits nonzero on an
+unreconciled ledger or a starved tenant. The mesh path is a later slice.
 """
 
 from __future__ import annotations
@@ -192,12 +206,98 @@ def parse_args(argv=None):
                     help="liveness file beaten once per decode chunk with "
                          "slot occupancy and the last-chunk wall timestamp "
                          "(fault_tolerance.Heartbeat)")
+    ap.add_argument("--models", default="",
+                    help="multi-tenant server: NAME:EXEC[,NAME:EXEC...] "
+                         "(EXEC: aimc|digital) keeps every listed model "
+                         "resident, the AIMC ones co-programmed on ONE "
+                         "shared TilePool, and routes a mixed trace by "
+                         "tenant (supersedes --arch/--exec)")
+    ap.add_argument("--tenants", default="",
+                    help="with --models: NAME:MODEL[:WEIGHT[:ADMISSION]]"
+                         "[,...]: routing target, fair-share slot weight "
+                         "and fifo/sjf admission per tenant (default: one "
+                         "fifo tenant per model, weight 1)")
+    ap.add_argument("--tile-budget", dest="tile_budget", type=int, default=0,
+                    help="with --models: cap the shared pool at this many "
+                         "crossbar tiles per context (0: uncapped); "
+                         "co-programmed models exceeding it together fail "
+                         "with CapacityError at program time")
+    ap.add_argument("--placement", default="",
+                    help="auto[:BUDGET]: search the analog/digital split "
+                         "per layer with the cost-model placer "
+                         "(core.placement) instead of the default "
+                         "MappingPlan patterns. BUDGET caps the tiles per "
+                         "context; a model whose profitable layers exceed "
+                         "it serves through a rotation plan, reprogramming "
+                         "cold groups at decode-chunk boundaries (billed as "
+                         "CM_INITIALIZE per swap). Needs --exec aimc")
+    ap.add_argument("--placement-verify", dest="placement_verify",
+                    action="store_true",
+                    help="exit nonzero unless every request served, tokens "
+                         "equal the all-digital static oracle, every "
+                         "rotation state packs within the budget, the "
+                         "per-swap CM_INITIALIZE books close exactly, and no "
+                         "closure saw a new shape after warmup")
+    ap.add_argument("--swap-every", dest="swap_every", type=int, default=1,
+                    help="with an overflowing --placement auto:BUDGET: "
+                         "advance the rotation one state every this many "
+                         "decode chunks (default 1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; cpu must be asked for explicitly")
     ap.add_argument("--weights", default="",
                     help="flat npz parameter archive (default: random)")
     args = ap.parse_args(argv)
+    args.placement_budget = 0
+    if args.placement:
+        mode, _, budget = args.placement.partition(":")
+        if mode != "auto" or (budget and not budget.isdigit()):
+            ap.error(f"--placement {args.placement!r}: expected "
+                     "auto or auto:BUDGET (BUDGET a positive integer)")
+        if budget and int(budget) < 1:
+            ap.error(f"--placement budget must be >= 1, got {budget}")
+        args.placement_budget = int(budget) if budget else 0
+        if args.exec_mode != "aimc":
+            ap.error("--placement searches the programmed AIMC path "
+                     "(--exec aimc)")
+        for on, name in [(args.models, "--models"),
+                         (args.static, "--static"),
+                         (args.drift, "--drift"), (args.chaos, "--chaos"),
+                         (args.prefix_cache, "--prefix-cache"),
+                         (args.prefill_chunk, "--prefill-chunk"),
+                         (args.fuse_gates, "--fuse-gates")]:
+            if on:
+                ap.error(f"--placement cannot combine with {name} "
+                         "(rotation swaps and cached/chunked prefill "
+                         "spans, mid-trace repairs or fused stacks do not "
+                         "compose)")
+    if args.placement_verify:
+        if not args.placement:
+            ap.error("--placement-verify requires --placement")
+        if args.trace or args.arrivals or args.eos >= 0:
+            ap.error("--placement-verify compares against the synchronized "
+                     "static oracle: drop --trace/--arrivals/--eos")
+    if args.swap_every < 1:
+        ap.error(f"--swap-every must be >= 1, got {args.swap_every}")
+    if args.models:
+        for on, name in [(args.static, "--static"), (args.int8, "--int8"),
+                         (args.cores > 1, "--cores"),
+                         (args.pipeline, "--pipeline"),
+                         (args.arrivals, "--arrivals"),
+                         (args.paged_verify, "--paged-verify"),
+                         (args.shared_prefix, "--shared-prefix"),
+                         (args.drift, "--drift"), (args.chaos, "--chaos"),
+                         (args.fuse_gates, "--fuse-gates"),
+                         (args.layers, "--layers"),
+                         (args.weights, "--weights"),
+                         (args.tile_rows, "--tile-rows"),
+                         (args.adc_alpha, "--adc-alpha"),
+                         (args.input_scale, "--input-scale")]:
+            if on:
+                ap.error(f"{name} is a single-model option; --models serves "
+                         "through the multi-tenant ModelServer")
+    elif args.tenants or args.tile_budget:
+        ap.error("--tenants/--tile-budget require --models")
     if args.tile_rows < 0 or args.adc_alpha < 0 or args.input_scale < 0:
         ap.error("--tile-rows/--adc-alpha/--input-scale must be >= 0")
     if args.chaos or args.drift:
@@ -301,10 +401,137 @@ class ServeRun:
     schedule: object = None
     init_s: float = 0.0
     static_tokens: object = None     # [B, gen] tokens of a --static run
+    placement: object = None         # the --placement search's result
+    params_raw: object = None        # the raw tree, kept under rotation
+                                     # or --placement-verify
 
 
-def main(argv=None) -> ServeRun:
+def parse_models(arg: str):
+    """``NAME:EXEC[,NAME:EXEC...]`` -> list of `runtime.server.ModelSpec`;
+    NAME is an arch id and doubles as the model id requests route by."""
+    from repro_torch.runtime.server import ModelSpec
+    specs = []
+    for part in arg.split(","):
+        name, _, mode = part.partition(":")
+        if not name:
+            raise SystemExit(f"--models {arg!r}: empty model name")
+        try:
+            specs.append(ModelSpec(name=name, arch=name,
+                                   exec_mode=mode or "digital"))
+        except ValueError as e:
+            raise SystemExit(f"--models {arg!r}: {e}") from None
+    return specs
+
+
+def parse_tenants(arg: str, specs):
+    """``NAME:MODEL[:WEIGHT[:ADMISSION]][,...]`` -> `TenantPolicy` list."""
+    from repro_torch.runtime.tenancy import TenantPolicy
+    known = {s.name for s in specs}
+    out = []
+    for part in arg.split(","):
+        fields = part.split(":")
+        if len(fields) < 2 or len(fields) > 4:
+            raise SystemExit(f"--tenants {arg!r}: expected "
+                             f"NAME:MODEL[:WEIGHT[:ADMISSION]], got {part!r}")
+        name, model = fields[0], fields[1]
+        if model not in known:
+            raise SystemExit(f"--tenants {arg!r}: tenant {name!r} routes to "
+                             f"{model!r}, not in --models ({sorted(known)})")
+        try:
+            out.append(TenantPolicy(
+                name=name, model=model,
+                weight=float(fields[2]) if len(fields) > 2 else 1.0,
+                admission=fields[3] if len(fields) > 3 else "fifo"))
+        except ValueError as e:
+            raise SystemExit(f"--tenants {arg!r}: {e}") from None
+    return out
+
+
+@dataclasses.dataclass
+class ServerRun:
+    """What a --models run served: the report and the server behind it."""
+    report: object
+    server: object
+    trace: list
+    reconciled: dict
+
+
+def _run_server(args) -> ServerRun:
+    """The --models path: multi-tenant, multi-model serving on one pool."""
+    from repro_torch.configs import get_arch
+    from repro_torch.runtime.server import build_server
+    from repro_torch.runtime.tenancy import mixed_poisson_trace
+
+    device = resolve_device(args.device)
+    specs = parse_models(args.models)
+    tenants = parse_tenants(args.tenants, specs) if args.tenants else None
+    rate = 100.0
+    if args.trace:
+        kind, _, param = args.trace.partition(":")
+        if kind != "poisson":
+            raise SystemExit(f"unknown --trace kind {kind!r} "
+                             "(supported: poisson:RATE)")
+        rate = float(param or "100")
+    p, g = args.prompt_len, args.gen
+    n_slots = args.slots or 4
+    t0 = time.time()
+    server = build_server(
+        specs, tenants, smoke=args.smoke, n_slots=n_slots, prompt_pad=p,
+        max_seq=p + g, seed=args.seed,
+        tiles_per_context=args.tile_budget or None,
+        eos_id=None if args.eos < 0 else args.eos,
+        decode_chunk=args.decode_chunk, page_size=args.page_size,
+        n_pages=args.pages, prefix_cache=args.prefix_cache,
+        prefill_chunk=args.prefill_chunk, device=device)
+    server.warmup()
+    print(f"[serve] {len(specs)} model(s) resident, "
+          f"{len(server.policies)} tenant(s), {n_slots} slots each on "
+          f"{device}; built+warmed in {time.time() - t0:.2f}s")
+    if server.pool is not None:
+        print(f"[serve] {server.pool.summary()} (crossbar-capacity "
+              f"utilization {server.pool.utilization * 100:.0f}%)")
+
+    def vocab(s):
+        a = get_arch(s.arch)
+        return (a.smoke_cfg if args.smoke else a.model_cfg).vocab
+
+    trace = mixed_poisson_trace(
+        list(server.policies.values()), args.requests, rate,
+        vocab_of={s.name: vocab(s) for s in specs}, seed=args.seed,
+        prompt_len=(max(1, p // 2), p), max_new=(1, g))
+    heartbeat = None
+    if args.heartbeat:
+        from repro_torch.runtime.fault_tolerance import Heartbeat
+        heartbeat = Heartbeat(args.heartbeat)
+    report = server.serve(trace, heartbeat=heartbeat)
+    print(f"[serve] {report.summary()}")
+    for m in server.engines:
+        shares = server.fair_shares(m)
+        print(f"  {m}: entitled slots "
+              + ", ".join(f"{t}={v:.2f}" for t, v in sorted(shares.items())))
+    recon = server.reconcile(report)
+    for m, ok in sorted(recon.items()):
+        label = {True: "True", False: "FAILED", None: "n/a (digital)"}[ok]
+        print(f"  {m}: per-tenant CM_* ledgers reconcile against "
+              f"program.mvm_counts(): {label}")
+    stats = report.tenant_stats()
+    starved = [name for name, st in stats.items()
+               if st.n_requests > 0 and st.generated_tokens == 0]
+    if starved:
+        print(f"[serve] STARVED tenants (had requests, got 0 tokens): "
+              f"{starved}")
+    if any(ok is False for ok in recon.values()) or starved:
+        raise SystemExit(1)
+    return ServerRun(report=report, server=server, trace=trace,
+                     reconciled=recon)
+
+
+def main(argv=None):
+    """Serve one model (returns a `ServeRun`) or, with --models, several
+    on one pool (returns a `ServerRun`)."""
     args = parse_args(argv)
+    if args.models:
+        return _run_server(args)
     if args.fuse_gates and args.exec_mode != "aimc":
         raise SystemExit("--fuse-gates stacks programmed states: it needs "
                          "--exec aimc")
@@ -371,6 +598,7 @@ def main(argv=None) -> ServeRun:
           f"ready in {init_s:.2f}s")
 
     program = schedule = health = chaos = None
+    placement = rotation = rotation_params = params_raw = None
     if args.exec_mode == "aimc":
         # CM_INITIALIZE: program the whole network once, outside the
         # serving loop (paper §IV-B); the raw float weights of the mapped
@@ -380,10 +608,31 @@ def main(argv=None) -> ServeRun:
         from repro_torch.core.schedule import CoreSchedule
         t0 = time.time()
         plan = MappingPlan(n_contexts=args.cores)
+        if args.placement:
+            # cost-model placement (DESIGN.md §16): search the split under
+            # the tile budget; an overflowing model gets a rotation plan
+            # whose states time-multiplex the freed headroom
+            from repro_torch.core.placement import plan_placement
+            placement = plan_placement(
+                params, plan, aimc_cfg,
+                tiles_per_context=args.placement_budget or None,
+                n_contexts=args.cores, swap_every=args.swap_every)
+            print(f"[serve] {placement.summary()}")
+            plan = (placement.rotation.plan()
+                    if placement.rotation is not None else placement.plan)
         prog_key = PRNGKey(args.seed + 2)
         program = program_model(params, plan, aimc_cfg, prog_key)
         params_raw = params
-        params = program.install(params)
+        if placement is not None and placement.rotation is not None:
+            # one uncapped program over every sometimes-analog layer; each
+            # rotation state installs only its resident subset (the rest
+            # serve digitally from the raw weights, which stay alive)
+            rotation = placement.rotation
+            rotation_params = tuple(program.install_subset(params_raw, ns)
+                                    for ns in rotation.states())
+            params = rotation_params[0]
+        else:
+            params = program.install(params)
         if args.fuse_gates:
             params = model.fuse_gate_stacks(params)
         if device.type == "cuda":
@@ -399,7 +648,8 @@ def main(argv=None) -> ServeRun:
             # reprogram is bit-exact
             health, chaos = _build_resilience(args, program, params_raw,
                                               plan, prog_key)
-        del params_raw
+        if rotation is None and not args.placement_verify:
+            params_raw = None    # frees the raw weights of mapped leaves
     print(f"[serve] {spec.arch_id} exec={args.exec_mode} int8={args.int8} "
           f"requests={b}"
           + (" (gate-fused stacks)" if args.fuse_gates else ""))
@@ -423,7 +673,8 @@ def main(argv=None) -> ServeRun:
                          page_size=args.page_size, n_pages=args.pages,
                          prefix_cache=args.prefix_cache,
                          prefill_chunk=args.prefill_chunk, health=health,
-                         chaos=chaos, heartbeat=heartbeat)
+                         chaos=chaos, heartbeat=heartbeat, rotation=rotation,
+                         rotation_params=rotation_params)
     t0 = time.time()
     counts0 = engine.warmup()
     print(f"[serve] engine warmed up in {time.time() - t0:.2f}s "
@@ -448,7 +699,26 @@ def main(argv=None) -> ServeRun:
               f"({report.wall_decode_s / report.n_steps * 1e3:.1f} ms/step); "
               f"slot-idle lanes {report.idle_vectors}, retries "
               f"{report.retries}, stragglers {len(report.stragglers)}")
-    if program is not None:
+    if program is not None and rotation is not None:
+        # rotation books: the per-vector CM_* split varies by state, so the
+        # per-request ledgers are ill-defined; the per-swap CM_INITIALIZE
+        # bill is what must close exactly
+        from repro_torch.core.placement import reconcile_swaps
+        init = program.initialize_counts()
+        print(f"  CM_INITIALIZE: {init.initialize} device writes for the "
+              f"initial program ({rotation.n_states} rotation states over "
+              f"{len(rotation.all_names)} analog matrices)")
+        print(f"  rotation: {report.n_swaps} swaps (every "
+              f"{rotation.swap_every} chunk(s)), swap CM_INITIALIZE="
+              f"{report.swap_initialize}, {report.wall_swap_s * 1e3:.0f}ms "
+              f"swap wall")
+        for ev in report.swap_events[:3]:
+            print(f"    swap@chunk{ev.chunk} -> state {ev.state}: "
+                  f"{len(ev.incoming)} matrices, "
+                  f"CM_INITIALIZE={ev.initialize}")
+        print(f"  per-swap CM_INITIALIZE books close exactly: "
+              f"{reconcile_swaps(program, report)}")
+    elif program is not None:
         init = program.initialize_counts()
         per_vec = program.mvm_counts()
         roi = per_vec.scaled(report.useful_vectors)
@@ -481,6 +751,9 @@ def main(argv=None) -> ServeRun:
               f"{report.prefill_pad_vectors} vectors")
         if args.paged_verify:
             _verify_paged(engine, report, requests, args, counts0)
+    if args.placement_verify:
+        _verify_placement(engine, report, requests, args, placement, program,
+                          params_raw, model, cfg, exe, counts0, device)
     for rid in sorted(report.records)[:3]:
         rec = report.records[rid]
         print(f"  req{rid}: arrival={rec.request.arrival * 1e3:.1f}ms "
@@ -489,7 +762,8 @@ def main(argv=None) -> ServeRun:
               f"({rec.finish_reason}) ttft={rec.ttft * 1e3:.1f}ms "
               f"latency={rec.latency * 1e3:.1f}ms tokens={rec.tokens[:6]}...")
     return ServeRun(report=report, engine=engine, program=program,
-                    requests=requests, schedule=schedule, init_s=init_s)
+                    requests=requests, schedule=schedule, init_s=init_s,
+                    placement=placement, params_raw=params_raw)
 
 
 def _build_resilience(args, program, params_raw, plan, prog_key):
@@ -644,6 +918,64 @@ def _verify_paged(engine, report, requests, args, counts0):
     print("  paged books close exactly: all requests served, page ledger "
           "reconciles, no new shapes after warmup"
           + (", shared span prefilled exactly once" if exact_once else ""))
+
+
+def _verify_placement(engine, report, requests, args, placement, program,
+                      params_raw, model, cfg, exe, counts0, device):
+    """Hard acceptance for a --placement run, the reference's checks as
+    written: exit nonzero unless every request retired, every token equals
+    the ALL-DIGITAL static oracle on the raw weights, every rotation state
+    packs within the budget, the per-swap CM_INITIALIZE books close
+    (`placement.reconcile_swaps`), an overflowing trace actually swapped,
+    and no closure saw a new shape after warmup."""
+    from repro_torch.core.placement import reconcile_swaps
+    from repro_torch.core.tile import pack_contexts
+    from repro_torch.runtime.engine import static_generate
+    failures = []
+    if len(report.records) != len(requests):
+        lost = {r.rid for r in requests} - set(report.records)
+        failures.append(f"{len(lost)} request(s) never served: "
+                        f"{sorted(lost)}")
+    dig_exe = dataclasses.replace(exe, mode="digital")
+    prompts = torch.tensor([list(r.prompt) for r in requests],
+                           dtype=torch.int32, device=device)
+    oracle, _ = static_generate(model, cfg, dig_exe, params_raw, prompts,
+                                args.gen, max_seq=args.prompt_len + args.gen,
+                                cache_dtype=torch.float32)
+    bad = [r.rid for i, r in enumerate(requests)
+           if r.rid in report.records
+           and report.tokens(r.rid) != oracle[i].tolist()]
+    if bad:
+        failures.append(f"tokens diverge from the all-digital oracle for "
+                        f"request(s) {bad}")
+    rot = engine.rotation
+    if rot is not None:
+        for i, names in enumerate(rot.states()):
+            resident = set(names)
+            per = pack_contexts([c.item for c in placement.costs
+                                 if c.path in resident], rot.n_contexts,
+                                program.cfg.tile_rows, program.cfg.tile_cols)
+            if max(per) > rot.tiles_per_context:
+                failures.append(f"rotation state {i} packs to {max(per)} "
+                                f"tiles > budget {rot.tiles_per_context}")
+        if rot.n_states > 1 and report.n_swaps == 0:
+            failures.append("overflowing plan never swapped (trace too "
+                            "short for the swap cadence?)")
+        if not reconcile_swaps(program, report):
+            failures.append("per-swap CM_INITIALIZE books do not close")
+    counts = engine.compile_counts()
+    if counts != counts0:
+        failures.append(f"closures saw new shapes after warmup: {counts0} "
+                        f"-> {counts}")
+    if failures:
+        for f in failures:
+            print(f"  PLACEMENT FAILURE: {f}")
+        raise SystemExit(1)
+    print("  placement books close exactly: all requests served, tokens "
+          "bit-equal to the all-digital oracle"
+          + (f", {report.n_swaps} swaps billed + reconciled"
+             if rot is not None else "")
+          + ", no new shapes after warmup")
 
 
 def _print_schedule(args, schedule):

@@ -62,7 +62,14 @@ serve clock, probes them and hot-reprograms failing cores
 (`runtime.health`). It runs between dispatches, so a chunk in flight keeps
 the tree it was launched with; its wall is billed to ``wall_health_s``,
 not to decode. ``heartbeat`` beats a liveness file once per chunk.
-Rotation and the sharded engine are later slices.
+
+Rotation (DESIGN.md §16): a `core.placement.RotationPlan` time-multiplexes
+analog layer groups through a tile budget the model exceeds. The engine
+holds one uncapped program and one installed tree per rotation state
+(`AimcProgram.install_subset`; a layer outside a state serves digitally
+from its raw weight), and `_placement_tick` advances the state at chunk
+boundaries, billing each swap's incoming group as CM_INITIALIZE
+(`placement.reconcile_swaps`). The sharded engine is a later slice.
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ import time
 
 import torch
 
+from repro_torch.core.placement import SwapEvent
 from repro_torch.core.program import installed_entries
 from repro_torch.core.schedule import CoreSchedule
 from repro_torch.models.layers import Execution, mask_batch_select
@@ -123,6 +131,14 @@ class ServeReport:
     recal_events: list = dataclasses.field(default_factory=list)
     fault_events: list = dataclasses.field(default_factory=list)
     wall_health_s: float = 0.0
+    # capacity-overflow rotation books (core.placement): swaps performed,
+    # the CM_INITIALIZE writes they charged (`reprogram_counts` of each
+    # swap's incoming group, closed by placement.reconcile_swaps) and the
+    # host wall spent swapping (billed apart from decode)
+    n_swaps: int = 0
+    swap_initialize: int = 0
+    swap_events: list = dataclasses.field(default_factory=list)
+    wall_swap_s: float = 0.0
 
     @property
     def useful_vectors(self) -> int:
@@ -203,6 +219,8 @@ class _PendingChunk:
     n: int
     health0: float = 0.0   # report.wall_health_s at dispatch (overlap bill)
     recals0: int = 0       # report.n_recals at dispatch (straggler exemption)
+    swap0: float = 0.0     # report.wall_swap_s at dispatch (overlap bill)
+    swaps0: int = 0        # report.n_swaps at dispatch (straggler exemption)
 
 
 @dataclasses.dataclass
@@ -263,7 +281,10 @@ class ServeEngine:
     that token (the token is control, not payload). ``health``
     (`runtime.health.HealthMonitor`), ``chaos``
     (`runtime.chaos.FaultInjector`) and ``heartbeat``
-    (`fault_tolerance.Heartbeat`) act at chunk boundaries."""
+    (`fault_tolerance.Heartbeat`) act at chunk boundaries. ``rotation``
+    (a `core.placement.RotationPlan`) with ``rotation_params`` (one
+    installed tree per state, ``program.install_subset``) serves a model
+    larger than its tile budget, swapping states at chunk boundaries."""
 
     def __init__(self, model, cfg, exe: Execution, params, *,
                  n_slots: int = 4, prompt_pad: int = 16, max_seq: int = 64,
@@ -273,7 +294,7 @@ class ServeEngine:
                  decode_chunk: int = 1, page_size: int = 0,
                  n_pages: int = 0, prefix_cache: bool = False,
                  prefill_chunk: int = 0, health=None, chaos=None,
-                 heartbeat=None):
+                 heartbeat=None, rotation=None, rotation_params=None):
         if family == "audio":
             raise ValueError("ServeEngine serves decoder-only LMs; the "
                              "enc-dec audio family decodes via launch.steps")
@@ -379,6 +400,34 @@ class ServeEngine:
         if chaos is not None and health is None:
             raise ValueError("chaos injection requires a HealthMonitor to "
                              "detect and repair the faults it fires")
+        # capacity-overflow rotation: one installed tree per state, all
+        # warmed in `warmup`; `_placement_tick` swaps them
+        self.rotation = rotation
+        self._rotation_params = (tuple(rotation_params)
+                                 if rotation_params is not None else None)
+        self._rot_state = 0
+        self._swaps_done = 0
+        if rotation is not None:
+            if program is None:
+                raise ValueError("rotation serving requires the backing "
+                                 "AimcProgram (swap billing is shape-based)")
+            if (self._rotation_params is None
+                    or len(self._rotation_params) != rotation.n_states):
+                got = (len(self._rotation_params)
+                       if self._rotation_params is not None else None)
+                raise ValueError(
+                    f"rotation needs one installed parameter tree per "
+                    f"state ({rotation.n_states}), got {got}")
+            if health is not None or chaos is not None:
+                raise ValueError(
+                    "rotation cannot combine with health/chaos: a hot "
+                    "recal would repair only the current state's tree")
+            if prefix_cache or prefill_chunk:
+                raise ValueError(
+                    "rotation cannot combine with prefix_cache / "
+                    "prefill_chunk: a cached span replayed under a "
+                    "different rotation state would not be bit-stable")
+            self.params = self._rotation_params[0]
         # model forward passes run by this engine, warmup included (each
         # prefill, prefill leg and decode step is one pass over every layer;
         # a recurrent prefill or leg scans the decode step, one pass per
@@ -430,7 +479,9 @@ class ServeEngine:
     # -- device functions ----------------------------------------------------
     def _prefill_fn(self, tokens, valid_len):
         """[1, prompt_pad] ragged prefill -> (first_tok [1,1], cache1)."""
-        self._note("prefill", tokens, valid_len)
+        # each rotation state's tree is an executable of its own in the
+        # reference: its shapes are keyed by the state
+        self._note("prefill", tokens, valid_len, static=self._rot_state)
         kw = {}
         if self.family == "vlm":
             # patch positions are a prompt prefix; the engine serves the
@@ -563,7 +614,8 @@ class ServeEngine:
         the retirement predicates run on the device. Returns (tok_buf,
         cache, state, ys) with ys int32 [length, 3, S] = (emitted token,
         active at entry, reason) per step. Inputs are not modified."""
-        self._note("decode", cache, tok_buf, state, static=length)
+        self._note("decode", cache, tok_buf, state,
+                   static=(length, self._rot_state))
         rows = []
         tokens = tok_buf
         kw = {} if self.recurrent else {"ragged": True}
@@ -588,7 +640,8 @@ class ServeEngine:
         lane attends to are the dense cache's rows, so decode is bit-equal
         to the dense engine. The pools are written in place (a retried
         step rewrites the same rows); lengths, tokens and state are not."""
-        self._note("decode", cache, tok_buf, state, static=length)
+        self._note("decode", cache, tok_buf, state,
+                   static=(length, self._rot_state))
         kp, vp, pt, lens = cache["kp"], cache["vp"], cache["pt"], cache["len"]
         p = self.page_size
         lanes = torch.arange(self.n_slots, device=pt.device)
@@ -680,7 +733,10 @@ class ServeEngine:
         tokens = torch.zeros((1, self.prompt_pad), dtype=torch.int32,
                              device=self.device)
         vl = torch.ones((1,), dtype=torch.int32, device=self.device)
-        tok1, cache1 = self._prefill_fn(tokens, vl)
+        trees = self._rotation_params or (self.params,)
+        for i in reversed(range(len(trees))):   # ends on state 0
+            self._use_tree(i, trees[i])
+            tok1, cache1 = self._prefill_fn(tokens, vl)
         if self._paged_kv:
             sess = self._session(self._paged_cache_dict(*self._fresh_pools()))
             pt_row = torch.zeros((self._pt_width,), dtype=torch.int32,
@@ -711,10 +767,18 @@ class ServeEngine:
             self._insert(sess, cache1, tok1, 0, 1, 1)
         tok_buf, cache, state = sess.tok_buf, sess.cache, sess.state
         decode = self._decode_paged_fn if self._paged_kv else self._decode_fn
-        for n in self._ladder:
-            tok_buf, cache, state, ys = decode(cache, tok_buf, state, n)
+        for i in reversed(range(len(trees))):
+            self._use_tree(i, trees[i])
+            for n in self._ladder:
+                tok_buf, cache, state, ys = decode(cache, tok_buf, state, n)
         ys.cpu()
         return self.compile_counts()
+
+    def _use_tree(self, state: int, params):
+        """Serve ``params`` as rotation state ``state`` (without rotation:
+        state 0, the engine's own tree)."""
+        self._rot_state = state
+        self.params = params
 
     def _count_retry(self):
         self._retries += 1
@@ -867,6 +931,29 @@ class ServeEngine:
             f += 1
         f = min(f, (len(prompt) - 1) // self.page_size)
         return f, got[:f]
+
+    def pages_needed(self, req: Request) -> int:
+        """Pages an admission would NEWLY allocate: the tenant-quota unit
+        (shared prefix pages are not billed to their sharers)."""
+        if not self._paged_kv or req.max_new <= 1:
+            return 0
+        _, n_alloc = self._pages_span(req)
+        f_eff, _ = self._peek_prefix(req.prompt)
+        return n_alloc - f_eff
+
+    def tenant_pages(self, sess: EngineSession, tenant_of=None) -> dict:
+        """tenant -> pages held as owner across busy slots (what
+        `runtime.server` charges page quotas against); ``tenant_of`` maps
+        rid -> tenant, without it every request is tenant None."""
+        held: dict = {}
+        for slot, (owned, _shared) in sess.slot_pages.items():
+            rec = sess.slot_rec.get(slot)
+            if rec is None:
+                continue
+            t = (tenant_of.get(rec.request.rid) if tenant_of is not None
+                 else None)
+            held[t] = held.get(t, 0) + len(owned)
+        return held
 
     def can_admit(self, sess: EngineSession, req: Request) -> bool:
         """Whether the page pool can cover ``req`` now (free pages plus
@@ -1097,7 +1184,9 @@ class ServeEngine:
         return _PendingChunk(ys=ys, t_wall=t0,
                              prefill0=sess.report.wall_prefill_s, n=n,
                              health0=sess.report.wall_health_s,
-                             recals0=sess.report.n_recals)
+                             recals0=sess.report.n_recals,
+                             swap0=sess.report.wall_swap_s,
+                             swaps0=sess.report.n_swaps)
 
     def step(self, sess: EngineSession, now: float) -> float:
         """One SYNCHRONOUS decode chunk (dispatched and processed at once)
@@ -1106,8 +1195,22 @@ class ServeEngine:
         slot. With `admit(..., drain=True)` this drives a session by hand:
         each admission completes before the next."""
         now = self._resilience_tick(sess, now)
+        now = self._placement_tick(sess, now)
         n = self._pick_chunk(sess) or 1
         return self._process_chunk(sess, self._dispatch_chunk(sess, n), now)
+
+    def cancel_active(self, sess: EngineSession, now: float):
+        """Retire every in-flight request with reason "cap" (a step
+        budget ran out). The device rows stay stale: a cancelled session
+        is never stepped again."""
+        self._resolve_firsts(sess)
+        for job in sess.jobs:
+            self._retire(job.rec, "cap", now)
+            self._free_slot(sess, job.slot)
+        sess.jobs.clear()
+        for slot in list(sess.slot_rec):
+            self._retire(sess.slot_rec[slot], "cap", now)
+            self._free_slot(sess, slot)
 
     def _process_chunk(self, sess: EngineSession, pend: _PendingChunk,
                        now: float) -> float:
@@ -1120,7 +1223,8 @@ class ServeEngine:
         toks, acts, reasons = ys[:, 0], ys[:, 1], ys[:, 2]
         self._resolve_firsts(sess)
         overlap = ((report.wall_prefill_s - pend.prefill0)
-                   + (report.wall_health_s - pend.health0))
+                   + (report.wall_health_s - pend.health0)
+                   + (report.wall_swap_s - pend.swap0))
         dt = max(time.perf_counter() - pend.t_wall - overlap, 0.0)
         now += dt
         report.wall_decode_s += dt
@@ -1130,10 +1234,12 @@ class ServeEngine:
         report.observed_vectors += busy
         report.idle_vectors += self.n_slots * ran - busy
         self._step_no += ran
-        # a chunk whose window held a hot reprogram is slow by the engine's
-        # own doing: it is exempt from the straggler EWMA
+        # a chunk whose window held a hot reprogram or a rotation swap is
+        # slow by the engine's own doing: it is exempt from the straggler
+        # EWMA
         self.monitor.record(self._step_no, dt / max(ran, 1),
-                            exempt=report.n_recals > pend.recals0)
+                            exempt=(report.n_recals > pend.recals0
+                                    or report.n_swaps > pend.swaps0))
         if self.heartbeat is not None:
             self.heartbeat.beat(
                 self._step_no, slots_busy=sess.slots.n_busy,
@@ -1215,6 +1321,41 @@ class ServeEngine:
         report.wall_health_s += wall
         return now + wall
 
+    # -- capacity-overflow rotation (core.placement, DESIGN.md §16) --------
+    def _placement_tick(self, sess: EngineSession, now: float) -> float:
+        """Chunk-boundary rotation swap: when the cadence is due, advance
+        ONE rotation state, serve its tree, and bill the incoming group's
+        reprogram as CM_INITIALIZE plus the host wall spent swapping. A
+        chunk in flight was launched on the previous state's tree, so no
+        token comes from a half-swapped program."""
+        rot = self.rotation
+        if rot is None or rot.n_states < 2:
+            return now
+        due = self._chunks_dispatched // rot.swap_every
+        if due <= self._swaps_done:
+            return now
+        t0 = time.perf_counter()
+        report = sess.report
+        self._swaps_done = due
+        state = (self._rot_state + 1) % rot.n_states
+        self._use_tree(state, self._rotation_params[state])
+        incoming = rot.incoming(state)
+        cm = self.program.reprogram_counts(incoming)
+        wall = time.perf_counter() - t0
+        ev = SwapEvent(t=now, chunk=self._chunks_dispatched, state=state,
+                       incoming=incoming, initialize=cm.initialize,
+                       wall_s=wall)
+        report.swap_events.append(ev)
+        report.swap_initialize += cm.initialize
+        report.n_swaps += 1
+        report.wall_swap_s += wall
+        return now + wall
+
+    @property
+    def rotation_state(self) -> int:
+        """The rotation state whose tree the next dispatch runs on."""
+        return self._rot_state
+
     def _free_slot(self, sess: EngineSession, slot: int):
         sess.slot_rec.pop(slot, None)
         sess.slots.release(slot)
@@ -1281,6 +1422,7 @@ class ServeEngine:
             if sess.jobs:
                 now = self._advance_prefill(sess, now)
             now = self._resilience_tick(sess, now)
+            now = self._placement_tick(sess, now)
             if not sess.slots.n_busy and pending is None:
                 nxt = queue.next_arrival()
                 if nxt is None:
@@ -1301,6 +1443,11 @@ class ServeEngine:
         from repro_torch.runtime.batcher import request_ledgers
         if self.program is None:
             raise ValueError("CM_* ledgers require an AimcProgram")
+        if self.rotation is not None:
+            raise ValueError(
+                "per-request CM_* ledgers are ill-defined under rotation: "
+                "a request's vectors span states with different analog "
+                "sets; use report.swap_events + placement.reconcile_swaps")
         return request_ledgers(self.program, report.records)
 
 

@@ -14,6 +14,8 @@ within microseconds, so after the first admission every request is ready
 and the order depends only on the policy and on when slots free, which the
 (equal) tokens decide."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,8 @@ applied outputs agree to atol=1e-5 (f32 summation order, the reference's
 kernel-vs-oracle bar); fused and unfused epilogues, and a gate stack vs
 per-gate calls, are bit-equal inside the port."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

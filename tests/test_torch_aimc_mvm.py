@@ -10,6 +10,8 @@ The card-side checks of the kernels themselves are
 `test_torch_kernels_cuda.py`.
 """
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

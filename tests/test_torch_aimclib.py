@@ -9,6 +9,8 @@ agree within 1e-5 * max(1, max|y|), the f32 association of the row-block
 sum.
 """
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import jax

@@ -13,6 +13,8 @@ Tolerance: tokens, retirements, fault and recal events (reasons, cores,
 matrices, CM_INITIALIZE), probe counts and per-request CM_* books are
 equal; the faulted tokens equal the unfaulted run's."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import jax

@@ -5,6 +5,8 @@ configs equal the reference's field for field, its serving metadata
 resolve alike, and the architectures that are not ported raise a clear
 error. Tolerance: exact equality (configs are plain values)."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import pytest

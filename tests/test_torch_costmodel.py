@@ -8,6 +8,8 @@ breakdown, stage times, DRAM bytes) equals the reference's field for field
 with ``==``: the two run the same float64 Python arithmetic in the same
 order, so any difference is a fault of the copy."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import pytest

@@ -7,6 +7,8 @@ reference's bar), and each equals the reference's within the
 kernel-vs-oracle atol 1e-5 * max(1, max|y|). The byte counts are integers
 and are pinned exactly."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,6 +7,8 @@ different polynomials on the CPU, so draws agree within GAUSS_ULPS units in
 the last place of max(|z|, 1).
 """
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

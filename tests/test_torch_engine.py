@@ -12,6 +12,8 @@ then a fault, not a near-tie. The arrival rate is high enough that every
 request is admitted before the first decode step, so the decode batches
 (and with them the dynamic DAC scale) are the same in both engines."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import jax

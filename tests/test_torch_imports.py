@@ -2,6 +2,8 @@
 `repro_torch` and the repo-root `chip_smoke.py`, and neither `jax` nor the
 JAX package `repro` ends up in `sys.modules`."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import os
 import pkgutil
 import subprocess
@@ -38,7 +40,9 @@ def test_every_module_is_listed():
                  "repro_torch.configs.recurrentgemma_9b",
                  "repro_torch.models.moe", "repro_torch.configs.olmoe_1b_7b",
                  "repro_torch.configs.arctic_480b",
-                 "repro_torch.runtime.health", "repro_torch.runtime.chaos"):
+                 "repro_torch.runtime.health", "repro_torch.runtime.chaos",
+                 "repro_torch.core.placement", "repro_torch.runtime.tenancy",
+                 "repro_torch.runtime.server"):
         assert must in mods
 
 

@@ -8,6 +8,8 @@ Tolerances: codes, scales, bf16 casts and programmed states are equal bit
 for bit; forwards agree within 1e-5 x max(1, max|y|) (f32 op order);
 CLI tokens are equal."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -29,7 +29,13 @@ launches bit for bit at olmoe's and arctic's shapes and past 16 experts,
 and olmoe's smoke config on the card matches the CPU. The health probe of
 a layer stack (one expert-entry launch) equals L K2 launches bit for bit,
 and a dead crossbar (`with_gain(0.0)`) reaches K2 as an all-zero scale.
+Placement and rotation: each rotation state's `install_subset` tree on the
+card installs exactly its resident leaves (the rest stay the raw CUDA
+weights), its analog leaves run K2 within the bound above, and a rotating
+engine's K2 launches per pass follow the state in force.
 """
+
+import torch_threads  # noqa: F401  (first: torch's thread budget)
 
 import numpy as np
 import pytest
@@ -623,3 +629,103 @@ def test_zero_gain_reaches_k2_as_zero_scale(dev):
     assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] == 1
     assert not y.any()
     assert rel_err(y, aimc_apply(st, x, cfg)) == pytest.approx(1.0, abs=1e-9)
+
+
+def _rotation_fixture(dev):
+    """granite-8b's smoke config on the card under the reference's locked
+    placement smoke (64-row tiles, budget 2): plan, program, state trees."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.placement import plan_placement
+    from repro_torch.core.program import MappingPlan, program_model
+
+    spec = get_arch("granite-8b")
+    cfg, model = spec.smoke_cfg, spec.model_module()
+    params = model.init(prng.PRNGKey(89), cfg, device=dev)
+    acfg = AimcConfig(adc_alpha=0.5, tile_rows=64, input_scale=0.1)
+    rot = plan_placement(params, MappingPlan(), acfg,
+                         tiles_per_context=2).rotation
+    prog = program_model(params, rot.plan(), acfg, prng.PRNGKey(91))
+    trees = [prog.install_subset(params, ns) for ns in rot.states()]
+    return spec, model, params, acfg, rot, prog, trees
+
+
+@pytest.mark.cuda
+def test_rotation_state_leaves_on_card(dev):
+    """Every rotation state's tree installs exactly its resident leaves on
+    the card (the others are the raw CUDA weights, served digitally), and
+    each installed leaf's K2 output on layer 0's codes is within the bound
+    of its plain version."""
+    from repro_torch.core.aimc import AimcLinearState, aimc_apply
+
+    spec, model, params, acfg, rot, prog, trees = _rotation_fixture(dev)
+    assert rot.n_states >= 2
+    rng = np.random.default_rng(11)
+    for ns, tree in zip(rot.states(), trees):
+        for name, leaf in tree["blocks"].items():
+            path = f"blocks/{name}"
+            if path in ns:
+                assert isinstance(leaf, AimcLinearState)
+                st = AimcLinearState(w_q=leaf.w_q[0], s_w=leaf.s_w[0],
+                                     k=leaf.k, n=leaf.n)
+                x = torch.from_numpy(rng.standard_normal(
+                    (4, st.k)).astype(np.float32)).to(dev)
+                aimc_mvm.reset_counts()
+                y = aimc_apply(st, x, acfg)
+                assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] == 1
+                st_cpu = AimcLinearState(w_q=st.w_q.cpu(), s_w=st.s_w.cpu(),
+                                         k=st.k, n=st.n)
+                _close(y.cpu(), aimc_apply(st_cpu, x.cpu(), acfg))
+            else:
+                assert leaf is params["blocks"][name] and leaf.is_cuda
+
+
+@pytest.mark.cuda
+def test_rotating_engine_launches_follow_the_state_on_card(dev):
+    """A rotating engine on the card: every decode pass launches K2 once
+    per resident layer stack instance of the state in force, the swap
+    books close, and each state equals a plain engine on its own tree."""
+    import dataclasses
+
+    from repro_torch.core.placement import reconcile_swaps
+    from repro_torch.models.layers import Execution
+    from repro_torch.runtime.batcher import synchronized_trace
+    from repro_torch.runtime.engine import ServeEngine
+
+    spec, model, params, acfg, rot, prog, trees = _rotation_fixture(dev)
+    cfg = spec.smoke_cfg
+    exe = Execution(mode="aimc", aimc=acfg, compute_dtype="float32",
+                    programmed=True)
+    kw = dict(n_slots=4, prompt_pad=8, max_seq=14, program=prog,
+              family=spec.family, module=spec.module)
+    eng = ServeEngine(model, cfg, exe, trees[0], rotation=rot,
+                      rotation_params=trees, **kw)
+    eng.warmup()
+    reqs = synchronized_trace(4, prompt_len=8, max_new=6, seed=89,
+                              vocab=cfg.vocab)
+    per_state = {}
+    sess, now = eng.begin(), 0.0
+    for r in reqs:
+        now = eng.admit(sess, r, now)
+    while sess.slots.n_busy:
+        aimc_mvm.reset_counts()
+        p0 = eng.forward_passes
+        now = eng.step(sess, now)
+        # the tick at the top of step() may have advanced the state
+        per_state.setdefault(eng.rotation_state, set()).add(
+            aimc_mvm.LAUNCHES["aimc_mvm_v2"] // (eng.forward_passes - p0))
+    rep = eng.finish(sess, now)
+    for state, got in per_state.items():
+        want = cfg.n_layers * len(rot.states()[state])
+        assert got == {want}, (state, got)
+    assert rep.n_swaps > 0 and reconcile_swaps(prog, rep)
+    for i, tree in enumerate(trees):
+        still = ServeEngine(model, cfg, exe, tree, **kw)
+        order = trees[i:] + trees[:i]
+        r_eng = ServeEngine(model, cfg, exe, order[0],
+                            rotation=dataclasses.replace(rot,
+                                                         swap_every=10 ** 6),
+                            rotation_params=order, **kw)
+        a, b = still.serve(reqs), r_eng.serve(reqs)
+        assert all(a.tokens(r.rid) == b.tokens(r.rid) for r in reqs)

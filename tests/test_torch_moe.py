@@ -17,6 +17,8 @@ lands on either side of it by an ulp of op order; a token may differ only
 where an expert row it was routed to met a DAC input within TIE code units
 of a tie (none do at these seeds)."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import jax

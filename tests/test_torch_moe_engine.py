@@ -11,6 +11,8 @@ Tolerance: tokens are equal. The arrival rate admits every request before
 the first decode step, so both engines route the same decode batches
 (capacity routing depends on the batch, in the reference too)."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import jax

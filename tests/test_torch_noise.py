@@ -10,6 +10,8 @@ vectors exactly; the "hw" Gaussians are held to their moments (mean within
 4/sqrt(n), std within 1%, |lag-1 correlation| < 0.01).
 """
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,8 @@ Pinned, as the reference pins them (tests/test_paged_engine.py):
   * ``--paged-verify`` through the port's CLI exits 0.
 Tolerance: tokens equal; vector books equal (integers)."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 import random
 

@@ -5,6 +5,8 @@ release, prefix lookup / put / evict) leave identical traces: every return
 value, the ledger, the verify() verdict, the LRU order and the cache
 stats. Tolerance: exact equality."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import random
 
 import pytest

@@ -19,6 +19,8 @@ Tolerances:
   * the fused LSTM equals the side-by-side one bit for bit, noise off.
 """
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import jax

@@ -6,6 +6,8 @@ reference on the granite-8b smoke config's weights, carried across with
 Tolerance: exact — the same names in the same order, bit-equal codes,
 equal scales, equal tile counts and CM_* counts."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import jax
@@ -159,3 +161,45 @@ def test_open_tile_first_fit_places_like_reference(seed):
     assert got.n_tiles == want.n_tiles
     assert ([dataclasses.astuple(p) for p in got.placements]
             == [dataclasses.astuple(p) for p in want.placements])
+
+
+@pytest.mark.parametrize("n_contexts,rows", [(1, 512), (1, 64), (2, 32)])
+def test_pooled_programs_place_like_reference(smoke_params, n_contexts, rows):
+    """Two programs co-programmed on one `TilePool` (granite-8b's smoke
+    weights, then xlstm-350m's): the same shared placement table,
+    label-prefixed ids, per-program tile maps, contexts and pool stats as
+    the reference's; a reused label raises."""
+    spec = get_arch("xlstm-350m")
+    jx = spec.model_module().init(jax.random.PRNGKey(1), spec.smoke_cfg)
+    tx = params_from_numpy(jax.tree.map(np.asarray, jx))
+    jparams, tparams = smoke_params
+    jcfg = ja.AimcConfig(tile_rows=rows, tile_cols=rows)
+    tcfg = ta.AimcConfig(tile_rows=rows, tile_cols=rows)
+    jpool = jp.TilePool(jcfg, n_contexts=n_contexts)
+    tpool = tp.TilePool(tcfg, n_contexts=n_contexts)
+    progs = []
+    for label, jtree, ttree in (("granite", jparams, tparams),
+                                ("xlstm", jx, tx)):
+        pj = jp.program_model(jtree, None, jcfg, pool=jpool, label=label)
+        pt = tp.program_model(ttree, None, tcfg, pool=tpool, label=label)
+        assert pt.names == pj.names and pt.contexts == pj.contexts
+        assert ([[dataclasses.astuple(p) for p in tm.placements]
+                 for tm in pt.tile_maps]
+                == [[dataclasses.astuple(p) for p in tm.placements]
+                    for tm in pj.tile_maps])
+        assert ([tm.n_tiles for tm in pt.tile_maps]
+                == [tm.n_tiles for tm in pj.tile_maps])
+        progs.append(pt)
+    assert ([dataclasses.astuple(p) for p in tpool.placements()]
+            == [dataclasses.astuple(p) for p in jpool.placements()])
+    assert {p.matrix_id.split("/", 1)[0] for p in tpool.placements()} == {
+        "granite", "xlstm"}
+    assert not any(ttile.overlapping_placements(a.placements)
+                   for a in tpool.allocators)   # tile ids are per context
+    assert (tpool.n_tiles, tpool.labels, tpool.utilization,
+            tpool.capacity_tiles, tpool.summary()) == (
+        jpool.n_tiles, jpool.labels, jpool.utilization, jpool.capacity_tiles,
+        jpool.summary())
+    assert sum(p.n_tiles for p in progs) >= tpool.n_tiles
+    with pytest.raises(ValueError, match="already resident"):
+        tp.program_model(tx, None, tcfg, pool=tpool, label="xlstm")

@@ -2,6 +2,8 @@
 JAX reference (`repro/core/quant.py`). Tolerance: exact — scales, codes
 and ADC steps are bit-equal, half-to-even ties included."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -24,6 +24,8 @@ row-independent, so a ragged trace's tokens do not depend on the clock
 that decides batch composition; programmed runs use synchronized arrivals
 (or a fixed DAC scale), where the decode batches are the same."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

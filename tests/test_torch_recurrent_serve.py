@@ -14,6 +14,8 @@ rglru's unit structure.
 
 Tolerance: tokens equal; vector books equal (integers)."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import numpy as np

@@ -11,6 +11,8 @@ scales, ages, gains, tile maps, contexts and CM_* counts are equal
 exactly; probe errors agree within 1e-6 and read exactly 0.0 on a fresh or
 repaired program; recalibrated states are equal bit for bit."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import jax

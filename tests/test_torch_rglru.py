@@ -20,6 +20,8 @@ a step where its own DAC met an input within 1e-4 code units of a tie (at
 most one per rollout: the 6-layer programmed rollout meets one at step 2,
 x / s_x = 71.49997 in the reference, 71.5 in the port)."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import jax

@@ -2,6 +2,8 @@
 (`repro_torch/core/noise.py`, `repro_torch/runtime/fault_tolerance.py`)
 with the JAX reference. Tolerance: exact (plain Python arithmetic)."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,8 @@ Tolerances:
     and the single-core ctx path within 1e-5 (the fused relu epilogue).
 """
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import dataclasses
 
 import jax

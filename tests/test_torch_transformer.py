@@ -11,6 +11,8 @@ attention, norms and the vocab matmul; |logits| ~ 3). Inside the port,
 `fuse_gate_stacks` is bit-equal to the unfused path, as the reference
 claims (transformer.py:148)."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

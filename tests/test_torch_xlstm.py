@@ -20,6 +20,8 @@ state (teacher forcing), and a row may differ only on a step where its own
 DAC met an input within 1e-4 code units of a tie (at most one such row
 per rollout; none at these seeds)."""
 
+import torch_threads  # noqa: F401  (first: torch's thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
