@@ -7,7 +7,7 @@ crossbars, dense, paged and through recurrent snapshot pages, granite-8b
 also under chaos and drift with hot recalibration, int8-native and under
 a cost-model placement that rotates layer groups through a tile budget,
 granite-8b and xlstm-350m together on one tile pool behind the
-multi-tenant server, and
+multi-tenant server, train olmoe-1b-7b (4 of 16 layers) noise-aware, and
 run the paper's MLP, LSTM and CNN-F/M/S at theirs with read noise on,
 single-core and in the paper's multi-core mappings, through the
 hand-written Hopper kernels K1-K4 and K2's expert entry.
@@ -217,10 +217,47 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      while programming. Per-tenant tok/s, TTFT/TPOT p50/p99, Jain's index
      and peak memory are printed.
 
+ 20. train — noise-aware training of olmoe-1b-7b at its published widths
+     (d_model 2048, 16 heads, 64 experts top-8, d_ff 1024, vocab 50304)
+     cut to 4 of 16 layers (f32 params, grads and AdamW's moments take 16
+     B/param: 110.7 GB uncut), weights from seed 0 on JAX's keys, global
+     batch 8 x 2048 in 2 microbatches of 4 (expert capacity 1280), every
+     block recomputed in the backward. (a) `python -m
+     repro_torch.launch.train ... --steps 4` digitally in bf16: finite
+     losses, the last below the first, no crossbar launch; (b) the same
+     with --exec aimc (the reference CLI's noise-off AIMC), 3 steps: the
+     last loss at most 1.05 x the first, exactly 64 K2 + 48 expert-entry
+     launches per step (2 microbatches x 4 layers x (4 + 3) x forward and
+     recompute), counts zeroed just before and read just after; (c)
+     `make_train_step` driven directly with the paper's noise
+     (sigma_read 0.003, programming noise at its defaults), 3 steps: the
+     same bars and counts, every expert-entry call with E distinct read
+     seeds; on the first call's operands at each expert shape the seeded
+     entry is within 1e-5 x max(1, max|y|) of its plain version, equal bit
+     for bit to 64 single K2 launches with their own seeds, different from
+     its sigma = 0 output, and timed against its bound; so is K2 on the
+     first call's operands at its training shape (B 8192, 2048 -> 2048,
+     seeded, noise on), but for the 64-launch check. Each leg prints
+     ms/step (host), the profiled last step's device busy and idle share,
+     K2, expert and programming device ms and peak GB. (d) one noise-on
+     step of the olmoe and llama3.2-3b smoke configs on the card and on the
+     CPU (plain versions) from one state, the CPU replaying the card's DAC
+     codes where they rounded the other way at a tie (counted; a code that
+     differs away from a tie fails): loss within 1e-5 relative and every
+     gradient leaf within 1e-4 x its max; (e) the CLI at olmoe's smoke
+     config, --exec aimc, 4 steps with a checkpoint every 2, uninterrupted
+     and stopped after 2 then resumed, all under
+     `torch.use_deterministic_algorithms(True)`: the checkpoint restores
+     bit-equal, the resumed steps 3-4 equal the uninterrupted losses bit
+     for bit.
+     The full-width legs write no checkpoint.
+
 The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
 per-kernel JSON record (K2/K3 timed per granite layer at decode, K1/K4 per
-MLP forward, the expert entry per olmoe-1b-7b layer at decode). Each phase's seconds are printed as it ends. Details go to
+MLP forward, the expert entry per olmoe-1b-7b training layer and
+microbatch with read noise on, its launches those of phase 20's noise-on
+leg). Each phase's seconds are printed as it ends. Details go to
 chiprun_out/chip_smoke.json.
 """
 
@@ -231,6 +268,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3751,6 +3789,685 @@ def server_phase(dev, card):
     return out
 
 
+TRAIN_ARCH, TRAIN_LAYERS = "olmoe-1b-7b", 4
+TRAIN_GB, TRAIN_SEQ = 8, 2048
+# per step: 2 microbatches x 4 layers x (4 K2 + 3 expert) x 2 (forward and
+# the checkpoint recompute in the backward)
+TRAIN_K2_PER_STEP = 2 * TRAIN_LAYERS * 4 * 2
+TRAIN_EX_PER_STEP = 2 * TRAIN_LAYERS * 3 * 2
+TRAIN_GTOL = 1e-4        # card vs CPU grads, x max|leaf| (smoke configs)
+
+
+@contextlib.contextmanager
+def patched(module, name, make):
+    """``module.name`` replaced by ``make(original)`` for the duration."""
+    orig = getattr(module, name)
+    setattr(module, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _ranged(label, fn, host):
+    """``fn`` inside a profiler range ``label``; its host seconds (enqueue
+    time: nothing here synchronises) add up in ``host[label]``."""
+    def wrapped(*a, **k):
+        from torch.profiler import record_function
+        t = time.perf_counter()
+        with record_function(label):
+            out = fn(*a, **k)
+        host[label] = host.get(label, 0.0) + time.perf_counter() - t
+        return out
+    return wrapped
+
+
+CROSSBAR_KERNELS = ("aimc_mvm_mma_kernel", "aimc_dac_kernel",
+                    "aimc_rowblock_sum_kernel")
+
+
+def train_step_profile(fn, dev):
+    """One train step under torch.profiler, read from its raw kineto
+    events (a noise-on step issues ~10^5 kernels; building the profiler's
+    event tree for them took minutes): host-clock ms, device busy (the
+    union of kernel, memcpy and memset intervals) and idle share, the
+    crossbar kernels' device ms (by name: K2 and the expert entry share
+    them), and, for the programming (`core.aimc.program_stacked`), K2 and
+    expert-entry calls run inside named ranges, each range's device ms
+    (its GPU annotation spans) and host ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import aimc as core_aimc
+    from repro_torch.kernels import aimc_mvm
+
+    names = {"train:program": (core_aimc, "program_stacked"),
+             "train:k2": (aimc_mvm, "aimc_mvm_v2"),
+             "train:experts": (aimc_mvm, "aimc_mvm_experts")}
+    host = {}
+    with contextlib.ExitStack() as stack:
+        for label, (mod, attr) in names.items():
+            stack.enter_context(patched(
+                mod, attr,
+                lambda orig, label=label: _ranged(label, orig, host)))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            wall_us = (time.perf_counter() - t) * 1e6
+    def annotation(ev, name):
+        # a GPU span of a profiler range, not a kernel (torch versions
+        # differ in which of these they offer)
+        if name in names:
+            return True
+        if hasattr(ev, "is_user_annotation"):
+            return bool(ev.is_user_annotation())
+        return "annotation" in str(getattr(ev, "activity_type",
+                                           lambda: "")())
+
+    spans, crossbar_ns, parts = [], 0, {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.name()
+        a, d = ev.start_ns(), ev.duration_ns()
+        if annotation(ev, name):
+            if name in names:
+                p = parts.setdefault(name, {"calls": 0, "device_ms": 0.0})
+                p["calls"] += 1
+                p["device_ms"] += d / 1e6
+            continue
+        spans.append((a, a + d))
+        if any(k in name for k in CROSSBAR_KERNELS):
+            crossbar_ns += d
+    busy_ns, end = 0, -float("inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_ns += b - max(a, end)
+            end = b
+    for label in names:
+        if label in host:
+            parts.setdefault(label, {"calls": None, "device_ms": None})
+            parts[label]["host_ms"] = host[label] * 1e3
+    return {"profiled_ms": wall_us / 1e3,
+            "device_busy_ms": busy_ns / 1e6 if spans else None,
+            "device_idle_share": (1.0 - busy_ns / 1e3 / wall_us
+                                  if spans else None),
+            "crossbar_kernels_ms": crossbar_ns / 1e6 if spans else None,
+            "parts": parts}
+
+
+def _train_spec(smoke=False, arch=TRAIN_ARCH):
+    """The training phase's spec: the published widths cut to TRAIN_LAYERS
+    layers, or ``arch``'s smoke config."""
+    from repro_torch.configs import get_arch
+    spec = get_arch(arch)
+    cfg = spec.smoke_cfg if smoke else dataclasses.replace(
+        spec.model_cfg, n_layers=TRAIN_LAYERS)
+    return dataclasses.replace(spec, model_cfg=cfg)
+
+
+def _param_count(tree) -> int:
+    from repro_torch.optim.adamw import tree_leaves
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def _train_summary(tag, losses, step_s, prof, counts, steps, peak_gb,
+                   init_s, card):
+    """ms/step over the steps between the first (warm-up) and the last
+    (profiled), the profile's busy/idle share and parts, printed."""
+    timed_steps = sorted(step_s)[1:-1] or sorted(step_s)[-1:]
+    ms = sum(step_s[s] for s in timed_steps) / len(timed_steps) * 1e3
+    parts = prof["parts"]
+
+    def dms(key):
+        # a range that never ran took no device time; one whose device
+        # time the profiler did not attribute is "not measured"
+        return parts[key].get("device_ms") if key in parts else 0.0
+
+    out = {"losses": [losses[s] for s in sorted(losses)], "ms_per_step": ms,
+           "timed_steps": timed_steps, "launches": counts,
+           "launches_per_step": {k: v / steps for k, v in counts.items()
+                                 if v},
+           "peak_gb": peak_gb, "init_s": init_s,
+           "profiled_step_ms": prof["profiled_ms"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_idle_share": prof["device_idle_share"],
+           "k2_device_ms": dms("train:k2"),
+           "experts_device_ms": dms("train:experts"),
+           "programming_device_ms": dms("train:program"),
+           "crossbar_kernels_ms": prof["crossbar_kernels_ms"],
+           "programming_host_ms": parts.get("train:program", {}).get(
+               "host_ms", 0.0),
+           "parts": parts}
+
+    def f(v):
+        return "not measured" if v is None else f"{v:.2f} ms"
+
+    print(f"[train] {tag}: losses {out['losses']}; {ms:.1f} ms/step (host, "
+          f"steps {timed_steps}); profiled step {prof['profiled_ms']:.1f} "
+          f"ms, device busy {f(prof['device_busy_ms'])}, idle share "
+          f"{prof['device_idle_share']}; K2 device {f(out['k2_device_ms'])}, "
+          f"expert device {f(out['experts_device_ms'])} (their CUDA kernels "
+          f"{f(out['crossbar_kernels_ms'])}), programming device "
+          f"{f(out['programming_device_ms'])} / host "
+          f"{out['programming_host_ms']:.1f} ms per step; launches per step "
+          f"{out['launches_per_step']}; peak {peak_gb:.2f} GB; init "
+          f"{init_s:.2f}s on {card}", flush=True)
+    return out
+
+
+def _profiling_last_step(steps, dev, holder):
+    """A `launch.steps.make_step` whose bundle profiles its last call
+    (`train_step_profile`) and runs the others as they are."""
+    from repro_torch.launch import steps as steps_mod
+    real = steps_mod.make_step
+
+    def make(*a, **k):
+        bundle = real(*a, **k)
+        fn, calls = bundle.fn, [0]
+
+        def step(*sa):
+            calls[0] += 1
+            if calls[0] < steps:
+                return fn(*sa)
+            out = {}
+            holder["profile"] = train_step_profile(
+                lambda: out.setdefault("r", fn(*sa)), dev)
+            return out["r"]
+
+        return dataclasses.replace(bundle, fn=step)
+    return patched(steps_mod, "make_step", lambda _orig: make)
+
+
+def train_cli_leg(dev, tag, extra, steps, card):
+    """`python -m repro_torch.launch.train` at olmoe-1b-7b's published
+    widths, 4 of 16 layers, global batch 8 x 2048 (2 microbatches of
+    4): losses finite, launch counts zeroed just before and read just
+    after; the last step profiled."""
+    import torch
+
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch import train
+
+    args = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS), "--steps",
+            str(steps), "--global-batch", str(TRAIN_GB), "--seq-len",
+            str(TRAIN_SEQ), "--log-every", "1", "--device", str(dev),
+            *extra]
+    print(f"[train] python -m repro_torch.launch.train {' '.join(args)}",
+          flush=True)
+    holder = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    aimc_mvm.reset_counts()
+    with _profiling_last_step(steps, dev, holder):
+        run = train.main(args)
+    torch.cuda.synchronize(dev)
+    counts = {k: v for k, v in aimc_mvm.LAUNCHES.items() if v}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = run.losses
+    check(sorted(losses) == list(range(steps))
+          and all(math.isfinite(v) for v in losses.values()),
+          f"train {tag}: losses {losses}")
+    n_params = _param_count(run.params)
+    out = _train_summary(tag, losses, run.step_s, holder["profile"], counts,
+                         steps, peak_gb, run.init_s, card)
+    out["params"] = n_params
+    del run
+    return out
+
+
+def _expert_calls_recorder(calls, distinct):
+    """Wrap `aimc_mvm.aimc_mvm_experts`: check every call's seeds are E
+    distinct values and keep the operands of the first call at each
+    (shape, sigma) for the kernel checks (no extra launch)."""
+    def make(orig):
+        def rec(x, w_q, s_w, s_x, seeds=None, *, adc_step, sigma=0.0):
+            e = w_q.shape[0]
+            distinct.append(seeds is not None and len(set(seeds)) == e)
+            key = (tuple(x.shape), tuple(w_q.shape))
+            if key not in calls:
+                calls[key] = dict(x=x, w_q=w_q, s_w=s_w, s_x=s_x,
+                                  seeds=list(seeds), adc_step=adc_step,
+                                  sigma=sigma)
+            return orig(x, w_q, s_w, s_x, seeds, adc_step=adc_step,
+                        sigma=sigma)
+        return rec
+    return make
+
+
+def _k2_calls_recorder(calls):
+    """Wrap `aimc_mvm.aimc_mvm_v2`: keep the operands of the first call at
+    each (x, w_q) shape for the kernel checks (no extra launch)."""
+    def make(orig):
+        def rec(x, w_q, s_w, s_x, seed=None, bias=None, **kw):
+            key = (tuple(x.shape), tuple(w_q.shape))
+            if key not in calls:
+                calls[key] = dict(x=x, w_q=w_q, s_w=s_w, s_x=s_x, seed=seed,
+                                  bias=bias, kw=kw)
+            return orig(x, w_q, s_w, s_x, seed, bias, **kw)
+        return rec
+    return make
+
+
+def train_k2_rows(calls, peaks, card):
+    """K2 on the first call's operands at each shape of the noise-on leg
+    (the attention projections at B = 8192 rows): within 1e-5 x max(1,
+    max|y|) of its plain version on the same x, codes, scales and seed,
+    different from its sigma = 0 output; timed (L2 flushed) against its
+    bound."""
+    import torch
+
+    from repro_torch.kernels import aimc_mvm, ref
+
+    dev = next(iter(calls.values()))["x"].device
+    flush = flush_buffer(dev)
+    rows = []
+    for (xs, ws), c in sorted(calls.items()):
+        x, w_q, s_w, s_x, seed, bias, kw = (c[k] for k in (
+            "x", "w_q", "s_w", "s_x", "seed", "bias", "kw"))
+        sigma, step = kw.get("sigma", 0.0), kw["adc_step"]
+        act = kw.get("activation", "none")
+        check(kw.get("noise_source", "counter") == "counter" and sigma > 0.0
+              and seed is not None, f"K2 {xs}x{ws}: the noise-on leg's K2 "
+              f"call carries {kw}, seed {seed}")
+        b, (kb, m, np_) = xs[0], ws
+        kern = functools.partial(aimc_mvm.aimc_mvm_v2, x, w_q, s_w, s_x,
+                                 seed, bias, **kw)
+        plain = functools.partial(ref.aimc_matmul_ref_v2, x, w_q, s_w, s_x,
+                                  seed, bias, adc_step=step, sigma=sigma,
+                                  activation=act)
+        y, want = kern(), plain()
+        quiet = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, None, bias,
+                                     adc_step=step, activation=act)
+        torch.cuda.synchronize(dev)
+        check(not torch.equal(y, quiet), f"K2 {xs}x{ws}: read noise did not "
+              f"change the output")
+        err = float((y - want).abs().max())
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        check(err <= tol, f"K2 {xs}x{ws}: max |err| {err} > {tol}")
+        row = {"B": b, "K": xs[1], "KB": kb, "Np": np_, "sigma": sigma,
+               "max_abs_err": err, "tol": tol,
+               "plan": aimc_mvm.launch_plan(dev, b, kb, m, np_),
+               "ms": time_ms(kern, flush, KERNEL_REPS),
+               "plain_ms": time_ms(plain, flush, 2)}
+        row["bound_ms"], row["bound_by"] = bound_ms(b, kb, m, np_, 1, peaks,
+                                                    bias is not None)
+        rows.append(row)
+        print(f"[train] K2 [{b}x{xs[1]}] KB {kb} Np {np_} sigma {sigma} "
+              f"({plan_str(row['plan'])}): != sigma 0, max|err| {err:.3g} "
+              f"vs plain (tol {tol:.3g}); kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) on {card}", flush=True)
+        del y, want, quiet
+    del flush
+    return rows
+
+
+def train_expert_rows(calls, peaks, card):
+    """The seeded expert entry on the first call's operands at each expert
+    shape of the noise-on leg: within 1e-5 x max(1, max|y|) of its plain
+    version, bit-equal to E single K2 launches each with its own seed,
+    different from the sigma = 0 output; timed (L2 flushed) against its
+    bound."""
+    import torch
+
+    from repro_torch.kernels import aimc_mvm, ref
+
+    dev = next(iter(calls.values()))["x"].device
+    flush = flush_buffer(dev)
+    rows = []
+    for (xs, ws), c in sorted(calls.items()):
+        x, w_q, s_w, s_x, seeds = c["x"], c["w_q"], c["s_w"], c["s_x"], \
+            c["seeds"]
+        step, sigma = c["adc_step"], c["sigma"]
+        e, b = xs[0], xs[1]
+        kb, m, np_ = ws[1:]
+        kern = functools.partial(aimc_mvm.aimc_mvm_experts, x, w_q, s_w, s_x,
+                                 seeds, adc_step=step, sigma=sigma)
+        plain = functools.partial(ref.aimc_matmul_experts_ref, x, w_q, s_w,
+                                  s_x, seeds, adc_step=step, sigma=sigma)
+        y, want = kern(), plain()
+        per = torch.stack([aimc_mvm.aimc_mvm_v2(
+            x[i], w_q[i], s_w[i], s_x[i:i + 1], seeds[i], adc_step=step,
+            sigma=sigma) for i in range(e)])
+        quiet = aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, adc_step=step)
+        torch.cuda.synchronize(dev)
+        check(sigma > 0.0, "the noise-on leg's expert calls carry sigma 0")
+        check(torch.equal(y, per), f"experts {xs}x{ws}: one launch differs "
+              f"from {e} seeded K2 launches")
+        check(not torch.equal(y, quiet), f"experts {xs}x{ws}: read noise "
+              f"did not change the output")
+        err = float((y - want).abs().max())
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        check(err <= tol, f"experts {xs}x{ws}: max |err| {err} > {tol}")
+        row = {"E": e, "B": b, "K": xs[2], "KB": kb, "Np": np_,
+               "sigma": sigma, "max_abs_err": err, "tol": tol,
+               "plan": aimc_mvm.launch_plan(dev, b, kb, m, np_, e,
+                                            experts=True),
+               "ms": time_ms(kern, flush, KERNEL_REPS),
+               "plain_ms": time_ms(plain, flush, 2)}
+        row["bound_ms"], row["bound_by"] = expert_bound_ms(e, b, kb, m, np_,
+                                                           peaks)
+        rows.append(row)
+        print(f"[train] expert entry E {e} x [{b}x{xs[2]}] KB {kb} Np {np_} "
+              f"sigma {sigma} ({plan_str(row['plan'])}): == {e} seeded K2 "
+              f"launches bit for bit, != sigma 0, max|err| {err:.3g} vs "
+              f"plain; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) on {card}", flush=True)
+        del y, want, per, quiet
+    del flush
+    return rows
+
+
+def train_noise_leg(dev, peaks, card, steps=3):
+    """`make_train_step` driven directly with the paper's noise
+    (`paper_noise()`: sigma_read 0.003, programming noise at its
+    defaults), 3 steps at the CLI legs' shapes: finite losses, the last at
+    most 1.05 x the first, the same exact launch counts, E distinct read
+    seeds on every expert-entry call; then the kernel checks of
+    `train_expert_rows`."""
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.layers import Execution
+    from repro_torch.optim import make_optimizer
+
+    spec = _train_spec()
+    cfg = spec.model_cfg
+    exe = Execution(mode="aimc", aimc=AimcConfig(noise=paper_noise()),
+                    compute_dtype="bfloat16")
+    cell = ShapeCell("train", TRAIN_SEQ, TRAIN_GB, "train")
+    fn = make_train_step(spec, cell, None, exe).fn
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = spec.model_module().init(PRNGKey(SEED), cfg, device=dev)
+    opt = make_optimizer(spec.optimizer)[0](params)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_GB, seed=SEED)
+    calls, k2_calls, distinct = {}, {}, []
+    losses, step_s, prof = {}, {}, None
+    aimc_mvm.reset_counts()
+    with patched(aimc_mvm, "aimc_mvm_experts",
+                 _expert_calls_recorder(calls, distinct)), \
+            patched(aimc_mvm, "aimc_mvm_v2", _k2_calls_recorder(k2_calls)):
+        for step in range(steps):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in host_batch(dcfg, step, 0, 1).items()}
+            rng = torch.tensor([SEED, step], dtype=torch.int64)
+            t = time.perf_counter()
+            if step < steps - 1:
+                params, opt, met = fn(params, opt, batch, rng)
+            else:
+                res = {}
+                prof = train_step_profile(lambda: res.setdefault(
+                    "r", fn(params, opt, batch, rng)), dev)
+                params, opt, met = res["r"]
+            losses[step] = float(met["loss"])
+            step_s[step] = time.perf_counter() - t
+    torch.cuda.synchronize(dev)
+    counts = {k: v for k, v in aimc_mvm.LAUNCHES.items() if v}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(all(math.isfinite(v) for v in losses.values())
+          and losses[steps - 1] <= 1.05 * losses[0],
+          f"noise-on training: losses {losses} (finite, last <= 1.05 x "
+          f"first)")
+    check(counts == {"aimc_mvm_v2": TRAIN_K2_PER_STEP * steps,
+                     "aimc_mvm_experts": TRAIN_EX_PER_STEP * steps},
+          f"noise-on training launches {counts} != "
+          f"{TRAIN_K2_PER_STEP} K2 + {TRAIN_EX_PER_STEP} expert per step")
+    check(distinct and all(distinct), "an expert-entry call without E "
+          "distinct read seeds")
+    out = _train_summary("noise on", losses, step_s, prof, counts, steps,
+                         peak_gb, init_s, card)
+    del params, opt, met, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["expert_rows"] = train_expert_rows(calls, peaks, card)
+    out["k2_rows"] = train_k2_rows(k2_calls, peaks, card)
+    out["distinct_seed_calls"] = len(distinct)
+    del calls, k2_calls
+    return out
+
+
+TIE_CODES = 1e-3    # a DAC input this near a rounding tie may round
+                    # either way between the card and the CPU
+
+
+def _dac_codes_recorder(log):
+    """Wrap `kernels.ops`' K2 and expert dispatch: log each call's DAC
+    codes ``round(x / s_x)`` in call order, as the K2/expert kernels' DAC
+    pass computes them (IEEE division, half-to-even)."""
+    import torch
+
+    def make(orig):
+        def rec(x, w_q, s_w, s_x, *a, **k):
+            sx = (s_x.reshape(-1, *([1] * (x.dim() - 1))) if s_x.numel() > 1
+                  else s_x.reshape(()))
+            v = x.detach().to(torch.float32) / sx
+            log.append(torch.round(v).clamp(-127, 127).cpu())
+            return orig(x, w_q, s_w, s_x, *a, **k)
+        return rec
+    return make
+
+
+def _dac_replay(card_log, seen):
+    """Wrap `kernels.ops`' K2 and expert dispatch on the CPU run so that
+    its DAC codes are the card's: where call i's codes ``round(x / s_x)``
+    differ from ``card_log[i]``, the input must sit within TIE_CODES of a
+    rounding tie, and the DAC's input there becomes the card's code times
+    s_x (the autograd-saved x is untouched). ``seen`` counts the calls,
+    the codes replayed and those away from a tie."""
+    import torch
+
+    def make(orig):
+        def rec(x, w_q, s_w, s_x, *a, **k):
+            i = seen["calls"]
+            seen["calls"] += 1
+            check(i < len(card_log) and card_log[i].shape == x.shape
+                  and x.dtype == torch.float32,
+                  f"CPU DAC call {i} ({tuple(x.shape)}, {x.dtype}) has no "
+                  f"card counterpart of its shape")
+            sx = (s_x.reshape(-1, *([1] * (x.dim() - 1))) if s_x.numel() > 1
+                  else s_x.reshape(()))
+            v = x.detach() / sx
+            diff = torch.round(v).clamp(-127, 127) != card_log[i]
+            if diff.any():
+                tie = ((v.abs() % 1.0) - 0.5).abs()
+                seen["codes"] += int(diff.sum())
+                seen["away"] += int((diff & (tie >= TIE_CODES)).sum())
+                x = torch.where(diff, card_log[i] * sx, x)
+            return orig(x, w_q, s_w, s_x, *a, **k)
+        return rec
+    return make
+
+
+def train_card_vs_cpu(dev, arch):
+    """One noise-on train step of ``arch``'s smoke config on the card
+    (kernels) and on the CPU (plain versions) from one state. The card
+    runs first and logs every K2/expert call's DAC codes; the CPU run
+    replays them (`_dac_replay`), so a code that rounds the other way at a
+    tie is taken out of the comparison (counted) and a code that differs
+    away from a tie fails. Then the loss is within 1e-5 relative and every
+    accumulated gradient leaf within TRAIN_GTOL x max|leaf|."""
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.layers import Execution
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.adamw import tree_leaves
+
+    spec = _train_spec(smoke=True, arch=arch)
+    cfg = spec.model_cfg
+    exe = Execution(mode="aimc", aimc=AimcConfig(noise=paper_noise()),
+                    compute_dtype="float32")
+    cell = ShapeCell("t", 32, 8, "train")
+    batch_np = host_batch(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                     global_batch=8, seed=SEED), 0, 0, 1)
+    rng = torch.tensor([SEED, 0], dtype=torch.int64)
+    params = spec.model_module().init(PRNGKey(SEED), cfg, device="cpu")
+    card_log, seen = [], {"calls": 0, "codes": 0, "away": 0}
+    res = {}
+    for where in (dev, "cpu"):
+        grads = {}
+
+        def spy(name, **kw):
+            init, upd, c = make_optimizer(name, **kw)
+
+            def upd_spy(g, s, p, lr=1.0):
+                grads["g"] = g
+                return upd(g, s, p, lr)
+            return init, upd_spy, c
+
+        p = _to(params, where)
+        opt = make_optimizer(spec.optimizer)[0](p)
+        batch = {k: torch.from_numpy(v).to(where) for k, v in batch_np.items()}
+        wrap = (_dac_codes_recorder(card_log) if where == dev
+                else _dac_replay(card_log, seen))
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(steps_mod, "make_optimizer",
+                                        lambda _o: spy))
+            for attr in ("aimc_matmul_v2", "aimc_matmul_experts"):
+                stack.enter_context(patched(ops, attr, wrap))
+            fn = steps_mod.make_train_step(spec, cell, None, exe).fn
+            _, _, met = fn(p, opt, batch, rng)
+        res[str(where)] = (float(met["loss"]),
+                           [t.detach().cpu() for t in tree_leaves(grads["g"])])
+    (l_cpu, g_cpu), (l_card, g_card) = res["cpu"], res[str(dev)]
+    check(seen["calls"] == len(card_log), f"{arch} smoke: {seen['calls']} "
+          f"CPU DAC calls vs {len(card_log)} on the card")
+    check(seen["away"] == 0, f"{arch} smoke: {seen['away']} DAC codes "
+          f"differ between card and CPU away from a rounding tie")
+    check(abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu),
+          f"{arch} smoke: card loss {l_card} vs CPU {l_cpu}")
+    rels = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(g_card, g_cpu)]
+    beyond = sum(r > TRAIN_GTOL for r in rels)
+    check(len(g_card) == len(g_cpu) and beyond == 0,
+          f"{arch} smoke: {beyond} of {len(g_cpu)} grad leaves beyond "
+          f"{TRAIN_GTOL} x max (worst {max(rels):.3g}) with the card's DAC "
+          f"codes replayed")
+    print(f"[train] card vs CPU, {arch} smoke, noise on, 1 step: loss "
+          f"{l_card} vs {l_cpu} (rel {abs(l_card - l_cpu) / abs(l_cpu):.3g}"
+          f"), worst grad leaf {max(rels):.3g} x its max over {len(g_cpu)} "
+          f"leaves (all within {TRAIN_GTOL}); DAC codes over "
+          f"{len(card_log)} calls: {seen['codes']} rounded the other way "
+          f"at a tie on the CPU and were replayed from the card", flush=True)
+    return {"loss_card": l_card, "loss_cpu": l_cpu, "worst_grad_rel":
+            max(rels), "leaves": len(g_cpu), "dac_calls": len(card_log),
+            "dac_codes_replayed_at_ties": seen["codes"]}
+
+
+def train_resume(dev, tmp):
+    """The CLI at olmoe's smoke config, --exec aimc, 4 steps with a
+    checkpoint every 2, under `torch.use_deterministic_algorithms(True)`
+    (an op that refuses fails the phase and names itself): uninterrupted,
+    and stopped after step 2 then resumed from --ckpt-dir. The checkpoint
+    restores bit-equal to the stopped run's trees; the resumed steps 3 and
+    4 equal the uninterrupted run's losses bit for bit."""
+    import os
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+
+    base = ["--arch", TRAIN_ARCH, "--smoke", "--exec", "aimc", "--device",
+            str(dev), "--ckpt-every", "2", "--log-every", "1"]
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        full = train.main(base + ["--steps", "4", "--ckpt-dir",
+                                  str(tmp / "a")])
+        first = train.main(base + ["--steps", "2", "--ckpt-dir",
+                                   str(tmp / "b")])
+        second = train.main(base + ["--steps", "4", "--ckpt-dir",
+                                    str(tmp / "b")])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    saved = {"params": first.params, "opt": first.opt_state}
+    restored, _ = checkpoint.restore(str(tmp / "b"), 2, saved)
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(saved),
+                                                tree_leaves(restored))),
+          "resume: the restored trees differ from the saved ones")
+    check(second.start == 2 and sorted(second.losses) == [2, 3],
+          f"resume started at {second.start}")
+    got = [second.losses[s] for s in (2, 3)]
+    want = [full.losses[s] for s in (2, 3)]
+    check(got == want, f"resumed losses {got} != uninterrupted {want}")
+    print(f"[train] resume (olmoe smoke, --exec aimc, ckpt every 2): "
+          f"restored trees bit-equal; steps 3-4 {got} vs uninterrupted "
+          f"{want}: bit for bit, deterministic algorithms on", flush=True)
+    return {"losses_full": [full.losses[s] for s in range(4)],
+            "losses_resumed": got}
+
+
+def train_phase(dev, peaks, card):
+    """Phase 20: noise-aware training (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    spec = _train_spec()
+    cfg, pub = spec.model_cfg, get_arch(TRAIN_ARCH).model_cfg
+    check(dataclasses.replace(cfg, n_layers=pub.n_layers) == pub,
+          "the training config is not the published widths")
+    print(f"[train] {TRAIN_ARCH} at its published widths (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_experts} experts "
+          f"top-{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), depth cut "
+          f"to {TRAIN_LAYERS} of {pub.n_layers} layers (f32 params, grads "
+          f"and AdamW's two moments take 16 B/param); global batch "
+          f"{TRAIN_GB} x {TRAIN_SEQ}, microbatch {spec.microbatch}",
+          flush=True)
+    out = {"digital": train_cli_leg(dev, "digital (bf16)", [], 4, card)}
+    check(out["digital"]["losses"][-1] < out["digital"]["losses"][0],
+          f"digital training did not learn: {out['digital']['losses']}")
+    check(not out["digital"]["launches"], "digital training launched "
+          "crossbar kernels")
+    gc.collect()
+    torch.cuda.empty_cache()
+    leg = train_cli_leg(dev, "--exec aimc (noise off)", ["--exec", "aimc"],
+                        3, card)
+    check(leg["losses"][-1] <= 1.05 * leg["losses"][0],
+          f"--exec aimc: losses {leg['losses']}")
+    check(leg["launches"] == {"aimc_mvm_v2": TRAIN_K2_PER_STEP * 3,
+                              "aimc_mvm_experts": TRAIN_EX_PER_STEP * 3},
+          f"--exec aimc launches {leg['launches']} != {TRAIN_K2_PER_STEP} "
+          f"K2 + {TRAIN_EX_PER_STEP} expert per step")
+    out["aimc"] = leg
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["noise"] = train_noise_leg(dev, peaks, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = {a: train_card_vs_cpu(dev, a)
+                          for a in ("olmoe-1b-7b", "llama3.2-3b")}
+    OUT.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="train_resume_", dir=str(OUT)))
+    try:
+        out["resume"] = train_resume(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3838,6 +4555,8 @@ def main() -> int:
     free()
     server = phase("server", server_phase, dev, smi)
     free()
+    train = phase("train", train_phase, dev, peaks, smi)
+    free()
 
     def decode_layer(kname, projs):
         sel = [r for r in rows if r["kernel"] == kname and r["B"] == SLOTS
@@ -3864,23 +4583,26 @@ def main() -> int:
 
     k1, k4 = mlp_forward("aimc_mvm_v1"), mlp_forward("aimc_mvm_v2 hw")
 
-    # per olmoe-1b-7b layer, one decode step (4 slots, 1 row per expert):
-    # the expert launches of we_gate, we_up (its shape) and we_down
-    olmoe = moe["olmoe-1b-7b"]
-    by = {r["proj"]: r for r in olmoe["expert_rows"]
-          if r["phase"] == "decode"}
-    kx = {key: 2 * by["we_gate"][key] + by["we_down"][key]
+    # per olmoe-1b-7b training layer and microbatch (C 1280 rows per
+    # expert, read noise on, a seed per expert): the expert launches of
+    # we_gate, we_up (its shape) and we_down
+    by = {r["Np"]: r for r in train["noise"]["expert_rows"]}
+    gate, down = by[1024], by[2048]
+    kx = {key: 2 * gate[key] + down[key]
           for key in ("ms", "plain_ms", "bound_ms")}
-    kx["bound_by"] = by["we_gate"]["bound_by"]
+    kx["bound_by"] = gate["bound_by"]
     kx_err = max([r["max_abs_err"] for arch in ("olmoe-1b-7b", "arctic-480b")
                   for r in moe[arch]["expert_rows"]]
-                 + [r["max_abs_err"] for r in resilience["b"]["probe_rows"]])
+                 + [r["max_abs_err"] for r in resilience["b"]["probe_rows"]]
+                 + [r["max_abs_err"] for r in train["noise"]["expert_rows"]])
     src_rel = "src/repro_torch/kernels/csrc/aimc_mvm.cu"
     record = {"kernels": [
         {"name": "aimc_mvm_v2", "route": "cuda", "source": src_rel,
          "replaces": "src/repro/kernels/aimc_mvm.py:228",
          "launches": serve_stats["launches"]["aimc_mvm_v2"],
-         "max_abs_err": worst["aimc_mvm_v2"], "ms": k2["ms"],
+         "max_abs_err": max([worst["aimc_mvm_v2"]] + [
+             r["max_abs_err"] for r in train["noise"]["k2_rows"]]),
+         "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},
         {"name": "aimc_mvm_stacked", "route": "cuda", "source": src_rel,
@@ -3904,7 +4626,7 @@ def main() -> int:
          "library_ms": None},
         {"name": "aimc_mvm_experts", "route": "cuda", "source": src_rel,
          "replaces": "src/repro/kernels/aimc_mvm.py:228",
-         "launches": olmoe["launches"]["aimc_mvm_experts"],
+         "launches": train["noise"]["launches"]["aimc_mvm_experts"],
          "max_abs_err": kx_err, "ms": kx["ms"], "plain_ms": kx["plain_ms"],
          "bound_ms": kx["bound_ms"], "bound_by": kx["bound_by"],
          "library_ms": None}]}
@@ -3920,7 +4642,7 @@ def main() -> int:
         "multicore": multicore, "fidelity": fidelity, "zoo": zoo,
         "paged": paged, "recurrent": recurrent, "resilience": resilience,
         "int8": int8, "placement": placement, "server": server,
-        "phase_seconds": seconds},
+        "train": train, "phase_seconds": seconds},
         indent=1))
     print(json.dumps(record))
     print(smi)

@@ -18,6 +18,15 @@ from typing import Any
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One input shape: a training, prefill or decode batch."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
     family: str                    # dense | moe | hybrid | ssm | audio | vlm
@@ -26,6 +35,11 @@ class ArchSpec:
     smoke_cfg: Any
     source: str                    # provenance of the published config
     cache_dtype: str = "bfloat16"  # KV cache dtype for serving
+    optimizer: str = "adamw"       # adamw | adafactor (giant models)
+    param_dtype: str = "float32"   # bfloat16 for the largest models
+    microbatch: int = 1            # per-data-shard microbatch (grad accum)
+    # enc-dec / vlm frontend metadata
+    tgt_ratio: int = 0             # enc-dec: tgt_len = seq_len // tgt_ratio
     n_patches: int = 0             # vlm: image patch positions (stub embeds)
 
     def model_module(self):

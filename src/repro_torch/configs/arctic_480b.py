@@ -24,4 +24,7 @@ ARCH = ArchSpec(
         n_kv_heads=1, d_ff=64, vocab=128, n_experts=8, top_k=2,
         moe_dense_residual=True, moe_dense_ff=64, q_chunk=16, kv_chunk=16),
     source="hf:Snowflake/snowflake-arctic-base; hf",
+    optimizer="adafactor",
+    param_dtype="bfloat16",
+    microbatch=2,
 )

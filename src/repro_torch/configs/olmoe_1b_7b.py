@@ -21,4 +21,5 @@ ARCH = ArchSpec(
         n_kv_heads=4, d_ff=32, vocab=128, n_experts=8, top_k=2,
         q_chunk=16, kv_chunk=16),
     source="arXiv:2409.02060; hf",
+    microbatch=4,
 )

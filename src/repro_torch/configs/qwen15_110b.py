@@ -20,4 +20,5 @@ ARCH = ArchSpec(
         n_kv_heads=2, d_ff=192, vocab=128, qkv_bias=True,
         q_chunk=16, kv_chunk=16),
     source="hf:Qwen/Qwen1.5-0.5B; hf",
+    optimizer="adafactor",
 )

@@ -7,7 +7,10 @@ structure (a CNN holds ``"convs": [...]``), arrays become tensors, and any
 object with ``w_q``/``s_w``/``k``/``n`` attributes (a
 programmed state, matched by duck typing) becomes an `AimcLinearState`.
 `load_npz` reads a flat ``{"blocks/wq": array, ...}`` archive, the format
-``launch.serve --weights`` takes.
+``launch.serve --weights`` takes. `opt_state_from_numpy` carries an AdamW
+or Adafactor state from the JAX package (numpy leaves, its NamedTuple
+fields ``step, mu, nu`` or ``step, vr, vc``) into the port's state, so
+both packages can start training from one state.
 """
 
 from __future__ import annotations
@@ -58,3 +61,17 @@ def load_npz(path, device="cpu") -> dict:
                 node = node.setdefault(h, {})
             node[last] = z[key]
     return params_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(state, device="cpu"):
+    """The port's `AdamWState` / `AdafactorState` of a reference optimizer
+    state whose leaves are numpy arrays (matched by its field names)."""
+    from repro_torch.optim.adafactor import AdafactorState
+    from repro_torch.optim.adamw import AdamWState
+    fields = tuple(getattr(state, "_fields", ()))
+    cls = {AdamWState._fields: AdamWState,
+           AdafactorState._fields: AdafactorState}.get(fields)
+    if cls is None:
+        raise ValueError(f"not an AdamW or Adafactor state: fields {fields}")
+    return cls(*(params_from_numpy(getattr(state, f), device)
+                 for f in fields))

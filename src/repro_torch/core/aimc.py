@@ -7,10 +7,17 @@ DAC -> crossbar -> ADC pipeline (`aimc_apply` = CM_QUEUE/PROCESS/DEQUEUE),
 which on a CUDA tensor is the hand-written kernel K2 and, for a gate stack
 (`aimc_apply_stacked`), K3; an MoE expert stack (`aimc_apply_experts`,
 the reference's `vmap` of `aimc_apply`) runs as one launch of K2's expert
-entry. The DAC scale ``s_x`` stays a device tensor: no projection waits
-on the host.
+entry, each expert with its own read seed. The DAC scale ``s_x`` stays a
+device tensor: no projection waits on the host.
 
-Noise-aware training (`aimc_linear_ste`) waits for the training slice.
+Noise-aware training: `aimc_linear_ste` (a `torch.autograd.Function`)
+programs W on the fly with a fresh programming-noise draw and applies it
+with per-call read noise; its backward is straight-through (y = x @ W).
+`aimc_linear_ste_experts` is the same over an `[E, K, N]` expert stack
+with a key per expert (the reference's `vmap` of the STE): one
+expert-entry launch forward, batched matmuls backward. Keys are host
+values (`core/prng.py`), so a recompute under `torch.utils.checkpoint`
+draws the same noise without touching any global generator.
 """
 
 from __future__ import annotations
@@ -86,30 +93,43 @@ def _pad_to(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
 
-def _program_into(w, cfg: AimcConfig, key, w_q_out, s_w_out) -> None:
-    """CM_INITIALIZE of one [K, N] matrix into preallocated outputs."""
-    k, n = w.shape
-    kb, m, np_ = w_q_out.shape
-    w_blocks = torch.zeros((kb * m, np_), dtype=torch.float32,
+# float elements of one programming group's temporaries: instances of a
+# stack are programmed this many weights at a time (at least one matrix)
+PROGRAM_GROUP_ELEMS = 1 << 26
+
+
+def _program_group(w, cfg: AimcConfig, keys, w_q_out, s_w_out) -> None:
+    """CM_INITIALIZE of g [K, N] matrices (w [g, K, N]) into preallocated
+    outputs [g, KB, M, Np] / [g, KB, Np]; instance j draws its programming
+    noise under ``keys[j]`` (``keys`` None: no noise)."""
+    g, k, n = w.shape
+    _, kb, m, np_ = w_q_out.shape
+    w_blocks = torch.zeros((g, kb * m, np_), dtype=torch.float32,
                            device=w.device)
-    w_blocks[:k, :n] = w
-    w_blocks = w_blocks.reshape(kb, m, np_)
-    s_w = sym_scale(w_blocks, dim=1).reshape(kb, np_)
-    codes = w_blocks / s_w[:, None, :]
-    if cfg.noise.enabled and key is not None:
-        codes = codes + noise_lib.programming_noise(key, codes, cfg.noise)
+    w_blocks[:, :k, :n] = w
+    w_blocks = w_blocks.reshape(g, kb, m, np_)
+    s_w = sym_scale(w_blocks, dim=2).reshape(g, kb, np_)
+    codes = w_blocks / s_w[:, :, None, :]
+    if cfg.noise.enabled and keys is not None:
+        codes = codes + noise_lib.programming_noise_batch(keys, codes,
+                                                          cfg.noise)
     w_q_out.copy_(torch.round(codes).clamp(-QMAX, QMAX).to(torch.int8))
     gain = cfg.noise.drift_gain() * cfg.noise.compensation_gain()
     s_w_out.copy_(s_w * gain if gain != 1.0 else s_w)
 
 
 def program_stacked(w: torch.Tensor, cfg: AimcConfig,
-                    key: torch.Tensor | None = None) -> AimcLinearState:
-    """CM_INITIALIZE for a [..., K, N] weight; leading dims (layer stacks)
-    are programmed one instance at a time, so the float temporaries are one
-    matrix large, never one stack large. Instance i of a stack draws its
+                    key: torch.Tensor | None = None, *,
+                    keys=None) -> AimcLinearState:
+    """CM_INITIALIZE for a [..., K, N] weight. Leading dims (layer and
+    expert stacks) are programmed in groups of instances whose float
+    temporaries stay within PROGRAM_GROUP_ELEMS (one matrix at least), so
+    they are never a large stack's size. Instance i of a stack draws its
     programming noise from ``split(key, instances)[i]``, as the reference
-    does; a single matrix draws from ``key`` itself."""
+    does; a single matrix draws from ``key`` itself. ``keys`` (one key per
+    instance, in place of ``key``) gives instance i ``keys[i]`` itself: the
+    reference's `vmap` of `program_linear` over per-expert keys. Grouping
+    moves no value: every op is elementwise or an exact max."""
     *lead, k, n = w.shape
     m = cfg.tile_rows
     kb = _pad_to(k, m) // m
@@ -119,11 +139,21 @@ def program_stacked(w: torch.Tensor, cfg: AimcConfig,
     flat_w = w.reshape(-1, k, n)
     flat_q = w_q.reshape(-1, kb, m, np_)
     flat_s = s_w.reshape(-1, kb, np_)
-    keys = [key] * flat_w.shape[0]
-    if lead and key is not None:
-        keys = prng.split(key, flat_w.shape[0])
-    for i in range(flat_w.shape[0]):
-        _program_into(flat_w[i], cfg, keys[i], flat_q[i], flat_s[i])
+    count = flat_w.shape[0]
+    if keys is not None:
+        if key is not None or len(keys) != count:
+            raise ValueError(f"keys= takes one key per instance "
+                             f"({count}) and no key=")
+        keys = list(keys)
+    elif key is not None:
+        keys = list(prng.split(key, count)) if lead else [key]
+    if not (cfg.noise.enabled and keys is not None):
+        keys = None
+    step = max(1, PROGRAM_GROUP_ELEMS // (kb * m * np_))
+    for a in range(0, count, step):
+        b = min(a + step, count)
+        _program_group(flat_w[a:b], cfg, None if keys is None else keys[a:b],
+                       flat_q[a:b], flat_s[a:b])
     return AimcLinearState(w_q=w_q, s_w=s_w, k=k, n=n)
 
 
@@ -258,13 +288,14 @@ def aimc_apply_stacked(stack: AimcLinearState, x: torch.Tensor,
 
 
 def aimc_apply_experts(state: AimcLinearState, x: torch.Tensor,
-                       cfg: AimcConfig, key: torch.Tensor | None = None
-                       ) -> torch.Tensor:
+                       cfg: AimcConfig, keys=None) -> torch.Tensor:
     """`aimc_apply` on each expert of an `[E, ...]` programmed stack, each
     on its own input, in ONE kernel launch: x [E, C, K] -> [E, C, N]. As
     under the reference's `vmap`, expert e takes its own DAC scale
     ``sym_scale(x[e])`` (an expert that got no token sees zeros and the
-    floor scale 1e-12 / 127), computed on the device. Noise off only."""
+    floor scale 1e-12 / 127), computed on the device, and its own read
+    key ``keys[e]`` (``keys``: [E, 2] or None), whose read seed reaches the
+    kernel as one of E seeds."""
     if len(state.stack_shape) != 1:
         raise ValueError(f"aimc_apply_experts needs one leading expert dim, "
                          f"got stack shape {state.stack_shape}")
@@ -272,14 +303,17 @@ def aimc_apply_experts(state: AimcLinearState, x: torch.Tensor,
     if x.dim() != 3 or x.shape[0] != e:
         raise ValueError(f"expert inputs must be [{e}, C, K], got "
                          f"{tuple(x.shape)}")
-    if _noise_args(cfg, key, cfg.tile_rows)[1] > 0.0:
-        raise NotImplementedError(
-            "read noise on programmed experts needs a read seed per expert; "
-            "noise-on experts come with the training slice (ROADMAP.md)")
     _, c, k = x.shape
     if k != state.k:
         raise ValueError(f"in_features mismatch: {k} != {state.k}")
     kb, m, _ = state.w_q.shape[-3:]
+    seeds, sigma = None, 0.0
+    if keys is not None:
+        if len(keys) != e:
+            raise ValueError(f"{len(keys)} read keys for E={e} experts")
+        sigma = _noise_args(cfg, keys[0], m)[1]
+        if sigma > 0.0:
+            seeds = [noise_lib.derive_read_seed(kk) for kk in keys]
     xf = x.to(torch.float32)
     if k != kb * m:
         xf = torch.nn.functional.pad(xf, (0, kb * m - k))
@@ -289,6 +323,99 @@ def aimc_apply_experts(state: AimcLinearState, x: torch.Tensor,
                          device=x.device)
     else:
         s_x = sym_scale(xf.reshape(e, c * kb * m), dim=1).reshape(e)
-    y = kernel_ops.aimc_matmul_experts(xf, state.w_q, state.s_w, s_x,
-                                       adc_step=cfg.adc_step)
+    y = kernel_ops.aimc_matmul_experts(xf, state.w_q, state.s_w, s_x, seeds,
+                                       adc_step=cfg.adc_step, sigma=sigma)
     return y[:, :, :state.n]
+
+
+# ---------------------------------------------------------------------------
+# Noise-aware training: straight-through estimator.
+# ---------------------------------------------------------------------------
+
+def _split_key(key):
+    """(programming key, read key) of an STE call: ``split(key)``."""
+    if key is None:
+        return None, None
+    kp, kr = prng.split(key)
+    return kp, kr
+
+
+class _AimcLinearSTE(torch.autograd.Function):
+    """y = AIMC(x, W) forward, y = x @ W backward (the reference's
+    `custom_vjp`, `repro/core/aimc.py:298-331`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, cfg):
+        kp, kr = _split_key(key)
+        state = program_linear(w.detach(), cfg, kp)
+        ctx.save_for_backward(x, w)
+        return aimc_apply(state, x.detach(), cfg, kr)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gf = g.to(torch.float32)
+        dx = gf @ w.T.to(torch.float32)
+        xl = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        dw = xl.T @ gf.reshape(-1, g.shape[-1])
+        return (dx.to(x.dtype).reshape(x.shape), dw.to(w.dtype), None, None)
+
+
+class _AimcLinearSTEExperts(torch.autograd.Function):
+    """The STE over an `[E, K, N]` expert stack, expert e under its own key
+    (the reference's `vmap` of `aimc_linear_ste`): programming per expert
+    from ``split(keys[e])[0]``, one expert-entry launch reading with
+    ``split(keys[e])[1]``, and a batched straight-through backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, keys, cfg):
+        e = w.shape[0]
+        kp = kr = None
+        if keys is not None:
+            pairs = [_split_key(keys[i]) for i in range(e)]
+            kp = [p for p, _ in pairs]
+            kr = [r for _, r in pairs]
+        state = program_stacked(w.detach(), cfg, keys=kp)
+        ctx.save_for_backward(x, w)
+        return aimc_apply_experts(state, x.detach(), cfg, kr)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gf = g.to(torch.float32)
+        dx = gf @ w.transpose(1, 2).to(torch.float32)
+        dw = x.to(torch.float32).transpose(1, 2) @ gf
+        return dx.to(x.dtype), dw.to(w.dtype), None, None
+
+
+def aimc_linear_ste(x: torch.Tensor, w: torch.Tensor, key,
+                    cfg: AimcConfig) -> torch.Tensor:
+    """Differentiable AIMC linear: x [..., K], w [K, N] -> f32 [..., N].
+    The forward programs W with a fresh programming-noise draw under
+    ``split(key)[0]`` and reads with ``split(key)[1]`` (noise-injection
+    training [16]); the backward is ``dx = g W^T``, ``dw = x^T g`` in f32,
+    cast to x's and w's dtypes. ``key`` gets no gradient."""
+    return _AimcLinearSTE.apply(x, w, key, cfg)
+
+
+def aimc_linear_ste_experts(x: torch.Tensor, w: torch.Tensor, keys,
+                            cfg: AimcConfig) -> torch.Tensor:
+    """`aimc_linear_ste` over an expert stack: x [E, C, K], w [E, K, N],
+    ``keys`` [E, 2] (or None) -> f32 [E, C, N], as `vmap` of the STE."""
+    if w.dim() != 3 or x.dim() != 3 or x.shape[0] != w.shape[0]:
+        raise ValueError(f"expert STE takes x [E, C, K] and w [E, K, N], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    return _AimcLinearSTEExperts.apply(x, w, keys, cfg)
+
+
+def aimc_linear(x, w, cfg: AimcConfig, key=None,
+                state: AimcLinearState | None = None):
+    """Low-level front door (models route through `models.layers.linear`):
+    on the fly ``aimc_linear(x, w, cfg, key)`` (the STE); pre-programmed
+    ``aimc_linear(x, None, cfg, key, state)`` or a state in place of ``w``
+    (apply only)."""
+    if state is not None:
+        return aimc_apply(state, x, cfg, key)
+    if isinstance(w, AimcLinearState):
+        return aimc_apply(w, x, cfg, key)
+    return aimc_linear_ste(x, w, key, cfg)

@@ -105,12 +105,21 @@ def programming_noise(key: torch.Tensor, w_codes: torch.Tensor,
                       nm: NoiseModel) -> torch.Tensor:
     """Additive write error on conductance codes (float; caller rounds),
     drawn on ``w_codes``' device from ``key``."""
+    return programming_noise_batch([key], w_codes[None], nm)[0]
+
+
+def programming_noise_batch(keys, w_codes: torch.Tensor,
+                            nm: NoiseModel) -> torch.Tensor:
+    """`programming_noise` of n instances at once: ``w_codes`` [n, ...],
+    instance j under ``keys[j]`` (`prng.normal_batch`), the same values as
+    n separate calls."""
     if not nm.enabled:
         return torch.zeros_like(w_codes, dtype=torch.float32)
     level = w_codes.to(torch.float32).abs() / QMAX
     sigma = (nm.sigma_prog_min
              + (nm.sigma_prog_max - nm.sigma_prog_min) * level) * QMAX
-    return sigma * prng.normal(key, w_codes.shape, device=w_codes.device)
+    return sigma * prng.normal_batch(keys, w_codes.shape[1:],
+                                     device=w_codes.device)
 
 
 def read_noise(key: torch.Tensor, shape, active_rows: int, nm: NoiseModel,

@@ -11,9 +11,9 @@
     of `_in_kernel_noise` (`repro/kernels/aimc_mvm.py:160-170`) with
     Philox4x32-10 (`csrc/philox.cuh`).
   * `aimc_mvm_experts` — K2 over an `[E, ...]` expert stack, each expert
-    on its own input and DAC scale: the counterpart of `jax.vmap` over
-    `aimc_matmul_pallas_v2` in the MoE FFN (`repro/models/moe.py:74-86`),
-    one launch for all E experts.
+    on its own input, DAC scale and read seed: the counterpart of
+    `jax.vmap` over `aimc_matmul_pallas_v2` in the MoE FFN
+    (`repro/models/moe.py:74-86`), one launch for all E experts.
 
 The shared library is compiled with `nvcc` for `sm_90a` at first use, into
 ``build/`` beside this file (listed in `.gitignore`), named by a hash of its
@@ -124,9 +124,9 @@ def _load():
                               ctypes.c_void_p, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             ex = lib.aimc_mvm_experts_launch
-            ex.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                           + [ctypes.c_float, ctypes.c_void_p,
-                              ctypes.c_void_p])
+            ex.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_float,
+                              ctypes.c_void_p, ctypes.c_void_p])
             ex.restype = ctypes.c_int
             for plan in (lib.aimc_mvm_plan, lib.aimc_mvm_experts_plan):
                 plan.argtypes = ([ctypes.c_int] * 5
@@ -280,17 +280,28 @@ def aimc_mvm_stacked(x, w_q, s_w, s_x, seed=None, bias=None, *,
                    noise_source=noise_source)
 
 
-def aimc_mvm_experts(x, w_q, s_w, s_x, *, adc_step: float,
+def _device_seeds(seeds, e: int, device) -> torch.Tensor:
+    """E uint32 read seeds (host ints) as an int32 [E] tensor on ``device``:
+    one non-blocking copy from pinned memory (PyTorch's host allocator keeps
+    the pinned buffer alive until the copy has run)."""
+    if len(seeds) != e:
+        raise ValueError(f"{len(seeds)} read seeds for E={e} experts")
+    words = [int(s) & 0xFFFFFFFF for s in seeds]
+    host = torch.tensor([w - (1 << 32) if w >= 1 << 31 else w
+                         for w in words], dtype=torch.int32).pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def aimc_mvm_experts(x, w_q, s_w, s_x, seeds=None, *, adc_step: float,
                      sigma: float = 0.0):
     """K2 over an expert stack in one launch: x f32 [E, B, KB*M], w_q int8
     [E, KB, M, Np], s_w f32 [E, KB, Np], s_x f32 [E] (each expert's own DAC
-    scale, on the device) -> f32 [E, B, Np], noise off, no epilogue. Expert
-    e equals `aimc_mvm_v2(x[e], w_q[e], s_w[e], s_x[e])` bit for bit."""
-    if sigma > 0.0:
-        raise NotImplementedError(
-            "read noise on the expert entry needs a read seed per expert; "
-            "serving runs noise off and noise-on experts come with the "
-            "training slice (see ROADMAP.md)")
+    scale, on the device), ``seeds`` E uint32 read seeds (host ints; needed
+    when ``sigma > 0``) -> f32 [E, B, Np], no epilogue. Expert e equals
+    `aimc_mvm_v2(x[e], w_q[e], s_w[e], s_x[e], seeds[e], sigma=sigma)` bit
+    for bit: counter read noise over its own B rows."""
+    if sigma > 0.0 and seeds is None:
+        raise ValueError("sigma > 0 requires a read seed per expert")
     if not x.is_cuda:
         raise ValueError(f"aimc_mvm_experts launches on a CUDA tensor; x is "
                          f"on {x.device}")
@@ -308,6 +319,7 @@ def aimc_mvm_experts(x, w_q, s_w, s_x, *, adc_step: float,
         raise ValueError(f"s_x {tuple(s_x.shape)} != {(e,)}")
     if np_ % 128:
         raise ValueError(f"Np={np_} is not 128-aligned (program_linear pads)")
+    dev_seeds = _device_seeds(seeds, e, x.device) if sigma > 0.0 else None
     out = torch.empty((e, b, np_), dtype=torch.float32, device=x.device)
     lib = _load()
     work = torch.empty(_plan(x.device.index or 0, b, kb, m, np_, e, True)[1],
@@ -316,8 +328,9 @@ def aimc_mvm_experts(x, w_q, s_w, s_x, *, adc_step: float,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.aimc_mvm_experts_launch(
             x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
-            out.data_ptr(), b, kb, m, np_, e, float(adc_step), stream,
-            work.data_ptr())
+            dev_seeds.data_ptr() if dev_seeds is not None else None,
+            out.data_ptr(), b, kb, m, np_, e, float(adc_step), float(sigma),
+            stream, work.data_ptr())
     if err:
         raise RuntimeError(f"aimc_mvm_experts launch failed: CUDA error "
                            f"{err}")

@@ -12,8 +12,9 @@
 // K3 is K2 with a gate index: gate g reads w_q[g], s_w[g], bias[g], draws
 // noise under stack_seed(seed, g) and applies its own activation; x and its
 // DAC scale are shared. The expert entry (aimc_mvm_experts_launch) is K2
-// over a [G] stack where gate g also reads its own x[g] and s_x[g], noise
-// off, no epilogue. K1 is K2 with the noise read from an explicit
+// over a [G] stack where gate g also reads its own x[g] and s_x[g] and
+// draws its counter read noise from its own seed seeds[g] (the reference's
+// vmap hands each expert its own read key), no epilogue. K1 is K2 with the noise read from an explicit
 // [KB, B, Np] operand and no epilogue. K4 is K2/K3 with the per-element
 // noise drawn by Philox4x32-10 (philox.cuh) in place of the counter hash.
 // The plain PyTorch versions are repro_torch/kernels/ref.py
@@ -194,6 +195,9 @@ __global__ void aimc_dac_kernel(const float* __restrict__ x,
 // g*KB + k) whose dequantized contribution goes to part [G, KB, B, Np].
 // per_gate_x: gate g reads codes [g, B, KB*Mp] and the scale s_x[g] (the
 // expert entry); otherwise every gate shares codes [B, KB*Mp] and s_x[0].
+// seeds != nullptr: gate g draws its noise from seeds[g] (device memory),
+// with K2's counter layout over its own B rows, so gate g equals a K2
+// launch on x[g] with seed seeds[g].
 template <int MT, int WM, int BK>
 __global__ void __launch_bounds__(WM * 128)
 aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
@@ -202,9 +206,11 @@ aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
                     const float* __restrict__ s_x,
                     const float* __restrict__ bias,
                     const float* __restrict__ noise, float* __restrict__ out,
-                    float* __restrict__ part, int B, int KB, int M, int Mp,
-                    int Np, float adc_step, float sigma, uint32_t seed,
-                    int stacked, uint32_t acts, int philox, int per_gate_x) {
+                    float* __restrict__ part,
+                    const uint32_t* __restrict__ seeds, int B, int KB, int M,
+                    int Mp, int Np, float adc_step, float sigma,
+                    uint32_t seed, int stacked, uint32_t acts, int philox,
+                    int per_gate_x) {
   constexpr int BM = 16 * MT * WM;
   constexpr int kThreads = WM * 128;
   constexpr int kAPitch = BK + 16;   // bytes per codes row in shared memory
@@ -234,7 +240,9 @@ aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
   const int8_t* wg = w_q + (size_t)g * KB * M * Np;
   const float* swg = s_w + (size_t)g * KB * Np;
   const int8_t* xg = per_gate_x ? xq + (size_t)g * B * Kp : xq;
-  const uint32_t seed_g = stacked ? aimc::stack_seed(seed, (uint32_t)g) : seed;
+  const uint32_t seed_g =
+      seeds != nullptr ? seeds[g]
+                       : (stacked ? aimc::stack_seed(seed, (uint32_t)g) : seed);
   const int act = gate_act(acts, g);
   const float sx = s_x[per_gate_x ? g : 0];
   const float scale_xs = adc_step * sx;
@@ -474,10 +482,10 @@ Plan make_plan(int B, int KB, int M, int Np, int G, int per_gate_x) {
 template <int MT, int WM, int BK>
 int launch_mma(const int8_t* xq, const int8_t* w_q, const float* s_w,
                const float* s_x, const float* bias, const float* noise,
-               float* out, float* part, int B, int KB, int M, int Mp, int Np,
-               int G, float adc_step, float sigma, uint32_t seed, int stacked,
-               uint32_t acts, int philox, int per_gate_x,
-               cudaStream_t stream) {
+               float* out, float* part, const uint32_t* seeds, int B, int KB,
+               int M, int Mp, int Np, int G, float adc_step, float sigma,
+               uint32_t seed, int stacked, uint32_t acts, int philox,
+               int per_gate_x, cudaStream_t stream) {
   constexpr int BM = 16 * MT * WM;
   const size_t smem = (size_t)kStages * (BM * (BK + 16) + BK * kBN);
   if (smem > 48 * 1024) {
@@ -489,8 +497,8 @@ int launch_mma(const int8_t* xq, const int8_t* w_q, const float* s_w,
   const dim3 grid(Np / kBN, (B + BM - 1) / BM,
                   part != nullptr ? G * KB : G);
   aimc_mvm_mma_kernel<MT, WM, BK><<<grid, WM * 128, smem, stream>>>(
-      xq, w_q, s_w, s_x, bias, noise, out, part, B, KB, M, Mp, Np, adc_step,
-      sigma, seed, stacked, acts, philox, per_gate_x);
+      xq, w_q, s_w, s_x, bias, noise, out, part, seeds, B, KB, M, Mp, Np,
+      adc_step, sigma, seed, stacked, acts, philox, per_gate_x);
   return (int)cudaGetLastError();
 }
 
@@ -503,10 +511,10 @@ int grid_for(size_t n, int threads) {
 // DAC pass, MVM and (split) row-block sum of one call on `stream`.
 int launch_all(const void* x, const void* w_q, const void* s_w,
                const void* s_x, const void* bias, const void* noise,
-               void* out, int B, int KB, int M, int Np, int G,
-               float adc_step, float sigma, unsigned int seed, int stacked,
-               unsigned int acts, int philox, int per_gate_x, void* stream,
-               void* work) {
+               const void* seeds, void* out, int B, int KB, int M, int Np,
+               int G, float adc_step, float sigma, unsigned int seed,
+               int stacked, unsigned int acts, int philox, int per_gate_x,
+               void* stream, void* work) {
   if (B <= 0) return 0;
   if (Np % kBN != 0 || G < 1 || M < 1 || KB < 1 || work == nullptr ||
       reinterpret_cast<uintptr_t>(work) % 16 != 0)
@@ -532,13 +540,15 @@ int launch_all(const void* x, const void* w_q, const void* s_w,
   const float* sx = static_cast<const float*>(s_x);
   const float* b = static_cast<const float*>(bias);
   const float* nz = static_cast<const float*>(noise);
+  const uint32_t* sd = static_cast<const uint32_t*>(seeds);
   float* o = static_cast<float*>(out);
   err = p.bm == 64
-            ? launch_mma<2, 2, 128>(codes, w, sw, sx, b, nz, o, part, B, KB,
-                                    M, p.Mp, Np, G, adc_step, sigma, seed,
-                                    stacked, acts, philox, per_gate_x, st)
-            : launch_mma<1, 1, 64>(codes, w, sw, sx, b, nz, o, part, B, KB,
-                                   M, p.Mp, Np, G, adc_step, sigma, seed,
+            ? launch_mma<2, 2, 128>(codes, w, sw, sx, b, nz, o, part, sd, B,
+                                    KB, M, p.Mp, Np, G, adc_step, sigma,
+                                    seed, stacked, acts, philox, per_gate_x,
+                                    st)
+            : launch_mma<1, 1, 64>(codes, w, sw, sx, b, nz, o, part, sd, B,
+                                   KB, M, p.Mp, Np, G, adc_step, sigma, seed,
                                    stacked, acts, philox, per_gate_x, st);
   if (err || !p.split) return err;
   const size_t n = (size_t)G * B * Np;
@@ -592,22 +602,26 @@ extern "C" int aimc_mvm_launch(const void* x, const void* w_q, const void* s_w,
                                unsigned int acts, int philox, void* stream,
                                void* work) {
   if (G > kMaxGates) return (int)cudaErrorInvalidValue;
-  return launch_all(x, w_q, s_w, s_x, bias, noise, out, B, KB, M, Np, G,
-                    adc_step, sigma, seed, stacked, acts, philox, 0, stream,
-                    work);
+  return launch_all(x, w_q, s_w, s_x, bias, noise, nullptr, out, B, KB, M,
+                    Np, G, adc_step, sigma, seed, stacked, acts, philox, 0,
+                    stream, work);
 }
 
-// The expert entry: K2 over an [G] expert stack, expert g on its own input
-// and DAC scale. x f32 [G, B, KB*M], w_q int8 [G, KB, M, Np], s_w f32
-// [G, KB, Np], s_x f32 [G], out f32 [G, B, Np]; noise off, no epilogue
-// (the MoE experts' projections have neither); work holds the bytes
-// aimc_mvm_experts_plan gives. Equal bit for bit to G aimc_mvm_launch calls
-// on x[g], w_q[g], s_w[g], s_x[g].
+// The expert entry: K2 over an [G] expert stack, expert g on its own input,
+// DAC scale and read seed. x f32 [G, B, KB*M], w_q int8 [G, KB, M, Np], s_w
+// f32 [G, KB, Np], s_x f32 [G], seeds uint32 [G] in device memory (null
+// when sigma == 0), out f32 [G, B, Np]; counter read noise of std sigma
+// (accumulator LSBs), no epilogue (the MoE experts' projections have none);
+// work holds the bytes aimc_mvm_experts_plan gives. Equal bit for bit to G
+// aimc_mvm_launch calls on x[g], w_q[g], s_w[g], s_x[g] with seed seeds[g].
 extern "C" int aimc_mvm_experts_launch(const void* x, const void* w_q,
                                        const void* s_w, const void* s_x,
-                                       void* out, int B, int KB, int M,
-                                       int Np, int G, float adc_step,
+                                       const void* seeds, void* out, int B,
+                                       int KB, int M, int Np, int G,
+                                       float adc_step, float sigma,
                                        void* stream, void* work) {
-  return launch_all(x, w_q, s_w, s_x, nullptr, nullptr, out, B, KB, M, Np,
-                    G, adc_step, 0.0f, 0u, 0, 0u, 0, 1, stream, work);
+  if (sigma > 0.0f && seeds == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_all(x, w_q, s_w, s_x, nullptr, nullptr,
+                    sigma > 0.0f ? seeds : nullptr, out, B, KB, M, Np, G,
+                    adc_step, sigma, 0u, 0, 0u, 0, 1, stream, work);
 }

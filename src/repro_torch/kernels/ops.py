@@ -79,16 +79,14 @@ def aimc_matmul_stacked(x, w_q, s_w, s_x, seed=None, bias=None, *,
                                         activations=activations)
 
 
-def aimc_matmul_experts(x, w_q, s_w, s_x, *, adc_step: float,
+def aimc_matmul_experts(x, w_q, s_w, s_x, seeds=None, *, adc_step: float,
                         sigma: float = 0.0):
-    """K2 over an `[E, ...]` expert stack, expert e on its own input x[e]
-    and DAC scale s_x[e]: x f32 [E, B, KB*M] -> f32 [E, B, Np], one launch
-    on the card (`aimc_mvm.aimc_mvm_experts`). Noise off only."""
+    """K2 over an `[E, ...]` expert stack, expert e on its own input x[e],
+    DAC scale s_x[e] and read seed seeds[e] (E host ints, needed when
+    ``sigma > 0``): x f32 [E, B, KB*M] -> f32 [E, B, Np], one launch on the
+    card (`aimc_mvm.aimc_mvm_experts`)."""
     if x.is_cuda:
-        return aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, adc_step=adc_step,
-                                         sigma=sigma)
-    if sigma > 0.0:
-        raise NotImplementedError(
-            "read noise on the expert entry needs a read seed per expert; "
-            "see ROADMAP.md")
-    return _ref.aimc_matmul_experts_ref(x, w_q, s_w, s_x, adc_step=adc_step)
+        return aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, seeds,
+                                         adc_step=adc_step, sigma=sigma)
+    return _ref.aimc_matmul_experts_ref(x, w_q, s_w, s_x, seeds,
+                                        adc_step=adc_step, sigma=sigma)

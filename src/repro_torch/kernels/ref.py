@@ -19,7 +19,8 @@ exact here (|acc| <= M * 127^2 < 2^53) and runs on cuBLAS, which has no
 int32 GEMM.
 
 `aimc_matmul_experts_ref` is K2 over an `[E, ...]` expert stack, expert e
-on its own input x[e] and DAC scale s_x[e] (x [E, B, KB*M], s_x [E]).
+on its own input x[e], DAC scale s_x[e] and read seed seeds[e] (x
+[E, B, KB*M], s_x [E], E host ints).
 
 Read noise of the v2/stacked versions comes from a scalar seed, by
 ``noise_source``: "counter" (`kernels/cprng`, the reference's generator) or
@@ -162,10 +163,16 @@ def aimc_matmul_stacked_ref(x, w_q, s_w, s_x, seed=None, bias=None, *,
         for g in range(g_)])
 
 
-def aimc_matmul_experts_ref(x, w_q, s_w, s_x, *, adc_step: float):
+def aimc_matmul_experts_ref(x, w_q, s_w, s_x, seeds=None, *,
+                            adc_step: float, sigma: float = 0.0):
     """Plain version of the expert entry: one plain K2 per expert on its own
-    input and DAC scale, noise off, no epilogue -> f32 [E, B, Np]."""
+    input, DAC scale and read seed (``seeds[e]``; counter noise when
+    ``sigma > 0``), no epilogue -> f32 [E, B, Np]."""
+    e = w_q.shape[0]
+    if sigma > 0.0 and (seeds is None or len(seeds) != e):
+        raise ValueError("sigma > 0 requires a read seed per expert")
     return torch.stack([
-        aimc_matmul_ref_v2(x[e], w_q[e], s_w[e], s_x[e].reshape(1, 1),
-                           adc_step=adc_step)
-        for e in range(w_q.shape[0])])
+        aimc_matmul_ref_v2(x[i], w_q[i], s_w[i], s_x[i].reshape(1, 1),
+                           seeds[i] if sigma > 0.0 else None,
+                           adc_step=adc_step, sigma=sigma)
+        for i in range(e)])

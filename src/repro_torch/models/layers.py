@@ -2,17 +2,20 @@
 `repro/models/layers.py`).
 
 Every stationary-weight projection routes through `linear()`, which runs
-either digitally (a plain matmul, the paper's CPU+SIMD baseline) or, when
-the weight arrives as a programmed `AimcLinearState` (installed by
-`core.program.AimcProgram.install`), apply-only on the crossbar kernel.
-The reference's third way, on-the-fly programming with a straight-through
-backward (noise-aware training), waits for the training slice.
+one of three ways: digitally (a plain matmul, the paper's CPU+SIMD
+baseline); apply-only on the crossbar kernel when the weight arrives as a
+programmed `AimcLinearState` (installed by
+`core.program.AimcProgram.install`); or, in ``aimc`` mode on raw weights,
+through `core.aimc.aimc_linear_ste`, which programs with a fresh noise
+draw on every call and backpropagates straight through (noise-aware
+training; an `[E, K, N]` expert stack runs the expert STE, one launch).
 
 Attention is plain tensor ops following the reference's algorithm: a
-chunked online softmax for prefill (causal, with a query offset for
-prefill legs; the sliding window serves only the reference's training
-`forward` of rglru and waits for that slice) and a masked softmax against
-the KV cache for decode. `recurrent_prefill` scans a model's decode step
+chunked online softmax for prefill and training (causal, with a query
+offset for prefill legs; under autograd each chunk pair is recomputed in
+the backward, the reference's `jax.checkpoint`; the sliding window serves
+only the reference's training `forward` of rglru and waits for that slice)
+and a masked softmax against the KV cache for decode. `recurrent_prefill` scans a model's decode step
 over a prompt (xlstm, rglru). Activation sharding hints (`shard_act`) have
 no counterpart on one card.
 """
@@ -22,10 +25,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import prng
 from repro_torch.core.aimc import (AimcConfig, AimcLinearState, aimc_apply,
-                                   aimc_apply_experts, aimc_apply_stacked)
+                                   aimc_apply_experts, aimc_apply_stacked,
+                                   aimc_linear_ste, aimc_linear_ste_experts)
 from repro_torch.kernels.ref import EPILOGUE_FNS
 
 
@@ -101,37 +106,41 @@ def recurrent_prefill(decode_fn, cache0, tokens, n_vocab, valid_len=None):
     return last, cache
 
 
-def linear(x, w, exe: Execution, bias=None, activation: str = "none"):
+def linear(x, w, exe: Execution, key=None, bias=None,
+           activation: str = "none"):
     """The AIMC-or-digital projection. x: [..., K]; w: [K, N] or a
-    programmed `AimcLinearState`, whose epilogue runs inside the kernel
-    (serving runs noise-off: no read-noise generator is passed). An
-    `[E, ...]` programmed expert stack takes x [E, C, K] (expert e on x[e],
-    the reference's `vmap` of `linear`) and runs as one launch; a raw
-    [E, K, N] stack multiplies batched."""
+    programmed `AimcLinearState`, whose epilogue runs inside the kernel;
+    ``key`` draws read noise (and, on the fly, programming noise). An
+    `[E, ...]` expert stack takes x [E, C, K] and ``key`` [E, 2], one key
+    per expert (expert e on x[e], the reference's `vmap` of `linear`): a
+    programmed stack runs as one launch, a raw [E, K, N] stack in ``aimc``
+    mode runs the expert STE (one launch), digitally it multiplies
+    batched."""
     if isinstance(w, AimcLinearState):
         if w.stack_shape:
             if bias is not None or activation != "none":
                 raise ValueError("expert stacks carry no epilogue")
-            return aimc_apply_experts(w, x, exe.aimc).to(exe.cdtype)
-        return aimc_apply(w, x, exe.aimc, bias=bias,
+            return aimc_apply_experts(w, x, exe.aimc, key).to(exe.cdtype)
+        return aimc_apply(w, x, exe.aimc, key, bias=bias,
                           activation=activation).to(exe.cdtype)
     if exe.mode == "aimc" and not exe.programmed:
-        raise NotImplementedError(
-            "on-the-fly AIMC programming (aimc_linear_ste, noise-aware "
-            "training) is not ported yet; install an AimcProgram "
-            "(programmed=True) or run digital — see ROADMAP.md")
-    y = x.to(exe.cdtype) @ as_weight(w, exe.cdtype)
+        wf = as_weight(w, torch.float32)
+        ste = aimc_linear_ste_experts if wf.dim() == 3 else aimc_linear_ste
+        y = ste(x, wf, key, exe.aimc).to(exe.cdtype)
+    else:
+        y = x.to(exe.cdtype) @ as_weight(w, exe.cdtype)
     if bias is not None:
         y = y + bias.to(exe.cdtype)
     return EPILOGUE_FNS[activation](y)
 
 
-def linear_stack(x, ws: AimcLinearState, exe: Execution, biases=None,
-                 activations="none"):
+def linear_stack(x, ws: AimcLinearState, exe: Execution, key=None,
+                 biases=None, activations="none"):
     """Gate-fused multi-MVM: a `[G, ...]` programmed stack (built by a
     model's `fuse_gate_stacks`) sharing one input runs as ONE kernel launch
-    (K3) -> tuple of G outputs."""
-    y = aimc_apply_stacked(ws, x, exe.aimc, biases=biases,
+    (K3) -> tuple of G outputs; ``key`` draws read noise (gate g under
+    `cprng.stack_seed`)."""
+    y = aimc_apply_stacked(ws, x, exe.aimc, key, biases=biases,
                            activations=activations).to(exe.cdtype)
     return tuple(y[i] for i in range(ws.stack_shape[-1]))
 
@@ -213,7 +222,10 @@ def flash_attention(q, k, v, *, causal=True, q_offset: int = 0,
     chunked online softmax (memory O(qc*kc)), GQA-aware. Query row i sits
     at absolute position ``q_offset + i`` (a prefill leg attends over the
     earlier legs' keys). The kv chunks reduce in the same order whatever
-    the query chunking, so a leg's rows equal dense prefill's."""
+    the query chunking, so a leg's rows equal dense prefill's. Under
+    autograd each chunk pair runs under `torch.utils.checkpoint`, so the
+    backward recomputes its scores (the reference's `jax.checkpoint` of the
+    kv body) instead of keeping them."""
     b, sq0, hq, d = q.shape
     _, skv0, hkv, _ = k.shape
     qc = min(q_chunk, sq0)
@@ -229,6 +241,8 @@ def flash_attention(q, k, v, *, causal=True, q_offset: int = 0,
     scale = 1.0 / (d ** 0.5)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))   # [B, H, S, D]
     dev = q.device
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     outs = []
     for qi in range(sq // qc):
         q_blk = qh[:, :, qi * qc:(qi + 1) * qc]
@@ -238,9 +252,15 @@ def flash_attention(q, k, v, *, causal=True, q_offset: int = 0,
                  torch.zeros((b, hq, qc, d), device=dev))
         for j in range(skv // kc):
             kv_pos = j * kc + torch.arange(kc, device=dev)
-            carry = _attn_chunk(q_blk, kh[:, :, j * kc:(j + 1) * kc],
-                                vh[:, :, j * kc:(j + 1) * kc], q_pos, kv_pos,
-                                carry, scale, causal, skv0)
+            args = (q_blk, kh[:, :, j * kc:(j + 1) * kc],
+                    vh[:, :, j * kc:(j + 1) * kc], q_pos, kv_pos, carry,
+                    scale, causal, skv0)
+            if remat:
+                carry = torch.utils.checkpoint.checkpoint(
+                    _attn_chunk, *args, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                carry = _attn_chunk(*args)
         _, l, acc = carry
         outs.append((acc / l.clamp_min(1e-20)[..., None]).to(q.dtype))
     o = torch.cat(outs, dim=2)                            # [B, Hq, Sq, D]
@@ -281,10 +301,18 @@ def decode_attention(q, k_cache, v_cache, kv_len,
     return o.reshape(b, 1, hq, d).to(q.dtype)
 
 
-def swiglu(x, w_gate, w_up, w_down, exe: Execution):
-    g = linear(x, w_gate, exe)
-    u = linear(x, w_up, exe)
-    return linear(torch.nn.functional.silu(g) * u, w_down, exe)
+def split3(key):
+    """``split(key, 3)`` as three keys, or three Nones."""
+    if key is None:
+        return None, None, None
+    return tuple(prng.split(key, 3))
+
+
+def swiglu(x, w_gate, w_up, w_down, exe: Execution, key=None):
+    k1, k2, k3 = split3(key)
+    g = linear(x, w_gate, exe, k1)
+    u = linear(x, w_up, exe, k2)
+    return linear(torch.nn.functional.silu(g) * u, w_down, exe, k3)
 
 
 def _f32_only(dtype):

@@ -15,10 +15,15 @@ through a capacity-bucketed dispatch, deterministic in shape:
 
 A programmed expert stack runs each projection (gate, up, down) as ONE
 launch of K2's expert entry over all E experts, each expert on its own
-[C, d] input and DAC scale (`layers.linear` -> `aimc_apply_experts`), the
-counterpart of the reference's `vmap` over `linear`. Raw expert weights
-run three batched matmuls. The reference's `_moe_sharded` (expert
-parallelism over a ``model`` mesh axis) has no counterpart on one card.
+[C, d] input, DAC scale and read key (`layers.linear` ->
+`aimc_apply_experts`), the counterpart of the reference's `vmap` over
+`linear`; in ``aimc`` mode a raw stack runs the expert STE (noise-aware
+training: programmed per expert on every call, one launch, a batched
+straight-through backward). A ``key`` splits into E x 3 keys, expert e's
+gate, up and down keys, as the reference does. Digitally, raw expert
+weights run three batched matmuls. The aux loss and the combine are
+differentiable. The reference's `_moe_sharded` (expert parallelism over a
+``model`` mesh axis) waits for the mesh slice.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import os
 
 import torch
 
+from repro_torch.core import prng
+from repro_torch.core.aimc import AimcLinearState
 from repro_torch.models.layers import Execution, as_weight, linear
 
 
@@ -63,13 +70,9 @@ def capacity(t: int, top_k: int, e: int, capacity_factor: float) -> int:
 def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
             capacity_factor: float, exe: Execution, key=None):
     """x: [T, d]. Expert weights: [E, d, ff] / [E, ff, d] tensors or
-    programmed `[E, ...]` stacks. Returns ([T, d], aux). ``key`` (read
-    noise per expert, the reference's E x 3 split) is not ported: serving
-    runs noise off."""
-    if key is not None:
-        raise NotImplementedError(
-            "noise-on experts (a read key per expert) come with the "
-            "training slice; see ROADMAP.md")
+    programmed `[E, ...]` stacks. Returns ([T, d], aux). ``key`` splits
+    into E x 3 keys (expert e's gate, up and down projections), the
+    reference's split; serving passes none."""
     t, _ = x.shape
     # an int8 router (--int8 packs "router", an IN_PROJ name) routes on its
     # dequantized f32 weights; the reference raises there
@@ -85,17 +88,24 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     else:
         xe, slot_o = _dispatch_sort(xd, gate_idx, e, cap, top_k)
         combine = None
-    ye = _experts(xe, w_gate, w_up, w_down, exe)                   # [E, C, d]
+    ye = _experts(xe, w_gate, w_up, w_down, exe, key)              # [E, C, d]
     return _combine(ye, gate_vals, slot_o, combine, exe), aux
 
 
-def _experts(xe, w_gate, w_up, w_down, exe: Execution):
+def _experts(xe, w_gate, w_up, w_down, exe: Execution, key=None):
     """The expert FFNs on their [E, C, d] buffers: programmed stacks run
-    apply-only, one launch per projection; raw stacks are batched
-    matmuls (`layers.linear` dispatches both)."""
-    g = linear(xe, w_gate, exe)
-    u = linear(xe, w_up, exe)
-    return linear(torch.nn.functional.silu(g) * u, w_down, exe)
+    apply-only and, in ``aimc`` mode, raw stacks the expert STE, one launch
+    per projection, expert e under keys ``split(key, 3E)[3e:3e+3]``; raw
+    stacks otherwise are batched matmuls (`layers.linear` dispatches)."""
+    keys = (None, None, None)
+    if key is not None and (isinstance(w_gate, AimcLinearState)
+                            or exe.mode == "aimc"):
+        e = xe.shape[0]
+        ks = prng.split(key, e * 3).reshape(e, 3, 2)
+        keys = (ks[:, 0], ks[:, 1], ks[:, 2])
+    g = linear(xe, w_gate, exe, keys[0])
+    u = linear(xe, w_up, exe, keys[1])
+    return linear(torch.nn.functional.silu(g) * u, w_down, exe, keys[2])
 
 
 def _combine(ye, gate_vals, slot_o, combine, exe: Execution):

@@ -1,6 +1,7 @@
 """Decoder-only transformer (granite, glm4, llama3.2, qwen1.5, the
-internvl2 backbone, and the MoE olmoe and arctic); PyTorch port of the
-serving path of `repro/models/transformer.py`.
+internvl2 backbone, and the MoE olmoe and arctic); PyTorch port of
+`repro/models/transformer.py`: the training `forward` and the serving
+path.
 
 Parameters are a nested dict of tensors with the reference's keys and a
 leading layer axis on every block leaf (``blocks/wq`` is [L, D, Hq*hd]), so
@@ -22,7 +23,14 @@ reference does. The paged KV cache lives here too
 gathers and scatters are plain tensor indexing, and only the projections
 inside a prefill leg reach the crossbar kernel.
 
-The training `forward` is a later slice.
+The training `forward` (`block_forward` per layer) takes a key: layer i
+runs under ``split(rng, L)[i]`` and splits it into the 6 keys of its
+projections (wq, wk, wv, wo, the FFN, arctic's dense residual), so in
+``aimc`` mode every projection programs on the fly with its own noise
+draw (`core.aimc.aimc_linear_ste`). Each block runs under
+`torch.utils.checkpoint` (non-reentrant), the reference's `jax.checkpoint`
+of its scan body: the backward recomputes a block, kernels included,
+from the same keys. It returns the MoE aux loss summed over layers.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import prng
 from repro_torch.core.aimc import AimcLinearState, stack_states
@@ -169,40 +178,99 @@ def fuse_gate_stacks(params):
 
 
 
-def _qkv(h, blk, cfg: TransformerConfig, exe: Execution, positions):
+def _qkv(h, blk, cfg: TransformerConfig, exe: Execution, positions,
+         keys=(None,) * 6):
     b, s, _ = h.shape
     if "wqkv" in blk:      # gate-fused stack (fuse_gate_stacks, MHA)
         biases = (torch.stack([blk["bq"], blk["bk"], blk["bv"]])
                   if "bq" in blk else None)
-        q, k, v = linear_stack(h, blk["wqkv"], exe, biases=biases)
+        q, k, v = linear_stack(h, blk["wqkv"], exe, keys[0], biases=biases)
     else:
-        q = linear(h, blk["wq"], exe, bias=blk.get("bq"))
-        k = linear(h, blk["wk"], exe, bias=blk.get("bk"))
-        v = linear(h, blk["wv"], exe, bias=blk.get("bv"))
+        q = linear(h, blk["wq"], exe, keys[0], bias=blk.get("bq"))
+        k = linear(h, blk["wk"], exe, keys[1], bias=blk.get("bk"))
+        v = linear(h, blk["wv"], exe, keys[2], bias=blk.get("bv"))
     q = rope(q.reshape(b, s, cfg.n_heads, cfg.hd), positions, cfg.rope_theta)
     k = rope(k.reshape(b, s, cfg.n_kv_heads, cfg.hd), positions,
              cfg.rope_theta)
     return q, k, v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
 
 
-def _ffn(h2, blk, cfg: TransformerConfig, exe: Execution):
+def _ffn_aux(h2, blk, cfg: TransformerConfig, exe: Execution,
+             keys=(None,) * 6):
+    """The FFN of a block -> (y, MoE aux loss; 0.0 for a dense FFN)."""
     if not cfg.is_moe:
         if "w_gu" in blk:  # gate-fused stack (fuse_gate_stacks)
-            g, u = linear_stack(h2, blk["w_gu"], exe)
-            return linear(torch.nn.functional.silu(g) * u, blk["w_down"], exe)
-        return swiglu(h2, blk["w_gate"], blk["w_up"], blk["w_down"], exe)
+            g, u = linear_stack(h2, blk["w_gu"], exe, keys[4])
+            return linear(torch.nn.functional.silu(g) * u, blk["w_down"], exe,
+                          keys[5]), 0.0
+        return swiglu(h2, blk["w_gate"], blk["w_up"], blk["w_down"], exe,
+                      keys[4]), 0.0
     # MoE: every token position of the call (padding and inactive decode
-    # lanes included) is routed and takes capacity, as in the reference;
-    # serving drops the aux loss
+    # lanes included) is routed and takes capacity, as in the reference
     b, s, d = h2.shape
-    y, _ = moe_lib.moe_ffn(
+    y, aux = moe_lib.moe_ffn(
         h2.reshape(b * s, d), blk["router"], blk["we_gate"], blk["we_up"],
         blk["we_down"], top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-        exe=exe)
+        exe=exe, key=keys[4])
     y = y.reshape(b, s, d)
     if cfg.moe_dense_residual:
-        y = y + swiglu(h2, blk["wd_gate"], blk["wd_up"], blk["wd_down"], exe)
-    return y
+        y = y + swiglu(h2, blk["wd_gate"], blk["wd_up"], blk["wd_down"], exe,
+                       keys[5])
+    return y, aux
+
+
+def _ffn(h2, blk, cfg: TransformerConfig, exe: Execution):
+    """The serving FFN: serving drops the MoE aux loss."""
+    return _ffn_aux(h2, blk, cfg, exe)[0]
+
+
+def block_forward(h, blk, cfg: TransformerConfig, exe: Execution, key,
+                  positions):
+    """One training block: h [B, S, D] -> (h, aux). ``key`` splits into
+    the 6 keys of wq, wk, wv, wo, the FFN and the dense residual."""
+    keys = (tuple(prng.split(key, 6)) if key is not None
+            else (None,) * 6)
+    q, k, v = _qkv(rmsnorm(h, blk["ln1"], cfg.norm_eps), blk, cfg, exe,
+                   positions, keys)
+    att = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk)
+    b, s, _ = h.shape
+    h = h + linear(att.reshape(b, s, -1), blk["wo"], exe, keys[3])
+    ff, aux = _ffn_aux(rmsnorm(h, blk["ln2"], cfg.norm_eps), blk, cfg, exe,
+                       keys)
+    return h + ff, aux
+
+
+def forward(params, tokens, cfg: TransformerConfig, exe: Execution = None,
+            rng=None, patch_embeds=None, return_hidden: bool = False):
+    """tokens [B, S] -> (logits [B, S, V], aux): the training forward.
+
+    Layer i runs `block_forward` under ``split(rng, L)[i]`` (no key when
+    ``rng`` is None); under autograd each block is a non-reentrant
+    `torch.utils.checkpoint` region, recomputed in the backward.
+    ``return_hidden`` returns the final-normed hidden states [B, S, D] in
+    place of the logits (the train step takes a chunked cross entropy)."""
+    exe = exe or Execution()
+    b, s = tokens.shape
+    h = embed_tokens(params, tokens, cfg, exe, patch_embeds)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    layer_keys = (list(prng.split(rng, cfg.n_layers)) if rng is not None
+                  else [None] * cfg.n_layers)
+    remat = torch.is_grad_enabled()
+    aux = 0.0
+    for i in range(cfg.n_layers):
+        blk = layer_slice(params["blocks"], i)
+        if remat:
+            h, a = torch.utils.checkpoint.checkpoint(
+                block_forward, h, blk, cfg, exe, layer_keys[i], positions,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            h, a = block_forward(h, blk, cfg, exe, layer_keys[i], positions)
+        aux = aux + a
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return h, aux
+    return _logits(params, h, cfg), aux
 
 
 def embed_tokens(params, tokens, cfg: TransformerConfig, exe: Execution,

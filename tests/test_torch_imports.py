@@ -42,7 +42,12 @@ def test_every_module_is_listed():
                  "repro_torch.configs.arctic_480b",
                  "repro_torch.runtime.health", "repro_torch.runtime.chaos",
                  "repro_torch.core.placement", "repro_torch.runtime.tenancy",
-                 "repro_torch.runtime.server"):
+                 "repro_torch.runtime.server", "repro_torch.optim",
+                 "repro_torch.optim.adamw", "repro_torch.optim.adafactor",
+                 "repro_torch.optim.schedule", "repro_torch.data",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert must in mods
 
 

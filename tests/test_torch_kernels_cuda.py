@@ -523,7 +523,8 @@ def _expert_operands(e, b, kb, np_, seed, device, m=512):
 def test_expert_entry_bit_equal_to_per_expert_k2(dev, e, b, kb, np_):
     """`aimc_mvm_experts` (one launch over E experts, each on its own x[e]
     and s_x[e]) equals E K2 launches bit for bit, and its plain version
-    within the bound; E is not capped at K3's 16 gates; sigma > 0 raises."""
+    within the bound; E is not capped at K3's 16 gates; sigma > 0 without
+    read seeds raises."""
     x, w_q, s_w, s_x = _expert_operands(e, b, kb, np_, e + b, dev)
     step = adc_step_lsb(512, 1.0)
     y = aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, adc_step=step)
@@ -532,7 +533,7 @@ def test_expert_entry_bit_equal_to_per_expert_k2(dev, e, b, kb, np_):
             x[i], w_q[i], s_w[i], s_x[i:i + 1], adc_step=step)), i
     _close(y, ref.aimc_matmul_experts_ref(x, w_q, s_w, s_x, adc_step=step))
     assert not y[1].any()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="seed"):
         aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, adc_step=step, sigma=1.0)
 
 
@@ -729,3 +730,71 @@ def test_rotating_engine_launches_follow_the_state_on_card(dev):
                             rotation_params=order, **kw)
         a, b = still.serve(reqs), r_eng.serve(reqs)
         assert all(a.tokens(r.rid) == b.tokens(r.rid) for r in reqs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,b,kb,np_", [
+    (64, 1280, 4, 1024), (64, 1280, 2, 2048), (8, 5, 1, 128), (20, 3, 3, 384)],
+    ids=["olmoe we_gate train", "olmoe we_down train", "smoke", "E 20"])
+def test_expert_entry_with_seeds_equals_seeded_k2(dev, e, b, kb, np_):
+    """`aimc_mvm_experts` with a read seed per expert (sigma > 0) is one
+    launch, equal bit for bit to E K2 launches each with its own seed, and
+    within 1e-5 x max(1, max|y|) of its plain version; it differs from
+    the sigma = 0 output."""
+    x, w_q, s_w, s_x = _expert_operands(e, b, kb, np_, e + b + 7, dev)
+    step = adc_step_lsb(512, 1.0)
+    sigma = 57.5
+    seeds = [int(s) for s in np.random.default_rng(e).integers(
+        0, 2 ** 32, e, dtype=np.uint64)]
+    aimc_mvm.reset_counts()
+    y = aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, seeds, adc_step=step,
+                                  sigma=sigma)
+    assert aimc_mvm.LAUNCHES["aimc_mvm_experts"] == 1
+    for i in range(e):
+        assert torch.equal(y[i], aimc_mvm.aimc_mvm_v2(
+            x[i], w_q[i], s_w[i], s_x[i:i + 1], seeds[i], adc_step=step,
+            sigma=sigma)), i
+    _close(y, ref.aimc_matmul_experts_ref(x, w_q, s_w, s_x, seeds,
+                                          adc_step=step, sigma=sigma))
+    assert not torch.equal(y, aimc_mvm.aimc_mvm_experts(
+        x, w_q, s_w, s_x, adc_step=step))
+
+
+@pytest.mark.cuda
+def test_ste_forward_backward_on_card_matches_cpu(dev):
+    """One STE call and one expert-STE call with programming and read
+    noise on the card (K2 and the seeded expert entry) against the same
+    calls on the CPU (plain versions): outputs within the bound (the
+    programming normals agree within a few ulps, a code may move on a
+    tie), gradients equal to the straight-through matmuls within it."""
+    from repro_torch.core import aimc as ta
+    from repro_torch.core import prng
+    from repro_torch.core.noise import NoiseModel
+
+    cfg = ta.AimcConfig(noise=NoiseModel(sigma_read=0.003))
+    rng = np.random.default_rng(8)
+    cases = (((16, 700), (700, 300), ta.aimc_linear_ste, prng.PRNGKey(1)),
+             ((6, 9, 700), (6, 700, 260), ta.aimc_linear_ste_experts,
+              prng.split(prng.PRNGKey(2), 6)))
+    for xs, ws, fn, key in cases:
+        x = torch.from_numpy(rng.standard_normal(xs).astype(np.float32))
+        w = torch.from_numpy((rng.standard_normal(ws) * 0.05).astype(
+            np.float32))
+        g = torch.from_numpy(rng.standard_normal(
+            xs[:-1] + ws[-1:]).astype(np.float32))
+        outs = []
+        for d in ("cpu", dev):
+            xd = x.to(d).requires_grad_(True)
+            wd = w.to(d).requires_grad_(True)
+            aimc_mvm.reset_counts()
+            y = fn(xd, wd, key, cfg)
+            launched = sum(aimc_mvm.LAUNCHES.values())
+            outs.append((y.detach().cpu(), *(t.cpu() for t in
+                                             torch.autograd.grad(
+                                                 y, (xd, wd), g.to(d))),
+                         launched))
+        (yc, dxc, dwc, n_cpu), (yg, dxg, dwg, n_card) = outs
+        assert n_cpu == 0 and n_card == 1
+        _close(yg, yc)
+        _close(dxg, dxc)
+        _close(dwg, dwc)

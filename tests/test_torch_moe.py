@@ -264,8 +264,9 @@ def test_expert_entry_matches_vmapped_pallas_interpret():
 @pytest.mark.parametrize("input_scale", [0.0, 0.05])
 def test_apply_experts_equals_per_expert_apply(input_scale):
     """`aimc_apply_experts` (one call) equals E `aimc_apply` calls bit for
-    bit, dynamic and fixed DAC scale; read noise on experts (a noise model
-    with a key, sigma > 0, a read key to `moe_ffn`) raises."""
+    bit, dynamic and fixed DAC scale, noise off and with read noise under a
+    key per expert; the expert entry with sigma > 0 and no read seeds
+    raises; `moe_ffn` with a key runs noise-on experts."""
     rng = np.random.default_rng(1)
     w = torch.from_numpy(rng.standard_normal((5, 40, 24)).astype(np.float32))
     cfg = ta.AimcConfig(tile_rows=16, input_scale=input_scale)
@@ -277,14 +278,19 @@ def test_apply_experts_equals_per_expert_apply(input_scale):
     assert torch.equal(y, want)
     from repro_torch.core.noise import NoiseModel
     noisy = dataclasses.replace(cfg, noise=NoiseModel(sigma_read=0.003))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ta.aimc_apply_experts(st, x, noisy, prng.PRNGKey(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    keys = prng.split(prng.PRNGKey(0), 5)
+    y = ta.aimc_apply_experts(st, x, noisy, keys)
+    want = torch.stack([ta.aimc_apply(st[i], x[i], noisy, keys[i])
+                        for i in range(5)])
+    assert torch.equal(y, want)
+    with pytest.raises(ValueError, match="seed"):
         tops.aimc_matmul_experts(x, st.w_q, st.s_w, torch.ones(5),
                                  adc_step=1.0, sigma=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.moe_ffn(x[0], torch.zeros(40, 5), st, st, st, top_k=1,
-                     capacity_factor=1.25, exe=T32, key=prng.PRNGKey(0))
+    w_ff = ta.program_stacked(torch.from_numpy(
+        rng.standard_normal((5, 24, 40)).astype(np.float32)), cfg)
+    y, _ = tmoe.moe_ffn(x[0], torch.zeros(40, 5), st, st, w_ff, top_k=1,
+                        capacity_factor=1.25, exe=T32, key=prng.PRNGKey(0))
+    assert tuple(y.shape) == (3, 40) and torch.isfinite(y).all()
 
 
 # ---------------------------------------------------------------------------

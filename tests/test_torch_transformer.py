@@ -224,13 +224,20 @@ def test_init_keeps_no_generator_and_refuses_unported():
 
 
 def test_unported_paths_raise():
+    """What is not ported raises (the enc-dec arch, bf16 weight init); the
+    on-the-fly AIMC linear is ported now and runs the STE."""
     with pytest.raises(NotImplementedError):
         tget("seamless-m4t-large-v2")
     with pytest.raises(KeyError):
         tget("no-such-arch")
     with pytest.raises(NotImplementedError):
-        tl.linear(torch.zeros(1, 4), torch.zeros(4, 4),
-                  TExe(mode="aimc", programmed=False))
+        tl.dense_init(prng.PRNGKey(0), 4, 4, dtype=torch.bfloat16,
+                      device="cpu")
+    x = torch.linspace(-1.0, 1.0, 8).reshape(2, 4)
+    w = torch.linspace(-0.5, 0.5, 16).reshape(4, 4)
+    exe = TExe(mode="aimc", programmed=False, compute_dtype="float32")
+    assert torch.equal(tl.linear(x, w, exe),
+                       ta.aimc_linear_ste(x, w, None, exe.aimc))
 
 
 # ---------------------------------------------------------------------------
