@@ -7,7 +7,9 @@ crossbars, dense, paged and through recurrent snapshot pages, granite-8b
 also under chaos and drift with hot recalibration, int8-native and under
 a cost-model placement that rotates layer groups through a tile budget,
 granite-8b and xlstm-350m together on one tile pool behind the
-multi-tenant server, train olmoe-1b-7b (4 of 16 layers) noise-aware, and
+multi-tenant server, train olmoe-1b-7b (4 of 16 layers) noise-aware and
+so the recurrent and enc-dec families (xlstm-350m and
+seamless-m4t-large-v2 uncut, recurrentgemma-9b at 3 of 38 layers), and
 run the paper's MLP, LSTM and CNN-F/M/S at theirs with read noise on,
 single-core and in the paper's multi-core mappings, through the
 hand-written Hopper kernels K1-K4 and K2's expert entry.
@@ -225,12 +227,12 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      block recomputed in the backward. (a) `python -m
      repro_torch.launch.train ... --steps 4` digitally in bf16: finite
      losses, the last below the first, no crossbar launch; (b) the same
-     with --exec aimc (the reference CLI's noise-off AIMC), 3 steps: the
+     with --exec aimc (the reference CLI's noise-off AIMC), 2 steps: the
      last loss at most 1.05 x the first, exactly 64 K2 + 48 expert-entry
      launches per step (2 microbatches x 4 layers x (4 + 3) x forward and
      recompute), counts zeroed just before and read just after; (c)
      `make_train_step` driven directly with the paper's noise
-     (sigma_read 0.003, programming noise at its defaults), 3 steps: the
+     (sigma_read 0.003, programming noise at its defaults), 2 steps: the
      same bars and counts, every expert-entry call with E distinct read
      seeds; on the first call's operands at each expert shape the seeded
      entry is within 1e-5 x max(1, max|y|) of its plain version, equal bit
@@ -251,14 +253,53 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      bit-equal, the resumed steps 3-4 equal the uninterrupted losses bit
      for bit.
      The full-width legs write no checkpoint.
+ 21. train families — noise-aware training of the recurrent and enc-dec
+     families at their published widths, weights from seed 0 on JAX's keys,
+     every block (pair, unit, layer) recomputed in the backward. (a)
+     xlstm-350m uncut (24 layers): the train CLI digitally in bf16 at global
+     batch 2 x 64 (2 microbatches), 2 steps (finite losses, the last below
+     the first, no crossbar launch), then `make_train_step` with the paper's
+     noise at 1 x 1024 (2 mLSTM chunks; the sLSTM loop's host time sets the
+     batch: a noise-on step at 1 x 1024 takes ~39 s), 2 steps: the last loss
+     at most 1.05 x the first, exactly 264 K2 per step (11 per pair x 12
+     pairs x forward and recompute), the sLSTM loops' host time read from a
+     host-clock range. (b) recurrentgemma-9b at 3 of 38 layers (one unit:
+     two RG-LRU blocks and a local-attention block), batch 1 x 4096 so the
+     2048 window binds: the train step's own microbatch loss and gradients
+     (`launch.steps.make_micro_grad`), digitally and with noise on, one
+     profiled pass each, 46 K2 on the noise-on pass, every gradient finite;
+     no optimizer update (AdamW's update needs ~77 GB at 2.75e9 params). (c)
+     seamless-m4t-large-v2 uncut (24 + 24 layers): the CLI digitally for one
+     step of its own batch (2 x 4096 zero frames, 512 target tokens): a
+     finite loss, and before the clip the pattern that the reference's zero
+     frames give at this depth: some encoder gradients overflow, every
+     decoder, norm, embedding and head gradient is finite (any other
+     non-finite pattern fails); then `make_train_step` on seeded random
+     frames with `batch_shapes`' 1024 target tokens, digitally and with
+     noise on, 2 steps each, 1536 K2 per noise-on step; the same bars as
+     (a). Counts are zeroed just before and read just after each leg. Each
+     leg prints ms/step (host), tok/s, the profiled last step's device busy
+     and idle share, K2 device ms and peak GB (the xlstm and seamless steps
+     profile the device activity alone: collecting their ~10^6 host-op
+     events took minutes). (d) On the card at published widths, uncut,
+     digital f32: xlstm-350m's and recurrentgemma-9b's `forward` over 2 x 16
+     tokens equals 16 `decode_step`s at the last position within the
+     reference's atol 5e-3. (e) One noise-on train step of each family's
+     smoke config on the card and on the CPU from one state, as in phase 20
+     (d), DAC codes replayed at ties, every gradient leaf within 1e-4 of its
+     max. (f) K2 on the first noise-on call's operands at every training
+     shape of (a)-(c) (B 1024 to 4096 rows, up to 4096 -> 12288): within
+     1e-5 x max(1, max|y|) of its plain version, different from its sigma =
+     0 output, timed against its bound.
 
 The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
 per-kernel JSON record (K2/K3 timed per granite layer at decode, K1/K4 per
 MLP forward, the expert entry per olmoe-1b-7b training layer and
 microbatch with read noise on, its launches those of phase 20's noise-on
-leg). Each phase's seconds are printed as it ends. Details go to
-chiprun_out/chip_smoke.json.
+leg; K2's max |err| covers its training shapes of phases 20-21, listed
+under ``train_shapes`` as padded B x K -> N). Each phase's seconds are
+printed as it ends. Details go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -3826,7 +3867,7 @@ CROSSBAR_KERNELS = ("aimc_mvm_mma_kernel", "aimc_dac_kernel",
                     "aimc_rowblock_sum_kernel")
 
 
-def train_step_profile(fn, dev):
+def train_step_profile(fn, dev, extra=None, cpu_ops=True):
     """One train step under torch.profiler, read from its raw kineto
     events (a noise-on step issues ~10^5 kernels; building the profiler's
     event tree for them took minutes): host-clock ms, device busy (the
@@ -3834,7 +3875,11 @@ def train_step_profile(fn, dev):
     crossbar kernels' device ms (by name: K2 and the expert entry share
     them), and, for the programming (`core.aimc.program_stacked`), K2 and
     expert-entry calls run inside named ranges, each range's device ms
-    (its GPU annotation spans) and host ms."""
+    (its GPU annotation spans) and host ms; ``extra`` ({label: (module,
+    name)}) adds ranges. ``cpu_ops=False`` records the device activity
+    alone (no operator events, no range device ms): collecting the events
+    of a step of ~10^6 small host ops took minutes."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3843,49 +3888,64 @@ def train_step_profile(fn, dev):
 
     names = {"train:program": (core_aimc, "program_stacked"),
              "train:k2": (aimc_mvm, "aimc_mvm_v2"),
-             "train:experts": (aimc_mvm, "aimc_mvm_experts")}
+             "train:experts": (aimc_mvm, "aimc_mvm_experts"), **(extra or {})}
     host = {}
     with contextlib.ExitStack() as stack:
         for label, (mod, attr) in names.items():
             stack.enter_context(patched(
                 mod, attr,
                 lambda orig, label=label: _ranged(label, orig, host)))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # only the raw kineto events are read: skip building the profiler's
+        # Python event list (per event, minutes at ~10^6 kernels)
+        legacy = torch.autograd.profiler.profile
+        if hasattr(legacy, "_parse_kineto_results"):
+            stack.enter_context(patched(
+                legacy, "_parse_kineto_results",
+                lambda _orig: lambda self, result: []))
+        with profile(activities=([ProfilerActivity.CPU] if cpu_ops else [])
+                     + [ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize(dev)
             wall_us = (time.perf_counter() - t) * 1e6
-    def annotation(ev, name):
-        # a GPU span of a profiler range, not a kernel (torch versions
-        # differ in which of these they offer)
-        if name in names:
-            return True
-        if hasattr(ev, "is_user_annotation"):
-            return bool(ev.is_user_annotation())
-        return "annotation" in str(getattr(ev, "activity_type",
-                                           lambda: "")())
-
-    spans, crossbar_ns, parts = [], 0, {}
+    # one pass over the raw events (~2 per kernel at ~13 us each on an
+    # H100's host, so the fewest calls per event); a GPU span of a
+    # profiler range is an annotation, not a kernel (torch versions
+    # differ in which test they offer)
+    if hasattr(torch._C._autograd._KinetoEvent, "is_user_annotation"):
+        def annotation(ev):
+            return ev.is_user_annotation()
+    else:
+        def annotation(ev):
+            return "annotation" in str(ev.activity_type())
+    cuda = torch.autograd.DeviceType.CUDA
+    starts, ends, by_name, parts = [], [], {}, {}
     for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+        if ev.device_type() != cuda:
             continue
         name = ev.name()
-        a, d = ev.start_ns(), ev.duration_ns()
-        if annotation(ev, name):
+        d = ev.duration_ns()
+        if name in names or annotation(ev):
             if name in names:
                 p = parts.setdefault(name, {"calls": 0, "device_ms": 0.0})
                 p["calls"] += 1
                 p["device_ms"] += d / 1e6
             continue
-        spans.append((a, a + d))
-        if any(k in name for k in CROSSBAR_KERNELS):
-            crossbar_ns += d
-    busy_ns, end = 0, -float("inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy_ns += b - max(a, end)
-            end = b
+        a = ev.start_ns()
+        starts.append(a)
+        ends.append(a + d)
+        by_name[name] = by_name.get(name, 0) + d
+    spans = len(starts)
+    crossbar_ns = sum(v for k, v in by_name.items()
+                      if any(c in k for c in CROSSBAR_KERNELS))
+    busy_ns = 0
+    if spans:
+        order = np.argsort(np.asarray(starts, np.int64), kind="stable")
+        st = np.asarray(starts, np.int64)[order]
+        en = np.asarray(ends, np.int64)[order]
+        reach = np.maximum.accumulate(en)
+        before = np.concatenate([[np.iinfo(np.int64).min], reach[:-1]])
+        busy_ns = int(np.maximum(reach - np.maximum(st, before), 0).sum())
     for label in names:
         if label in host:
             parts.setdefault(label, {"calls": None, "device_ms": None})
@@ -3914,11 +3974,15 @@ def _param_count(tree) -> int:
 
 
 def _train_summary(tag, losses, step_s, prof, counts, steps, peak_gb,
-                   init_s, card):
+                   init_s, card, tokens=None):
     """ms/step over the steps between the first (warm-up) and the last
-    (profiled), the profile's busy/idle share and parts, printed."""
-    timed_steps = sorted(step_s)[1:-1] or sorted(step_s)[-1:]
-    ms = sum(step_s[s] for s in timed_steps) / len(timed_steps) * 1e3
+    (profiled); with no step between them, the profiled step's own wall
+    (the profiler on, its event collection after it excluded). tok/s of
+    ``tokens`` per step, the profile's busy/idle share and parts,
+    printed."""
+    timed_steps = sorted(step_s)[1:-1]
+    ms = (sum(step_s[s] for s in timed_steps) / len(timed_steps) * 1e3
+          if timed_steps else prof["profiled_ms"])
     parts = prof["parts"]
 
     def dms(key):
@@ -3926,15 +3990,21 @@ def _train_summary(tag, losses, step_s, prof, counts, steps, peak_gb,
         # time the profiler did not attribute is "not measured"
         return parts[key].get("device_ms") if key in parts else 0.0
 
+    k2_ms = dms("train:k2")
+    if k2_ms is None and not counts.get("aimc_mvm_experts"):
+        # no range spans (device activity alone): K2 is every crossbar kernel
+        k2_ms = prof["crossbar_kernels_ms"]
     out = {"losses": [losses[s] for s in sorted(losses)], "ms_per_step": ms,
-           "timed_steps": timed_steps, "launches": counts,
+           "tok_s": tokens / ms * 1e3 if tokens else None,
+           "timed_steps": timed_steps,
+           "step_s": [step_s[s] for s in sorted(step_s)], "launches": counts,
            "launches_per_step": {k: v / steps for k, v in counts.items()
                                  if v},
            "peak_gb": peak_gb, "init_s": init_s,
            "profiled_step_ms": prof["profiled_ms"],
            "device_busy_ms": prof["device_busy_ms"],
            "device_idle_share": prof["device_idle_share"],
-           "k2_device_ms": dms("train:k2"),
+           "k2_device_ms": k2_ms,
            "experts_device_ms": dms("train:experts"),
            "programming_device_ms": dms("train:program"),
            "crossbar_kernels_ms": prof["crossbar_kernels_ms"],
@@ -3945,8 +4015,10 @@ def _train_summary(tag, losses, step_s, prof, counts, steps, peak_gb,
     def f(v):
         return "not measured" if v is None else f"{v:.2f} ms"
 
+    tok = f", {out['tok_s']:,.0f} tok/s" if tokens else ""
+    which = f"steps {timed_steps}" if timed_steps else "the profiled step"
     print(f"[train] {tag}: losses {out['losses']}; {ms:.1f} ms/step (host, "
-          f"steps {timed_steps}); profiled step {prof['profiled_ms']:.1f} "
+          f"{which}{tok}); profiled step {prof['profiled_ms']:.1f} "
           f"ms, device busy {f(prof['device_busy_ms'])}, idle share "
           f"{prof['device_idle_share']}; K2 device {f(out['k2_device_ms'])}, "
           f"expert device {f(out['experts_device_ms'])} (their CUDA kernels "
@@ -3958,7 +4030,7 @@ def _train_summary(tag, losses, step_s, prof, counts, steps, peak_gb,
     return out
 
 
-def _profiling_last_step(steps, dev, holder):
+def _profiling_last_step(steps, dev, holder, cpu_ops=True):
     """A `launch.steps.make_step` whose bundle profiles its last call
     (`train_step_profile`) and runs the others as they are."""
     from repro_torch.launch import steps as steps_mod
@@ -3974,33 +4046,36 @@ def _profiling_last_step(steps, dev, holder):
                 return fn(*sa)
             out = {}
             holder["profile"] = train_step_profile(
-                lambda: out.setdefault("r", fn(*sa)), dev)
+                lambda: out.setdefault("r", fn(*sa)), dev, cpu_ops=cpu_ops)
             return out["r"]
 
         return dataclasses.replace(bundle, fn=step)
     return patched(steps_mod, "make_step", lambda _orig: make)
 
 
-def train_cli_leg(dev, tag, extra, steps, card):
-    """`python -m repro_torch.launch.train` at olmoe-1b-7b's published
-    widths, 4 of 16 layers, global batch 8 x 2048 (2 microbatches of
-    4): losses finite, launch counts zeroed just before and read just
-    after; the last step profiled."""
+def train_cli_leg(dev, tag, extra, steps, card, base=None,
+                  keep_params=False, cpu_ops=True):
+    """`python -m repro_torch.launch.train` on ``base`` (default olmoe-1b-7b
+    at its published widths, 4 of 16 layers, global batch 8 x 2048 in 2
+    microbatches of 4): losses finite, launch counts zeroed just before
+    and read just after; the last step profiled. ``keep_params`` returns
+    the final parameters under "final_params"."""
     import torch
 
     from repro_torch.kernels import aimc_mvm
     from repro_torch.launch import train
 
-    args = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS), "--steps",
-            str(steps), "--global-batch", str(TRAIN_GB), "--seq-len",
-            str(TRAIN_SEQ), "--log-every", "1", "--device", str(dev),
-            *extra]
+    if base is None:
+        base = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS),
+                "--global-batch", str(TRAIN_GB), "--seq-len", str(TRAIN_SEQ)]
+    args = [*base, "--steps", str(steps), "--log-every", "1", "--device",
+            str(dev), *extra]
     print(f"[train] python -m repro_torch.launch.train {' '.join(args)}",
           flush=True)
     holder = {}
     torch.cuda.reset_peak_memory_stats(dev)
     aimc_mvm.reset_counts()
-    with _profiling_last_step(steps, dev, holder):
+    with _profiling_last_step(steps, dev, holder, cpu_ops):
         run = train.main(args)
     torch.cuda.synchronize(dev)
     counts = {k: v for k, v in aimc_mvm.LAUNCHES.items() if v}
@@ -4010,9 +4085,13 @@ def train_cli_leg(dev, tag, extra, steps, card):
           and all(math.isfinite(v) for v in losses.values()),
           f"train {tag}: losses {losses}")
     n_params = _param_count(run.params)
+    tokens = (int(args[args.index("--global-batch") + 1])
+              * int(args[args.index("--seq-len") + 1]))
     out = _train_summary(tag, losses, run.step_s, holder["profile"], counts,
-                         steps, peak_gb, run.init_s, card)
+                         steps, peak_gb, run.init_s, card, tokens)
     out["params"] = n_params
+    if keep_params:
+        out["final_params"] = run.params
     del run
     return out
 
@@ -4037,12 +4116,13 @@ def _expert_calls_recorder(calls, distinct):
 
 
 def _k2_calls_recorder(calls):
-    """Wrap `aimc_mvm.aimc_mvm_v2`: keep the operands of the first call at
-    each (x, w_q) shape for the kernel checks (no extra launch)."""
+    """Wrap `aimc_mvm.aimc_mvm_v2`: keep the operands of the first noise-on
+    (seeded) call at each (x, w_q) shape for the kernel checks (no extra
+    launch; the enc-dec decoder's ``cv`` reads under no key)."""
     def make(orig):
         def rec(x, w_q, s_w, s_x, seed=None, bias=None, **kw):
             key = (tuple(x.shape), tuple(w_q.shape))
-            if key not in calls:
+            if key not in calls and seed is not None:
                 calls[key] = dict(x=x, w_q=w_q, s_w=s_w, s_x=s_x, seed=seed,
                                   bias=bias, kw=kw)
             return orig(x, w_q, s_w, s_x, seed, bias, **kw)
@@ -4161,47 +4241,43 @@ def train_expert_rows(calls, peaks, card):
     return rows
 
 
-def train_noise_leg(dev, peaks, card, steps=3):
-    """`make_train_step` driven directly with the paper's noise
-    (`paper_noise()`: sigma_read 0.003, programming noise at its
-    defaults), 3 steps at the CLI legs' shapes: finite losses, the last at
-    most 1.05 x the first, the same exact launch counts, E distinct read
-    seeds on every expert-entry call; then the kernel checks of
-    `train_expert_rows`."""
+def direct_train_steps(dev, card, tag, spec, cell, steps, batch_at, want,
+                       wraps=(), ranges=None, noise=True, cpu_ops=True):
+    """`make_train_step` driven directly in bf16 (``noise``: AIMC with the
+    paper's noise, `paper_noise()`: sigma_read 0.003, programming noise at
+    its defaults; else digital) for ``steps`` steps on ``batch_at(step)``,
+    weights from SEED on JAX's keys, the last step profiled, each kernel
+    wrapper in ``wraps`` ((module, name, make)) patched for the run:
+    finite losses, the last at most 1.05 x the first (noise on) or below
+    it (digital), and launch counts (zeroed just before, read just after)
+    exactly ``want`` per step."""
     import torch
 
-    from repro_torch.configs import ShapeCell
     from repro_torch.core.aimc import AimcConfig
     from repro_torch.core.prng import PRNGKey
-    from repro_torch.data.pipeline import DataConfig, host_batch
     from repro_torch.kernels import aimc_mvm
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.layers import Execution
     from repro_torch.optim import make_optimizer
 
-    spec = _train_spec()
-    cfg = spec.model_cfg
-    exe = Execution(mode="aimc", aimc=AimcConfig(noise=paper_noise()),
-                    compute_dtype="bfloat16")
-    cell = ShapeCell("train", TRAIN_SEQ, TRAIN_GB, "train")
+    exe = (Execution(mode="aimc", aimc=AimcConfig(noise=paper_noise()),
+                     compute_dtype="bfloat16") if noise
+           else Execution(compute_dtype="bfloat16"))
     fn = make_train_step(spec, cell, None, exe).fn
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params = spec.model_module().init(PRNGKey(SEED), cfg, device=dev)
+    params = spec.model_module().init(PRNGKey(SEED), spec.model_cfg,
+                                      device=dev)
     opt = make_optimizer(spec.optimizer)[0](params)
     torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
-    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                      global_batch=TRAIN_GB, seed=SEED)
-    calls, k2_calls, distinct = {}, {}, []
     losses, step_s, prof = {}, {}, None
     aimc_mvm.reset_counts()
-    with patched(aimc_mvm, "aimc_mvm_experts",
-                 _expert_calls_recorder(calls, distinct)), \
-            patched(aimc_mvm, "aimc_mvm_v2", _k2_calls_recorder(k2_calls)):
+    with contextlib.ExitStack() as stack:
+        for mod, name, make in wraps:
+            stack.enter_context(patched(mod, name, make))
         for step in range(steps):
-            batch = {k: torch.from_numpy(v).to(dev)
-                     for k, v in host_batch(dcfg, step, 0, 1).items()}
+            batch = batch_at(step)
             rng = torch.tensor([SEED, step], dtype=torch.int64)
             t = time.perf_counter()
             if step < steps - 1:
@@ -4209,28 +4285,59 @@ def train_noise_leg(dev, peaks, card, steps=3):
             else:
                 res = {}
                 prof = train_step_profile(lambda: res.setdefault(
-                    "r", fn(params, opt, batch, rng)), dev)
+                    "r", fn(params, opt, batch, rng)), dev, ranges, cpu_ops)
                 params, opt, met = res["r"]
             losses[step] = float(met["loss"])
             step_s[step] = time.perf_counter() - t
     torch.cuda.synchronize(dev)
     counts = {k: v for k, v in aimc_mvm.LAUNCHES.items() if v}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    check(all(math.isfinite(v) for v in losses.values())
-          and losses[steps - 1] <= 1.05 * losses[0],
-          f"noise-on training: losses {losses} (finite, last <= 1.05 x "
-          f"first)")
-    check(counts == {"aimc_mvm_v2": TRAIN_K2_PER_STEP * steps,
-                     "aimc_mvm_experts": TRAIN_EX_PER_STEP * steps},
-          f"noise-on training launches {counts} != "
-          f"{TRAIN_K2_PER_STEP} K2 + {TRAIN_EX_PER_STEP} expert per step")
-    check(distinct and all(distinct), "an expert-entry call without E "
-          "distinct read seeds")
-    out = _train_summary("noise on", losses, step_s, prof, counts, steps,
-                         peak_gb, init_s, card)
+    bar = (losses[steps - 1] <= 1.05 * losses[0] if noise
+           else losses[steps - 1] < losses[0])
+    check(all(math.isfinite(v) for v in losses.values()) and bar,
+          f"{tag} training: losses {losses} (finite; the last "
+          f"{'<= 1.05 x' if noise else 'below'} the first)")
+    check(counts == {k: v * steps for k, v in want.items()},
+          f"{tag} training launches {counts} != {want} per step")
+    out = _train_summary(tag, losses, step_s, prof, counts,
+                         steps, peak_gb, init_s, card,
+                         cell.global_batch * cell.seq_len)
+    out["params"] = _param_count(params)
     del params, opt, met, batch
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def train_noise_leg(dev, peaks, card, steps=2):
+    """olmoe's noise-on leg (`direct_train_steps`) at the CLI legs' shapes:
+    E distinct read seeds on every expert-entry call; then the kernel
+    checks of `train_expert_rows` and `train_k2_rows`."""
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import aimc_mvm
+
+    spec = _train_spec()
+    dcfg = DataConfig(vocab=spec.model_cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_GB, seed=SEED)
+
+    def batch_at(step):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in host_batch(dcfg, step, 0, 1).items()}
+
+    calls, k2_calls, distinct = {}, {}, []
+    out = direct_train_steps(
+        dev, card, "noise on", spec,
+        ShapeCell("train", TRAIN_SEQ, TRAIN_GB, "train"), steps, batch_at,
+        {"aimc_mvm_v2": TRAIN_K2_PER_STEP,
+         "aimc_mvm_experts": TRAIN_EX_PER_STEP},
+        [(aimc_mvm, "aimc_mvm_experts",
+          _expert_calls_recorder(calls, distinct)),
+         (aimc_mvm, "aimc_mvm_v2", _k2_calls_recorder(k2_calls))])
+    check(distinct and all(distinct), "an expert-entry call without E "
+          "distinct read seeds")
     out["expert_rows"] = train_expert_rows(calls, peaks, card)
     out["k2_rows"] = train_k2_rows(k2_calls, peaks, card)
     out["distinct_seed_calls"] = len(distinct)
@@ -4291,13 +4398,15 @@ def _dac_replay(card_log, seen):
 
 
 def train_card_vs_cpu(dev, arch):
-    """One noise-on train step of ``arch``'s smoke config on the card
-    (kernels) and on the CPU (plain versions) from one state. The card
-    runs first and logs every K2/expert call's DAC codes; the CPU run
+    """One noise-on train step of ``arch``'s smoke config (global batch 8 x
+    32; the enc-dec batch: seeded frames [8, 32, d], 16 target tokens) on
+    the card (kernels) and on the CPU (plain versions) from one state. The
+    card runs first and logs every K2/expert call's DAC codes; the CPU run
     replays them (`_dac_replay`), so a code that rounds the other way at a
     tie is taken out of the comparison (counted) and a code that differs
     away from a tie fails. Then the loss is within 1e-5 relative and every
     accumulated gradient leaf within TRAIN_GTOL x max|leaf|."""
+    import numpy as np
     import torch
 
     from repro_torch.configs import ShapeCell
@@ -4319,6 +4428,11 @@ def train_card_vs_cpu(dev, arch):
                                      global_batch=8, seed=SEED), 0, 0, 1)
     rng = torch.tensor([SEED, 0], dtype=torch.int64)
     params = spec.model_module().init(PRNGKey(SEED), cfg, device="cpu")
+    if spec.family == "audio":
+        batch_np = {"frames": np.random.default_rng(SEED).standard_normal(
+                        (8, 32, cfg.d_model)).astype(np.float32),
+                    "tokens": batch_np["tokens"][:, :16],
+                    "labels": batch_np["labels"][:, :16]}
     card_log, seen = [], {"calls": 0, "codes": 0, "away": 0}
     res = {}
     for where in (dev, "cpu"):
@@ -4444,11 +4558,11 @@ def train_phase(dev, peaks, card):
     gc.collect()
     torch.cuda.empty_cache()
     leg = train_cli_leg(dev, "--exec aimc (noise off)", ["--exec", "aimc"],
-                        3, card)
+                        2, card)
     check(leg["losses"][-1] <= 1.05 * leg["losses"][0],
           f"--exec aimc: losses {leg['losses']}")
-    check(leg["launches"] == {"aimc_mvm_v2": TRAIN_K2_PER_STEP * 3,
-                              "aimc_mvm_experts": TRAIN_EX_PER_STEP * 3},
+    check(leg["launches"] == {"aimc_mvm_v2": TRAIN_K2_PER_STEP * 2,
+                              "aimc_mvm_experts": TRAIN_EX_PER_STEP * 2},
           f"--exec aimc launches {leg['launches']} != {TRAIN_K2_PER_STEP} "
           f"K2 + {TRAIN_EX_PER_STEP} expert per step")
     out["aimc"] = leg
@@ -4465,6 +4579,347 @@ def train_phase(dev, peaks, card):
         out["resume"] = train_resume(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# the recurrent and enc-dec families' training (phase 21)
+FAM_XLSTM, FAM_RGLRU, FAM_ENCDEC = ("xlstm-350m", "recurrentgemma-9b",
+                                    "seamless-m4t-large-v2")
+XLSTM_GB, XLSTM_SEQ = 2, 64            # the CLI: 2 microbatches of one
+                                       # partial mLSTM chunk
+XLSTM_NOISE_GB, XLSTM_NOISE_SEQ = 1, 1024   # noise on: 2 mLSTM chunks, K2
+                                            # at B 1024; the sLSTM loop's
+                                            # host time sets the batch
+RGLRU_LAYERS, RGLRU_SEQ = 3, 4096      # one unit; the 2048 window binds
+ENCDEC_GB, ENCDEC_SEQ = 2, 4096        # frames; 1024 target tokens
+                                       # (batch_shapes), 512 in the CLI
+DECODE_LEN, DECODE_ATOL = 16, 5e-3     # tests/test_models_smoke.py:166-172
+
+
+def family_k2_per_pass(spec) -> int:
+    """K2 launches of one training forward of ``spec``'s model (each
+    projection's STE once): xlstm 11 per pair (7 mLSTM + 4 sLSTM), rglru 8
+    per recurrent and 7 per attention block, enc-dec 6 per encoder and 10
+    per decoder layer (``cv`` included, which reads under no key)."""
+    cfg = spec.model_cfg
+    if spec.module == "xlstm":
+        return 11 * cfg.n_pairs
+    if spec.module == "rglru":
+        return (8 + 8 + 7) * cfg.n_units + 8 * cfg.n_tail
+    return 6 * cfg.n_enc_layers + 10 * cfg.n_dec_layers
+
+
+def _family_spec(arch, layers=0):
+    from repro_torch.configs import get_arch
+    spec = get_arch(arch)
+    cfg = (dataclasses.replace(spec.model_cfg, n_layers=layers) if layers
+           else spec.model_cfg)
+    return dataclasses.replace(spec, model_cfg=cfg)
+
+
+def _cli_digital(dev, card, arch, base, steps=2, cpu_ops=True):
+    """The train CLI digitally (bf16): finite losses, the last below the
+    first, no crossbar launch."""
+    leg = train_cli_leg(dev, f"{arch} digital (bf16)", [], steps, card,
+                        base=["--arch", arch, *base], cpu_ops=cpu_ops)
+    check(leg["losses"][-1] < leg["losses"][0],
+          f"{arch} digital training did not learn: {leg['losses']}")
+    check(not leg["launches"], f"{arch} digital training launched crossbar "
+          f"kernels: {leg['launches']}")
+    return leg
+
+
+def xlstm_train_leg(dev, peaks, card):
+    """xlstm-350m uncut: the CLI digitally at global batch 2 x 64 (2
+    microbatches), then `make_train_step` with the paper's noise at 1 x
+    1024 (one microbatch of 2 mLSTM chunks, so the chunk-carried (C, n, m)
+    and K2 at B 1024 run) at 264 K2 per step, each profiled step recording
+    the device activity alone; the sLSTM loop's host time (forward and
+    recompute) from a host-clock range; K2 at each shape. The sizes: the
+    sLSTM loop issues ~30 autograd ops per position and block in the
+    forward, again in the recompute and ~2x in the backward, so a step's
+    host time grows with batch x length (a noise-on step at 1 x 1024 took
+    38.7 s and a digital CLI step at 2 x 128 9.8 s on an H100's host,
+    measured with this function)."""
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.models import xlstm
+
+    spec = _family_spec(FAM_XLSTM)
+    cfg = spec.model_cfg
+    base = ["--global-batch", str(XLSTM_GB), "--seq-len", str(XLSTM_SEQ)]
+    out = {"digital": _cli_digital(dev, card, FAM_XLSTM, base,
+                                   cpu_ops=False)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_micro = XLSTM_NOISE_GB // spec.microbatch
+    want = 2 * family_k2_per_pass(spec) * n_micro
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=XLSTM_NOISE_SEQ,
+                      global_batch=XLSTM_NOISE_GB, seed=SEED)
+
+    def batch_at(step):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in host_batch(dcfg, step, 0, 1).items()}
+
+    k2_calls = {}
+    leg = direct_train_steps(
+        dev, card, f"{FAM_XLSTM} noise on", spec,
+        ShapeCell("train", XLSTM_NOISE_SEQ, XLSTM_NOISE_GB, "train"), 2,
+        batch_at, {"aimc_mvm_v2": want},
+        [(aimc_mvm, "aimc_mvm_v2", _k2_calls_recorder(k2_calls))],
+        {"train:slstm": (xlstm, "_slstm_seq")}, cpu_ops=False)
+    slstm = leg["parts"].get("train:slstm", {})
+    leg["slstm_host_ms"] = slstm.get("host_ms")
+    print(f"[train] {FAM_XLSTM}: the sLSTM loops ({cfg.n_pairs} blocks x "
+          f"{XLSTM_NOISE_SEQ} positions x {n_micro} microbatch, forward and "
+          f"recompute) took {leg['slstm_host_ms']:.1f} ms of host in the "
+          f"profiled step of {leg['profiled_step_ms']:.1f} ms on {card}",
+          flush=True)
+    leg["k2_rows"] = train_k2_rows(k2_calls, peaks, card)
+    out["noise"] = leg
+    return out
+
+
+def rglru_train_leg(dev, peaks, card):
+    """recurrentgemma-9b at 3 of 38 layers (one unit), batch 1 x 4096:
+    the train step's own microbatch loss and gradients
+    (`launch.steps.make_micro_grad`), digitally (bf16) and with the
+    paper's noise, one profiled pass each, 46 K2 on the noise-on pass;
+    gradients finite. No optimizer update: at 3 layers the model holds
+    2.75e9 params, and the AdamW update (new params and moments built
+    while the old live, ~28 B/param) needs ~77 GB beside the
+    activations."""
+    import torch
+
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.prng import PRNGKey, fold_in
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch.steps import make_micro_grad
+    from repro_torch.models.layers import Execution
+
+    spec = _family_spec(FAM_RGLRU, RGLRU_LAYERS)
+    cfg = spec.model_cfg
+    check(cfg.n_units == 1 and cfg.n_tail == 0 and cfg.window < RGLRU_SEQ,
+          f"rglru leg config {cfg}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = spec.model_module().init(PRNGKey(SEED), cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    mb = {k: torch.from_numpy(v).to(dev) for k, v in host_batch(
+        DataConfig(vocab=cfg.vocab, seq_len=RGLRU_SEQ, global_batch=1,
+                   seed=SEED), 0, 0, 1).items()}
+    key = fold_in(torch.tensor([SEED, 0], dtype=torch.int64), 0)
+    out = {"params": _param_count(params), "init_s": init_s}
+    legs = (("digital (bf16)", Execution(compute_dtype="bfloat16"), {}),
+            ("noise on", Execution(mode="aimc", aimc=AimcConfig(
+                noise=paper_noise()), compute_dtype="bfloat16"),
+             {"aimc_mvm_v2": 2 * family_k2_per_pass(spec)}))
+    k2_calls = {}
+    for tag, exe, want in legs:
+        micro_grad = make_micro_grad(spec, exe)
+        torch.cuda.reset_peak_memory_stats(dev)
+        aimc_mvm.reset_counts()
+        res = {}
+        with patched(aimc_mvm, "aimc_mvm_v2", _k2_calls_recorder(k2_calls)):
+            t = time.perf_counter()
+            prof = train_step_profile(lambda: res.setdefault(
+                "r", micro_grad(params, mb, key)), dev)
+            pass_s = time.perf_counter() - t
+        loss, grads = res["r"]
+        counts = {k: v for k, v in aimc_mvm.LAUNCHES.items() if v}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        check(math.isfinite(float(loss)), f"rglru {tag}: loss {loss}")
+        check(all(g is not None and bool(torch.isfinite(g).all())
+                  for g in grads), f"rglru {tag}: a gradient is missing or "
+              f"not finite")
+        check(counts == want, f"rglru {tag}: launches {counts} != {want}")
+        summary = _train_summary(f"{FAM_RGLRU} {RGLRU_LAYERS}L {tag}, one "
+                                 f"microbatch pass", {0: float(loss)},
+                                 {0: pass_s}, prof, counts, 1, peak_gb,
+                                 init_s, card, RGLRU_SEQ)
+        out[tag] = summary
+        del grads, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["k2_rows"] = train_k2_rows(k2_calls, peaks, card)
+    return out
+
+
+def encdec_cli_leg(dev, card):
+    """The train CLI on seamless-m4t-large-v2 uncut, one digital step of
+    the reference CLI's batch (zero frames [2, 4096, 1024], 512 target
+    tokens): a finite loss, no crossbar launch, and the accumulated
+    gradients before the optimizer's clip in the pattern that zero frames
+    give at this depth in both packages (`tests/test_torch_encdec.py`):
+    layernorm(0)'s backward scales by 1/sqrt(1e-5) = 316 at each of the
+    encoder's 24 layers, so some encoder gradients overflow, while every
+    gradient outside the encoder stack (decoder, norms, embedding, head)
+    is finite. Any other non-finite pattern fails. The global-norm clip of
+    an inf norm then turns the whole update non-finite (counted), so the
+    learning bars are held on seeded random frames (`encdec_train_leg`)."""
+    import torch
+
+    from repro_torch.launch import steps as steps_mod
+
+    real = steps_mod.make_optimizer
+    bad_grads = {}
+
+    def spy(name, **kw):
+        init, upd, c = real(name, **kw)
+
+        def upd_spy(g, s, p, lr=1.0):
+            bad_grads.update({path: int((~torch.isfinite(t)).sum())
+                              for path, t in _named_leaves(g)
+                              if not bool(torch.isfinite(t).all())})
+            return upd(g, s, p, lr)
+        return init, upd_spy, c
+
+    base = ["--global-batch", str(ENCDEC_GB), "--seq-len", str(ENCDEC_SEQ)]
+    with patched(steps_mod, "make_optimizer", lambda _orig: spy):
+        leg = train_cli_leg(dev, f"{FAM_ENCDEC} digital (bf16), CLI batch",
+                            [], 1, card, base=["--arch", FAM_ENCDEC, *base],
+                            keep_params=True, cpu_ops=False)
+    check(not leg["launches"], f"{FAM_ENCDEC} digital training launched "
+          f"crossbar kernels: {leg['launches']}")
+    outside = {p: n for p, n in bad_grads.items() if not p.startswith("enc/")}
+    check(bad_grads and not outside, f"{FAM_ENCDEC} CLI (zero frames): "
+          f"non-finite gradients before the clip {bad_grads}; want some "
+          f"under enc/ and none elsewhere")
+    params = leg.pop("final_params")
+    bad = {path: int((~torch.isfinite(t)).sum())
+           for path, t in _named_leaves(params) if not torch.isfinite(t).all()}
+    leg["nonfinite_grads_before_clip"] = bad_grads
+    leg["nonfinite_after_step"] = bad
+    print(f"[train] {FAM_ENCDEC} CLI (zero frames): loss {leg['losses']}; "
+          f"before the clip {sum(bad_grads.values())} gradient entries of "
+          f"{len(bad_grads)} leaves are non-finite, all in the encoder "
+          f"stack ({sorted(bad_grads)}); after the update "
+          f"{sum(bad.values())} entries of {len(bad)} leaves are non-finite "
+          f"(the global-norm clip spreads the inf)", flush=True)
+    del params
+    return leg
+
+
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{path}/{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def encdec_train_leg(dev, peaks, card):
+    """seamless-m4t-large-v2 uncut: the CLI's own batch for one step
+    (`encdec_cli_leg`), then `make_train_step` on seeded random frames
+    [2, 4096, 1024] and `batch_shapes`' 1024 target tokens: digitally, 2
+    steps (the last loss below the first, no launch), and with the paper's
+    noise, 2 steps, 1536 K2 per step; K2 at each shape."""
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch.steps import batch_shapes
+
+    spec = _family_spec(FAM_ENCDEC)
+    cfg = spec.model_cfg
+    out = {"cli": encdec_cli_leg(dev, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cell = ShapeCell("train", ENCDEC_SEQ, ENCDEC_GB, "train")
+    shapes = batch_shapes(spec, cell)
+    tgt = shapes["tokens"][0][1]
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=tgt, global_batch=ENCDEC_GB,
+                      seed=SEED)
+
+    def batch_at(step):
+        gen = torch.Generator(device=dev).manual_seed(SEED + step)
+        (shape, dtype) = shapes["frames"]
+        frames = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return {"frames": frames} | {
+            k: torch.from_numpy(v).to(dev)
+            for k, v in host_batch(dcfg, step, 0, 1).items()}
+
+    out["digital"] = direct_train_steps(
+        dev, card, f"{FAM_ENCDEC} digital (bf16), random frames", spec, cell,
+        2, batch_at, {}, noise=False, cpu_ops=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k2_calls = {}
+    n_micro = ENCDEC_GB // spec.microbatch
+    leg = direct_train_steps(
+        dev, card, f"{FAM_ENCDEC} noise on", spec, cell, 2, batch_at,
+        {"aimc_mvm_v2": 2 * family_k2_per_pass(spec) * n_micro},
+        [(aimc_mvm, "aimc_mvm_v2", _k2_calls_recorder(k2_calls))],
+        cpu_ops=False)
+    leg["target_tokens"] = tgt
+    leg["k2_rows"] = train_k2_rows(k2_calls, peaks, card)
+    out["noise"] = leg
+    return out
+
+
+def forward_decode_check(dev, arch):
+    """The reference's own claim (`tests/test_models_smoke.py:166-172`) on
+    the card at ``arch``'s published widths, uncut, digital f32: the last
+    position's logits of `forward` over 2 x 16 tokens against those of 16
+    `decode_step`s from a fresh cache, within DECODE_ATOL."""
+    import torch
+
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.models.layers import Execution
+
+    spec = _family_spec(arch)
+    cfg, model = spec.model_cfg, spec.model_module()
+    exe = Execution(compute_dtype="float32")
+    t0 = time.perf_counter()
+    params = model.init(PRNGKey(SEED), cfg, device=dev)
+    toks = (torch.arange(2 * DECODE_LEN, device=dev).reshape(2, DECODE_LEN)
+            * 7 + 1) % cfg.vocab
+    with torch.no_grad():
+        full = model.forward(params, toks, cfg, exe)[0][:, -1]
+        cache = model.init_cache(cfg, 2, DECODE_LEN, torch.float32,
+                                 device=dev)
+        for t in range(DECODE_LEN):
+            step, cache = model.decode_step(params, cache,
+                                            toks[:, t:t + 1], cfg, exe)
+    err = float((step[:, -1] - full).abs().max())
+    check(bool(torch.isfinite(full).all()) and err <= DECODE_ATOL,
+          f"{arch}: forward vs decode recurrence max |err| {err} > "
+          f"{DECODE_ATOL}")
+    secs = time.perf_counter() - t0
+    print(f"[train] {arch} uncut: forward == {DECODE_LEN} decode steps on "
+          f"the card, last-position logits max |err| {err:.3g} (atol "
+          f"{DECODE_ATOL}), {secs:.1f} s with init", flush=True)
+    del params, cache, full, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "atol": DECODE_ATOL, "s": secs}
+
+
+def family_train_phase(dev, peaks, card):
+    """Phase 21: noise-aware training of the recurrent and enc-dec families
+    (see the module docstring)."""
+    import torch
+
+    out = {}
+    for arch, fn in ((FAM_XLSTM, xlstm_train_leg),
+                     (FAM_RGLRU, rglru_train_leg),
+                     (FAM_ENCDEC, encdec_train_leg)):
+        out[arch] = fn(dev, peaks, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["forward_decode"] = {a: forward_decode_check(dev, a)
+                             for a in (FAM_XLSTM, FAM_RGLRU)}
+    out["card_vs_cpu"] = {a: train_card_vs_cpu(dev, a)
+                          for a in (FAM_XLSTM, FAM_RGLRU, FAM_ENCDEC)}
     return out
 
 
@@ -4557,6 +5012,8 @@ def main() -> int:
     free()
     train = phase("train", train_phase, dev, peaks, smi)
     free()
+    families = phase("train families", family_train_phase, dev, peaks, smi)
+    free()
 
     def decode_layer(kname, projs):
         sel = [r for r in rows if r["kernel"] == kname and r["B"] == SLOTS
@@ -4595,16 +5052,23 @@ def main() -> int:
                   for r in moe[arch]["expert_rows"]]
                  + [r["max_abs_err"] for r in resilience["b"]["probe_rows"]]
                  + [r["max_abs_err"] for r in train["noise"]["expert_rows"]])
+    # K2 at every training shape it ran with read noise on (phases 20-21)
+    train_k2 = train["noise"]["k2_rows"] + [
+        r for arch in (FAM_XLSTM, FAM_RGLRU, FAM_ENCDEC)
+        for r in (families[arch]["k2_rows"] if arch == FAM_RGLRU
+                  else families[arch]["noise"]["k2_rows"])]
     src_rel = "src/repro_torch/kernels/csrc/aimc_mvm.cu"
     record = {"kernels": [
         {"name": "aimc_mvm_v2", "route": "cuda", "source": src_rel,
          "replaces": "src/repro/kernels/aimc_mvm.py:228",
          "launches": serve_stats["launches"]["aimc_mvm_v2"],
          "max_abs_err": max([worst["aimc_mvm_v2"]] + [
-             r["max_abs_err"] for r in train["noise"]["k2_rows"]]),
+             r["max_abs_err"] for r in train_k2]),
          "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": None},
+         "bound_by": k2["bound_by"], "library_ms": None,
+         "train_shapes": sorted({f"{r['B']}x{r['K']}->{r['Np']}"
+                                 for r in train_k2})},
         {"name": "aimc_mvm_stacked", "route": "cuda", "source": src_rel,
          "replaces": "src/repro/kernels/aimc_mvm.py:349",
          "launches": fused["launches"]["aimc_mvm_stacked"],
@@ -4642,7 +5106,8 @@ def main() -> int:
         "multicore": multicore, "fidelity": fidelity, "zoo": zoo,
         "paged": paged, "recurrent": recurrent, "resilience": resilience,
         "int8": int8, "placement": placement, "server": server,
-        "train": train, "phase_seconds": seconds},
+        "train": train, "train_families": families,
+        "phase_seconds": seconds},
         indent=1))
     print(json.dumps(record))
     print(smi)

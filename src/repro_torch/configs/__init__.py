@@ -2,12 +2,13 @@
 
 Each ``configs/<arch>.py`` exports an ``ARCH: ArchSpec`` with the published
 configuration and a reduced same-family smoke config, copied field for
-field from the reference. The dense decoders are ported (granite-8b,
-glm4-9b, llama3.2-3b, qwen1.5-110b, and internvl2-1b's language backbone
-behind its patch-embedding stub), and so are the recurrent xlstm-350m and
-recurrentgemma-9b and the MoE olmoe-1b-7b and arctic-480b; the
-reference's enc-dec architecture raises a clear error that points at
-ROADMAP.md.
+field from the reference. Every arch of the reference's registry is
+ported: the dense decoders (granite-8b, glm4-9b, llama3.2-3b,
+qwen1.5-110b, and internvl2-1b's language backbone behind its
+patch-embedding stub), the recurrent xlstm-350m and recurrentgemma-9b,
+the MoE olmoe-1b-7b and arctic-480b, and the enc-dec
+seamless-m4t-large-v2 (its training half; the engine does not serve it
+yet, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ class ArchSpec:
 
 PORTED = ("granite_8b", "glm4_9b", "llama32_3b", "qwen15_110b",
           "internvl2_1b", "xlstm_350m", "recurrentgemma_9b", "olmoe_1b_7b",
-          "arctic_480b")
+          "arctic_480b", "seamless_m4t_large_v2")
 # the reference's registry; everything not in PORTED is later work
 _ARCH_IDS = (
     "internvl2_1b", "granite_8b", "llama32_3b", "qwen15_110b", "glm4_9b",

@@ -549,13 +549,13 @@ def main(argv=None):
     device = resolve_device(args.device)
     spec = get_arch(args.arch)
     cfg = spec.smoke_cfg if args.smoke else spec.model_cfg
+    if spec.family == "audio":
+        raise SystemExit("serve.py drives decoder-only LMs; the enc-dec "
+                         "audio family decodes via launch.steps")
     if args.layers:
         if not 0 < args.layers <= cfg.n_layers:
             raise SystemExit(f"--layers {args.layers} outside 1..{cfg.n_layers}")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    if spec.family == "audio":
-        raise SystemExit("serve.py drives decoder-only LMs; the enc-dec "
-                         "audio family decodes via launch.steps")
     model = spec.model_module()
     if args.fuse_gates and not hasattr(model, "fuse_gate_stacks"):
         raise SystemExit(f"--fuse-gates: {spec.arch_id} ({spec.module}) has "

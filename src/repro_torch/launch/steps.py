@@ -3,17 +3,19 @@
 
 `make_train_step` keeps the reference's order of operations
 (`repro/launch/steps.py:144-220`): the global batch splits into
-``n_micro = global_batch // microbatch`` microbatches; microbatch ``i``
-runs under ``key = fold_in(rng, i)``; its loss is the chunked cross
-entropy over non-negative labels plus ``0.01 * aux``; gradients are taken
-with `torch.autograd.grad` and accumulated in f32 as ``g_acc + g /
-n_micro``; one ``opt_update(grads, opt_state, params, lr_scale)`` ends the
-step. Every model block is recomputed in the backward
-(`models.transformer.forward`). The reference's sharding arguments and
-constraints have no counterpart on one device; a mesh, the enc-dec and
-recurrent (xlstm, rglru) training forwards and bf16 parameters raise,
-queued in ROADMAP.md. The prefill and serve step builders are not ported:
-the engine (`runtime/engine.py`) serves.
+``n_micro = global_batch // microbatch`` microbatches (every leaf of the
+batch: tokens and labels, an enc-dec batch's frames, a VLM batch's patch
+embeddings); microbatch ``i`` runs under ``key = fold_in(rng, i)``; its
+loss is the chunked cross entropy over non-negative labels plus ``0.01 *
+aux`` (`make_micro_grad`); gradients are taken with `torch.autograd.grad`
+and accumulated in f32 as ``g_acc + g / n_micro``; one ``opt_update(grads,
+opt_state, params, lr_scale)`` ends the step. Every family trains: the
+transformer (dense and MoE), xlstm, rglru and the enc-dec model, each
+block (pair, unit, layer) recomputed in the backward. The reference's
+sharding arguments and constraints have no counterpart on one device; a
+mesh and bf16 parameters raise, queued in ROADMAP.md. The prefill and
+serve step builders are not ported: the engine (`runtime/engine.py`)
+serves.
 """
 
 from __future__ import annotations
@@ -84,6 +86,9 @@ class StepBundle:
 def _model_forward_hidden(model, spec: ArchSpec, cfg, exe: Execution):
     """Uniform (params, batch, rng) -> (hidden, aux) across families."""
     def fwd(params, batch, rng):
+        if spec.family == "audio":
+            return model.forward(params, batch, cfg, exe, rng,
+                                 return_hidden=True)
         if spec.family == "vlm":
             return model.forward(params, batch["tokens"], cfg, exe, rng,
                                  patch_embeds=batch["patch_embeds"],
@@ -94,11 +99,8 @@ def _model_forward_hidden(model, spec: ArchSpec, cfg, exe: Execution):
 
 
 def check_trainable(spec: ArchSpec) -> None:
-    """Raise for what the port cannot train yet (ROADMAP.md queues it)."""
-    if spec.family == "audio" or spec.module in ("xlstm", "rglru"):
-        raise NotImplementedError(
-            f"the {spec.module} training forward is not ported yet "
-            f"({spec.arch_id}); ROADMAP.md queues it")
+    """Raise for what the port cannot train yet (ROADMAP.md queues it):
+    bf16 parameters."""
     if spec.param_dtype != "float32":
         raise NotImplementedError(
             f"{spec.arch_id} trains {spec.param_dtype} parameters; weight "
@@ -118,6 +120,32 @@ def _tree_with(tree, leaves):
     return go(tree)
 
 
+def make_micro_grad(spec: ArchSpec, exe: Execution = Execution()):
+    """The train step's per-microbatch loss and its gradients:
+    ``(params, mb, key) -> (loss, grads)``, the forward's hidden states
+    into `chunked_ce` over ``mb["labels"]`` (loss + 0.01 x aux is
+    differentiated, the loss returned detached), gradients one per leaf of
+    ``params`` in `tree_leaves` order (None where a leaf is unused)."""
+    check_trainable(spec)
+    cfg = spec.model_cfg
+    model = spec.model_module()
+    fwd = _model_forward_hidden(model, spec, cfg, exe)
+
+    def micro_grad(params, mb, key):
+        leaves = tree_leaves(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        p = _tree_with(params, live)
+        h, aux = fwd(p, mb, key)
+        loss_sum, n_tok = chunked_ce(h, model.unembed_matrix(p, cfg),
+                                     mb["labels"])
+        loss = loss_sum / torch.clamp_min(n_tok, 1.0)
+        grads = torch.autograd.grad(loss + 0.01 * aux, live,
+                                    allow_unused=True)
+        return loss.detach(), grads
+
+    return micro_grad
+
+
 def make_train_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
                     exe: Execution = Execution(), lr_scale: float = 1.0):
     """The training step ``(params, opt_state, batch, rng) -> (params,
@@ -126,19 +154,9 @@ def make_train_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
         raise NotImplementedError(
             "a sharded train step needs the mesh slice (ROADMAP.md); the "
             "port trains on one device (mesh=None)")
-    check_trainable(spec)
-    cfg = spec.model_cfg
-    model = spec.model_module()
     _, opt_update, _ = make_optimizer(spec.optimizer)
     n_micro = max(1, cell.global_batch // spec.microbatch)
-    fwd = _model_forward_hidden(model, spec, cfg, exe)
-
-    def micro_loss(p, mb, key):
-        h, aux = fwd(p, mb, key)
-        unemb = model.unembed_matrix(p, cfg)
-        loss_sum, n_tok = chunked_ce(h, unemb, mb["labels"])
-        loss = loss_sum / torch.clamp_min(n_tok, 1.0)
-        return loss + 0.01 * aux, loss
+    micro_grad = make_micro_grad(spec, exe)
 
     def train_step(params, opt_state, batch, rng):
         micro = {k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])
@@ -149,15 +167,12 @@ def make_train_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
         loss_acc = 0.0
         for i in range(n_micro):
             mb = {k: v[i] for k, v in micro.items()}
-            key = prng.fold_in(rng, i)
-            live = [p.detach().requires_grad_(True) for p in leaves]
-            total, loss = micro_loss(_tree_with(params, live), mb, key)
-            grads = torch.autograd.grad(total, live, allow_unused=True)
+            loss, grads = micro_grad(params, mb, prng.fold_in(rng, i))
             for a, g in zip(g_acc, grads):
                 if g is not None:
                     a.add_(g.to(torch.float32) / n_micro)
-            del total, grads, live
-            loss_acc = loss_acc + loss.detach() / n_micro
+            del grads
+            loss_acc = loss_acc + loss / n_micro
         new_params, new_opt, metrics = opt_update(
             _tree_with(params, g_acc), opt_state, params, lr_scale)
         return new_params, new_opt, dict(metrics, loss=loss_acc)

@@ -4,6 +4,12 @@
         --steps 4 --global-batch 8 --seq-len 2048 [--exec aimc]
     python -m repro_torch.launch.train --arch llama3.2-3b --smoke \\
         --device cpu --steps 4 --ckpt-dir /tmp/run0
+    python -m repro_torch.launch.train --arch xlstm-350m \\
+        --global-batch 2 --seq-len 128 --steps 2
+    python -m repro_torch.launch.train --arch recurrentgemma-9b --smoke \\
+        --device cpu --steps 4
+    python -m repro_torch.launch.train --arch seamless-m4t-large-v2 \\
+        --global-batch 2 --seq-len 4096 --steps 2
 
 The loop wires the substrate together as the reference's does: the
 restart-exact data pipeline (`data.pipeline.host_batch`), the one-device
@@ -18,12 +24,22 @@ no noise; noise-aware training drives `make_train_step` with a noisy
 `Execution`. ``lr`` is computed for the log only; the step runs at
 ``lr_scale=1.0``, as in the reference.
 
+Every family trains. The enc-dec (audio) batch is the reference CLI's:
+all-zero bf16 frames [gb, seq_len, d_model] (the frontend stub) and the
+token stream cut to ``max(seq_len // 8, 64)`` target positions, as
+`repro/launch/train.py:139-142` cuts it (its `steps.batch_shapes` uses
+``seq_len // 4``; the CLI keeps the reference's own cut). At the
+published depth those zero frames overflow the encoder's gradients (each
+layernorm(0) scales its backward by 1/sqrt(eps)), in the reference as
+here, and the first update turns the parameters non-finite.
+
 Port flags: ``--device`` (default cuda; cpu must be asked for) and
-``--layers N`` (a depth cut). ``--mesh`` takes only 1x1 (one device; the
+``--layers N`` (a depth cut: xlstm takes an even N, whole mLSTM/sLSTM
+pairs; rglru's N = 3k gives k units and no tail; the enc-dec family has
+two stacks and refuses it). ``--mesh`` takes only 1x1 (one device; the
 mesh slice is queued in ROADMAP.md); ``--no-xla-tuning`` is accepted and
-does nothing (there are no XLA flags here). The enc-dec, xlstm and rglru
-training forwards and bf16 parameters raise. `main` returns a `TrainRun`
-with every step's loss.
+does nothing (there are no XLA flags here). bf16 parameters (arctic-480b)
+raise. `main` returns a `TrainRun` with every step's loss.
 """
 
 from __future__ import annotations
@@ -105,9 +121,16 @@ def main(argv=None) -> TrainRun:
     device = resolve_device(args.device)
     cfg = spec.smoke_cfg if args.smoke else spec.model_cfg
     if args.layers:
+        if spec.family == "audio":
+            raise SystemExit(f"--layers: {spec.arch_id} has an encoder and a "
+                             f"decoder stack (n_enc_layers, n_dec_layers); "
+                             f"the depth cut takes one stack only")
         if not 0 < args.layers <= cfg.n_layers:
             raise SystemExit(f"--layers {args.layers} outside "
                              f"1..{cfg.n_layers}")
+        if spec.module == "xlstm" and args.layers % 2:
+            raise SystemExit(f"--layers {args.layers}: xlstm cuts whole "
+                             f"mLSTM/sLSTM pairs, an even number of layers")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     spec = dataclasses.replace(spec, model_cfg=cfg)
 
@@ -144,7 +167,9 @@ def main(argv=None) -> TrainRun:
     saves: list[threading.Thread] = []
     losses, step_s = {}, {}
 
-    print(f"[train] {spec.arch_id} ({cfg.n_layers}L d_model={cfg.d_model}) "
+    depth = (f"{cfg.n_enc_layers}+{cfg.n_dec_layers}L"
+             if spec.family == "audio" else f"{cfg.n_layers}L")
+    print(f"[train] {spec.arch_id} ({depth} d_model={cfg.d_model}) "
           f"{args.mesh} gb={gb} seq={sl} exec={args.exec_mode} on {device} "
           f"(init {init_s:.2f}s) steps {start}..{args.steps}")
     t_last = time.time()
@@ -157,6 +182,13 @@ def main(argv=None) -> TrainRun:
                 (gb, cfg.n_patches, cfg.d_model), dtype=torch.bfloat16,
                 device=device)
             batch["labels"][:, :cfg.n_patches] = -1
+        if spec.family == "audio":
+            tgt = max(sl // 8, 64)
+            batch = {"frames": torch.zeros((gb, sl, cfg.d_model),
+                                           dtype=torch.bfloat16,
+                                           device=device),
+                     "tokens": batch["tokens"][:, :tgt],
+                     "labels": batch["labels"][:, :tgt]}
         rng = torch.tensor([args.seed, step], dtype=torch.int64)
         lr = float(warmup_cosine(step, total=args.steps))
         params, opt_state, metrics = safe_step(params, opt_state, batch, rng)

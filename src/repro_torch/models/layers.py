@@ -11,13 +11,14 @@ draw on every call and backpropagates straight through (noise-aware
 training; an `[E, K, N]` expert stack runs the expert STE, one launch).
 
 Attention is plain tensor ops following the reference's algorithm: a
-chunked online softmax for prefill and training (causal, with a query
-offset for prefill legs; under autograd each chunk pair is recomputed in
-the backward, the reference's `jax.checkpoint`; the sliding window serves
-only the reference's training `forward` of rglru and waits for that slice)
-and a masked softmax against the KV cache for decode. `recurrent_prefill` scans a model's decode step
-over a prompt (xlstm, rglru). Activation sharding hints (`shard_act`) have
-no counterpart on one card.
+chunked online softmax for prefill and training (causal or bidirectional,
+with a sliding window for rglru's local attention and a query offset for
+prefill legs; under autograd each chunk pair is recomputed in the
+backward, the reference's `jax.checkpoint`) and a masked softmax against
+the KV cache for decode. `recurrent_prefill` scans a model's decode step
+over a prompt (xlstm, rglru). `layernorm` and the GeLU FFN (`gelu_mlp`)
+serve the enc-dec model. Activation sharding hints (`shard_act`) have no
+counterpart on one card.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.core import prng
@@ -173,6 +175,18 @@ def rmsnorm(x, scale, eps: float = 1e-6, batch_invariant: bool = False):
     return (x32 * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
 
 
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm over the trailing dim in f32 (population variance, as
+    `jnp.var`), cast back to x's dtype."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    c = x32 - mu
+    var = (c * c).mean(dim=-1, keepdim=True)
+    y = c * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
 def rope(x, positions, theta: float = 10000.0):
     """Rotary embedding. x: [B, S, H, D] (D even), positions: [B, S]."""
     half = x.shape[-1] // 2
@@ -189,7 +203,8 @@ def rope(x, positions, theta: float = 10000.0):
 NEG_INF = -1e30
 
 
-def _attn_chunk(q, k, v, q_pos, kv_pos, carry, scale, causal, kv_valid):
+def _attn_chunk(q, k, v, q_pos, kv_pos, carry, scale, causal, window,
+                kv_valid):
     """One (q-chunk x kv-chunk) online-softmax update.
     q: [B, Hq, qc, D]; k/v: [B, Hkv, kc, D];
     carry = (m [B,Hq,qc], l [B,Hq,qc], acc [B,Hq,qc,D])."""
@@ -203,10 +218,13 @@ def _attn_chunk(q, k, v, q_pos, kv_pos, carry, scale, causal, kv_valid):
     mask = (kv_pos[None, :] < kv_valid).expand(qc, -1)        # pad mask
     if causal:
         mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
     s = torch.where(mask[None, None, None], s, NEG_INF)
     s = s.reshape(b, hq, qc, -1)
     m_new = torch.maximum(m, s.amax(dim=-1))
-    # a fully-masked chunk would give exp(NEG_INF - NEG_INF) = 1: re-mask
+    # a fully-masked chunk (past the window, or after the causal edge)
+    # would give exp(NEG_INF - NEG_INF) = 1: re-mask
     p = torch.exp(s - m_new[..., None])
     p = torch.where(mask.reshape(1, 1, qc, -1), p, 0.0)
     corr = torch.exp(m - m_new)
@@ -216,12 +234,13 @@ def _attn_chunk(q, k, v, q_pos, kv_pos, carry, scale, causal, kv_valid):
     return m_new, l_new, acc * corr[..., None] + pv
 
 
-def flash_attention(q, k, v, *, causal=True, q_offset: int = 0,
+def flash_attention(q, k, v, *, causal=True, window=None, q_offset: int = 0,
                     q_chunk=1024, kv_chunk=1024):
     """q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D] -> [B, Sq, Hq, D], a
     chunked online softmax (memory O(qc*kc)), GQA-aware. Query row i sits
     at absolute position ``q_offset + i`` (a prefill leg attends over the
-    earlier legs' keys). The kv chunks reduce in the same order whatever
+    earlier legs' keys); ``window`` keeps only keys at positions
+    ``> q_pos - window``. The kv chunks reduce in the same order whatever
     the query chunking, so a leg's rows equal dense prefill's. Under
     autograd each chunk pair runs under `torch.utils.checkpoint`, so the
     backward recomputes its scores (the reference's `jax.checkpoint` of the
@@ -254,7 +273,7 @@ def flash_attention(q, k, v, *, causal=True, q_offset: int = 0,
             kv_pos = j * kc + torch.arange(kc, device=dev)
             args = (q_blk, kh[:, :, j * kc:(j + 1) * kc],
                     vh[:, :, j * kc:(j + 1) * kc], q_pos, kv_pos, carry,
-                    scale, causal, skv0)
+                    scale, causal, window, skv0)
             if remat:
                 carry = torch.utils.checkpoint.checkpoint(
                     _attn_chunk, *args, use_reentrant=False,
@@ -301,18 +320,27 @@ def decode_attention(q, k_cache, v_cache, kv_len,
     return o.reshape(b, 1, hq, d).to(q.dtype)
 
 
-def split3(key):
-    """``split(key, 3)`` as three keys, or three Nones."""
+def split_keys(key, n: int) -> tuple:
+    """``split(key, n)`` as a tuple of n keys, or n Nones (no noise)."""
     if key is None:
-        return None, None, None
-    return tuple(prng.split(key, 3))
+        return (None,) * n
+    return tuple(prng.split(key, n))
 
 
 def swiglu(x, w_gate, w_up, w_down, exe: Execution, key=None):
-    k1, k2, k3 = split3(key)
+    k1, k2, k3 = split_keys(key, 3)
     g = linear(x, w_gate, exe, k1)
     u = linear(x, w_up, exe, k2)
     return linear(torch.nn.functional.silu(g) * u, w_down, exe, k3)
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out, exe: Execution, key=None):
+    """The enc-dec FFN: ``gelu(x W_in + b_in) W_out + b_out``, GeLU in its
+    tanh form (`jax.nn.gelu`'s default); ``split(key)`` keys the two
+    linears."""
+    k1, k2 = split_keys(key, 2)
+    h = F.gelu(linear(x, w_in, exe, k1, b_in), approximate="tanh")
+    return linear(h, w_out, exe, k2, b_out)
 
 
 def _f32_only(dtype):

@@ -1,24 +1,29 @@
 """RecurrentGemma / Griffin hybrid (recurrentgemma-9b): RG-LRU recurrent
 blocks + local (sliding-window, MQA) attention in a 2:1 pattern; PyTorch
-port of the serving path of `repro/models/rglru.py`.
+port of `repro/models/rglru.py`: the training `forward` and the serving
+path.
 
   * recurrent block — a GeLU gate branch and a conv1d(4) -> RG-LRU branch
     from the residual stream, merged multiplicatively and projected back:
     r_t = a_t * r_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t),
     a_t = exp(-c * softplus(Lambda) * sigmoid(W_a x + b_a)), c = 8.
-  * local attention — a ring buffer of the last ``window`` keys and values
-    (MQA, RoPE applied at write time).
+    Training runs the recurrence as the reference's associative scan
+    (`associative_scan`, the same odd/even recursion, log depth); decode
+    steps it from the carried r.
+  * local attention — sliding window ``cfg.window``, MQA, RoPE: chunked
+    flash attention in training, a ring buffer of the last ``window``
+    keys and values (RoPE applied at write time) in decode.
 
 Layers run as ``n_layers // 3`` (rec, rec, attn) units and ``n_layers % 3``
 trailing recurrent blocks (the ``tail``). Every projection is
 crossbar-mapped (K2 after `AimcProgram.install`; ``b_a``/``b_x`` ride K2's
-bias epilogue), while the conv kernel, Lambda and the recurrence stay
+bias epilogue; in the training forward's ``aimc`` mode each runs the STE
+under its own key), while the conv kernel, Lambda and the recurrence stay
 digital in f32. Serving prefill scans the decode step over the prompt
-(`layers.recurrent_prefill`); the reference's associative-scan `forward`
-belongs to training and waits for that slice. Norms and the ring-buffer
-attention sum in `layers.row_sum`'s fixed order (batch-invariant), so the
-engine equals `static_generate` bit for bit on the card, given a fixed DAC
-scale.
+(`layers.recurrent_prefill`); its norms and ring-buffer attention sum in
+`layers.row_sum`'s fixed order (batch-invariant), so the engine equals
+`static_generate` bit for bit on the card, given a fixed DAC scale. The
+training forward uses torch's reductions.
 """
 
 from __future__ import annotations
@@ -27,13 +32,15 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core import prng
 from repro_torch.models.layers import (Execution, as_weight,
                                        decode_attention, dense_init,
-                                       embed_init, layer_slice,
-                                       linear, recurrent_prefill, rmsnorm,
-                                       rope, stack_init)
+                                       embed_init, flash_attention,
+                                       layer_slice, linear,
+                                       recurrent_prefill, rmsnorm, rope,
+                                       split_keys, stack_init)
 
 C_RGLRU = 8.0
 
@@ -146,15 +153,13 @@ def init(key: torch.Tensor, cfg: RglruConfig, dtype=torch.float32,
     return params
 
 
-def _norm(x, scale, eps):
-    return rmsnorm(x, scale, eps, batch_invariant=True)
+_NO_KEYS = (None,) * 8
 
 
-
-def _rglru_gates(x, p, exe: Execution):
+def _rglru_gates(x, p, exe: Execution, keys=_NO_KEYS):
     """x: [B, S, Dr] conv output -> (a [B,S,Dr], gated input [B,S,Dr])."""
-    a_logit = linear(x, p["w_a"], exe, bias=p["b_a"]).to(torch.float32)
-    i_logit = linear(x, p["w_x"], exe, bias=p["b_x"]).to(torch.float32)
+    a_logit = linear(x, p["w_a"], exe, keys[0], p["b_a"]).to(torch.float32)
+    i_logit = linear(x, p["w_x"], exe, keys[1], p["b_x"]).to(torch.float32)
     log_a = -C_RGLRU * F.softplus(p["lam"].to(torch.float32)) \
         * torch.sigmoid(a_logit)
     a = torch.exp(log_a)
@@ -165,10 +170,12 @@ def _rglru_gates(x, p, exe: Execution):
     return a, beta * gated
 
 
-def _causal_conv(x, w, b, state):
-    """Depthwise temporal conv stepped from ``state``. x: [B,S,D], w: [W,D],
-    state: [B,W-1,D]."""
+def _causal_conv(x, w, b, state=None):
+    """Depthwise temporal conv stepped from ``state`` (None: zeros).
+    x: [B,S,D], w: [W,D], state: [B,W-1,D]."""
     width = w.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
     xp = torch.cat([state.to(x.dtype), x], dim=1)
     out = sum(xp[:, i:i + x.shape[1]] * w[i][None, None]
               for i in range(width))
@@ -176,35 +183,164 @@ def _causal_conv(x, w, b, state):
     return out + b[None, None], new_state
 
 
-def _rec_mix(h, p, cfg: RglruConfig, exe: Execution, conv_state, r_state):
-    """Recurrent branch stepped from (conv_state, r_state). Returns (out
-    [B,S,D], new conv state, new r state)."""
-    gate = F.gelu(linear(h, p["w_gate"], exe), approximate="tanh")
-    xr = linear(h, p["w_rnn_in"], exe)
+def _combine(left, right):
+    """The linear recurrence's monoid: (a1, b1) then (a2, b2) is
+    (a1 a2, a2 b1 + b2)."""
+    return left[0] * right[0], right[0] * left[1] + right[1]
+
+
+def _interleave(even, odd):
+    """Alternate ``even`` and ``odd`` along dim 1 (even first; ``even`` may
+    hold one more). `jax.lax` interleaves by adding zero-padded halves, so
+    a -0.0 comes out +0.0: so here."""
+    out = even.new_zeros((even.shape[0], even.shape[1] + odd.shape[1],
+                          *even.shape[2:]))
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out + 0.0
+
+
+def associative_scan(a, b):
+    """Inclusive scan of `_combine` over dim 1 of (a, b), the recursion of
+    `jax.lax.associative_scan` step for step (combine adjacent pairs,
+    recurse on the half, combine the odd results with the even inputs,
+    interleave): log depth, and the reference's association of every
+    product and sum. Returns (A, r) with r_t = a_t r_{t-1} + b_t."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd = associative_scan(*_combine((a[:, 0:n - 1:2], b[:, 0:n - 1:2]),
+                                     (a[:, 1::2], b[:, 1::2])))
+    if n % 2 == 0:
+        even = _combine((odd[0][:, :-1], odd[1][:, :-1]),
+                        (a[:, 2::2], b[:, 2::2]))
+    else:
+        even = _combine(odd, (a[:, 2::2], b[:, 2::2]))
+    even = (torch.cat([a[:, :1], even[0]], dim=1),
+            torch.cat([b[:, :1], even[1]], dim=1))
+    return _interleave(even[0], odd[0]), _interleave(even[1], odd[1])
+
+
+def _rec_mix(h, p, cfg: RglruConfig, exe: Execution, keys=_NO_KEYS,
+             conv_state=None, r_state=None):
+    """Recurrent branch. ``r_state=None``: the training form (zero conv
+    state, the associative scan over the sequence); else stepped from
+    (conv_state, r_state). Returns (out [B,S,D], new conv state, new r
+    state)."""
+    gate = F.gelu(linear(h, p["w_gate"], exe, keys[2]), approximate="tanh")
+    xr = linear(h, p["w_rnn_in"], exe, keys[3])
     xc, conv_state = _causal_conv(xr, p["conv_w"], p["conv_b"], conv_state)
-    a, bx = _rglru_gates(xc, p, exe)
-    r = r_state.to(torch.float32)
-    rs = []
-    for t in range(a.shape[1]):
-        r = a[:, t] * r + bx[:, t]
-        rs.append(r)
-    out = linear((gate.to(torch.float32) * torch.stack(rs, dim=1))
-                 .to(exe.cdtype), p["w_out"], exe)
+    a, bx = _rglru_gates(xc, p, exe, keys)
+    if r_state is None:
+        rs = associative_scan(a, bx)[1]
+        r = rs[:, -1]
+    else:
+        r = r_state.to(torch.float32)
+        steps = []
+        for t in range(a.shape[1]):
+            r = a[:, t] * r + bx[:, t]
+            steps.append(r)
+        rs = torch.stack(steps, dim=1)
+    out = linear((gate.to(torch.float32) * rs).to(exe.cdtype), p["w_out"],
+                 exe, keys[4])
     return out, conv_state, r
 
 
-def _ffn(h, p, exe: Execution):
-    g = linear(h, p["w_ff_gate"], exe)
-    u = linear(h, p["w_ff_up"], exe)
-    return linear(F.gelu(g, approximate="tanh") * u, p["w_ff_down"], exe)
+def _ffn(h, p, exe: Execution, keys=_NO_KEYS):
+    g = linear(h, p["w_ff_gate"], exe, keys[5])
+    u = linear(h, p["w_ff_up"], exe, keys[6])
+    return linear(F.gelu(g, approximate="tanh") * u, p["w_ff_down"], exe,
+                  keys[7])
 
 
-def _rec_block(h, p, cfg: RglruConfig, exe: Execution, conv_state, r_state):
-    mix, conv_state, r_state = _rec_mix(_norm(h, p["ln"], cfg.norm_eps), p,
-                                        cfg, exe, conv_state, r_state)
+def _rec_block(h, p, cfg: RglruConfig, exe: Execution, key=None,
+               conv_state=None, r_state=None):
+    """One recurrent block -> (h, conv state, r state): the training form
+    when ``r_state`` is None (torch's reductions), else stepped
+    (batch-invariant). ``key`` splits into 8: w_a, w_x, w_gate, w_rnn_in,
+    w_out and the FFN's three."""
+    keys = split_keys(key, 8)
+    bi = r_state is not None
+    mix, conv_state, r_state = _rec_mix(
+        rmsnorm(h, p["ln"], cfg.norm_eps, batch_invariant=bi), p, cfg, exe,
+        keys, conv_state, r_state)
     h = h + mix
-    h = h + _ffn(_norm(h, p["ln2"], cfg.norm_eps), p, exe)
+    h = h + _ffn(rmsnorm(h, p["ln2"], cfg.norm_eps, batch_invariant=bi), p,
+                 exe, keys)
     return h, conv_state, r_state
+
+
+def _attn_block(h, p, cfg: RglruConfig, exe: Execution, key, positions):
+    """The training local-attention block: sliding-window flash attention
+    over h [B, S, D], then the FFN. ``key`` splits into 8: wq, wk, wv, wo
+    and the FFN's three."""
+    keys = split_keys(key, 8)
+    b, s, _ = h.shape
+    hn = rmsnorm(h, p["ln"], cfg.norm_eps)
+    q = rope(linear(hn, p["wq"], exe, keys[0]).reshape(
+        b, s, cfg.n_heads, cfg.hd), positions, cfg.rope_theta)
+    k = rope(linear(hn, p["wk"], exe, keys[1]).reshape(
+        b, s, cfg.n_kv_heads, cfg.hd), positions, cfg.rope_theta)
+    v = linear(hn, p["wv"], exe, keys[2]).reshape(b, s, cfg.n_kv_heads,
+                                                  cfg.hd)
+    att = flash_attention(q, k, v, causal=True, window=cfg.window,
+                          q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    h = h + linear(att.reshape(b, s, -1), p["wo"], exe, keys[3])
+    return h + _ffn(rmsnorm(h, p["ln2"], cfg.norm_eps), p, exe, keys)
+
+
+def _unit(h, ps, cfg: RglruConfig, exe: Execution, ka, kb, kc, positions):
+    h = _rec_block(h, ps["rec_a"], cfg, exe, ka)[0]
+    h = _rec_block(h, ps["rec_b"], cfg, exe, kb)[0]
+    return _attn_block(h, ps["attn"], cfg, exe, kc, positions)
+
+
+def _tail_block(h, p, cfg: RglruConfig, exe: Execution, key):
+    return _rec_block(h, p, cfg, exe, key)[0]
+
+
+def forward(params, tokens, cfg: RglruConfig, exe: Execution = None,
+            rng=None, return_hidden: bool = False):
+    """tokens [B, S] -> (logits [B, S, V], 0.0): the training forward.
+
+    Unit i runs rec_a, rec_b and attn under ``split(rng, 3 n_units)[3i],
+    [3i + 1], [3i + 2]``; tail block j under ``split(fold_in(rng, 7),
+    n_tail)[j]`` (no keys when ``rng`` is None). Under autograd each unit
+    and each tail block is a non-reentrant `torch.utils.checkpoint`
+    region, recomputed in the backward (the reference's `jax.checkpoint`
+    of its two scan bodies). ``return_hidden`` returns the final-normed
+    hidden states [B, S, D] in place of the logits."""
+    exe = exe or Execution()
+    b, s = tokens.shape
+    h = params["embed"][tokens].to(exe.cdtype)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    nu, nt = cfg.n_units, cfg.n_tail
+    unit_keys = (prng.split(rng, 3 * nu) if rng is not None
+                 else [None] * (3 * nu))
+    remat = torch.is_grad_enabled()
+
+    def run(fn, *args):
+        if remat:
+            return torch.utils.checkpoint.checkpoint(
+                fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+
+    for i in range(nu):
+        ps = {name: layer_slice(params["units"][name], i)
+              for name in ("rec_a", "rec_b", "attn")}
+        h = run(_unit, h, ps, cfg, exe, *unit_keys[3 * i:3 * i + 3],
+                positions)
+    if nt:
+        tail_keys = (prng.split(prng.fold_in(rng, 7), nt)
+                     if rng is not None else [None] * nt)
+        for j in range(nt):
+            h = run(_tail_block, h, layer_slice(params["tail"], j), cfg, exe,
+                    tail_keys[j])
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return h, 0.0
+    logits = h.to(torch.float32) @ as_weight(params["unembed"], torch.float32)
+    return logits, 0.0
 
 
 def unembed_matrix(params, cfg: RglruConfig):
@@ -250,7 +386,7 @@ def _local_attention(h, pa, cfg: RglruConfig, exe: Execution, kc, vc, pos):
     slots, then the FFN. Returns (h, kc, vc)."""
     b = h.shape[0]
     w = kc.shape[1]
-    hn = _norm(h, pa["ln"], cfg.norm_eps)
+    hn = rmsnorm(h, pa["ln"], cfg.norm_eps, batch_invariant=True)
     q = rope(linear(hn, pa["wq"], exe).reshape(b, 1, cfg.n_heads, cfg.hd),
              pos[:, None], cfg.rope_theta)
     k = rope(linear(hn, pa["wk"], exe).reshape(b, 1, cfg.n_kv_heads, cfg.hd),
@@ -260,7 +396,8 @@ def _local_attention(h, pa, cfg: RglruConfig, exe: Execution, kc, vc, pos):
     att = decode_attention(q, kc, vc, kv_len=torch.clamp(pos + 1, max=w),
                            batch_invariant=True)
     h = h + linear(att.reshape(b, 1, -1), pa["wo"], exe)
-    h = h + _ffn(_norm(h, pa["ln2"], cfg.norm_eps), pa, exe)
+    h = h + _ffn(rmsnorm(h, pa["ln2"], cfg.norm_eps, batch_invariant=True),
+                 pa, exe)
     return h, kc, vc
 
 
@@ -277,9 +414,9 @@ def decode_step(params, cache, tokens, cfg: RglruConfig,
     for i in range(cfg.n_units):
         ca, cb, ra, rb, kc, vc = (cache[name][i] for name in names)
         h, ca, ra = _rec_block(h, layer_slice(units["rec_a"], i), cfg, exe,
-                               ca, ra)
+                               None, ca, ra)
         h, cb, rb = _rec_block(h, layer_slice(units["rec_b"], i), cfg, exe,
-                               cb, rb)
+                               None, cb, rb)
         h, kc, vc = _local_attention(h, layer_slice(units["attn"], i), cfg,
                                      exe, kc, vc, pos)
         for name, t in zip(names, (ca, cb, ra, rb, kc, vc)):
@@ -290,13 +427,13 @@ def decode_step(params, cache, tokens, cfg: RglruConfig,
         tc, tr = [], []
         for i in range(cfg.n_tail):
             h, cs, rs = _rec_block(h, layer_slice(params["tail"], i), cfg,
-                                   exe, cache["tail_conv"][i],
+                                   exe, None, cache["tail_conv"][i],
                                    cache["tail_r"][i])
             tc.append(cs)
             tr.append(rs)
         new_cache |= {"tail_conv": torch.stack(tc),
                       "tail_r": torch.stack(tr)}
-    h = _norm(h, params["final_norm"], cfg.norm_eps)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps, batch_invariant=True)
     logits = h.to(torch.float32) @ as_weight(params["unembed"], torch.float32)
     return logits, new_cache
 

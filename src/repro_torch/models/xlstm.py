@@ -1,29 +1,39 @@
 """xLSTM (xlstm-350m): alternating mLSTM and sLSTM blocks; PyTorch port of
-the serving path of `repro/models/xlstm.py`.
+`repro/models/xlstm.py`: the training `forward` and the serving path.
 
-  * mLSTM — matrix-memory LSTM with exponential gating, here in its O(1)
-    per-step recurrence (decode); the reference's chunkwise-parallel form
-    serves its training `forward` and waits for the training slice.
+  * mLSTM — matrix-memory LSTM with exponential gating. The training
+    forward runs it in the reference's chunkwise-parallel form
+    (`_mlstm_chunkwise`: intra-chunk quadratic einsums and a carried
+    (C, n, m) between chunks); decode runs the O(1) per-step recurrence.
   * sLSTM — scalar-memory LSTM with exponential gating and block-diagonal
-    recurrent weights ``r_zifo``, stepped over time.
+    recurrent weights ``r_zifo``, stepped over time in both.
 
 The gate pre-projections (W_z/i/f/o, q/k/v, up/gate, the FFN) are the
 stationary matrices: after `core.program.AimcProgram.install` each runs on
 the crossbar kernel K2, and `fuse_gate_stacks` stacks the shared-input
 groups (w_up + w_gate, w_q + w_k + w_v, w_ff_gate + w_ff_up) so each runs
-as ONE K3 launch. The recurrences themselves are element-wise and stay
-digital, in f32, as do ``r_zifo`` and the gate biases (the default
-`MappingPlan` excludes them).
+as ONE K3 launch. In the training forward (``aimc`` mode, raw weights)
+each projection runs the STE (`core.aimc.aimc_linear_ste`, one K2 launch)
+under its own key, as the reference assigns them. The recurrences
+themselves are element-wise and stay digital, in f32, as do ``r_zifo``
+and the gate biases (the default `MappingPlan` excludes them).
 
 Serving prefill scans the decode step over the prompt
 (`layers.recurrent_prefill`), so `prefill`, `decode_step` and
 `prefill_chunk` share one recurrence. Cache leaves carry the pair stack on
-dim 0 and batch on dim 1; ``"len"`` is [B]. Every sum across features
-(norms, the mLSTM memory read-out, the sLSTM recurrent product) runs in
-`layers.row_sum`'s fixed order, so a row's state does not depend on what
-shares its batch: the engine (prefills at batch 1) equals
-`static_generate` (one batched prefill) bit for bit on the card as on the
-CPU, given a fixed DAC scale.
+dim 0 and batch on dim 1; ``"len"`` is [B]. On that path (a block given a
+carried ``state``) every sum across features (norms, the mLSTM memory
+read-out, the sLSTM recurrent product) runs in `layers.row_sum`'s fixed
+order, so a row's state does not depend on what shares its batch: the
+engine (prefills at batch 1) equals `static_generate` (one batched
+prefill) bit for bit on the card as on the CPU, given a fixed DAC scale.
+The training forward (``state=None``) makes no such claim and uses
+torch's reductions (`mean`, `einsum`): one kernel each where `row_sum`
+issues ten, which matters in the sLSTM loop's ~20 launches per position.
+One xlstm-350m microbatch's loss and gradients at 1 x 128 took 4.27 s
+with torch's reductions and 5.60 s with `row_sum` everywhere (means of
+two runs each, digital bf16, an H100 80GB HBM3 at 700 W;
+`tools/xlstm_reduction_ab.py`).
 """
 
 from __future__ import annotations
@@ -32,13 +42,15 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core import prng
 from repro_torch.core.aimc import AimcLinearState, stack_states
 from repro_torch.models.layers import (Execution, as_weight, dense_init,
                                        embed_init, layer_slice, linear,
                                        linear_stack, recurrent_prefill,
-                                       rmsnorm, row_sum, stack_init)
+                                       rmsnorm, row_sum, split_keys,
+                                       stack_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,22 +168,81 @@ def fuse_gate_stacks(params):
     return dict(params, pairs=pairs)
 
 
-def _norm(x, scale, eps):
-    return rmsnorm(x, scale, eps, batch_invariant=True)
-
-
-
-def _groupnorm(x, scale, n_heads, eps=1e-6):
+def _groupnorm(x, scale, n_heads, eps=1e-6, batch_invariant=True):
     """Per-head groupnorm over the trailing dim (population variance, as
-    `jnp.var`). x: [..., H*dh]."""
+    `jnp.var`). x: [..., H*dh]; ``batch_invariant`` sums in `row_sum`'s
+    order."""
     shp = x.shape
     xh = x.reshape(*shp[:-1], n_heads, shp[-1] // n_heads).to(torch.float32)
     n = xh.shape[-1]
-    mu = (row_sum(xh) / n)[..., None]
-    c = xh - mu
-    var = (row_sum(c * c) / n)[..., None]
+
+    def mean(t):
+        if batch_invariant:
+            return (row_sum(t) / n)[..., None]
+        return t.mean(dim=-1, keepdim=True)
+
+    c = xh - mean(xh)
+    var = mean(c * c)
     y = (c * torch.rsqrt(var + eps)).reshape(shp)
     return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def _mlstm_chunkwise(q, k, v, li, lf, cfg: XlstmConfig, state=None):
+    """The reference's chunkwise-parallel mLSTM. q, k, v: [B, S, H, dh]
+    (q already scaled), li/lf: [B, S, H] log input/forget gates, all f32;
+    ``state`` (C, n, m) is carried from chunk to chunk (fresh: zeros and
+    m = -1e30). Returns (h [B, S, H, dh], final (C, n, m))."""
+    b, s, h, dh = q.shape
+    c = min(cfg.chunk, s)
+    if s % c:
+        raise ValueError(f"seq {s} not divisible by mLSTM chunk {c}")
+    nc = s // c
+
+    def chunks(t):         # [B, S, H, ...] -> [nc, B, H, c, ...]
+        t = t.reshape(b, nc, c, h, *t.shape[3:])
+        return t.movedim(1, 0).movedim(3, 2)
+
+    qc, kc, vc, lic, lfc = (chunks(t) for t in (q, k, v, li, lf))
+    if state is None:
+        dev = q.device
+        state = (torch.zeros((b, h, dh, dh), device=dev),
+                 torch.zeros((b, h, dh), device=dev),
+                 torch.full((b, h), -1e30, device=dev))
+    C, n, m = state
+    causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
+                                   device=q.device))
+    outs = []
+    for j in range(nc):
+        qi, ki, vi, lii, lfi = qc[j], kc[j], vc[j], lic[j], lfc[j]
+        bcum = lfi.cumsum(dim=-1)                     # inclusive [B,H,c]
+        # intra-chunk log decays D_ij = b_i - b_j + li_j (j <= i)
+        d_ij = bcum[..., :, None] - bcum[..., None, :] + lii[..., None, :]
+        d_ij = torch.where(causal, d_ij, -1e30)
+        m_local = d_ij.amax(dim=-1)
+        d_state = bcum + m[..., None]                 # decay of the carry
+        m_i = torch.maximum(m_local, d_state)
+        p_ij = torch.exp(d_ij - m_i[..., None])
+        ps = p_ij * torch.einsum("bhid,bhjd->bhij", qi, ki)
+        num = torch.einsum("bhij,bhjd->bhid", ps, vi)
+        den = ps.sum(dim=-1)
+        w_state = torch.exp(d_state - m_i)
+        num = num + w_state[..., None] * torch.einsum("bhid,bhde->bhie",
+                                                      qi, C)
+        den = den + w_state * torch.einsum("bhid,bhd->bhi", qi, n)
+        outs.append(num / torch.maximum(den.abs(),
+                                        torch.exp(-m_i))[..., None])
+        # the state at the chunk's end
+        g = bcum[..., -1]
+        m_new = torch.maximum(g + m, (g[..., None] - bcum + lii).amax(-1))
+        w_old = torch.exp(g + m - m_new)
+        w_in = torch.exp(g[..., None] - bcum + lii - m_new[..., None])
+        C = w_old[..., None, None] * C + torch.einsum(
+            "bhjd,bhje->bhde", w_in[..., None] * ki, vi)
+        n = w_old[..., None] * n + torch.einsum("bhj,bhjd->bhd", w_in, ki)
+        m = m_new
+    hout = torch.stack(outs)                          # [nc, B, H, c, dh]
+    hout = hout.movedim(0, 1).movedim(3, 2).reshape(b, s, h, dh)
+    return hout, (C, n, m)
 
 
 def _mlstm_step(q, k, v, li, lf, state):
@@ -189,57 +260,76 @@ def _mlstm_step(q, k, v, li, lf, state):
     return h, (C, n, m_new)
 
 
-def _mlstm_qkvif(hn, p, cfg: XlstmConfig, exe: Execution):
+def _mlstm_qkvif(hn, p, cfg: XlstmConfig, exe: Execution,
+                 keys=(None,) * 8):
     b, s, _ = hn.shape
     h_, dh = cfg.n_heads, cfg.hd_m
     if "w_ug" in p:        # gate-fused stack (fuse_gate_stacks)
-        up, gate = linear_stack(hn, p["w_ug"], exe)
+        up, gate = linear_stack(hn, p["w_ug"], exe, keys[0])
         gate = F.silu(gate)
     else:
-        up = linear(hn, p["w_up"], exe)
-        gate = F.silu(linear(hn, p["w_gate"], exe))
+        up = linear(hn, p["w_up"], exe, keys[0])
+        gate = F.silu(linear(hn, p["w_gate"], exe, keys[1]))
     if "w_qkv" in p:
-        q, k, v = linear_stack(up, p["w_qkv"], exe)
+        q, k, v = linear_stack(up, p["w_qkv"], exe, keys[2])
     else:
-        q = linear(up, p["w_q"], exe)
-        k = linear(up, p["w_k"], exe)
-        v = linear(up, p["w_v"], exe)
+        q = linear(up, p["w_q"], exe, keys[2])
+        k = linear(up, p["w_k"], exe, keys[3])
+        v = linear(up, p["w_v"], exe, keys[4])
     q = q.reshape(b, s, h_, dh) / (dh ** 0.5)
     k = k.reshape(b, s, h_, dh)
     v = v.reshape(b, s, h_, dh)
-    if_ = (linear(up, p["w_if"], exe) + p["b_if"]).to(torch.float32)
+    if_ = (linear(up, p["w_if"], exe, keys[5])
+           + p["b_if"]).to(torch.float32)
     li = if_[..., :h_]
     lf = F.logsigmoid(if_[..., h_:])
     f32 = torch.float32
     return q.to(f32), k.to(f32), v.to(f32), li, lf, gate
 
 
-def mlstm_block(h, p, cfg: XlstmConfig, exe: Execution, state):
-    """One mLSTM block stepped from ``state`` = (C, n, m); h: [B, 1, D]."""
-    hn = _norm(h, p["ln"], cfg.norm_eps)
-    q, k, v, li, lf, gate = _mlstm_qkvif(hn, p, cfg, exe)
-    # recurrent states compute in f32 regardless of the cache dtype
-    state = tuple(x.to(torch.float32) for x in state)
-    ho, new_state = _mlstm_step(q[:, 0], k[:, 0], v[:, 0], li[:, 0],
-                                lf[:, 0], state)
+def mlstm_block(h, p, cfg: XlstmConfig, exe: Execution, key=None,
+                state=None):
+    """One mLSTM block -> (h, (C, n, m)). ``state=None``: the training
+    form over h [B, S, D] (chunkwise, fresh state, torch's reductions);
+    else one step from ``state`` = (C, n, m), h [B, 1, D], batch-invariant.
+    ``key`` splits into 8, keys[0..6] keying w_up, w_gate, w_q, w_k, w_v,
+    w_if and w_down."""
+    keys = split_keys(key, 8)
+    bi = state is not None
+    hn = rmsnorm(h, p["ln"], cfg.norm_eps, batch_invariant=bi)
+    q, k, v, li, lf, gate = _mlstm_qkvif(hn, p, cfg, exe, keys)
+    if state is None:
+        ho, new_state = _mlstm_chunkwise(q, k, v, li, lf, cfg)
+    else:
+        # recurrent states compute in f32 regardless of the cache dtype
+        state = tuple(x.to(torch.float32) for x in state)
+        ho, new_state = _mlstm_step(q[:, 0], k[:, 0], v[:, 0], li[:, 0],
+                                    lf[:, 0], state)
+        ho = ho[:, None]
     b, s = h.shape[:2]
-    ho = _groupnorm(ho[:, None].reshape(b, s, -1).to(exe.cdtype), p["gn"],
-                    cfg.n_heads, cfg.norm_eps)
-    out = linear(ho * gate, p["w_down"], exe)
+    ho = _groupnorm(ho.reshape(b, s, -1).to(exe.cdtype), p["gn"],
+                    cfg.n_heads, cfg.norm_eps, batch_invariant=bi)
+    out = linear(ho * gate, p["w_down"], exe, keys[6])
     return h + out, new_state
 
 
-def _slstm_seq(zifo, r, hd, n_heads, state):
+def _slstm_seq(zifo, r, hd, n_heads, state, batch_invariant=True):
     """zifo: [B,S,4d] input-side pre-activations; r: [H, dh, 4dh] recurrent
-    weights. state: (c, n, h, m) each [B, d]. Returns ([B,S,d], state)."""
+    weights. state: (c, n, h, m) each [B, d]. Returns ([B,S,d], state).
+    ``batch_invariant`` sums the recurrent product in `row_sum`'s order,
+    else as one `einsum`."""
     b, s, d4 = zifo.shape
     d = d4 // 4
     c, n, h, m = state
     hs = []
     for t in range(s):
         x_t = zifo[:, t]
-        rec = row_sum(h.reshape(b, n_heads, hd)[..., None] * r,
-                      dim=-2).reshape(b, 4 * d)
+        hh = h.reshape(b, n_heads, hd)
+        if batch_invariant:
+            rec = row_sum(hh[..., None] * r, dim=-2)
+        else:
+            rec = torch.einsum("bhd,hde->bhe", hh, r)
+        rec = rec.reshape(b, 4 * d)
         pre = x_t + rec
         zt = torch.tanh(pre[:, :d])
         it = pre[:, d:2 * d]
@@ -257,24 +347,75 @@ def _slstm_seq(zifo, r, hd, n_heads, state):
     return torch.stack(hs, dim=1), (c, n, h, m)
 
 
-def slstm_block(h, p, cfg: XlstmConfig, exe: Execution, state):
-    """One sLSTM block (and its gated FFN) stepped from ``state`` =
-    (c, n, h, m)."""
-    hn = _norm(h, p["ln"], cfg.norm_eps)
-    zifo = (linear(hn, p["w_zifo"], exe) + p["b_zifo"]).to(torch.float32)
-    state = tuple(x.to(torch.float32) for x in state)
-    hs, new_state = _slstm_seq(zifo, p["r_zifo"].to(torch.float32),
-                               cfg.hd_s, cfg.n_heads, state)
-    hs = _groupnorm(hs.to(exe.cdtype), p["gn"], cfg.n_heads, cfg.norm_eps)
-    h = h + hs
-    hn2 = _norm(h, p["ln2"], cfg.norm_eps)
-    if "w_ff_gu" in p:     # gate-fused stack (fuse_gate_stacks)
-        g, u = linear_stack(hn2, p["w_ff_gu"], exe)
+def slstm_block(h, p, cfg: XlstmConfig, exe: Execution, key=None,
+                state=None):
+    """One sLSTM block (and its gated FFN) -> (h, (c, n, h, m)), stepped
+    over h [B, S, D] from ``state`` (None: fresh, (0, 0, 0, -1e30), torch's
+    reductions; else batch-invariant). ``key`` splits into 8, keys[0..3]
+    keying w_zifo, w_ff_gate, w_ff_up and w_ff_down."""
+    keys = split_keys(key, 8)
+    bi = state is not None
+    b, _, d = h.shape
+    hn = rmsnorm(h, p["ln"], cfg.norm_eps, batch_invariant=bi)
+    zifo = (linear(hn, p["w_zifo"], exe, keys[0])
+            + p["b_zifo"]).to(torch.float32)
+    if state is None:
+        zeros = torch.zeros((b, d), device=h.device)
+        state = (zeros, zeros, zeros, torch.full((b, d), -1e30,
+                                                 device=h.device))
     else:
-        g = linear(hn2, p["w_ff_gate"], exe)
-        u = linear(hn2, p["w_ff_up"], exe)
-    ff = linear(F.gelu(g, approximate="tanh") * u, p["w_ff_down"], exe)
+        state = tuple(x.to(torch.float32) for x in state)
+    hs, new_state = _slstm_seq(zifo, p["r_zifo"].to(torch.float32),
+                               cfg.hd_s, cfg.n_heads, state, bi)
+    hs = _groupnorm(hs.to(exe.cdtype), p["gn"], cfg.n_heads, cfg.norm_eps,
+                    batch_invariant=bi)
+    h = h + hs
+    hn2 = rmsnorm(h, p["ln2"], cfg.norm_eps, batch_invariant=bi)
+    if "w_ff_gu" in p:     # gate-fused stack (fuse_gate_stacks)
+        g, u = linear_stack(hn2, p["w_ff_gu"], exe, keys[1])
+    else:
+        g = linear(hn2, p["w_ff_gate"], exe, keys[1])
+        u = linear(hn2, p["w_ff_up"], exe, keys[2])
+    ff = linear(F.gelu(g, approximate="tanh") * u, p["w_ff_down"], exe,
+                keys[3])
     return h + ff, new_state
+
+
+def _pair(h, ps, cfg: XlstmConfig, exe: Execution, km, ks):
+    h, _ = mlstm_block(h, ps["mlstm"], cfg, exe, km)
+    h, _ = slstm_block(h, ps["slstm"], cfg, exe, ks)
+    return h
+
+
+def forward(params, tokens, cfg: XlstmConfig, exe: Execution = None,
+            rng=None, return_hidden: bool = False):
+    """tokens [B, S] -> (logits [B, S, V], 0.0): the training forward.
+
+    Pair i runs its mLSTM block under ``split(rng, 2n)[2i]`` and its sLSTM
+    block under ``[2i + 1]`` (no keys when ``rng`` is None); under
+    autograd each pair is a non-reentrant `torch.utils.checkpoint` region,
+    recomputed in the backward (the reference's `jax.checkpoint` of its
+    scan body). ``return_hidden`` returns the final-normed hidden states
+    [B, S, D] in place of the logits."""
+    exe = exe or Execution()
+    h = params["embed"][tokens].to(exe.cdtype)
+    n = cfg.n_pairs
+    keys = prng.split(rng, 2 * n) if rng is not None else [None] * (2 * n)
+    remat = torch.is_grad_enabled()
+    for i in range(n):
+        ps = {blk: layer_slice(params["pairs"][blk], i)
+              for blk in ("mlstm", "slstm")}
+        args = (h, ps, cfg, exe, keys[2 * i], keys[2 * i + 1])
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(
+                _pair, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _pair(*args)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return h, 0.0
+    logits = h.to(torch.float32) @ as_weight(params["unembed"], torch.float32)
+    return logits, 0.0
 
 
 def unembed_matrix(params, cfg: XlstmConfig):
@@ -316,13 +457,13 @@ def decode_step(params, cache, tokens, cfg: XlstmConfig,
         st = [cache[name][i] for name in _STATE]
         pair = {blk: layer_slice(params["pairs"][blk], i)
                 for blk in ("mlstm", "slstm")}
-        h, m_state = mlstm_block(h, pair["mlstm"], cfg, exe, st[:3])
-        h, s_state = slstm_block(h, pair["slstm"], cfg, exe, st[3:])
+        h, m_state = mlstm_block(h, pair["mlstm"], cfg, exe, None, st[:3])
+        h, s_state = slstm_block(h, pair["slstm"], cfg, exe, None, st[3:])
         for name, t in zip(_STATE, m_state + s_state):
             outs[name].append(t.to(cdt))
     new_cache = {name: torch.stack(ts) for name, ts in outs.items()}
     new_cache["len"] = cache["len"] + 1
-    h = _norm(h, params["final_norm"], cfg.norm_eps)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps, batch_invariant=True)
     logits = h.to(torch.float32) @ as_weight(params["unembed"], torch.float32)
     return logits, new_cache
 

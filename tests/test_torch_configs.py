@@ -2,8 +2,9 @@
 reference's (`repro/configs`): every ported arch's published and smoke
 configs equal the reference's field for field, its serving metadata
 (family, module, cache dtype, patch positions, source) too, the aliases
-resolve alike, and the architectures that are not ported raise a clear
-error. Tolerance: exact equality (configs are plain values)."""
+resolve alike; every arch of the reference's registry is ported, the
+enc-dec seamless-m4t-large-v2 (its training fields) included; an unknown
+arch raises. Tolerance: exact equality (configs are plain values)."""
 
 import torch_threads  # noqa: F401  (first: torch's thread budget)
 
@@ -16,13 +17,12 @@ from repro_torch import configs as tconfigs
 
 PORTED = ("granite_8b", "glm4_9b", "llama32_3b", "qwen15_110b",
           "internvl2_1b", "xlstm_350m", "recurrentgemma_9b", "olmoe_1b_7b",
-          "arctic_480b")
-UNPORTED = ("seamless_m4t_large_v2",)
+          "arctic_480b", "seamless_m4t_large_v2")
 
 
 def test_ported_list():
     assert tuple(tconfigs.list_archs()) == PORTED
-    assert set(PORTED) | set(UNPORTED) == set(tconfigs._ARCH_IDS)
+    assert set(PORTED) == set(tconfigs._ARCH_IDS)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -51,17 +51,30 @@ def test_config_equals_reference_field_for_field(arch):
     ("qwen1.5-110b", "qwen15_110b"), ("internvl2-1b", "internvl2_1b"),
     ("granite-8b", "granite_8b"), ("llama32-3b", "llama32_3b"),
     ("xlstm-350m", "xlstm_350m"), ("recurrentgemma-9b", "recurrentgemma_9b"),
-    ("olmoe-1b-7b", "olmoe_1b_7b"), ("arctic-480b", "arctic_480b")])
+    ("olmoe-1b-7b", "olmoe_1b_7b"), ("arctic-480b", "arctic_480b"),
+    ("seamless-m4t-large-v2", "seamless_m4t_large_v2")])
 def test_aliases_resolve_like_reference(alias, arch):
     assert tconfigs.get_arch(alias).arch_id == jget(alias).arch_id == arch
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_arch(arch)
-    with pytest.raises(NotImplementedError):
-        tconfigs.get_arch(arch.replace("_", "-"))
+def test_seamless_config_equals_reference_field_for_field():
+    """The enc-dec arch the port refused until its training half: published
+    and smoke `EncDecConfig`s field for field (with ``hd``), the audio
+    family, the encdec module, ``tgt_ratio`` 4 and the training fields the
+    train step reads; an unknown arch still raises."""
+    j, t = jget("seamless_m4t_large_v2"), tconfigs.get_arch(
+        "seamless-m4t-large-v2")
+    for which in ("model_cfg", "smoke_cfg"):
+        jc, tc = getattr(j, which), getattr(t, which)
+        assert type(tc).__name__ == "EncDecConfig"
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc), which
+        assert tc.hd == jc.hd
+    for field in ("family", "module", "tgt_ratio", "optimizer",
+                  "param_dtype", "microbatch", "cache_dtype", "source"):
+        assert getattr(t, field) == getattr(j, field), field
+    assert (t.family, t.module, t.tgt_ratio) == ("audio", "encdec", 4)
+    with pytest.raises(KeyError):
+        tconfigs.get_arch("no-such-arch")
 
 
 def test_head_dim_overrides_d_model_split():

@@ -47,7 +47,9 @@ def test_every_module_is_listed():
                  "repro_torch.optim.schedule", "repro_torch.data",
                  "repro_torch.data.pipeline", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.checkpoint",
-                 "repro_torch.launch.steps", "repro_torch.launch.train"):
+                 "repro_torch.launch.steps", "repro_torch.launch.train",
+                 "repro_torch.models.encdec",
+                 "repro_torch.configs.seamless_m4t_large_v2"):
         assert must in mods
 
 

@@ -45,11 +45,14 @@ from repro_torch.configs import ShapeCell
 from repro_torch.configs import get_arch as tget
 from repro_torch.convert import opt_state_from_numpy, params_from_numpy
 from repro_torch.core import aimc as ta
+from repro_torch.core import prng
 from repro_torch.core.noise import NoiseModel as TNM
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.models.layers import Execution as TExe
 from repro_torch.optim import make_optimizer as tmake
+from repro_torch.optim.adamw import tree_leaves
+from torch_code_replay import logging_reference, replaying_in_port
 
 GTOL = 1e-5
 FLIP = 1e-5
@@ -243,14 +246,153 @@ def test_cli_resume_continues_from_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["--arch", "llama3.2-3b", "--mesh", "2x1"],
-    ["--arch", "seamless-m4t-large-v2"],
-    ["--arch", "xlstm-350m"],
-    ["--arch", "recurrentgemma-9b"],
     ["--arch", "arctic-480b"]],
-    ids=["mesh", "audio", "xlstm", "rglru", "bf16-params"])
+    ids=["mesh", "bf16-params"])
 def test_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="ROADMAP"):
         ttrain.main(argv + ["--smoke", "--device", "cpu", "--steps", "1"])
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "xlstm-350m",
+                                  "recurrentgemma-9b"],
+                         ids=["audio", "xlstm", "rglru"])
+def test_cli_trains_recurrent_and_encdec(arch):
+    """The families the CLI refused before this slice train at their smoke
+    configs: 4 digital steps with finite losses, the last below the first
+    (the reference CLI's bar), and 2 --exec aimc steps (noise off, as the
+    reference CLI) with finite losses. The audio batch is the reference
+    CLI's: zero frames and max(seq // 8, 64) target positions."""
+    base = ["--arch", arch, "--smoke", "--device", "cpu", "--log-every", "1"]
+    run = ttrain.main(base + ["--steps", "4"])
+    losses = [run.losses[s] for s in range(4)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    aimc = ttrain.main(base + ["--steps", "2", "--exec", "aimc"])
+    assert all(np.isfinite([aimc.losses[s] for s in range(2)]))
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--arch", "seamless-m4t-large-v2", "--layers", "2"], "two stacks|stack"),
+    (["--arch", "xlstm-350m", "--layers", "3"], "even")],
+    ids=["audio", "xlstm-odd"])
+def test_cli_layers_refusals(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        ttrain.main(argv + ["--smoke", "--device", "cpu", "--steps", "1"])
+
+
+def _family_grad_fn(spec, exe):
+    """jit(value_and_grad) of the reference's per-microbatch loss for any
+    family (`repro/launch/steps.py:131-133`: the audio forward takes the
+    whole batch)."""
+    cfg, model = spec.smoke_cfg, spec.model_module()
+
+    def micro_loss(p, mb, key):
+        x = mb if spec.family == "audio" else mb["tokens"]
+        h, aux = model.forward(p, x, cfg, exe, key, return_hidden=True)
+        ls, n = jce(h, model.unembed_matrix(p, cfg), mb["labels"])
+        loss = ls / jnp.maximum(n, 1.0)
+        return loss + 0.01 * aux, loss
+
+    return jax.jit(jax.value_and_grad(micro_loss, has_aux=True))
+
+
+def _hold_micro(t_loss, j_loss, tg, jg, tparams):
+    """A microbatch's loss within 1e-5 relative and every gradient leaf
+    within GTOL x max|ref leaf|."""
+    assert t_loss == pytest.approx(j_loss, rel=1e-5)
+    got = dict(_leaves(tsteps._tree_with(tparams, list(tg))))
+    for path, g in _leaves(jax.tree.map(np.asarray, jg)):
+        err = float(np.abs(_np(got[path]) - g).max())
+        tol = GTOL * max(float(np.abs(g).max()), 1e-30)
+        assert err <= tol, (path, err, tol)
+
+
+@pytest.mark.parametrize("arch", ["xlstm_350m", "recurrentgemma_9b",
+                                  "seamless_m4t_large_v2"])
+def test_train_step_matches_composed_reference_families(arch, monkeypatch):
+    """One AIMC noise-on step (sigma_read 0.002) of xlstm, rglru and the
+    enc-dec model at their smoke configs, global batch 2 at microbatch 1
+    (n_micro 2, microbatch i under fold_in(rng, i)), from the reference's
+    state. Per microbatch, the port's `make_micro_grad` against the
+    reference's value_and_grad: the loss within 1e-5 relative and every
+    gradient leaf within GTOL x max|ref leaf|. The reference runs first
+    and logs the values its DAC and programming codes round from; the port
+    replays the reference's codes (`tests/torch_code_replay.py`), so a
+    code that the frameworks' f32 values (an ulp apart) round the other
+    way at a tie takes the reference's value and is counted, and a code
+    that differs away from a tie fails. Nothing is excused. (Here xlstm
+    replays one programmed weight code, in microbatch 0's forward and
+    again in its recompute; rglru and the enc-dec model replay none.
+    Without the replay xlstm's microbatch 0 loss is 1.0e-4 relative from
+    the reference's.) Then the step, codes replayed alike: its loss the
+    mean of the microbatches', its gradients their f32 accumulation
+    g_acc + g / 2 bit for bit, the step counter advanced. The
+    enc-dec batch carries its frames [2, 32, d] (drawn with numpy) through
+    the microbatch split with 16 target tokens."""
+    spec = get_arch(arch)
+    cfg = spec.smoke_cfg
+    tspec = tget(arch)
+    tspec = dataclasses.replace(tspec, model_cfg=tspec.smoke_cfg)
+    jexe = JExe(mode="aimc", aimc=ja.AimcConfig(
+        impl="ref", noise=JNM(sigma_read=0.002)), compute_dtype="float32")
+    texe = TExe(mode="aimc", aimc=ta.AimcConfig(noise=TNM(sigma_read=0.002)),
+                compute_dtype="float32")
+    batch = host_batch(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                  global_batch=2, seed=0), 0, 0, 1)
+    if spec.family == "audio":
+        batch = {"frames": np.random.default_rng(0).standard_normal(
+                     (2, 32, cfg.d_model)).astype(np.float32),
+                 "tokens": batch["tokens"][:, :16],
+                 "labels": batch["labels"][:, :16]}
+    jparams = spec.model_module().init(jax.random.PRNGKey(0), cfg)
+    ref_log, replay = {}, {}
+    jgrad = _family_grad_fn(spec, jexe)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    micro_grad = tsteps.make_micro_grad(tspec, texe)
+    trng = torch.tensor([0, 0], dtype=torch.int64)
+    t_losses, t_grads = [], []
+    for i in range(2):
+        mb = {k: v[i:i + 1] for k, v in batch.items()}
+        with logging_reference(ref_log):
+            (_, jl), jg = jgrad(jparams, jax.tree.map(jnp.asarray, mb),
+                                jax.random.fold_in(
+                                    jnp.asarray([0, 0], jnp.uint32), i))
+            jax.effects_barrier()
+        tmb = {k: torch.from_numpy(v) for k, v in mb.items()}
+        key = prng.fold_in(trng, i)
+        with replaying_in_port(ref_log, replay):
+            tl_, tg = micro_grad(tparams, tmb, key)
+        t_losses.append(tl_)
+        t_grads.append(tg)
+        assert replay["away"] == 0, replay
+        _hold_micro(float(tl_), float(jl), tg, jg, tparams)
+    seen = {}
+    real = tmake
+
+    def spy(name, **kw):
+        init, upd, c = real(name, **kw)
+
+        def upd_spy(g, s, p, lr=1.0):
+            seen["grads"] = g
+            return upd(g, s, p, lr)
+        return init, upd_spy, c
+
+    monkeypatch.setattr(tsteps, "make_optimizer", spy)
+    cell = ShapeCell("t", seq_len=32, global_batch=2, kind="train")
+    step_fn = tsteps.make_train_step(tspec, cell, None, texe).fn
+    tstate = tmake(spec.optimizer)[0](tparams)
+    with replaying_in_port(ref_log, replay):
+        _, new_state, metrics = step_fn(
+            tparams, tstate,
+            {k: torch.from_numpy(v) for k, v in batch.items()}, trng)
+    assert replay["away"] == 0, replay
+    assert float(metrics["loss"]) == float(t_losses[0] / 2 + t_losses[1] / 2)
+    for acc, g0, g1 in zip(tree_leaves(seen["grads"]), *t_grads):
+        want = torch.zeros_like(acc)
+        for g in (g0, g1):
+            if g is not None:
+                want = want + g / 2
+        assert torch.equal(acc, want)
+    assert int(new_state.step) == 1
 
 
 def test_make_step_refuses_serving_cells_and_meshes():

@@ -224,10 +224,9 @@ def test_init_keeps_no_generator_and_refuses_unported():
 
 
 def test_unported_paths_raise():
-    """What is not ported raises (the enc-dec arch, bf16 weight init); the
-    on-the-fly AIMC linear is ported now and runs the STE."""
-    with pytest.raises(NotImplementedError):
-        tget("seamless-m4t-large-v2")
+    """What is not ported raises (bf16 weight init; an unknown arch is a
+    KeyError); the on-the-fly AIMC linear is ported now and runs the
+    STE."""
     with pytest.raises(KeyError):
         tget("no-such-arch")
     with pytest.raises(NotImplementedError):
