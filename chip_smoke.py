@@ -9,7 +9,9 @@ a cost-model placement that rotates layer groups through a tile budget,
 granite-8b and xlstm-350m together on one tile pool behind the
 multi-tenant server, train olmoe-1b-7b (4 of 16 layers) noise-aware and
 so the recurrent and enc-dec families (xlstm-350m and
-seamless-m4t-large-v2 uncut, recurrentgemma-9b at 3 of 38 layers), and
+seamless-m4t-large-v2 uncut, recurrentgemma-9b at 3 of 38 layers), serve
+seamless-m4t-large-v2 uncut through the prefill and decode step builders,
+and
 run the paper's MLP, LSTM and CNN-F/M/S at theirs with read noise on,
 single-core and in the paper's multi-core mappings, through the
 hand-written Hopper kernels K1-K4 and K2's expert entry.
@@ -49,7 +51,10 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      same batches) bit-equal to the unfused run; K3 runs 36 x passes.
      static — on the same codes with the DAC scale fixed at 0.05, the
      engine equals `static_generate` bit for bit on a synchronized trace
-     (the transformer path's batch invariance).
+     (the transformer path's batch invariance); and the same prompts
+     through `launch.steps.make_step`'s prefill cell and GEN - 1 steps of
+     its decode cell (the spec's bf16 cache, 252 K2 per pass) equal
+     `static_generate`'s on that cache dtype bit for bit.
   6. fused serve — the phase-4 command with --fuse-gates, launch counts
      zeroed just before and read just after: K3 36 x passes, K2 5 x 36 x
      passes, ledgers reconcile. K3's launch count in the record is this
@@ -281,24 +286,55 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      leg prints ms/step (host), tok/s, the profiled last step's device busy
      and idle share, K2 device ms and peak GB (the xlstm and seamless steps
      profile the device activity alone: collecting their ~10^6 host-op
-     events took minutes). (d) On the card at published widths, uncut,
-     digital f32: xlstm-350m's and recurrentgemma-9b's `forward` over 2 x 16
-     tokens equals 16 `decode_step`s at the last position within the
-     reference's atol 5e-3. (e) One noise-on train step of each family's
-     smoke config on the card and on the CPU from one state, as in phase 20
-     (d), DAC codes replayed at ties, every gradient leaf within 1e-4 of its
-     max. (f) K2 on the first noise-on call's operands at every training
-     shape of (a)-(c) (B 1024 to 4096 rows, up to 4096 -> 12288): within
-     1e-5 x max(1, max|y|) of its plain version, different from its sigma =
-     0 output, timed against its bound.
+     events took minutes; the xlstm noise-on leg's last step is not traced
+     at all: stopping the profiler over its ~10^6 kernels took ~50 s, and
+     its host clock and sLSTM range are kept). (d) On the card at published
+     widths, uncut, digital f32: xlstm-350m's and recurrentgemma-9b's
+     `forward` over 2 x 16 tokens equals 16 `decode_step`s at the last
+     position within the reference's atol 5e-3. (e) One noise-on train
+     step of each family's smoke config on the card and on the CPU from one
+     state, as in phase 20 (d), DAC codes replayed at ties, every gradient
+     leaf within 1e-4 of its max. (f) K2 on the first noise-on call's
+     operands at every training shape of (a)-(c) (B 1024 to 4096 rows, up
+     to 4096 -> 12288): within 1e-5 x max(1, max|y|) of its plain version,
+     different from its sigma = 0 output, timed against its bound.
+ 22. encdec serve — seamless-m4t-large-v2 at its published widths, uncut
+     (24 + 24 layers, d_model 1024, 16 heads, d_ff 8192, vocab 256206),
+     weights from seed 0 on JAX's keys, programmed with 512 x 512 tiles and
+     noise off, served through `launch.steps.make_step` (the only way the
+     audio family is served). (a) The prefill cell `prefill_4k` (4 x 4096
+     seeded bf16 frames, 1024 decoder tokens = seq // tgt_ratio) gives the
+     first token and the cache, then ED_DECODE steps of the decode cell
+     (seq 4096, batch 4) on it: exactly 384 K2 per prefill (24 x 6 encoder
+     + 24 x 10 decoder, the cross ``ck``/``cv`` included) and 192 per
+     decode step (24 x 8), no other kernel, counts zeroed just before and
+     read just after each call; cache len 1024 + ED_DECODE; the tokens equal
+     `runtime.engine.static_generate`'s on the same inputs bit for bit.
+     Printed: prefill ms and decode ms/step (host clock), device busy and
+     idle share and K2 device ms of one prefill and one decode step
+     (profiler, device activity alone), peak GB, and `launch.modelstats`'
+     MODEL_FLOPS of each cell over its time. The cells cut the reference's
+     prefill_32k / decode_32k in sequence and batch only. (b) K2 on the
+     first call's operands at every new shape of (a), per site: the encoder
+     at B 16384 (1024 -> 1024, 1024 -> 8192 and 8192 -> 1024 with their
+     biases), the cross K/V at B 16384, the decoder at B 4096 (prefill) and
+     B 4 (decode): each within 1e-5 x max(1, max|y|) of its plain version,
+     timed against its bound. (c) Digital f32 at the same widths: the
+     reference's `test_encdec_decode_matches_forward` (`forward` on 2 x 256
+     frames and 2 x 16 tokens, last position, equals `prefill` of the
+     first 15 tokens plus one `decode_step`) within its atol 2e-3. (d) The
+     programmed smoke config, prefill plus 4 decode steps, on the card and
+     on the CPU from one program, DAC codes replayed at ties as in phase 20
+     (d): tokens equal, logits and caches within 1e-5 x max(1, max|y|).
 
 The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
 per-kernel JSON record (K2/K3 timed per granite layer at decode, K1/K4 per
 MLP forward, the expert entry per olmoe-1b-7b training layer and
 microbatch with read noise on, its launches those of phase 20's noise-on
-leg; K2's max |err| covers its training shapes of phases 20-21, listed
-under ``train_shapes`` as padded B x K -> N). Each phase's seconds are
+leg; K2's max |err| covers its training shapes of phases 20-21 and its
+serving shapes of phase 22, listed under ``train_shapes`` and
+``serve_shapes`` as padded B x K -> N). Each phase's seconds are
 printed as it ends. Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -926,7 +962,51 @@ def static_gate_phase(run, card):
           f"{t_pre:.2f} s, {GEN - 1} decode steps {t_dec:.2f} s (host "
           f"clock, on {card})", flush=True)
     return {"tokens": rep.generated_tokens, "prefill_s": t_pre,
-            "decode_s": t_dec}
+            "decode_s": t_dec, "make_step": granite_step_cells(
+                eng, exe_f, prompts, card)}
+
+
+def granite_step_cells(eng, exe, prompts, card):
+    """(e) The same programmed granite-8b and prompts through
+    `launch.steps.make_step`'s prefill cell (PROMPT + GEN cache rows) and
+    GEN - 1 steps of its decode cell, in the spec's bf16 cache: the tokens
+    equal `static_generate`'s on the same cache dtype bit for bit; K2
+    launches 7 x 36 per pass."""
+    import torch
+
+    from repro_torch.configs import ShapeCell, get_arch
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch.steps import make_step
+    from repro_torch.runtime.engine import static_generate
+
+    spec = get_arch(ARCH)
+    seq = PROMPT + GEN
+    pre = make_step(spec, ShapeCell("prefill", seq, N_REQ, "prefill"), None,
+                    exe, program=eng.program)
+    dec = make_step(spec, ShapeCell("decode", seq, N_REQ, "decode"), None,
+                    exe, program=eng.program)
+    per_pass = 7 * eng.cfg.n_layers
+    aimc_mvm.reset_counts()
+    tok, cache = pre.fn(eng.params, {"tokens": prompts})
+    out = [tok]
+    for _ in range(GEN - 1):
+        tok, cache = dec.fn(eng.params, cache, tok)
+        out.append(tok)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in aimc_mvm.LAUNCHES.items() if v}
+    check(counts == {"aimc_mvm_v2": per_pass * GEN},
+          f"granite make_step launches {counts} != {per_pass} x {GEN}")
+    got = torch.cat(out, dim=1)
+    want, _ = static_generate(eng.model, eng.cfg, exe, eng.params, prompts,
+                              GEN, max_seq=seq,
+                              cache_dtype=getattr(torch, spec.cache_dtype))
+    check(torch.equal(got, want), f"granite make_step tokens "
+          f"{got.tolist()} != static_generate's {want.tolist()}")
+    print(f"[static] granite-8b through make_step (prefill cell [{N_REQ} x "
+          f"{PROMPT}], {GEN - 1} decode-cell steps, {spec.cache_dtype} "
+          f"cache, {per_pass} K2 per pass) == static_generate bit for bit "
+          f"on {card}", flush=True)
+    return {"tokens": got.tolist(), "launches": counts}
 
 
 def fused_serve_phase(dev):
@@ -3867,7 +3947,7 @@ CROSSBAR_KERNELS = ("aimc_mvm_mma_kernel", "aimc_dac_kernel",
                     "aimc_rowblock_sum_kernel")
 
 
-def train_step_profile(fn, dev, extra=None, cpu_ops=True):
+def train_step_profile(fn, dev, extra=None, cpu_ops=True, trace=True):
     """One train step under torch.profiler, read from its raw kineto
     events (a noise-on step issues ~10^5 kernels; building the profiler's
     event tree for them took minutes): host-clock ms, device busy (the
@@ -3878,7 +3958,9 @@ def train_step_profile(fn, dev, extra=None, cpu_ops=True):
     (its GPU annotation spans) and host ms; ``extra`` ({label: (module,
     name)}) adds ranges. ``cpu_ops=False`` records the device activity
     alone (no operator events, no range device ms): collecting the events
-    of a step of ~10^6 small host ops took minutes."""
+    of a step of ~10^6 small host ops took minutes. ``trace=False`` runs
+    no profiler (stopping one over ~10^6 kernels took ~50 s): the host
+    clock and the ranges' host ms only, every device number None."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3902,12 +3984,20 @@ def train_step_profile(fn, dev, extra=None, cpu_ops=True):
             stack.enter_context(patched(
                 legacy, "_parse_kineto_results",
                 lambda _orig: lambda self, result: []))
-        with profile(activities=([ProfilerActivity.CPU] if cpu_ops else [])
-                     + [ProfilerActivity.CUDA]) as prof:
+        with (profile(activities=([ProfilerActivity.CPU] if cpu_ops else [])
+                      + [ProfilerActivity.CUDA]) if trace
+              else contextlib.nullcontext()) as prof:
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize(dev)
             wall_us = (time.perf_counter() - t) * 1e6
+    if not trace:
+        return {"profiled_ms": wall_us / 1e3, "traced": False,
+                "device_busy_ms": None, "device_idle_share": None,
+                "crossbar_kernels_ms": None,
+                "parts": {label: {"calls": None, "device_ms": None,
+                                  "host_ms": host[label] * 1e3}
+                          for label in names if label in host}}
     # one pass over the raw events (~2 per kernel at ~13 us each on an
     # H100's host, so the fewest calls per event); a GPU span of a
     # profiler range is an annotation, not a kernel (torch versions
@@ -3950,7 +4040,7 @@ def train_step_profile(fn, dev, extra=None, cpu_ops=True):
         if label in host:
             parts.setdefault(label, {"calls": None, "device_ms": None})
             parts[label]["host_ms"] = host[label] * 1e3
-    return {"profiled_ms": wall_us / 1e3,
+    return {"profiled_ms": wall_us / 1e3, "traced": True,
             "device_busy_ms": busy_ns / 1e6 if spans else None,
             "device_idle_share": (1.0 - busy_ns / 1e3 / wall_us
                                   if spans else None),
@@ -4016,9 +4106,11 @@ def _train_summary(tag, losses, step_s, prof, counts, steps, peak_gb,
         return "not measured" if v is None else f"{v:.2f} ms"
 
     tok = f", {out['tok_s']:,.0f} tok/s" if tokens else ""
-    which = f"steps {timed_steps}" if timed_steps else "the profiled step"
+    last = "profiled step" if prof.get("traced", True) else (
+        "last step (not traced)")
+    which = f"steps {timed_steps}" if timed_steps else f"the {last}"
     print(f"[train] {tag}: losses {out['losses']}; {ms:.1f} ms/step (host, "
-          f"{which}{tok}); profiled step {prof['profiled_ms']:.1f} "
+          f"{which}{tok}); {last} {prof['profiled_ms']:.1f} "
           f"ms, device busy {f(prof['device_busy_ms'])}, idle share "
           f"{prof['device_idle_share']}; K2 device {f(out['k2_device_ms'])}, "
           f"expert device {f(out['experts_device_ms'])} (their CUDA kernels "
@@ -4115,27 +4207,33 @@ def _expert_calls_recorder(calls, distinct):
     return make
 
 
-def _k2_calls_recorder(calls):
-    """Wrap `aimc_mvm.aimc_mvm_v2`: keep the operands of the first noise-on
-    (seeded) call at each (x, w_q) shape for the kernel checks (no extra
-    launch; the enc-dec decoder's ``cv`` reads under no key)."""
+def _k2_calls_recorder(calls, site=None):
+    """Wrap `aimc_mvm.aimc_mvm_v2`: keep the operands of the first call at
+    each (x, w_q) shape for the kernel checks (no extra launch). Without
+    ``site``: noise-on (seeded) calls only (the enc-dec decoder's ``cv``
+    reads under no key). With ``site`` (a dict whose "now" names the
+    caller): the serving calls (no read noise), keyed also by the site and
+    by whether a bias rides the epilogue."""
     def make(orig):
         def rec(x, w_q, s_w, s_x, seed=None, bias=None, **kw):
             key = (tuple(x.shape), tuple(w_q.shape))
-            if key not in calls and seed is not None:
+            if site is not None:
+                key = (site["now"], *key, bias is not None)
+            if key not in calls and (seed is not None) == (site is None):
                 calls[key] = dict(x=x, w_q=w_q, s_w=s_w, s_x=s_x, seed=seed,
-                                  bias=bias, kw=kw)
+                                  bias=bias, kw=kw,
+                                  site=site and site["now"])
             return orig(x, w_q, s_w, s_x, seed, bias, **kw)
         return rec
     return make
 
 
-def train_k2_rows(calls, peaks, card):
+def train_k2_rows(calls, peaks, card, noise=True, tag="train"):
     """K2 on the first call's operands at each shape of the noise-on leg
     (the attention projections at B = 8192 rows): within 1e-5 x max(1,
     max|y|) of its plain version on the same x, codes, scales and seed,
     different from its sigma = 0 output; timed (L2 flushed) against its
-    bound."""
+    bound. ``noise=False`` takes a serving leg's calls (noise off)."""
     import torch
 
     from repro_torch.kernels import aimc_mvm, ref
@@ -4143,14 +4241,17 @@ def train_k2_rows(calls, peaks, card):
     dev = next(iter(calls.values()))["x"].device
     flush = flush_buffer(dev)
     rows = []
-    for (xs, ws), c in sorted(calls.items()):
+    for key in sorted(calls):
+        c = calls[key]
         x, w_q, s_w, s_x, seed, bias, kw = (c[k] for k in (
             "x", "w_q", "s_w", "s_x", "seed", "bias", "kw"))
+        xs, ws = tuple(x.shape), tuple(w_q.shape)
         sigma, step = kw.get("sigma", 0.0), kw["adc_step"]
         act = kw.get("activation", "none")
-        check(kw.get("noise_source", "counter") == "counter" and sigma > 0.0
-              and seed is not None, f"K2 {xs}x{ws}: the noise-on leg's K2 "
-              f"call carries {kw}, seed {seed}")
+        check(kw.get("noise_source", "counter") == "counter"
+              and (sigma > 0.0 and seed is not None) == noise,
+              f"K2 {xs}x{ws}: the {tag} leg's K2 call carries {kw}, seed "
+              f"{seed}")
         b, (kb, m, np_) = xs[0], ws
         kern = functools.partial(aimc_mvm.aimc_mvm_v2, x, w_q, s_w, s_x,
                                  seed, bias, **kw)
@@ -4158,15 +4259,19 @@ def train_k2_rows(calls, peaks, card):
                                   seed, bias, adc_step=step, sigma=sigma,
                                   activation=act)
         y, want = kern(), plain()
-        quiet = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, None, bias,
-                                     adc_step=step, activation=act)
+        if noise:
+            quiet = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, None, bias,
+                                         adc_step=step, activation=act)
+            torch.cuda.synchronize(dev)
+            check(not torch.equal(y, quiet), f"K2 {xs}x{ws}: read noise "
+                  f"did not change the output")
+            del quiet
         torch.cuda.synchronize(dev)
-        check(not torch.equal(y, quiet), f"K2 {xs}x{ws}: read noise did not "
-              f"change the output")
         err = float((y - want).abs().max())
         tol = 1e-5 * max(1.0, float(want.abs().max()))
         check(err <= tol, f"K2 {xs}x{ws}: max |err| {err} > {tol}")
-        row = {"B": b, "K": xs[1], "KB": kb, "Np": np_, "sigma": sigma,
+        row = {"site": c["site"], "B": b, "K": xs[1], "KB": kb, "Np": np_,
+               "bias": bias is not None, "sigma": sigma,
                "max_abs_err": err, "tol": tol,
                "plan": aimc_mvm.launch_plan(dev, b, kb, m, np_),
                "ms": time_ms(kern, flush, KERNEL_REPS),
@@ -4174,12 +4279,15 @@ def train_k2_rows(calls, peaks, card):
         row["bound_ms"], row["bound_by"] = bound_ms(b, kb, m, np_, 1, peaks,
                                                     bias is not None)
         rows.append(row)
-        print(f"[train] K2 [{b}x{xs[1]}] KB {kb} Np {np_} sigma {sigma} "
-              f"({plan_str(row['plan'])}): != sigma 0, max|err| {err:.3g} "
-              f"vs plain (tol {tol:.3g}); kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}) on {card}", flush=True)
-        del y, want, quiet
+        where = f"{c['site']} " if c["site"] else ""
+        print(f"[{tag}] K2 {where}[{b}x{xs[1]}] KB {kb} Np {np_}"
+              f"{' + bias' if row['bias'] else ''} sigma {sigma} "
+              f"({plan_str(row['plan'])}): {'!= sigma 0, ' if noise else ''}"
+              f"max|err| {err:.3g} vs plain (tol {tol:.3g}); kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) on {card}",
+              flush=True)
+        del y, want
     del flush
     return rows
 
@@ -4242,11 +4350,14 @@ def train_expert_rows(calls, peaks, card):
 
 
 def direct_train_steps(dev, card, tag, spec, cell, steps, batch_at, want,
-                       wraps=(), ranges=None, noise=True, cpu_ops=True):
+                       wraps=(), ranges=None, noise=True, cpu_ops=True,
+                       trace=True):
     """`make_train_step` driven directly in bf16 (``noise``: AIMC with the
     paper's noise, `paper_noise()`: sigma_read 0.003, programming noise at
     its defaults; else digital) for ``steps`` steps on ``batch_at(step)``,
-    weights from SEED on JAX's keys, the last step profiled, each kernel
+    weights from SEED on JAX's keys, the last step profiled
+    (`train_step_profile`; ``trace=False``: host clock and ranges only),
+    each kernel
     wrapper in ``wraps`` ((module, name, make)) patched for the run:
     finite losses, the last at most 1.05 x the first (noise on) or below
     it (digital), and launch counts (zeroed just before, read just after)
@@ -4285,7 +4396,8 @@ def direct_train_steps(dev, card, tag, spec, cell, steps, batch_at, want,
             else:
                 res = {}
                 prof = train_step_profile(lambda: res.setdefault(
-                    "r", fn(params, opt, batch, rng)), dev, ranges, cpu_ops)
+                    "r", fn(params, opt, batch, rng)), dev, ranges, cpu_ops,
+                    trace)
                 params, opt, met = res["r"]
             losses[step] = float(met["loss"])
             step_s[step] = time.perf_counter() - t
@@ -4631,11 +4743,14 @@ def _cli_digital(dev, card, arch, base, steps=2, cpu_ops=True):
 
 def xlstm_train_leg(dev, peaks, card):
     """xlstm-350m uncut: the CLI digitally at global batch 2 x 64 (2
-    microbatches), then `make_train_step` with the paper's noise at 1 x
-    1024 (one microbatch of 2 mLSTM chunks, so the chunk-carried (C, n, m)
-    and K2 at B 1024 run) at 264 K2 per step, each profiled step recording
-    the device activity alone; the sLSTM loop's host time (forward and
-    recompute) from a host-clock range; K2 at each shape. The sizes: the
+    microbatches), its profiled step recording the device activity alone,
+    then `make_train_step` with the paper's noise at 1 x 1024 (one
+    microbatch of 2 mLSTM chunks, so the chunk-carried (C, n, m) and K2 at
+    B 1024 run) at 264 K2 per step, its last step on the host clock, not
+    traced (stopping the profiler over its ~10^6 kernels took ~50 s of the
+    smoke's limit; PR 22 measured it: idle 0.93-0.94); the sLSTM loop's
+    host time (forward and recompute) from a host-clock range; K2 at each
+    shape. The sizes: the
     sLSTM loop issues ~30 autograd ops per position and block in the
     forward, again in the recompute and ~2x in the backward, so a step's
     host time grows with batch x length (a noise-on step at 1 x 1024 took
@@ -4670,13 +4785,13 @@ def xlstm_train_leg(dev, peaks, card):
         ShapeCell("train", XLSTM_NOISE_SEQ, XLSTM_NOISE_GB, "train"), 2,
         batch_at, {"aimc_mvm_v2": want},
         [(aimc_mvm, "aimc_mvm_v2", _k2_calls_recorder(k2_calls))],
-        {"train:slstm": (xlstm, "_slstm_seq")}, cpu_ops=False)
+        {"train:slstm": (xlstm, "_slstm_seq")}, cpu_ops=False, trace=False)
     slstm = leg["parts"].get("train:slstm", {})
     leg["slstm_host_ms"] = slstm.get("host_ms")
     print(f"[train] {FAM_XLSTM}: the sLSTM loops ({cfg.n_pairs} blocks x "
           f"{XLSTM_NOISE_SEQ} positions x {n_micro} microbatch, forward and "
           f"recompute) took {leg['slstm_host_ms']:.1f} ms of host in the "
-          f"profiled step of {leg['profiled_step_ms']:.1f} ms on {card}",
+          f"last step of {leg['profiled_step_ms']:.1f} ms on {card}",
           flush=True)
     leg["k2_rows"] = train_k2_rows(k2_calls, peaks, card)
     out["noise"] = leg
@@ -4923,6 +5038,292 @@ def family_train_phase(dev, peaks, card):
     return out
 
 
+# phase 22: seamless-m4t-large-v2 served through the step builders, at its
+# published widths, uncut; the cells cut sequence and batch from the
+# reference's prefill_32k / decode_32k (32 x 32768 frames, 128 x 32768
+# cache rows: the decode cache alone would be ~206 GB)
+ED_B, ED_SEQ, ED_DECODE = 4, 4096, 16   # 4 requests of 1 + 16 tokens
+ED_FWD_SRC, ED_FWD_TGT, ED_FWD_ATOL = 256, 16, 2e-3  # test_models_smoke:175
+ED_SMOKE_SEQ, ED_SMOKE_STEPS = 256, 4   # card vs CPU at the smoke config
+
+
+def encdec_forward_decode(params, cfg, dev):
+    """(c) The reference's `test_encdec_decode_matches_forward` on the card
+    at the published widths, uncut, digital f32: `forward`'s last position
+    over 2 x ED_FWD_SRC seeded frames and 2 x ED_FWD_TGT tokens equals
+    `prefill` of the first ED_FWD_TGT - 1 tokens plus one `decode_step`,
+    within ED_FWD_ATOL."""
+    import torch
+
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import Execution
+
+    exe = Execution(compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    frames = torch.randn((2, ED_FWD_SRC, cfg.d_model), generator=gen,
+                         device=dev)
+    toks = torch.randint(1, cfg.vocab, (2, ED_FWD_TGT), generator=gen,
+                         device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        full, _ = encdec.forward(params, {"frames": frames, "tokens": toks},
+                                 cfg, exe)
+        _, cache = encdec.prefill(params, frames, toks[:, :-1], cfg, exe,
+                                  max_seq=ED_FWD_TGT,
+                                  cache_dtype=torch.float32)
+        step, _ = encdec.decode_step(params, cache, toks[:, -1:], cfg, exe)
+    err = float((step[:, -1] - full[:, -1]).abs().max())
+    check(bool(torch.isfinite(full).all()) and err <= ED_FWD_ATOL,
+          f"{FAM_ENCDEC}: forward vs prefill + decode_step max |err| {err} "
+          f"> {ED_FWD_ATOL}")
+    print(f"[encdec-serve] (c) forward == prefill + decode_step at the "
+          f"published widths (digital f32, 2 x {ED_FWD_SRC} frames, 2 x "
+          f"{ED_FWD_TGT} tokens): last-position logits max |err| {err:.3g} "
+          f"(atol {ED_FWD_ATOL})", flush=True)
+    return {"max_abs_err": err, "atol": ED_FWD_ATOL}
+
+
+def encdec_card_vs_cpu(dev):
+    """(d) The programmed smoke config (noise off, f32 compute and cache):
+    prefill of 2 x ED_SMOKE_SEQ seeded frames and max(seq // 4, 64) tokens,
+    then ED_SMOKE_STEPS greedy decode steps, on the card (kernels) and on
+    the CPU (plain versions) from one program. The card logs each K2 call's
+    DAC codes and the CPU replays them where one rounded the other way at
+    a tie (`_dac_replay`; a code away from a tie fails). Tokens equal,
+    logits and caches within 1e-5 x max(1, max|y|)."""
+    import torch
+
+    from repro_torch.configs import ShapeCell, get_arch
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.core.program import MappingPlan, program_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import batch_shapes
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import Execution
+
+    spec = get_arch(FAM_ENCDEC)
+    cfg = spec.smoke_cfg
+    aimc = AimcConfig()
+    exe = Execution(mode="aimc", aimc=aimc, compute_dtype="float32",
+                    programmed=True)
+    params = encdec.init(PRNGKey(SEED), cfg, device="cpu")
+    installed = program_model(params, MappingPlan(), aimc,
+                              PRNGKey(SEED + 2)).install(params)
+    shapes = batch_shapes(dataclasses.replace(spec, model_cfg=cfg),
+                          ShapeCell("p", ED_SMOKE_SEQ, 2, "prefill"))
+    gen = torch.Generator().manual_seed(SEED)
+    frames = torch.randn(shapes["frames"][0], generator=gen)
+    toks = torch.randint(1, cfg.vocab, shapes["tokens"][0], generator=gen,
+                         dtype=torch.int32)
+    card_log, seen = [], {"calls": 0, "codes": 0, "away": 0}
+    runs = {}
+    for where in (dev, "cpu"):
+        wrap = (_dac_codes_recorder(card_log) if where == dev
+                else _dac_replay(card_log, seen))
+        p = _to(installed, where)
+        with patched(ops, "aimc_matmul_v2", wrap), torch.no_grad():
+            logits, cache = encdec.prefill(
+                p, frames.to(where), toks.to(where), cfg, exe,
+                max_seq=ED_SMOKE_SEQ, cache_dtype=torch.float32)
+            out = [(logits, cache)]
+            for _ in range(ED_SMOKE_STEPS):
+                nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+                logits, cache = encdec.decode_step(p, cache, nxt, cfg, exe)
+                out.append((logits, cache))
+        runs[str(where)] = [(lg.cpu(), {k: v.cpu() for k, v in c.items()})
+                            for lg, c in out]
+    check(seen["calls"] == len(card_log) and seen["away"] == 0,
+          f"{FAM_ENCDEC} smoke: {seen['calls']} CPU DAC calls vs "
+          f"{len(card_log)} on the card, {seen['away']} codes away from a "
+          f"tie")
+    worst = 0.0
+    for i, ((lc, cc), (lp, cp)) in enumerate(zip(runs[str(dev)],
+                                                 runs["cpu"])):
+        check(torch.equal(lc[:, -1].argmax(-1), lp[:, -1].argmax(-1)),
+              f"{FAM_ENCDEC} smoke call {i}: tokens differ card vs CPU")
+        for name, got, want in [("logits", lc, lp)] + [
+                (k, cc[k], cp[k]) for k in ("k", "v", "ck", "cv")]:
+            err = float((got - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            check(err <= 1e-5 * scale, f"{FAM_ENCDEC} smoke call {i} "
+                  f"{name}: card vs CPU max |err| {err} > 1e-5 x {scale}")
+            worst = max(worst, err / scale)
+        check(torch.equal(cc["len"], cp["len"]), f"call {i}: lengths")
+    print(f"[encdec-serve] (d) card == CPU at the smoke config: prefill + "
+          f"{ED_SMOKE_STEPS} decode steps, tokens equal, logits and caches "
+          f"within {worst:.3g} x max(1, max|y|); {seen['codes']} of the DAC "
+          f"codes over {len(card_log)} K2 calls replayed at ties",
+          flush=True)
+    return {"worst_rel": worst, "dac_calls": len(card_log),
+            "dac_codes_replayed_at_ties": seen["codes"]}
+
+
+def encdec_serve_phase(dev, peaks, card):
+    """Phase 22 (see the module docstring): seamless-m4t-large-v2 at its
+    published widths, uncut, served through `launch.steps.make_step`."""
+    import torch
+
+    from repro_torch.configs import ShapeCell, get_arch
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.core.program import MappingPlan, program_model
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch import modelstats
+    from repro_torch.launch.steps import batch_shapes, make_step
+    from repro_torch.models import encdec
+    from repro_torch.runtime.engine import static_generate
+    from repro_torch.models.layers import Execution
+
+    spec = get_arch(FAM_ENCDEC)
+    cfg = spec.model_cfg
+    check((cfg.n_enc_layers, cfg.n_dec_layers, cfg.d_model, cfg.n_heads,
+           cfg.d_ff, cfg.vocab) == (24, 24, 1024, 16, 8192, 256206),
+          f"not the published seamless-m4t-large-v2 widths: {cfg}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = encdec.init(PRNGKey(SEED), cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    out = {"init_s": time.perf_counter() - t0,
+           "params": _param_count(params)}
+    check(out["params"] == modelstats.param_counts(spec)["total"],
+          f"{out['params']} params != modelstats' count")
+    out["forward_decode"] = encdec_forward_decode(params, cfg, dev)
+
+    # CM_INITIALIZE once: 512 x 512 tiles, noise off (the serve cell's)
+    aimc = AimcConfig()
+    t0 = time.perf_counter()
+    prog = program_model(params, MappingPlan(), aimc, PRNGKey(SEED + 2))
+    installed = prog.install(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    out["program_s"] = time.perf_counter() - t0
+    mapped = {n.rsplit("/", 1)[-1] for n in prog.names}
+    check(mapped == {"wq", "wk", "wv", "wo", "w_in", "w_out", "cq", "ck",
+                     "cv", "co"}, f"mapped projections {sorted(mapped)}")
+    exe = Execution(mode="aimc", aimc=aimc, compute_dtype="float32",
+                    programmed=True)
+    pcell = ShapeCell("prefill_4k", ED_SEQ, ED_B, "prefill")
+    dcell = ShapeCell("decode_4k", ED_SEQ, ED_B, "decode")
+    pre = make_step(spec, pcell, None, exe, program=prog)
+    dec = make_step(spec, dcell, None, exe, program=prog)
+    shapes = batch_shapes(spec, pcell)
+    tgt = shapes["tokens"][0][1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frames = torch.randn(shapes["frames"][0], generator=gen,
+                         device=dev).to(shapes["frames"][1])
+    toks = torch.randint(0, cfg.vocab, shapes["tokens"][0], generator=gen,
+                         device=dev, dtype=torch.int32)
+    want_pre = 6 * cfg.n_enc_layers + 10 * cfg.n_dec_layers
+    want_dec = 8 * cfg.n_dec_layers
+
+    # (a) the prefill cell, then ED_DECODE decode steps on its cache; the
+    # first call at each K2 shape and site is recorded for (b)
+    site, calls = {"now": "decoder"}, {}
+
+    def at(name, fn):
+        def wrapped(*a, **k):
+            site["now"] = name
+            try:
+                return fn(*a, **k)
+            finally:
+                site["now"] = "decoder"
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(aimc_mvm, "aimc_mvm_v2",
+                                    _k2_calls_recorder(calls, site)))
+        stack.enter_context(patched(encdec, "encode",
+                                    lambda f: at("encoder", f)))
+        stack.enter_context(patched(encdec, "_dec_cross_kv",
+                                    lambda f: at("cross K/V", f)))
+        aimc_mvm.reset_counts()
+        t0 = time.perf_counter()
+        tok, cache = pre.fn(installed, {"frames": frames, "tokens": toks})
+        torch.cuda.synchronize(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in aimc_mvm.LAUNCHES.items() if v}
+        check(counts == {"aimc_mvm_v2": want_pre},
+              f"prefill launches {counts} != {want_pre} K2")
+        check(tuple(cache["k"].shape) == (cfg.n_dec_layers, ED_B, ED_SEQ,
+                                          cfg.n_kv_heads, cfg.hd)
+              and tuple(cache["ck"].shape) == (cfg.n_dec_layers, ED_B,
+                                               ED_SEQ, cfg.n_kv_heads,
+                                               cfg.hd)
+              and cache["k"].dtype == torch.bfloat16
+              and bool((cache["len"] == tgt).all()),
+              f"prefill cache "
+              f"{[(k, tuple(v.shape)) for k, v in cache.items()]}")
+        out_toks = [tok]
+        t0 = time.perf_counter()
+        for i in range(ED_DECODE):
+            aimc_mvm.reset_counts()
+            tok, cache = dec.fn(installed, cache, tok)
+            counts = {k: v for k, v in aimc_mvm.LAUNCHES.items() if v}
+            check(counts == {"aimc_mvm_v2": want_dec},
+                  f"decode step {i} launches {counts} != {want_dec} K2")
+            out_toks.append(tok)
+        torch.cuda.synchronize(dev)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / ED_DECODE
+    got = torch.cat(out_toks, dim=1)
+    check(bool((cache["len"] == tgt + ED_DECODE).all()),
+          f"cache len {cache['len'].tolist()} != {tgt} + {ED_DECODE}")
+    check(bool(((got >= 0) & (got < cfg.vocab)).all()), "token out of range")
+    want, (t_pre, t_dec) = static_generate(
+        encdec, cfg, exe, installed, toks, ED_DECODE + 1, max_seq=ED_SEQ,
+        cache_dtype=getattr(torch, spec.cache_dtype), frames=frames)
+    check(torch.equal(got, want), f"make_step tokens {got.tolist()} != "
+          f"static_generate's {want.tolist()}")
+    prof_pre = train_step_profile(
+        lambda: pre.fn(installed, {"frames": frames, "tokens": toks}), dev,
+        cpu_ops=False)
+    prof_dec = train_step_profile(lambda: dec.fn(installed, cache, tok), dev,
+                                  cpu_ops=False)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    flops_pre = modelstats.model_flops(spec, pcell)
+    flops_dec = modelstats.model_flops(spec, dcell)
+    out |= {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "static_prefill_s": t_pre, "static_decode_s": t_dec,
+            "tokens": got.tolist(), "k2_per_prefill": want_pre,
+            "k2_per_decode_step": want_dec, "peak_gb": peak_gb,
+            "prefill_profile": prof_pre, "decode_profile": prof_dec,
+            "model_flops_prefill": flops_pre, "model_flops_decode": flops_dec,
+            "prefill_model_tflop_s": flops_pre / prefill_ms / 1e9,
+            "decode_model_tflop_s": flops_dec / decode_ms / 1e9}
+
+    def f(v):
+        return "not measured" if v is None else f"{v:.2f} ms"
+
+    for tag, ms, prof, fl in (("prefill", prefill_ms, prof_pre, flops_pre),
+                              ("decode step", decode_ms, prof_dec,
+                               flops_dec)):
+        print(f"[encdec-serve] (a) {tag}: {ms:.1f} ms (host clock); "
+              f"profiled {prof['profiled_ms']:.1f} ms, device busy "
+              f"{f(prof['device_busy_ms'])}, idle share "
+              f"{prof['device_idle_share']}, K2 device "
+              f"{f(prof['crossbar_kernels_ms'])}; modelstats "
+              f"{fl:.4g} FLOPs -> {fl / ms / 1e9:.2f} TFLOP/s on {card}",
+              flush=True)
+    print(f"[encdec-serve] (a) {FAM_ENCDEC} uncut ({out['params']:,} "
+          f"params, init {out['init_s']:.1f} s, programmed in "
+          f"{out['program_s']:.1f} s, {prog.n_tiles} tiles) through "
+          f"make_step: prefill [{ED_B} x {ED_SEQ} frames, {tgt} tokens] "
+          f"{want_pre} K2, {ED_DECODE} decode steps of {want_dec} K2 each, "
+          f"cache len {tgt + ED_DECODE}; tokens == static_generate's bit "
+          f"for bit; peak {peak_gb:.2f} GB", flush=True)
+    del cache, installed, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["k2_rows"] = train_k2_rows(calls, peaks, card, noise=False,
+                                   tag="encdec-serve")
+    calls.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = encdec_card_vs_cpu(dev)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5014,6 +5415,8 @@ def main() -> int:
     free()
     families = phase("train families", family_train_phase, dev, peaks, smi)
     free()
+    encdec_serve = phase("encdec serve", encdec_serve_phase, dev, peaks, smi)
+    free()
 
     def decode_layer(kname, projs):
         sel = [r for r in rows if r["kernel"] == kname and r["B"] == SLOTS
@@ -5057,18 +5460,22 @@ def main() -> int:
         r for arch in (FAM_XLSTM, FAM_RGLRU, FAM_ENCDEC)
         for r in (families[arch]["k2_rows"] if arch == FAM_RGLRU
                   else families[arch]["noise"]["k2_rows"])]
+    # ... and at every serving shape of phase 22 (noise off)
+    serve_k2 = encdec_serve["k2_rows"]
     src_rel = "src/repro_torch/kernels/csrc/aimc_mvm.cu"
     record = {"kernels": [
         {"name": "aimc_mvm_v2", "route": "cuda", "source": src_rel,
          "replaces": "src/repro/kernels/aimc_mvm.py:228",
          "launches": serve_stats["launches"]["aimc_mvm_v2"],
          "max_abs_err": max([worst["aimc_mvm_v2"]] + [
-             r["max_abs_err"] for r in train_k2]),
+             r["max_abs_err"] for r in train_k2 + serve_k2]),
          "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
          "train_shapes": sorted({f"{r['B']}x{r['K']}->{r['Np']}"
-                                 for r in train_k2})},
+                                 for r in train_k2}),
+         "serve_shapes": sorted({f"{r['B']}x{r['K']}->{r['Np']}"
+                                 for r in serve_k2})},
         {"name": "aimc_mvm_stacked", "route": "cuda", "source": src_rel,
          "replaces": "src/repro/kernels/aimc_mvm.py:349",
          "launches": fused["launches"]["aimc_mvm_stacked"],
@@ -5107,6 +5514,7 @@ def main() -> int:
         "paged": paged, "recurrent": recurrent, "resilience": resilience,
         "int8": int8, "placement": placement, "server": server,
         "train": train, "train_families": families,
+        "encdec_serve": encdec_serve,
         "phase_seconds": seconds},
         indent=1))
     print(json.dumps(record))

@@ -7,8 +7,15 @@ ported: the dense decoders (granite-8b, glm4-9b, llama3.2-3b,
 qwen1.5-110b, and internvl2-1b's language backbone behind its
 patch-embedding stub), the recurrent xlstm-350m and recurrentgemma-9b,
 the MoE olmoe-1b-7b and arctic-480b, and the enc-dec
-seamless-m4t-large-v2 (its training half; the engine does not serve it
-yet, ROADMAP.md).
+seamless-m4t-large-v2 (served through `launch.steps`' prefill and decode
+cells only; the engine refuses the audio family, as the reference's does).
+
+Input-shape cells (the reference's):
+  train_4k     seq 4,096   global batch 256   (training)
+  prefill_32k  seq 32,768  global batch 32    (inference prefill)
+  decode_32k   seq 32,768  global batch 128   (one token vs KV cache)
+  long_500k    seq 524,288 global batch 1     (long-context decode;
+               sub-quadratic state only: rglru + xlstm)
 """
 
 from __future__ import annotations
@@ -27,6 +34,14 @@ class ShapeCell:
     kind: str                      # train | prefill | decode
 
 
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
@@ -35,6 +50,8 @@ class ArchSpec:
     model_cfg: Any
     smoke_cfg: Any
     source: str                    # provenance of the published config
+    supports_long: bool = False    # long_500k: sub-quadratic archs only
+    supports_decode: bool = True
     cache_dtype: str = "bfloat16"  # KV cache dtype for serving
     optimizer: str = "adamw"       # adamw | adafactor (giant models)
     param_dtype: str = "float32"   # bfloat16 for the largest models
@@ -75,3 +92,20 @@ def get_arch(arch_id: str) -> ArchSpec:
             f"arch {key!r} is not ported to PyTorch yet (ported: "
             f"{list(PORTED)}); ROADMAP.md queues the rest of the zoo")
     return importlib.import_module(f"repro_torch.configs.{key}").ARCH
+
+
+def cells(arch_id: str) -> list[tuple[str, str]]:
+    """All (arch, shape) cells for an arch, honouring the skip rules."""
+    spec = get_arch(arch_id)
+    out = []
+    for name, cell in SHAPES.items():
+        if cell.kind == "decode" and not spec.supports_decode:
+            continue
+        if name == "long_500k" and not spec.supports_long:
+            continue
+        out.append((spec.arch_id, name))
+    return out
+
+
+def all_cells() -> list[tuple[str, str]]:
+    return [c for a in _ARCH_IDS for c in cells(a)]

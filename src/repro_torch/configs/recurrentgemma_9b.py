@@ -18,4 +18,5 @@ ARCH = ArchSpec(
         n_kv_heads=1, d_ff=96, vocab=128, window=16, conv_width=4,
         q_chunk=16, kv_chunk=16),
     source="arXiv:2402.19427; unverified",
+    supports_long=True,
 )

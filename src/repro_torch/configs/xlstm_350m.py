@@ -18,4 +18,5 @@ ARCH = ArchSpec(
         name="xlstm_350m_smoke", n_layers=4, d_model=32, n_heads=2,
         vocab=128, chunk=8),
     source="arXiv:2405.04517; unverified",
+    supports_long=True,
 )

@@ -110,6 +110,8 @@ def _draw(key: torch.Tensor, shape, device, fn, dtype) -> torch.Tensor:
     device = key.device if device is None else torch.device(device)
     total = math.prod(shape)
     out = torch.empty(total, dtype=dtype, device=device)
+    if device.type == "meta":       # a shape, no values
+        return out.reshape(shape)
     chunk = CHUNK.get(device.type, CHUNK["cuda"])
     for start in range(0, total, chunk):
         i = torch.arange(start, min(start + chunk, total), dtype=torch.int64,
@@ -136,7 +138,7 @@ def normal_batch(keys, shape=(), device=None) -> torch.Tensor:
         keys[0].device if n else torch.device("cpu"))
     total = math.prod(shape)
     out = torch.empty((n, total), dtype=torch.float32, device=dev)
-    if n == 0 or total == 0:
+    if n == 0 or total == 0 or dev.type == "meta":
         return out.reshape((n, *shape))
     k0 = torch.tensor(k0s, dtype=torch.int64, device=dev)[:, None]
     k1 = torch.tensor(k1s, dtype=torch.int64, device=dev)[:, None]

@@ -331,6 +331,19 @@ class AimcProgram:
         the raw tree afterwards and its float weights are freed."""
         return self.install_subset(params, self.names)
 
+    def install_shape(self, params_shape):
+        """`install` over a tree of shapes (``meta`` tensors): each mapped
+        leaf becomes a state of ``meta`` tensors shaped like its codes and
+        scales (the step builders' abstract inputs; nothing is allocated)."""
+        def meta(t):
+            return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+        entries = {n: AimcLinearState(w_q=meta(st.w_q), s_w=meta(st.s_w),
+                                      k=st.k, n=st.n)
+                   for n, st in zip(self.names, self.states)}
+        return _map_leaves(params_shape,
+                           lambda path, leaf: entries.get(path, leaf))
+
     def install_subset(self, params, names):
         """`install` restricted to ``names``: only those matrices' states
         replace their raw leaves, every other mapped weight stays digital.

@@ -1,5 +1,5 @@
-"""The training step on one device (PyTorch port of the training half of
-`repro/launch/steps.py`).
+"""Step builders on one device: train_step / prefill_step / serve_step per
+(architecture x shape cell) (PyTorch port of `repro/launch/steps.py`).
 
 `make_train_step` keeps the reference's order of operations
 (`repro/launch/steps.py:144-220`): the global batch splits into
@@ -11,17 +11,28 @@ aux`` (`make_micro_grad`); gradients are taken with `torch.autograd.grad`
 and accumulated in f32 as ``g_acc + g / n_micro``; one ``opt_update(grads,
 opt_state, params, lr_scale)`` ends the step. Every family trains: the
 transformer (dense and MoE), xlstm, rglru and the enc-dec model, each
-block (pair, unit, layer) recomputed in the backward. The reference's
-sharding arguments and constraints have no counterpart on one device; a
-mesh and bf16 parameters raise, queued in ROADMAP.md. The prefill and
-serve step builders are not ported: the engine (`runtime/engine.py`)
-serves.
+block (pair, unit, layer) recomputed in the backward.
+
+`make_prefill_step` / `make_serve_step` build the serving cells on
+`runtime.engine.static_prefill_closure` / `static_decode_closure`, the
+math the engine shares: a prefill cell maps (params, batch) to the first
+token [B, 1] and the cache (max_seq = the cell's seq_len; an enc-dec
+batch is ``seq_len`` frames and ``seq_len // tgt_ratio`` decoder tokens,
+a recurrent prefill is forward-only with an empty cache); a decode cell
+maps (params, cache, tokens [B, 1]) to the next token and the new cache.
+They are the only way the audio family is served (the engine refuses
+it). ``program`` (an `AimcProgram` or a `CoreSchedule`) means
+program-once serving: the parameters carry installed crossbar states.
+`StepBundle.abstract_inputs` holds the step's inputs as ``meta`` tensors
+(`_serve_params_shape`, `input_specs`), built without allocating a
+weight. The reference's sharding arguments have no counterpart on one
+device; a mesh and bf16 parameters raise, queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -77,10 +88,22 @@ def batch_kind(spec: ArchSpec) -> str:
 
 @dataclasses.dataclass
 class StepBundle:
-    """A step function and the shapes of its batch (the reference's
-    shardings and donation have no counterpart on one device)."""
+    """A step function and its inputs' shapes (the reference's shardings
+    and donation have no counterpart on one device)."""
     fn: Callable
-    abstract_inputs: tuple         # (batch shapes,) from `batch_shapes`
+    abstract_inputs: tuple         # the step's inputs as meta tensors
+    schedule: Any = None           # core.schedule.CoreSchedule, when serving
+                                   # through a multi-core mapping
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def abstract_batch(spec: ArchSpec, cell: ShapeCell) -> dict:
+    """One batch of the cell as ``meta`` tensors."""
+    return {k: _meta(shp, dt) for k, (shp, dt) in
+            batch_shapes(spec, cell).items()}
 
 
 def _model_forward_hidden(model, spec: ArchSpec, cfg, exe: Execution):
@@ -107,6 +130,13 @@ def check_trainable(spec: ArchSpec) -> None:
             f"init draws f32 only and bf16 init is not ported (ROADMAP.md)")
 
 
+def _check_one_device(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "a sharded step needs the mesh slice (ROADMAP.md); the port "
+            "trains and serves on one device (mesh=None)")
+
+
 def _tree_with(tree, leaves):
     """``tree``'s structure with the leaves replaced in order."""
     it = iter(leaves)
@@ -125,13 +155,15 @@ def make_micro_grad(spec: ArchSpec, exe: Execution = Execution()):
     ``(params, mb, key) -> (loss, grads)``, the forward's hidden states
     into `chunked_ce` over ``mb["labels"]`` (loss + 0.01 x aux is
     differentiated, the loss returned detached), gradients one per leaf of
-    ``params`` in `tree_leaves` order (None where a leaf is unused)."""
-    check_trainable(spec)
+    ``params`` in `tree_leaves` order (None where a leaf is unused). What
+    the port cannot train (`check_trainable`) builds, and raises when
+    called."""
     cfg = spec.model_cfg
     model = spec.model_module()
     fwd = _model_forward_hidden(model, spec, cfg, exe)
 
     def micro_grad(params, mb, key):
+        check_trainable(spec)
         leaves = tree_leaves(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
         p = _tree_with(params, live)
@@ -150,10 +182,7 @@ def make_train_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
                     exe: Execution = Execution(), lr_scale: float = 1.0):
     """The training step ``(params, opt_state, batch, rng) -> (params,
     opt_state, metrics)`` on one device; ``rng`` is a [2] key."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded train step needs the mesh slice (ROADMAP.md); the "
-            "port trains on one device (mesh=None)")
+    _check_one_device(mesh)
     _, opt_update, _ = make_optimizer(spec.optimizer)
     n_micro = max(1, cell.global_batch // spec.microbatch)
     micro_grad = make_micro_grad(spec, exe)
@@ -177,19 +206,111 @@ def make_train_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
             _tree_with(params, g_acc), opt_state, params, lr_scale)
         return new_params, new_opt, dict(metrics, loss=loss_acc)
 
-    return StepBundle(train_step, (batch_shapes(spec, cell),))
+    return StepBundle(train_step, (abstract_batch(spec, cell),))
+
+
+def _unwrap_program(program):
+    """Serving steps take an `AimcProgram` or a multi-core `CoreSchedule`;
+    installation goes through the underlying program, and the schedule
+    rides on the bundle for per-core ledgers -> (program, schedule)."""
+    from repro_torch.core.schedule import CoreSchedule
+    if isinstance(program, CoreSchedule):
+        return program.program, program
+    return program, None
+
+
+def _serve_params_shape(model, spec: ArchSpec, cfg, int8: bool = False):
+    """The serving parameter tree as ``meta`` tensors: every float leaf
+    bf16, or, with ``int8``, a {"q": int8, "s": f32 [..., 1, N]} pair for
+    each matrix named in `quant.QUANTIZABLE` (the paper's number format;
+    `Execution.serve_int8`). Built from ``model.init`` on the ``meta``
+    device: shapes only, no weight is drawn or allocated."""
+    from repro_torch.core.program import _map_leaves
+    from repro_torch.core.quant import QUANTIZABLE
+    shape = model.init(prng.PRNGKey(0), cfg, device="meta")
+
+    def conv(path, leaf):
+        if not leaf.is_floating_point():
+            return leaf
+        name = path.rsplit("/", 1)[-1]
+        if int8 and name in QUANTIZABLE and leaf.dim() >= 2:
+            return {"q": _meta(leaf.shape, torch.int8),
+                    "s": _meta(leaf.shape[:-2] + (1, leaf.shape[-1]),
+                               torch.float32)}
+        return _meta(leaf.shape, torch.bfloat16)
+
+    return _map_leaves(shape, conv)
+
+
+def _serve_params(model, spec: ArchSpec, cfg, exe: Execution, program):
+    """(the params' meta tree, the schedule) of a serving cell."""
+    program, schedule = _unwrap_program(program)
+    params_shape = _serve_params_shape(model, spec, cfg, int8=exe.serve_int8)
+    if program is not None:     # program-once serving: mapped projections
+        params_shape = program.install_shape(params_shape)  # are states
+    return params_shape, schedule
+
+
+def make_prefill_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
+                      exe: Execution = Execution(),
+                      program=None) -> StepBundle:
+    """The prefill cell: ``(params, batch) -> (next_tok [B, 1] int32,
+    cache)`` with max_seq = ``cell.seq_len`` and the spec's cache dtype."""
+    _check_one_device(mesh)
+    from repro_torch.runtime.engine import static_prefill_closure
+    cfg = spec.model_cfg
+    model = spec.model_module()
+    params_shape, schedule = _serve_params(model, spec, cfg, exe, program)
+    prefill = static_prefill_closure(
+        model, cfg, exe, family=spec.family, module=spec.module,
+        max_seq=cell.seq_len, cache_dtype=getattr(torch, spec.cache_dtype))
+    return StepBundle(prefill, (params_shape, abstract_batch(spec, cell)),
+                      schedule=schedule)
+
+
+def make_serve_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
+                    exe: Execution = Execution(),
+                    program=None) -> StepBundle:
+    """One decode step against a ``cell.seq_len`` cache (the decode cells):
+    ``(params, cache, tokens [B, 1]) -> (next_tok, cache)``. An enc-dec
+    cell's cache holds cross K/V of ``max(seq_len // tgt_ratio, 64)``
+    encoder frames; the step itself takes any cache ``prefill`` made."""
+    _check_one_device(mesh)
+    from repro_torch.runtime.engine import static_decode_closure
+    cfg = spec.model_cfg
+    model = spec.model_module()
+    cache_dt = getattr(torch, spec.cache_dtype)
+    params_shape, schedule = _serve_params(model, spec, cfg, exe, program)
+    b, s = cell.global_batch, cell.seq_len
+    if spec.family == "audio":
+        src = max(s // spec.tgt_ratio, 64)
+        cache_shape = model.init_cache(cfg, b, s, src, cache_dt,
+                                       device="meta")
+    else:
+        cache_shape = model.init_cache(cfg, b, s, cache_dt, device="meta")
+    return StepBundle(static_decode_closure(model, cfg, exe),
+                      (params_shape, cache_shape,
+                       _meta((b, 1), torch.int32)),
+                      schedule=schedule)
 
 
 def make_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
               exe: Execution = Execution(), program=None) -> StepBundle:
-    """The front door: a training cell builds `make_train_step`. Prefill
-    and decode cells are served by the engine; their step builders are not
-    ported (ROADMAP.md)."""
-    if cell.kind != "train":
-        raise NotImplementedError(
-            f"{cell.kind} step builders are not ported (the engine serves); "
-            f"ROADMAP.md queues them")
-    if program is not None:
-        raise ValueError("AimcProgram is a serving-only handle; "
-                         "noise-aware training re-programs per step")
-    return make_train_step(spec, cell, mesh, exe)
+    """The front door. ``program`` (an `AimcProgram`, or a multi-core
+    `CoreSchedule` wrapping one) selects program-once AIMC serving: the
+    step's parameters carry the installed crossbar states; a training cell
+    refuses it (the STE reprograms on every step)."""
+    if cell.kind == "train":
+        if program is not None:
+            raise ValueError("AimcProgram is a serving-only handle; "
+                             "noise-aware training re-programs per step")
+        return make_train_step(spec, cell, mesh, exe)
+    if cell.kind == "prefill":
+        return make_prefill_step(spec, cell, mesh, exe, program)
+    return make_serve_step(spec, cell, mesh, exe, program)
+
+
+def input_specs(spec: ArchSpec, cell: ShapeCell, mesh=None,
+                exe: Execution = Execution(), program=None) -> tuple:
+    """The step's inputs as ``meta`` tensors, allocating nothing."""
+    return make_step(spec, cell, mesh, exe, program).abstract_inputs

@@ -1,5 +1,5 @@
 """Encoder-decoder transformer backbone (seamless-m4t-large-v2); PyTorch
-port of the training half of `repro/models/encdec.py`.
+port of `repro/models/encdec.py`.
 
 The speech/text frontend is a stub, as in the reference: precomputed frame
 embeddings [B, S_src, d] feed the encoder directly. Pre-LN transformer
@@ -18,9 +18,17 @@ decoder the cross-attention's ``ck`` reads under keys[4], the same key as
 `repro/models/encdec.py:176-177` has it). Each layer is a non-reentrant
 `torch.utils.checkpoint` region under autograd.
 
-Serving (`prefill`, `decode_step`, the cross K/V cache, `paged_view`)
-waits for the step builders: the reference serves this family only
-through them, and the port's engine refuses it.
+Serving: `prefill` encodes the frames, runs the teacher-forced decoder
+and returns the last position's logits with the decode cache (self K/V
+rows [0, s) of ``max_seq``, cross K/V from the encoder output, once per
+layer); `decode_step` writes one self K/V row per step at ``len`` (the
+reference's one-hot select) and attends to the cross K/V whole. No key
+reaches a serving `linear`: a programmed projection (cross ``ck``/``cv``
+included) runs one K2 launch, 6 per encoder and 10 per decoder layer at
+prefill, 8 per decoder layer per decode step. The reference serves this
+family only through `launch.steps`' prefill and decode cells; the engine
+refuses it. `init_paged_cache` / `paged_view` carry the paged layout of
+the growing self K/V (the cross K/V stay dense), as the reference's do.
 """
 
 from __future__ import annotations
@@ -31,7 +39,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import prng
-from repro_torch.models.layers import (Execution, as_weight, dense_init,
+from repro_torch.models.layers import (Execution, as_weight,
+                                       decode_attention, dense_init,
                                        embed_init, flash_attention,
                                        gelu_mlp, layer_slice, layernorm,
                                        linear, rope, split_keys, stack_init)
@@ -227,3 +236,141 @@ def forward(params, batch, cfg: EncDecConfig, exe: Execution = None,
 
 def unembed_matrix(params, cfg: EncDecConfig):
     return params["unembed"]
+
+
+def _dec_cross_kv(params, enc_out, cfg: EncDecConfig, exe: Execution):
+    """Per-layer cross K/V from the encoder output (computed once):
+    ([n_dec, B, S_src, Hkv, hd], same) in the compute dtype."""
+    b, s, _ = enc_out.shape
+    ck, cv = [], []
+    for i in range(cfg.n_dec_layers):
+        blk = layer_slice(params["dec"], i)
+        ck.append(linear(enc_out, blk["ck"], exe).reshape(
+            b, s, cfg.n_kv_heads, cfg.hd))
+        cv.append(linear(enc_out, blk["cv"], exe).reshape(
+            b, s, cfg.n_kv_heads, cfg.hd))
+    return torch.stack(ck), torch.stack(cv)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: EncDecConfig, batch: int, max_seq: int, src_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """Self K/V [n_dec, B, max_seq, Hkv, hd], cross K/V ``ck``/``cv``
+    [n_dec, B, src_len, Hkv, hd] and per-row lengths ``len`` [B] int32."""
+    n, hkv, hd = cfg.n_dec_layers, cfg.n_kv_heads, cfg.hd
+
+    def z(s):
+        return torch.zeros((n, batch, s, hkv, hd), dtype=dtype,
+                           device=device)
+
+    return {"k": z(max_seq), "v": z(max_seq), "ck": z(src_len),
+            "cv": z(src_len),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def prefill(params, frames, tokens, cfg: EncDecConfig, exe: Execution = None,
+            max_seq: int | None = None, cache_dtype=torch.bfloat16):
+    """Encode + teacher-forced decoder prefill -> (logits [B, 1, V] of the
+    last position against the f32 unembed, the decode cache): self K/V
+    (after RoPE) at rows [0, s) of ``max_seq`` (default s), the cross K/V
+    of every layer, ``len`` = s."""
+    exe = exe or Execution()
+    enc_out = encode(params, frames, cfg, exe)
+    b, s = tokens.shape
+    max_seq = max_seq or s
+    dev = tokens.device
+    h = params["embed"][tokens].to(exe.cdtype)
+    positions = torch.arange(s, device=dev).expand(b, s)
+    ek, ev = _dec_cross_kv(params, enc_out, cfg, exe)
+    shape = (cfg.n_dec_layers, b, max_seq, cfg.n_kv_heads, cfg.hd)
+    cache = {"k": torch.zeros(shape, dtype=cache_dtype, device=dev),
+             "v": torch.zeros(shape, dtype=cache_dtype, device=dev),
+             "ck": ek.to(cache_dtype), "cv": ev.to(cache_dtype),
+             "len": torch.full((b,), s, dtype=torch.int32, device=dev)}
+    keys = (None,) * 7
+    for i in range(cfg.n_dec_layers):
+        blk = layer_slice(params["dec"], i)
+        h, (k, v) = _self_attn(h, blk, cfg, exe, keys, positions,
+                               causal=True)
+        h = _cross_attn(h, (ek[i], ev[i]), blk, cfg, exe, keys)
+        h = _ffn(h, blk, cfg, exe, keys)
+        cache["k"][i, :, :s] = k.to(cache_dtype)
+        cache["v"][i, :, :s] = v.to(cache_dtype)
+    h = layernorm(h, params["dec_norm_s"], params["dec_norm_b"],
+                  cfg.norm_eps)
+    logits = (h[:, -1:].to(torch.float32)
+              @ as_weight(params["unembed"], torch.float32))
+    return logits, cache
+
+
+def decode_step(params, cache, tokens, cfg: EncDecConfig,
+                exe: Execution = None):
+    """tokens [B, 1] -> (logits [B, 1, V], a new cache). Row b writes its
+    self K/V at ``len[b]`` as ``kc * (1 - oh) + oh * k`` in the cache dtype
+    (the reference's one-hot select), attends to its first ``len[b] + 1``
+    rows, then to the whole cross K/V; the input cache is not modified."""
+    exe = exe or Execution()
+    b = tokens.shape[0]
+    h = params["embed"][tokens].to(exe.cdtype)
+    lens = cache["len"]
+    positions = lens[:, None]
+    max_seq = cache["k"].shape[2]
+    oh = (torch.arange(max_seq, device=lens.device)[None]
+          == lens[:, None].long()).to(cache["k"].dtype)[..., None, None]
+    ks, vs = [], []
+    for i in range(cfg.n_dec_layers):
+        blk = layer_slice(params["dec"], i)
+        hn = layernorm(h, blk["ln1_s"], blk["ln1_b"], cfg.norm_eps)
+        q = rope(linear(hn, blk["wq"], exe).reshape(
+            b, 1, cfg.n_heads, cfg.hd), positions, cfg.rope_theta)
+        k = rope(linear(hn, blk["wk"], exe).reshape(
+            b, 1, cfg.n_kv_heads, cfg.hd), positions, cfg.rope_theta)
+        v = linear(hn, blk["wv"], exe).reshape(b, 1, cfg.n_kv_heads, cfg.hd)
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc = kc * (1 - oh) + oh * k.to(kc.dtype)
+        vc = vc * (1 - oh) + oh * v.to(vc.dtype)
+        att = decode_attention(q, kc, vc, kv_len=lens + 1)
+        h = h + linear(att.reshape(b, 1, -1), blk["wo"], exe)
+        # cross attention against the precomputed encoder K/V
+        hn2 = layernorm(h, blk["ln2_s"], blk["ln2_b"], cfg.norm_eps)
+        cq = linear(hn2, blk["cq"], exe).reshape(b, 1, cfg.n_heads, cfg.hd)
+        catt = decode_attention(cq, cache["ck"][i], cache["cv"][i])
+        h = h + linear(catt.reshape(b, 1, -1), blk["co"], exe)
+        h = _ffn(h, blk, cfg, exe, (None,) * 7)
+        ks.append(kc)
+        vs.append(vc)
+    h = layernorm(h, params["dec_norm_s"], params["dec_norm_b"],
+                  cfg.norm_eps)
+    logits = h.to(torch.float32) @ as_weight(params["unembed"], torch.float32)
+    return logits, dict(cache, k=torch.stack(ks), v=torch.stack(vs),
+                        len=lens + 1)
+
+
+# ---------------------------------------------------------------------------
+# paged decoder self-attention K/V (DESIGN.md §15)
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg: EncDecConfig, n_pages: int, page_size: int,
+                     dtype=torch.bfloat16, device=None) -> dict:
+    """Decoder self-attention K/V page pools [n_dec, n_pages, P, Hkv, hd].
+    Only the growing part of the cache pages: the cross K/V are written
+    once from the encoder output and stay dense per slot. Page 0 is the
+    scratch page (`runtime.pages.SCRATCH`)."""
+    shape = (cfg.n_dec_layers, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
+            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_view(kp, vp, pt, max_seq: int):
+    """Dense per-slot decoder K/V [N, S, max_seq, H, hd] gathered out of the
+    page pools through the [S, M] page table (`transformer.paged_view`'s
+    contract: rows at or past a slot's length are masked by
+    `decode_attention` before the softmax)."""
+    n, _, p, h, hd = kp.shape
+    s, m = pt.shape
+    k = kp[:, pt].reshape(n, s, m * p, h, hd)[:, :, :max_seq]
+    v = vp[:, pt].reshape(n, s, m * p, h, hd)[:, :, :max_seq]
+    return k, v

@@ -286,10 +286,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset: int = 0,
     return o.transpose(1, 2)[:, :sq0]
 
 
-def decode_attention(q, k_cache, v_cache, kv_len,
+def decode_attention(q, k_cache, v_cache, kv_len=None,
                      batch_invariant: bool = False):
     """Single-token attention against a KV cache.
-    q: [B, 1, Hq, D]; caches: [B, Skv, Hkv, D]; kv_len: [B] valid lengths.
+    q: [B, 1, Hq, D]; caches: [B, Skv, Hkv, D]; kv_len: [B] valid lengths,
+    or None for the whole cache (the enc-dec cross-attention).
     ``batch_invariant`` contracts with `row_sum` (products, then a fixed
     pairwise sum; softmax as exp(s - max) / row_sum) instead of einsum and
     softmax, so a row's bits do not depend on the batch."""
@@ -301,7 +302,9 @@ def decode_attention(q, k_cache, v_cache, kv_len,
     # reference's preferred_element_type=f32)
     qg = q.reshape(b, hkv, g, d).to(k_cache.dtype).to(torch.float32)
     kf = k_cache.to(torch.float32)
-    mask = torch.arange(skv, device=q.device)[None] < kv_len[:, None]
+    mask = (torch.ones((b, skv), dtype=torch.bool, device=q.device)
+            if kv_len is None else
+            torch.arange(skv, device=q.device)[None] < kv_len[:, None])
     if batch_invariant:
         # [B, Hkv, G, 1, D] x [B, Hkv, 1, Skv, D] -> [B, Hkv, G, Skv]
         s = row_sum(qg[:, :, :, None] * kf.permute(0, 2, 1, 3)[:, :, None])
@@ -368,8 +371,11 @@ def embed_init(key: torch.Tensor, v: int, d: int, dtype=torch.float32,
 def stack_init(key: torch.Tensor, l: int, k: int, n: int,
                dtype=torch.float32, device="cuda") -> torch.Tensor:
     """``vmap(dense_init)(split(key, l))``: layer i from ``split(key, l)[i]``,
-    drawn one layer at a time into the preallocated [l, k, n] stack."""
+    drawn one layer at a time into the preallocated [l, k, n] stack (on
+    the ``meta`` device, the shape alone)."""
     out = torch.empty((l, k, n), dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for i, ki in enumerate(prng.split(key, l)):
         out[i] = dense_init(ki, k, n, dtype, device)
     return out
@@ -381,8 +387,11 @@ def expert_stack_init(key: torch.Tensor, l: int, e: int, k: int, n: int,
     ``split(split(key, l)[i], e)[j]``, the reference's MoE ``estack``
     (`repro/models/transformer.py:103-108`), drawn one [k, n] matrix at a
     time into the preallocated [l, e, k, n] stack (a whole-stack draw would
-    hold its bits and its floats at once)."""
+    hold its bits and its floats at once; on the ``meta`` device, the
+    shape alone)."""
     out = torch.empty((l, e, k, n), dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for i, ki in enumerate(prng.split(key, l)):
         for j, kj in enumerate(prng.split(ki, e)):
             out[i, j] = dense_init(kj, k, n, dtype, device)

@@ -55,6 +55,10 @@ vector per decode step a request rides in) is booked to its request;
 
 `static_generate` is the reference's monolithic loop (one synchronized
 batch, lockstep decode): the engine's bit-equality oracle and A/B baseline.
+`static_prefill_closure` / `static_decode_closure` are the model-facing
+math of `launch.steps`' prefill and decode cells (every family; the
+enc-dec audio family is served only there: the engine refuses it, as the
+reference's does).
 
 Resilience (DESIGN.md §14): at every chunk boundary `_resilience_tick`
 fires due chaos events (`runtime.chaos`), ages the installed states on the
@@ -76,6 +80,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 import torch
 
@@ -93,6 +98,60 @@ from repro_torch.runtime.pages import (SCRATCH, PageAllocator, PrefixCache,
                                        page_keys)
 
 RECURRENT_MODULES = ("xlstm", "rglru")
+
+
+# ---------------------------------------------------------------------------
+# closure builders: the model-facing math, shared with launch.steps
+# ---------------------------------------------------------------------------
+
+def _next_tok(logits):
+    return logits.argmax(-1).to(torch.int32)
+
+
+def static_prefill_closure(model, cfg, exe: Execution, *, family: str = "lm",
+                           module: str = "transformer", max_seq: int,
+                           cache_dtype) -> Callable:
+    """(params, batch dict) -> (next_tok [B, 1] int32, cache): the
+    static-batch prefill of `launch.steps.make_prefill_step`, for the audio
+    (enc-dec: ``frames`` and ``tokens``), vlm (``patch_embeds``),
+    transformer and recurrent families. A recurrent prefill is forward-only
+    and returns an empty cache, as the reference's (the engine's
+    per-request prefill fills the slot state). Runs without autograd."""
+    if family == "audio":
+        def run(params, batch):
+            return model.prefill(params, batch["frames"], batch["tokens"],
+                                 cfg, exe, max_seq=max_seq,
+                                 cache_dtype=cache_dtype)
+    elif family == "vlm":
+        def run(params, batch):
+            return model.prefill(params, batch["tokens"], cfg, exe,
+                                 max_seq=max_seq,
+                                 patch_embeds=batch["patch_embeds"],
+                                 cache_dtype=cache_dtype)
+    elif module == "transformer":
+        def run(params, batch):
+            return model.prefill(params, batch["tokens"], cfg, exe,
+                                 max_seq=max_seq, cache_dtype=cache_dtype)
+    else:
+        def run(params, batch):
+            logits, _ = model.forward(params, batch["tokens"], cfg, exe)
+            return logits[:, -1:], ()
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        logits, cache = run(params, batch)
+        return _next_tok(logits), cache
+    return prefill
+
+
+def static_decode_closure(model, cfg, exe: Execution) -> Callable:
+    """(params, cache, tokens [B, 1]) -> (next_tok [B, 1] int32, cache):
+    the lockstep decode step `launch.steps.make_serve_step` builds."""
+    @torch.no_grad()
+    def serve_step(params, cache, tokens):
+        logits, new_cache = model.decode_step(params, cache, tokens, cfg, exe)
+        return _next_tok(logits), new_cache
+    return serve_step
 
 
 @dataclasses.dataclass
@@ -1450,30 +1509,62 @@ class ServeEngine:
                 "sets; use report.swap_events + placement.reconcile_swaps")
         return request_ledgers(self.program, report.records)
 
+    def core_ledgers(self, report: ServeReport) -> dict:
+        """core -> CM_* totals for this run's useful vectors (requires a
+        `CoreSchedule`): the per-core split of `ledgers`. Summed over cores
+        the dequeue/initialize books close exactly against
+        ``program.mvm_counts()`` (`batcher.reconcile_cores`)."""
+        from repro_torch.runtime.batcher import aggregate_core_ledgers
+        if self.schedule is None:
+            raise ValueError("per-core ledgers require a CoreSchedule")
+        return aggregate_core_ledgers(self.schedule, report.records)
+
 
 # ---------------------------------------------------------------------------
 # the static-batch path (A/B baseline + bit-equality oracle)
 # ---------------------------------------------------------------------------
 
+def _static_closures(model, cfg, exe: Execution, max_seq: int, cache_dtype):
+    """The static path's (prefill, decode): ``prefill(params, prompts,
+    frames=None)`` (``frames`` feed an enc-dec encoder) -> (logits, cache),
+    ``decode(params, cache, tokens)`` -> (logits, cache); both without
+    autograd."""
+    @torch.no_grad()
+    def prefill(params, prompts, frames=None):
+        if frames is not None:
+            return model.prefill(params, frames, prompts, cfg, exe,
+                                 max_seq=max_seq, cache_dtype=cache_dtype)
+        return model.prefill(params, prompts, cfg, exe, max_seq=max_seq,
+                             cache_dtype=cache_dtype)
+
+    @torch.no_grad()
+    def decode(params, cache, tokens):
+        return model.decode_step(params, cache, tokens, cfg, exe)
+    return prefill, decode
+
+
 def static_generate(model, cfg, exe: Execution, params, prompts, gen: int,
-                    max_seq: int | None = None, cache_dtype=torch.float32):
+                    max_seq: int | None = None, cache_dtype=torch.float32,
+                    frames=None):
     """The monolithic serve loop the engine replaced: one synchronized
     batch, one prompt length, ``gen`` lockstep decode steps.
 
-    prompts: [B, P] int32 on the device of ``params``. Returns ([B, gen]
-    tokens, wall seconds (prefill_s, decode_s)). ``gen=1`` is prefill-only:
-    no decode loop runs and the decode time is 0.0."""
+    prompts: [B, P] int32 on the device of ``params``; ``frames`` [B, S, d]
+    are an enc-dec model's encoder input (the prompts are then its decoder
+    tokens). Returns ([B, gen] tokens, wall seconds (prefill_s,
+    decode_s)). ``gen=1`` is prefill-only: no decode loop runs and the
+    decode time is 0.0."""
     b, p = prompts.shape
     max_seq = max_seq or (p + gen)
+    prefill, decode = _static_closures(model, cfg, exe, max_seq, cache_dtype)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompts, cfg, exe, max_seq=max_seq,
-                                  cache_dtype=cache_dtype)
+    logits, cache = prefill(params, prompts, frames)
     out = [logits[:, -1].argmax(-1).to(torch.int32)[:, None]]
     _wait(out[-1])
     t_prefill = time.perf_counter() - t0
     t0 = time.perf_counter()
     for _ in range(gen - 1):
-        logits, cache = model.decode_step(params, cache, out[-1], cfg, exe)
+        logits, cache = decode(params, cache, out[-1])
         out.append(logits[:, -1].argmax(-1).to(torch.int32)[:, None])
     if gen > 1:
         _wait(out[-1])

@@ -4,7 +4,10 @@ configs equal the reference's field for field, its serving metadata
 (family, module, cache dtype, patch positions, source) too, the aliases
 resolve alike; every arch of the reference's registry is ported, the
 enc-dec seamless-m4t-large-v2 (its training fields) included; an unknown
-arch raises. Tolerance: exact equality (configs are plain values)."""
+arch raises; the shape cells (`SHAPES`, `cells`, `all_cells`) and
+`launch.modelstats`' parameter counts and MODEL_FLOPS of every (arch,
+shape) equal the reference's. Tolerance: exact equality (configs and
+counts are plain values; the FLOPs are the same float expressions)."""
 
 import torch_threads  # noqa: F401  (first: torch's thread budget)
 
@@ -12,8 +15,11 @@ import dataclasses
 
 import pytest
 
+from repro import configs as jconfigs
 from repro.configs import get_arch as jget
+from repro.launch import modelstats as jstats
 from repro_torch import configs as tconfigs
+from repro_torch.launch import modelstats as tstats
 
 PORTED = ("granite_8b", "glm4_9b", "llama32_3b", "qwen15_110b",
           "internvl2_1b", "xlstm_350m", "recurrentgemma_9b", "olmoe_1b_7b",
@@ -41,7 +47,7 @@ def test_config_equals_reference_field_for_field(arch):
             assert getattr(tc, name) == getattr(jc, name), (which, name)
         assert getattr(tc, "is_moe", False) is (j.family == "moe")
     for field in ("arch_id", "family", "module", "source", "cache_dtype",
-                  "n_patches"):
+                  "n_patches", "supports_long", "supports_decode"):
         assert getattr(t, field) == getattr(j, field), field
     assert t.model_module().__name__ == f"repro_torch.models.{j.module}"
 
@@ -81,3 +87,36 @@ def test_head_dim_overrides_d_model_split():
     cfg = dataclasses.replace(tconfigs.get_arch("glm4-9b").smoke_cfg,
                               head_dim=32)
     assert cfg.hd == 32
+
+
+def test_shape_cells_defined():
+    """The reference's `test_shape_cells_defined` on the port: four shapes,
+    32 cells (10 archs x 4 shapes less 8 long_500k skips: only rglru and
+    xlstm run it), and every cell the reference's."""
+    assert set(tconfigs.SHAPES) == {"train_4k", "prefill_32k", "decode_32k",
+                                    "long_500k"}
+    for name, cell in tconfigs.SHAPES.items():
+        assert dataclasses.asdict(cell) == dataclasses.asdict(
+            jconfigs.SHAPES[name])
+    cells = tconfigs.all_cells()
+    assert len(cells) == 32
+    assert cells == jconfigs.all_cells()
+    longs = [a for (a, s) in cells if s == "long_500k"]
+    assert sorted(longs) == ["recurrentgemma_9b", "xlstm_350m"]
+    for arch in PORTED:
+        assert tconfigs.cells(arch) == jconfigs.cells(arch)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_modelstats_match_reference(arch):
+    """`param_counts` (total, dense, expert, embed, active) and
+    `model_flops` of each of the four shape cells equal the reference's,
+    from a shape-only walk (nothing allocated)."""
+    j, t = jget(arch), tconfigs.get_arch(arch)
+    counts = tstats.param_counts(t)
+    assert counts == jstats.param_counts(j)
+    assert counts["total"] == (counts["dense"] + counts["expert"]
+                               + counts["embed"])
+    for name, cell in tconfigs.SHAPES.items():
+        assert tstats.model_flops(t, cell) == jstats.model_flops(
+            j, jconfigs.SHAPES[name]), name

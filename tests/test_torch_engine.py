@@ -3,7 +3,8 @@ engine.ServeEngine` and `repro_torch.launch.serve.main` (on ``--device
 cpu``) emit the JAX `ServeEngine`'s tokens for the same weights (carried
 across with `params_from_numpy` / an npz archive) and the same 4-request
 Poisson trace, digital and programmed AIMC; the per-request CM_* ledgers
-reconcile exactly.
+reconcile exactly, and a two-core run's per-core books
+(`ServeEngine.core_ledgers`) equal the reference engine's.
 
 Tolerance: tokens are equal. Logits differ between the frameworks by
 ~1e-6 (f32 op order), so every greedy choice must win by a top-2 margin of
@@ -274,3 +275,54 @@ def test_zoo_serve_from_seed_matches_reference(arch):
     if spec.family == "vlm":
         assert min(len(r.prompt) for r in run.requests) >= \
             spec.smoke_cfg.n_patches
+
+
+def test_core_ledgers_match_reference_and_reconcile_cores(weights):
+    """`ServeEngine.core_ledgers` of a programmed run over two cores
+    (`MappingPlan(n_contexts=2)`, `CoreSchedule.from_program`): per core,
+    the reference engine's books on the same trace, exactly; summed over
+    cores they close against `batcher.reconcile_cores` and the program's
+    per-token counts; without a schedule the books are refused."""
+    from repro.core.schedule import CoreSchedule as JSchedule
+    from repro_torch.core.schedule import CoreSchedule as TSchedule
+
+    jcfg, tcfg = ja.AimcConfig(impl="ref"), ta.AimcConfig()
+    jprog = jp.program_model(weights, jp.MappingPlan(n_contexts=2), jcfg)
+    jeng = JEngine(SPEC.model_module(), CFG, JExe(
+        mode="aimc", aimc=jcfg, compute_dtype="float32", programmed=True),
+        jprog.install(weights), n_slots=4, prompt_pad=PROMPT,
+        max_seq=PROMPT + GEN, cache_dtype=jnp.float32, family=SPEC.family,
+        module=SPEC.module, program=jprog,
+        schedule=JSchedule.from_program(jprog))
+    jeng.warmup()
+    rep_j = jeng.serve(_trace())
+    tparams = params_from_numpy(jax.tree.map(np.asarray, weights))
+    tprog = tp.program_model(tparams, tp.MappingPlan(n_contexts=2), tcfg)
+    sched = TSchedule.from_program(tprog)
+    eng = TEngine(tget("granite-8b").model_module(),
+                  tget("granite-8b").smoke_cfg, TExe(
+                      mode="aimc", aimc=tcfg, compute_dtype="float32",
+                      programmed=True),
+                  tprog.install(tparams), n_slots=4, prompt_pad=PROMPT,
+                  max_seq=PROMPT + GEN, program=tprog, schedule=sched)
+    eng.warmup()
+    rep_t = eng.serve([tb.Request(**dataclasses.asdict(r))
+                       for r in _trace()])
+    for rid, rec in rep_j.records.items():
+        assert rep_t.tokens(rid) == rec.tokens, f"request {rid} diverged"
+    books, books_j = eng.core_ledgers(rep_t), jeng.core_ledgers(rep_j)
+    assert sorted(books) == sorted(books_j) == [0, 1]
+    for core, cm in books.items():
+        assert dataclasses.astuple(cm) == dataclasses.astuple(books_j[core])
+    total, static = tb.reconcile_cores(sched, rep_t.records,
+                                       rep_t.observed_vectors)
+    assert total == static
+    summed = books[0] + books[1]
+    assert dataclasses.astuple(summed) == dataclasses.astuple(total)
+    assert summed == tprog.mvm_counts().scaled(rep_t.observed_vectors)
+    plain = TEngine(tget("granite-8b").model_module(),
+                    tget("granite-8b").smoke_cfg, eng.exe, eng.params,
+                    n_slots=4, prompt_pad=PROMPT, max_seq=PROMPT + GEN,
+                    program=tprog)
+    with pytest.raises(ValueError, match="CoreSchedule"):
+        plain.core_ledgers(rep_t)

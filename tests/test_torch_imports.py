@@ -49,7 +49,8 @@ def test_every_module_is_listed():
                  "repro_torch.checkpoint.checkpoint",
                  "repro_torch.launch.steps", "repro_torch.launch.train",
                  "repro_torch.models.encdec",
-                 "repro_torch.configs.seamless_m4t_large_v2"):
+                 "repro_torch.configs.seamless_m4t_large_v2",
+                 "repro_torch.launch.modelstats"):
         assert must in mods
 
 

@@ -396,9 +396,16 @@ def test_train_step_matches_composed_reference_families(arch, monkeypatch):
 
 
 def test_make_step_refuses_serving_cells_and_meshes():
+    """A mesh is refused for every kind of cell (serving cells build on one
+    device now; `tests/test_torch_serve_steps.py` holds them to the
+    reference)."""
     spec = tget("llama3.2-3b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_step(spec, ShapeCell("p", 16, 2, "prefill"))
+        tsteps.make_step(spec, ShapeCell("p", 16, 2, "prefill"),
+                         mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsteps.make_step(spec, ShapeCell("d", 16, 2, "decode"),
+                         mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsteps.make_train_step(spec, ShapeCell("t", 16, 2, "train"),
                                mesh=object())

@@ -72,12 +72,12 @@ def logging_reference(log):
         yield log
 
 
-def _replay_codes(v, log, seen, kind):
+def _replay_codes(v, log, seen, kind, tie=TIE):
     """The reference's codes for the port's pre-round values ``v`` (numpy):
     ``v`` is matched to the logged reference call of its shape whose codes
     differ least (the calls of a model differ in nearly every code, so the
     match is unambiguous). A differing code counts under ``seen[kind]``,
-    and under ``seen["away"]`` unless both values lie within TIE of one
+    and under ``seen["away"]`` unless both values lie within ``tie`` of one
     rounding tie. Returns (the reference's codes, where they differ)."""
     code = _codes(v)
     cands = [r for r in log[kind] if r.shape == v.shape]
@@ -86,27 +86,28 @@ def _replay_codes(v, log, seen, kind):
     diff = _codes(ref) != code
     if diff.any():
         edge = np.floor(np.maximum(np.abs(v), np.abs(ref))) + 0.5
-        tie = ((np.abs(np.abs(v) - edge) < TIE)
-               & (np.abs(np.abs(ref) - edge) < TIE))
+        at_tie = ((np.abs(np.abs(v) - edge) < tie)
+                  & (np.abs(np.abs(ref) - edge) < tie))
         seen[kind] += int(diff.sum())
-        seen["away"] += int((diff & ~tie).sum())
+        seen["away"] += int((diff & ~at_tie).sum())
     return _codes(ref), diff
 
 
 @contextlib.contextmanager
-def replaying_in_port(log, seen):
+def replaying_in_port(log, seen, tie=TIE):
     """The port's K2 dispatch and programming noise take the reference's
-    codes from ``log`` (`_replay_codes`): a DAC input that rounds the other
-    way becomes the reference's code times s_x, and a noisy weight code
-    that does gets the reference's code less the noiseless one as its
-    noise. ``seen`` counts "dac", "prog" and "away"."""
+    codes from ``log`` (`_replay_codes`, within ``tie`` code units of a
+    tie): a DAC input that rounds the other way becomes the reference's
+    code times s_x, and a noisy weight code that does gets the reference's
+    code less the noiseless one as its noise. ``seen`` counts "dac",
+    "prog" and "away"."""
     for k in ("dac", "prog", "away"):
         seen.setdefault(k, 0)
 
     def dac(orig):
         def rec(x, w_q, s_w, s_x, *a, **k):
             ref, diff = _replay_codes((x.detach() / s_x.reshape(())).numpy(),
-                                      log, seen, "dac")
+                                      log, seen, "dac", tie)
             if diff.any():
                 x = torch.where(torch.from_numpy(diff),
                                 torch.from_numpy(ref) * s_x, x)
@@ -119,7 +120,7 @@ def replaying_in_port(log, seen):
             out = []
             for c, rj in zip(w_codes, r):
                 ref, diff = _replay_codes((c + rj).numpy(), log, seen,
-                                          "prog")
+                                          "prog", tie)
                 out.append(torch.where(torch.from_numpy(diff),
                                        torch.from_numpy(ref) - c, rj))
             return torch.stack(out)
