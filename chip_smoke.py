@@ -11,7 +11,8 @@ multi-tenant server, train olmoe-1b-7b (4 of 16 layers) noise-aware and
 so the recurrent and enc-dec families (xlstm-350m and
 seamless-m4t-large-v2 uncut, recurrentgemma-9b at 3 of 38 layers), serve
 seamless-m4t-large-v2 uncut through the prefill and decode step builders,
-and
+serve granite-8b and xlstm-350m sharded on a data:2,model:2 mesh of
+positions folded onto the card, and
 run the paper's MLP, LSTM and CNN-F/M/S at theirs with read noise on,
 single-core and in the paper's multi-core mappings, through the
 hand-written Hopper kernels K1-K4 and K2's expert entry.
@@ -46,19 +47,21 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      the 4 per-core ledgers sum to the program's per-token counts.
      init (after phase 5) — granite's layer-0 w_gate key drawn at its shape
      on the card and on the CPU: threefry bits equal, normals within 4 ulps.
-  5. stacked — `fuse_gate_stacks` on the installed parameters: prefill
-     logits and served tokens (all requests at t=0, so both runs decode the
-     same batches) bit-equal to the unfused run; K3 runs 36 x passes.
+  5. stacked — `fuse_gate_stacks` (what `serve.main --fuse-gates` calls)
+     on the installed parameters: prefill logits and served tokens (all
+     requests at t=0, so both runs decode the same batches) bit-equal to
+     the unfused run; launch counts zeroed just before and read just after
+     each serve: K3 36 x passes and K2 5 x 36 x passes fused, K2 7 x 36 x
+     passes unfused; the CM_* ledgers of both reconcile. K3's launch count
+     in the record is the fused run's; K2's is phase 4's.
      static — on the same codes with the DAC scale fixed at 0.05, the
      engine equals `static_generate` bit for bit on a synchronized trace
      (the transformer path's batch invariance); and the same prompts
      through `launch.steps.make_step`'s prefill cell and GEN - 1 steps of
      its decode cell (the spec's bf16 cache, 252 K2 per pass) equal
      `static_generate`'s on that cache dtype bit for bit.
-  6. fused serve — the phase-4 command with --fuse-gates, launch counts
-     zeroed just before and read just after: K3 36 x passes, K2 5 x 36 x
-     passes, ledgers reconcile. K3's launch count in the record is this
-     run's; K2's is phase 4's.
+  6. fused serve — folded into phase 5 (it drew granite-8b's weights a
+     second time to repeat phase 5's fused launch counts through the CLI).
   7. v1/hw kernels (after phase 2) — K1 (`aimc_mvm_v1`, explicit noise
      operand), K2 with counter noise and K4 (K2/K3 with "hw" Philox noise)
      at every MVM shape of the paper nets at their published widths, K1
@@ -326,6 +329,32 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      programmed smoke config, prefill plus 4 decode steps, on the card and
      on the CPU from one program, DAC codes replayed at ties as in phase 20
      (d): tokens equal, logits and caches within 1e-5 x max(1, max|y|).
+ 23. mesh (after phase 5's static gate, on the serve phase's granite
+     program) — sharded serving on a `launch.mesh` of data:2,model:2: four
+     positions folded onto the card (the fold is printed). (a)
+     `ShardedServeEngine` against `ServeEngine` on the same installed codes
+     (4 cores' schedule, dynamic DAC scale), 4 synchronized requests,
+     prompt 16, gen 8, 4 slots: tokens bit-equal, exactly 504 K2 per pass
+     (7 x 36 x 2 column pieces: every granite Np divides 256) and no K3,
+     counts zeroed just before and read just after the sharded serve;
+     `compile_counts` unchanged after warmup; the request ledgers,
+     `reconcile_cores` and 2 device ledgers summing to the schedule's
+     totals close. Prefill and decode ms/step (host clock) of both engines
+     in turns single/sharded/sharded/single, a profiled step's device busy
+     and idle share, and peak GB. (b) The same tree paged (page 8, prefix
+     cache), 4 requests sharing an 8-token prefix: tokens bit-equal to the
+     single-device paged engine, equal prefix hits (3), exact page ledger,
+     504 K2 per pass. (d) K2 at granite w_gate's decode shape, K3 at w_gu
+     and the expert entry at an olmoe expert shape (E 64, 2048 -> 1024) on
+     random codes: two column pieces' launches concatenated equal the whole
+     launch bit for bit; both timed (CUDA events, L2 flushed). (e)
+     `CoreSchedule.apply_sharded` of granite layer 0's w_gate over 4 model
+     positions equals `apply` and the whole K2 bit for bit, one K2 per
+     core shard. (c) `serve.main` on xlstm-350m uncut with --cores 2 --mesh
+     data:2,model:2 (4 synchronized requests): prints the mesh devices'
+     CM_* lines and reconciled core books, K2 per pass equals the piece
+     reckoning it prints (a state splits only where Np divides 128 x 2),
+     and its tokens equal a single-device engine's on the CLI's own tree.
 
 The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
@@ -876,6 +905,7 @@ def stacked_phase(run):
     import torch
 
     from repro_torch.kernels import aimc_mvm
+    from repro_torch.runtime.batcher import reconcile
     from repro_torch.runtime.engine import ServeEngine
 
     eng = run.engine
@@ -900,6 +930,9 @@ def stacked_phase(run):
         torch.cuda.synchronize()
         counts[name] = (dict(aimc_mvm.LAUNCHES), e.forward_passes)
         engines[name] = e
+        led, static = reconcile(e.program, reports[name].records,
+                                reports[name].observed_vectors)
+        check(led == static, f"{name} CM_* ledgers do not reconcile")
     layers = eng.cfg.n_layers
     (cu, pu), (cf, pf) = counts["unfused"], counts["fused"]
     check(cu["aimc_mvm_v2"] == 7 * layers * pu and cu["aimc_mvm_stacked"] == 0,
@@ -914,7 +947,8 @@ def stacked_phase(run):
           f"{len(sync)} prompts, {reports['fused'].generated_tokens} tokens; "
           f"launches per pass: unfused K2 {cu['aimc_mvm_v2'] // pu}, fused "
           f"K2 {cf['aimc_mvm_v2'] // pf} + K3 "
-          f"{cf['aimc_mvm_stacked'] // pf}", flush=True)
+          f"{cf['aimc_mvm_stacked'] // pf}; fused launches {cf} over {pf} "
+          f"passes; the CM_* ledgers of both reconcile", flush=True)
     # the two paths timed in turns within this call: fused, unfused, fused
     times = {"fused": [step_times(engines["fused"], sync[0].prompt)],
              "unfused": [step_times(engines["unfused"], sync[0].prompt)]}
@@ -1009,36 +1043,362 @@ def granite_step_cells(eng, exe, prompts, card):
     return {"tokens": got.tolist(), "launches": counts}
 
 
-def fused_serve_phase(dev):
-    """The main path again through the CLI entry point with
-    --fuse-gates: K3 runs w_gate + w_up once per layer and pass, K2 the
-    other five projections; the CM_* books are unchanged by fusion."""
+# phase 23: sharded serving on a mesh of positions folded onto the card
+MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
+MESH_ARG = "data:2,model:2"
+MESH_PAGE, MESH_PREFIX = 8, 8
+MESH_XLSTM = "xlstm-350m"
+# 11 programmed states, each 12 deep (one per mLSTM/sLSTM pair): w_ff_gate,
+# w_ff_up (Np 1408) and w_if (Np 128) stay whole at model:2 and the other 8
+# split in two, (8 x 2 + 3) x 12
+MESH_XLSTM_PER_PASS = 228
+
+
+def _whole_states(tree):
+    """``tree`` with every programmed state's column pieces dropped: the
+    single-device engine's view of a sharded engine's tree."""
+    from repro_torch.core.aimc import AimcLinearState
+    if isinstance(tree, dict):
+        return {k: _whole_states(v) for k, v in tree.items()}
+    if isinstance(tree, AimcLinearState):
+        return dataclasses.replace(tree, pieces=())
+    return tree
+
+
+def _piece_reckoning(params, mesh):
+    """Kernel launches one forward pass makes on ``mesh``, reckoned here
+    from each programmed state's padded Np and not from the placement's own
+    rule: a state runs once per layer, as M column pieces where Np divides
+    128 x M (M the model axis, the kernels' column alignment) and whole
+    elsewhere. Fails unless the placement made exactly those pieces."""
+    from repro_torch.core.program import installed_entries
+    m = mesh.shape["model"]
+    rows = {}
+    for p, st in installed_entries(params).items():
+        np_ = st.w_q.shape[-1]
+        n = m if np_ % (128 * m) == 0 else 1
+        check(len(st.pieces) == (n if n > 1 else 0),
+              f"{p} (Np {np_}) placed as {len(st.pieces)} pieces, "
+              f"reckoned {n}")
+        rows[p] = (n, st.w_q.shape[0], np_)
+    return sum(n * depth for n, depth, _ in rows.values()), rows
+
+
+def _served_pair(tag, single, sharded, reqs, per_pass, dev):
+    """Serve ``reqs`` on the single-device and the sharded engine (both
+    warmed first), launch counts zeroed just before and read just after the
+    sharded run: tokens bit-equal, ``per_pass`` K2 per forward pass and no
+    K3, no new shapes after warmup, the same books."""
+    import torch
+
+    from repro_torch.kernels import aimc_mvm
+    counts0 = single.warmup()
+    check(sharded.warmup() == counts0, f"[{tag}] warmup shapes differ")
+    want = single.serve(list(reqs))
+    aimc_mvm.reset_counts()
+    p0 = sharded.forward_passes
+    got = sharded.serve(list(reqs))
+    torch.cuda.synchronize(dev)
+    counts, passes = dict(aimc_mvm.LAUNCHES), sharded.forward_passes - p0
+    check(counts["aimc_mvm_v2"] == per_pass * passes
+          and counts["aimc_mvm_stacked"] == 0,
+          f"[{tag}] launches {counts} != {per_pass} K2 x {passes} passes")
+    for r in reqs:
+        check(got.tokens(r.rid) == want.tokens(r.rid),
+              f"[{tag}] sharded tokens {got.tokens(r.rid)} != single-device "
+              f"{want.tokens(r.rid)} (request {r.rid})")
+    check(sharded.compile_counts() == single.compile_counts() == counts0,
+          f"[{tag}] shapes after warmup {sharded.compile_counts()} vs "
+          f"{counts0}")
+    return want, got, counts, passes
+
+
+def _books(tag, eng, rep, mesh):
+    """Request ledgers, `reconcile_cores` and `device_ledgers` close: two
+    model-axis devices whose books sum to the schedule's totals."""
+    from repro_torch.core import isa
+    from repro_torch.runtime.batcher import reconcile, reconcile_cores
+    led, static = reconcile(eng.program, rep.records, rep.observed_vectors)
+    core_sum, total = reconcile_cores(eng.schedule, rep.records,
+                                      rep.observed_vectors)
+    devs = eng.device_ledgers(rep)
+    per_inf = eng.schedule.device_ledgers(mesh, eng.model_axis)
+    check(led == static and core_sum == total
+          and rep.observed_vectors == rep.useful_vectors,
+          f"[{tag}] CM_* or core books do not close")
+    check(sorted(devs) == [0, 1]
+          and isa.total(d.cm for d in per_inf.values())
+          == eng.schedule.ledger_totals()
+          and isa.total(devs.values())
+          == eng.schedule.ledger_totals().scaled(rep.useful_vectors),
+          f"[{tag}] device ledgers {devs} do not sum to the schedule's "
+          f"totals")
+    return {d: cm.dequeue for d, cm in devs.items()}
+
+
+def lane_moves(eng, tag, card):
+    """One decode chunk's lane gather and scatter alone: the sharded
+    engine's `_on_lanes` around a decode that computes nothing, on a fresh
+    session's lanes (a paged engine's pools are gathered whole). Host-clock
+    ms (mean of 5) and one call's device busy ms (profiler)."""
+    sess = eng.begin()
+
+    def nothing(cache, tok, state, length):
+        return tok, cache, state, None
+
+    def move():
+        return eng._on_lanes(nothing, sess.cache, sess.tok_buf, sess.state,
+                             1)
+    host_ms, _ = timed(move, eng.device)
+    prof = device_profile(move, eng.device)
+    busy = prof["device_busy_ms"]
+    busy = "not measured" if busy is None else f"{busy:.3f} ms"
+    print(f"[mesh] {tag} lane gather + scatter per chunk: {host_ms:.3f} ms "
+          f"host clock, device busy {busy}, on {card}", flush=True)
+    return {"host_ms": host_ms, "device_busy_ms": prof["device_busy_ms"]}
+
+
+def mesh_granite(run, mesh, card):
+    """(a) granite-8b sharded on the serve phase's program against the
+    single-device engine, dynamic DAC scale; (b) the same tree paged with
+    the prefix cache."""
+    import torch
+
+    from repro_torch.runtime.batcher import Request, synchronized_trace
+    from repro_torch.runtime.engine import ServeEngine, ShardedServeEngine
+
+    eng = run.engine
+    dev = eng.device
+    kw = dict(n_slots=SLOTS, prompt_pad=PROMPT, max_seq=PROMPT + GEN,
+              program=run.program, schedule=run.schedule)
+    torch.cuda.synchronize(dev)
+    base_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    single = ServeEngine(eng.model, eng.cfg, eng.exe, eng.params, **kw)
+    t0 = time.perf_counter()
+    sharded = ShardedServeEngine(eng.model, eng.cfg, eng.exe, eng.params,
+                                 mesh=mesh, **kw)
+    torch.cuda.synchronize(dev)
+    place_s = time.perf_counter() - t0
+    per_pass, rows = _piece_reckoning(sharded.params, mesh)
+    check(per_pass == 7 * 36 * 2 and all(n == 2 for n, _, _ in rows.values()),
+          f"granite piece reckoning {per_pass} != 504: {rows}")
+    reqs = synchronized_trace(N_REQ, prompt_len=PROMPT, max_new=GEN,
+                              seed=SEED + 3, vocab=eng.cfg.vocab)
+    want, got, counts, passes = _served_pair("mesh", single, sharded, reqs,
+                                             per_pass, dev)
+    dev_books = _books("mesh", sharded, got, mesh)
+    print(f"[mesh] (a) granite-8b on {mesh.describe()}: {N_REQ} synchronized "
+          f"requests, tokens bit-equal to the single-device engine "
+          f"({got.generated_tokens} tokens); {passes} passes, launches "
+          f"{counts} = {per_pass} K2 per pass (7 x 36 x 2 column pieces); "
+          f"placed in {place_s:.2f} s; ledgers, reconcile_cores and 2 "
+          f"device ledgers close (dequeue per device {dev_books})",
+          flush=True)
+    times = {"single": [step_times(single, reqs[0].prompt)],
+             "sharded": [step_times(sharded, reqs[0].prompt)]}
+    times["sharded"].append(step_times(sharded, reqs[0].prompt))
+    times["single"].append(step_times(single, reqs[0].prompt))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    moves = {"dense": lane_moves(sharded, "(a) dense", card)}
+    ms = {k: ", ".join(f"{t['decode_ms_per_step']:.2f}" for t in v)
+          for k, v in times.items()}
+    print(f"[mesh] decode ms/step (host clock, {SLOTS} busy slots, in turns "
+          f"single/sharded/sharded/single): single {ms['single']}; sharded "
+          f"{ms['sharded']}; peak {peak_gb:.2f} GB (allocated before the "
+          f"phase: {base_gb:.2f} GB); on {card}", flush=True)
+    del single, sharded           # (b) places its own pieces
+
+    # (b) paged + prefix cache on the same tree
+    rng = __import__("random").Random(SEED)
+    shared = tuple(rng.randint(1, eng.cfg.vocab - 1)
+                   for _ in range(MESH_PREFIX))
+    preqs = [Request(rid=i, prompt=shared + tuple(
+        rng.randint(1, eng.cfg.vocab - 1)
+        for _ in range(PROMPT - MESH_PREFIX)), max_new=GEN)
+        for i in range(N_REQ)]
+    pkw = dict(kw, page_size=MESH_PAGE, prefix_cache=True)
+    psingle = ServeEngine(eng.model, eng.cfg, eng.exe, eng.params, **pkw)
+    psharded = ShardedServeEngine(eng.model, eng.cfg, eng.exe,
+                                  eng.params, mesh=mesh, **pkw)
+    pw, pg, pcounts, ppasses = _served_pair("mesh paged", psingle, psharded,
+                                            preqs, per_pass, dev)
+    check(pg.page_ledger_exact and pg.page_ledger == pw.page_ledger
+          and pg.prefix_hits == pw.prefix_hits == N_REQ - 1
+          and pg.prefix_hit_vectors == pw.prefix_hit_vectors,
+          f"[mesh paged] ledger {pg.page_ledger} vs {pw.page_ledger}, hits "
+          f"{pg.prefix_hits}/{pw.prefix_hits}")
+    split = psharded.begin().cache["kp"].counts[1]
+    _books("mesh paged", psharded, pg, mesh)
+    moves["paged"] = lane_moves(psharded, "(b) paged", card)
+    print(f"[mesh] (b) paged (page {MESH_PAGE}, prefix cache, "
+          f"{psharded.pages.n_pages} pages in {split} data blocks): "
+          f"{N_REQ} requests sharing {MESH_PREFIX} tokens, tokens bit-equal "
+          f"to the single-device paged engine, {pg.prefix_hits} prefix hits "
+          f"({pg.prefix_hit_vectors} vectors) on both, page ledger exact; "
+          f"{ppasses} passes, launches {pcounts}", flush=True)
+    return {"passes": passes, "launches": counts, "per_pass": per_pass,
+            "place_s": place_s, "device_dequeue": dev_books,
+            "times": times, "peak_gb": peak_gb, "base_gb": base_gb,
+            "lane_moves": moves,
+            "paged": {"passes": ppasses, "launches": pcounts,
+                      "prefix_hits": pg.prefix_hits,
+                      "page_ledger": pg.page_ledger}}
+
+
+def mesh_xlstm(dev, mesh, card):
+    """(c) xlstm-350m uncut through the CLI on the named mesh, against a
+    single-device engine on the CLI's own tree."""
     import torch
 
     from repro_torch.kernels import aimc_mvm
     from repro_torch.launch import serve
-    from repro_torch.runtime.batcher import reconcile
+    from repro_torch.runtime.engine import ServeEngine
 
-    args = ["--arch", ARCH, "--exec", "aimc", "--fuse-gates", "--requests",
-            str(N_REQ), "--prompt-len", str(PROMPT), "--gen", str(GEN),
-            "--slots", str(SLOTS), "--trace", f"poisson:{RATE:g}", "--seed",
+    args = ["--arch", MESH_XLSTM, "--exec", "aimc", "--cores", "2",
+            "--mesh", MESH_ARG, "--requests", str(N_REQ), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN), "--slots", str(SLOTS), "--seed",
             str(SEED), "--device", str(dev)]
-    print(f"[fused] python -m repro_torch.launch.serve {' '.join(args)}",
+    print(f"[mesh] python -m repro_torch.launch.serve {' '.join(args)}",
           flush=True)
+    out = __import__("io").StringIO()
     aimc_mvm.reset_counts()
-    run = serve.main(args)
+    with contextlib.redirect_stdout(out):
+        run = serve.main(args)
     torch.cuda.synchronize(dev)
     counts = dict(aimc_mvm.LAUNCHES)
+    text = out.getvalue()
+    print(text, end="", flush=True)
     eng, rep = run.engine, run.report
-    layers, passes = eng.cfg.n_layers, eng.forward_passes
-    check(counts["aimc_mvm_stacked"] == layers * passes
-          and counts["aimc_mvm_v2"] == 5 * layers * passes,
-          f"fused main path launches {counts} for {passes} passes")
-    led, static = reconcile(run.program, rep.records, rep.observed_vectors)
-    check(led == static, "fused CM_* ledgers do not reconcile")
-    print(f"[fused] main path: {passes} forward passes, launches {counts}; "
-          f"ledgers reconcile", flush=True)
-    return {"launches": counts, "passes": passes, "report": rep.summary()}
+    check(type(eng).__name__ == "ShardedServeEngine",
+          f"--mesh {MESH_ARG} served through {type(eng).__name__}")
+    check(all(f"mesh device[model={d}]" in text for d in (0, 1))
+          and "schedule totals: True" in text
+          and f"{mesh.fold()}" in text,
+          "the CLI printed no mesh fold, CM_* line per mesh device or "
+          "reconciled core books")
+    per_pass, rows = _piece_reckoning(eng.params, mesh)
+    check(per_pass == MESH_XLSTM_PER_PASS,
+          f"xlstm piece reckoning {per_pass} != {MESH_XLSTM_PER_PASS}: {rows}")
+    passes = eng.forward_passes
+    check(counts["aimc_mvm_v2"] == per_pass * passes
+          and counts["aimc_mvm_stacked"] == 0,
+          f"xlstm mesh launches {counts} != {per_pass} x {passes}")
+    split = sorted(p.split("/")[-1] for p, (n, _, _) in rows.items()
+                   if n == 1)
+    terms = " + ".join(f"{p.split('/')[-1]} (Np {np_}) {n} x {depth}"
+                       for p, (n, depth, np_) in sorted(rows.items()))
+    print(f"[mesh] (c) {MESH_XLSTM} piece reckoning, pieces x layers per "
+          f"state: {terms} = {per_pass} K2 per pass (whole where Np does "
+          f"not divide 128 x 2: {split}); {passes} passes (warmup "
+          f"included), launches {counts}", flush=True)
+    single = ServeEngine(eng.model, eng.cfg, eng.exe,
+                         _whole_states(eng.params), n_slots=eng.n_slots,
+                         prompt_pad=eng.prompt_pad, max_seq=eng.max_seq,
+                         family=eng.family, module=eng.module,
+                         program=run.program)
+    single.warmup()
+    want = single.serve(list(run.requests))
+    for r in run.requests:
+        check(rep.tokens(r.rid) == want.tokens(r.rid),
+              f"xlstm mesh tokens {rep.tokens(r.rid)} != single-device "
+              f"{want.tokens(r.rid)} (request {r.rid})")
+    print(f"[mesh] (c) {MESH_XLSTM} CLI tokens bit-equal to a single-device "
+          f"engine on its tree ({rep.generated_tokens} tokens), on {card}",
+          flush=True)
+    return {"passes": passes, "launches": counts, "per_pass": per_pass,
+            "whole_states": split}
+
+
+def mesh_pieces(run, mesh, flush, card):
+    """(d) K2 at a granite decode shape, K3 at w_gu and the expert entry at
+    an olmoe expert shape, on random codes: the pieces' launches
+    concatenated equal the whole launch bit for bit, both timed; (e)
+    `CoreSchedule.apply_sharded` of granite layer 0's w_gate over 4 model
+    positions equals `apply` bit for bit, one K2 per core shard."""
+    import torch
+
+    from repro_torch.core import aimc as ta
+    from repro_torch.core.program import AimcProgram
+    from repro_torch.core.schedule import CoreSchedule, Shard
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = run.engine.device
+    cfg = ta.AimcConfig()
+    gen = torch.Generator(dev).manual_seed(SEED + 23)
+    out = {}
+    for tag, lead, b, kb, np_, launch in (
+            ("k2 w_gate", (), SLOTS, 8, 14336, ta.aimc_apply),
+            ("k3 w_gu", (2,), SLOTS, 8, 14336, ta.aimc_apply_stacked),
+            ("experts olmoe we_gate", (64,), SLOTS, 4, 1024,
+             ta.aimc_apply_experts)):
+        w_q = torch.randint(-127, 128, lead + (kb, 512, np_), generator=gen,
+                            device=dev, dtype=torch.int8)
+        s_w = (torch.rand(lead + (kb, np_), generator=gen, device=dev)
+               + 0.5) * 1e-3
+        whole = ta.AimcLinearState(w_q=w_q, s_w=s_w, k=kb * 512, n=np_)
+        split = ta.split_columns(whole, [(0, np_ // 2), (np_ // 2, np_)],
+                                 [mesh.device_at((0, 0)),
+                                  mesh.device_at((0, 1))])
+        shape = (lead[:1] if launch is ta.aimc_apply_experts else ()) + (
+            b, kb * 512)
+        x = torch.randn(shape, generator=gen, device=dev)
+        want = launch(whole, x, cfg)
+        aimc_mvm.reset_counts()
+        got = launch(split, x, cfg)
+        n = sum(aimc_mvm.LAUNCHES.values())
+        check(n == 2 and torch.equal(got, want),
+              f"[mesh] {tag}: pieces ({n} launches) != the whole launch")
+        ms_whole = time_ms(lambda: launch(whole, x, cfg), flush, KERNEL_REPS)
+        ms_pieces = time_ms(lambda: launch(split, x, cfg), flush,
+                            KERNEL_REPS)
+        out[tag] = {"ms_whole": ms_whole, "ms_pieces": ms_pieces}
+        print(f"[mesh] (d) {tag} {lead} [{b} x {kb * 512} -> {np_}]: 2 "
+              f"column pieces == the whole launch bit for bit; whole "
+              f"{ms_whole:.4f} ms, pieces {ms_pieces:.4f} ms (CUDA events, "
+              f"L2 flushed; on {card})", flush=True)
+
+    st = run.engine.params["blocks"]["w_gate"][0]
+    st = ta.AimcLinearState(w_q=st.w_q, s_w=st.s_w, k=st.k, n=st.n)
+    prog = AimcProgram([st], ["w_gate"], run.program.cfg, [0], [])
+    w = st.n // 4
+    sched = CoreSchedule(prog, [Shard("w_gate", c, 0,
+                                      cols=((c * w, (c + 1) * w),))
+                                for c in range(4)])
+    mesh4 = make_mesh((1, 4), MESH_AXES, [dev])
+    x = torch.randn((SLOTS, st.k), generator=gen, device=dev)
+    want = sched.apply("w_gate", x)
+    aimc_mvm.reset_counts()
+    got = sched.apply_sharded("w_gate", x, mesh4)
+    n = aimc_mvm.LAUNCHES["aimc_mvm_v2"]
+    check(n == 4 and torch.equal(got, want)
+          and torch.equal(got, ta.aimc_apply(st, x, run.program.cfg)),
+          f"[mesh] apply_sharded ({n} K2) != apply on granite w_gate")
+    print(f"[mesh] (e) CoreSchedule.apply_sharded of granite layer 0 w_gate "
+          f"over {mesh4.describe()}: == apply == the whole K2 bit for bit, "
+          f"{n} K2 (one per core shard)", flush=True)
+    out["apply_sharded_k2"] = n
+    return out
+
+
+def mesh_phase(run, card):
+    """Phase 23: sharded serving on data:2,model:2, four positions folded
+    onto the card."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    dev = run.engine.device
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, [dev])
+    print(f"[mesh] {mesh.describe()}", flush=True)
+    out = {"fold": mesh.fold(), "granite": mesh_granite(run, mesh, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = flush_buffer(dev)
+    out["pieces"] = mesh_pieces(run, mesh, flush, card)
+    del flush
+    out["xlstm"] = mesh_xlstm(dev, mesh, card)
+    return out
 
 
 def paper_shapes():
@@ -5377,10 +5737,10 @@ def main() -> int:
     run, serve_stats = phase("serve", serve_phase, dev)
     stacked = phase("stacked", stacked_phase, run)
     static = phase("static", static_gate_phase, run, smi)
+    mesh = phase("mesh", mesh_phase, run, smi)
     del run                       # free granite's weights before the next
     free()
     init = phase("init", init_phase, dev, serve_stats["init_s"])
-    fused = phase("fused serve", fused_serve_phase, dev)
     free()
     staged = phase("staged", staged_v1_phase, dev)
     paper, hw_launches = phase("paper nets", paper_nets_phase, dev)
@@ -5478,7 +5838,7 @@ def main() -> int:
                                  for r in serve_k2})},
         {"name": "aimc_mvm_stacked", "route": "cuda", "source": src_rel,
          "replaces": "src/repro/kernels/aimc_mvm.py:349",
-         "launches": fused["launches"]["aimc_mvm_stacked"],
+         "launches": stacked["fused"]["launches"]["aimc_mvm_stacked"],
          "max_abs_err": worst["aimc_mvm_stacked"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
@@ -5508,13 +5868,13 @@ def main() -> int:
         "kernel_rows": rows, "v1_hw_kernel_rows": v1_rows,
         "hw_draws": hw_draws, "small_model_max_err": small_err,
         "serve": serve_stats, "stacked": stacked, "static": static,
-        "fused_serve": fused, "moe": moe,
+        "moe": moe,
         "staged_v1": staged, "paper_nets": paper, "init": init,
         "multicore": multicore, "fidelity": fidelity, "zoo": zoo,
         "paged": paged, "recurrent": recurrent, "resilience": resilience,
         "int8": int8, "placement": placement, "server": server,
         "train": train, "train_families": families,
-        "encdec_serve": encdec_serve,
+        "encdec_serve": encdec_serve, "mesh": mesh,
         "phase_seconds": seconds},
         indent=1))
     print(json.dumps(record))

@@ -10,6 +10,19 @@ the reference's `vmap` of `aimc_apply`) runs as one launch of K2's expert
 entry, each expert with its own read seed. The DAC scale ``s_x`` stays a
 device tensor: no projection waits on the host.
 
+Column pieces (sharded serving): a state placed over a mesh's ``model``
+axis carries one `ColumnPiece` per model position, columns ``[c0, c1)`` of
+its padded Np made contiguous once on that position's device
+(`split_columns`). `aimc_apply`, `aimc_apply_stacked` and
+`aimc_apply_experts` then compute the DAC scale once from the whole x,
+launch one kernel per piece on its device (the bias cut per piece) and
+concatenate the outputs in column order on x's device. Column pieces are
+exact: the ADC, dequant, bias and activation act per column and the
+row-block sum runs over k in k order, so the result equals the whole
+launch bit for bit. A read key on a split state raises: the counter PRNG
+indexes noise by the global column, so a piece would draw other noise
+than the whole.
+
 Noise-aware training: `aimc_linear_ste` (a `torch.autograd.Function`)
 programs W on the fly with a fresh programming-noise draw and applies it
 with per-call read noise; its backward is straight-through (y = x @ W).
@@ -55,14 +68,36 @@ class AimcConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ColumnPiece:
+    """Columns ``[c0, c1)`` of a programmed state's padded Np, contiguous
+    on one mesh position's device (``c1 - c0`` a multiple of 128, the
+    kernels' column alignment)."""
+
+    c0: int
+    c1: int
+    w_q: torch.Tensor   # int8 [..., KB, M, c1 - c0]
+    s_w: torch.Tensor   # f32  [..., KB, c1 - c0]
+
+    def __getitem__(self, i) -> "ColumnPiece":
+        return ColumnPiece(self.c0, self.c1, self.w_q[i], self.s_w[i])
+
+    def scaled(self, gain: float) -> "ColumnPiece":
+        return ColumnPiece(self.c0, self.c1, self.w_q, self.s_w * gain)
+
+
+@dataclasses.dataclass(frozen=True)
 class AimcLinearState:
     """A programmed linear layer: int8 conductance codes + output scales.
-    Leading dims of ``w_q``/``s_w`` are layer/gate stacks."""
+    Leading dims of ``w_q``/``s_w`` are layer/gate stacks. ``pieces``
+    (empty unless the state was placed over a mesh's model axis,
+    `split_columns`) are its column pieces, which the apply functions
+    launch in place of the whole."""
 
     w_q: torch.Tensor   # int8 [..., KB, M, Np]
     s_w: torch.Tensor   # f32  [..., KB, Np] (drift gain folded in)
     k: int              # logical in_features
     n: int              # logical out_features
+    pieces: tuple = dataclasses.field(default=(), compare=False, repr=False)
 
     @property
     def stack_shape(self) -> tuple[int, ...]:
@@ -78,15 +113,61 @@ class AimcLinearState:
     def with_gain(self, gain) -> "AimcLinearState":
         """Conductance drift as data: scale the output scales, keep the
         codes (and every shape) untouched."""
-        return AimcLinearState(w_q=self.w_q, s_w=self.s_w * float(gain),
-                               k=self.k, n=self.n)
+        return AimcLinearState(
+            w_q=self.w_q, s_w=self.s_w * float(gain), k=self.k, n=self.n,
+            pieces=tuple(p.scaled(float(gain)) for p in self.pieces))
 
     def __getitem__(self, i) -> "AimcLinearState":
         """The state of stack entry ``i`` (a layer of a layer stack)."""
         if not self.stack_shape:
             raise IndexError("a single programmed matrix has no stack dim")
         return AimcLinearState(w_q=self.w_q[i], s_w=self.s_w[i],
-                               k=self.k, n=self.n)
+                               k=self.k, n=self.n,
+                               pieces=tuple(p[i] for p in self.pieces))
+
+
+def split_columns(state: AimcLinearState, bounds, devices
+                  ) -> AimcLinearState:
+    """``state`` carrying one `ColumnPiece` per ``(c0, c1)`` of ``bounds``
+    (a cover of ``0..Np`` in order, each width a multiple of 128), piece j
+    made contiguous once on ``devices[j]``. The whole ``w_q``/``s_w`` stay
+    as they are: they are the program's own tensors, which the health
+    probes, recalibration and the books read, so the pieces are a second
+    copy of the codes (ROADMAP §1 item 1)."""
+    np_ = state.w_q.shape[-1]
+    edges = [c for b in bounds for c in b]
+    if (not bounds or edges[0] != 0 or edges[-1] != np_
+            or any(a != b for a, b in zip(edges[1:-1:2], edges[2::2]))):
+        raise ValueError(f"column pieces {list(bounds)} are not an ordered "
+                         f"cover of 0..{np_}")
+    if any((c1 - c0) % 128 or c1 <= c0 for c0, c1 in bounds):
+        raise ValueError(f"column pieces {list(bounds)} are not 128-aligned")
+    pieces = tuple(
+        ColumnPiece(c0, c1,
+                    state.w_q[..., c0:c1].to(dev).contiguous(),
+                    state.s_w[..., c0:c1].to(dev).contiguous())
+        for (c0, c1), dev in zip(bounds, devices))
+    return dataclasses.replace(state, pieces=pieces)
+
+
+def _no_read_key(state: AimcLinearState, key) -> None:
+    if state.pieces and key is not None:
+        raise ValueError(
+            "a read key on a column-split state: the counter PRNG indexes "
+            "noise by the global column, so a piece would draw other "
+            "noise than the whole (noise-on pieces need column offsets in "
+            "the kernel's counter)")
+
+
+def _over_pieces(state: AimcLinearState, x: torch.Tensor, s_x, launch):
+    """Run ``launch(piece, x, s_x)`` on each column piece's device (x and
+    the one DAC scale copied there) and concatenate the outputs in column
+    order on x's device."""
+    outs = []
+    for p in state.pieces:
+        dev = p.w_q.device
+        outs.append(launch(p, x.to(dev), s_x.to(dev)).to(x.device))
+    return torch.cat(outs, dim=-1)
 
 
 def _pad_to(v: int, m: int) -> int:
@@ -209,15 +290,24 @@ def aimc_apply(state: AimcLinearState, x: torch.Tensor, cfg: AimcConfig,
     x [..., K] -> [..., N]. The epilogue runs inside the kernel when
     ``cfg.fuse_epilogue``, as the same f32 ops after it otherwise."""
     kb, m, np_ = state.w_q.shape
+    _no_read_key(state, key)
     xf, s_x, lead = _flatten_pad_input(x, state, cfg)
     seed, sigma = _noise_args(cfg, key, m)
     fuse = cfg.fuse_epilogue
-    y = kernel_ops.aimc_matmul_v2(
-        xf, state.w_q, state.s_w, s_x, seed,
-        _pad_bias(bias, state.n, np_) if fuse else None,
-        adc_step=cfg.adc_step, sigma=sigma,
-        activation=activation if fuse else "none",
-        noise_source=cfg.noise_source)
+    bias_p = _pad_bias(bias, state.n, np_) if fuse else None
+    act = activation if fuse else "none"
+
+    def launch(w_q, s_w, xf, s_x, bias_p):
+        return kernel_ops.aimc_matmul_v2(
+            xf, w_q, s_w, s_x, seed, bias_p, adc_step=cfg.adc_step,
+            sigma=sigma, activation=act, noise_source=cfg.noise_source)
+
+    if state.pieces:
+        y = _over_pieces(state, xf, s_x, lambda p, xp, sp: launch(
+            p.w_q, p.s_w, xp, sp, None if bias_p is None
+            else bias_p[p.c0:p.c1].to(xp.device)))
+    else:
+        y = launch(state.w_q, state.s_w, xf, s_x, bias_p)
     y = y[:, :state.n]
     if not fuse:
         if bias is not None:
@@ -258,6 +348,7 @@ def aimc_apply_stacked(stack: AimcLinearState, x: torch.Tensor,
                          f"got stack shape {stack.stack_shape}")
     g_ = stack.stack_shape[0]
     kb, m, np_ = stack.w_q.shape[-3:]
+    _no_read_key(stack, key)
     xf, s_x, lead = _flatten_pad_input(x, stack, cfg)
     seed, sigma = _noise_args(cfg, key, m)
     if isinstance(activations, str):
@@ -273,11 +364,19 @@ def aimc_apply_stacked(stack: AimcLinearState, x: torch.Tensor,
     if fuse and biases is not None:
         bias_arg = (torch.nn.functional.pad(biases, (0, np_ - stack.n))
                     if np_ != stack.n else biases).contiguous()
-    y = kernel_ops.aimc_matmul_stacked(
-        xf, stack.w_q, stack.s_w, s_x, seed, bias_arg,
-        adc_step=cfg.adc_step, sigma=sigma,
-        activations=activations if fuse else "none",
-        noise_source=cfg.noise_source)
+    acts = activations if fuse else "none"
+
+    def launch(w_q, s_w, xf, s_x, bias_arg):
+        return kernel_ops.aimc_matmul_stacked(
+            xf, w_q, s_w, s_x, seed, bias_arg, adc_step=cfg.adc_step,
+            sigma=sigma, activations=acts, noise_source=cfg.noise_source)
+
+    if stack.pieces:
+        y = _over_pieces(stack, xf, s_x, lambda p, xp, sp: launch(
+            p.w_q, p.s_w, xp, sp, None if bias_arg is None
+            else bias_arg[:, p.c0:p.c1].contiguous().to(xp.device)))
+    else:
+        y = launch(stack.w_q, stack.s_w, xf, s_x, bias_arg)
     y = y[:, :, :stack.n]
     if not fuse:
         if biases is not None:
@@ -307,6 +406,7 @@ def aimc_apply_experts(state: AimcLinearState, x: torch.Tensor,
     if k != state.k:
         raise ValueError(f"in_features mismatch: {k} != {state.k}")
     kb, m, _ = state.w_q.shape[-3:]
+    _no_read_key(state, keys)
     seeds, sigma = None, 0.0
     if keys is not None:
         if len(keys) != e:
@@ -323,8 +423,16 @@ def aimc_apply_experts(state: AimcLinearState, x: torch.Tensor,
                          device=x.device)
     else:
         s_x = sym_scale(xf.reshape(e, c * kb * m), dim=1).reshape(e)
-    y = kernel_ops.aimc_matmul_experts(xf, state.w_q, state.s_w, s_x, seeds,
-                                       adc_step=cfg.adc_step, sigma=sigma)
+    def launch(w_q, s_w, xf, s_x):
+        return kernel_ops.aimc_matmul_experts(xf, w_q, s_w, s_x, seeds,
+                                              adc_step=cfg.adc_step,
+                                              sigma=sigma)
+
+    if state.pieces:
+        y = _over_pieces(state, xf, s_x,
+                         lambda p, xp, sp: launch(p.w_q, p.s_w, xp, sp))
+    else:
+        y = launch(state.w_q, state.s_w, xf, s_x)
     return y[:, :, :state.n]
 
 

@@ -30,9 +30,11 @@ analytically; this module makes them run:
 
 Builders for every paper multi-core case live at the bottom
 (`mlp_schedule`, `lstm_schedule`, `cnn_schedule`), and `from_program` lowers
-any `program_model` output using its MappingPlan contexts as cores. The
-reference's mesh execution (`apply_sharded`, `mesh_placement`,
-`device_ledgers`) belongs to the mesh slice of the port.
+any `program_model` output using its MappingPlan contexts as cores. On a
+mesh (`launch.mesh`), ``apply_sharded`` gives each model position its group
+of core shards, ``mesh_placement`` folds the virtual cores round-robin onto
+the model positions (skipping dead ones) and ``device_ledgers`` sums the
+per-core books per position, as the reference does.
 
 Invariants (pinned by tests/test_torch_schedule.py against the reference):
 column splits are exact (noise off); unsplit per-core ledgers sum to
@@ -60,6 +62,15 @@ from repro_torch.core.program import AimcProgram
 # ---------------------------------------------------------------------------
 # Exact column splitting
 # ---------------------------------------------------------------------------
+
+def _on(state: AimcLinearState, device) -> AimcLinearState:
+    """``state`` with its codes and scales on ``device`` (itself when they
+    are there already)."""
+    if state.w_q.device == torch.device(device):
+        return state
+    return AimcLinearState(w_q=state.w_q.to(device), s_w=state.s_w.to(device),
+                           k=state.k, n=state.n)
+
 
 def _column_index(ranges: Sequence[tuple[int, int]]) -> np.ndarray:
     return np.concatenate([np.arange(a, b) for a, b in ranges])
@@ -288,6 +299,43 @@ class CoreSchedule:
                                     sub_key))
         return torch.cat(parts, dim=-1).index_select(-1, inv)
 
+    # -- execution: one group of cores per mesh position ---------------------
+    def apply_sharded(self, name: str, x: torch.Tensor, mesh,
+                      axis: str = "model") -> torch.Tensor:
+        """`apply`, with the per-core column shards distributed along a
+        mesh axis: model position j holds shards ``[j*g, (j+1)*g)`` (``g``
+        = shards / positions, the reference's ``P(axis)`` split of the
+        stacked shards) and runs them on its device with ``x`` copied
+        there (every core queues the full activation vector, the paper's
+        case-4 dataflow). The outputs concatenate in shard order on x's
+        device and the inverse column permutation restores the matrix's
+        order. Noise off: one K2 launch per shard on the card."""
+        shs = self._by_name[name]
+        inv = self._inv_perm[name]
+        if inv is None:
+            raise ValueError(f"matrix {name!r} has a single full shard; "
+                             "use apply() (nothing to distribute)")
+        states = [self._states[(name, i)] for i in range(len(shs))]
+        if any(st.n != states[0].n or st.w_q.shape != states[0].w_q.shape
+               for st in states):
+            raise ValueError("apply_sharded needs equal-size column shards")
+        n_dev = mesh.shape[axis]
+        if len(states) % n_dev:
+            raise ValueError(f"{len(states)} shards not divisible over "
+                             f"{n_dev} devices on axis {axis!r}")
+        per = len(states) // n_dev
+        origin = [0] * len(mesh.axis_names)
+        a = mesh.axis_names.index(axis)
+        parts = []
+        for j in range(n_dev):
+            origin[a] = j
+            dev = mesh.device_at(origin)
+            xj = x.to(dev)
+            for st in states[j * per:(j + 1) * per]:
+                parts.append(aimc_apply(_on(st, dev), xj, self.cfg)
+                             .to(x.device))
+        return torch.cat(parts, dim=-1).index_select(-1, inv)
+
     # -- static accounting (the cost model's units) ---------------------------
     def ledgers(self) -> tuple[CoreLedger, ...]:
         """Per-core CM_*/comm-byte accounts for one inference. Column-split
@@ -349,6 +397,36 @@ class CoreSchedule:
         times = self.phase_times(sys, p, coupling)
         law = pipelined_latency if self.pipelined else sequential_latency
         return law(times)
+
+    # -- mesh placement (sharded serving, DESIGN.md §11) ----------------------
+    def mesh_placement(self, mesh, axis: str = "model",
+                       dead: Sequence[int] = ()) -> dict[int, int]:
+        """virtual core -> device slot along mesh ``axis`` (round-robin):
+        core c sits on slot ``c % D`` of the surviving slots, in index
+        order. A mesh without ``axis`` is a single slot; ``dead`` slots are
+        skipped, and killing every slot raises."""
+        n_dev = mesh.shape[axis] if axis in mesh.axis_names else 1
+        alive = [d for d in range(n_dev) if d not in set(dead)]
+        if not alive:
+            raise ValueError(f"mesh_placement: all {n_dev} device slot(s) "
+                             f"on axis {axis!r} are dead")
+        return {c: alive[c % len(alive)] for c in range(self.n_cores)}
+
+    def device_ledgers(self, mesh, axis: str = "model",
+                       dead: Sequence[int] = ()) -> dict[int, CoreLedger]:
+        """device slot -> per-inference ledger summed over the cores placed
+        there (`mesh_placement`); the ``core`` field is the slot. Summed
+        over slots the books equal `ledger_totals()`."""
+        place = self.mesh_placement(mesh, axis, dead=dead)
+        acc: dict[int, list] = {}
+        for led in self.ledgers():
+            a = acc.setdefault(place[led.core], [isa.CmCounts(), 0, 0, 0, 0])
+            a[0] = a[0] + led.cm
+            a[1] += led.comm_bytes
+            a[2] += led.comm_events
+            a[3] += led.load_bytes
+            a[4] += led.store_bytes
+        return {d: CoreLedger(d, *acc[d]) for d in sorted(acc)}
 
     def summary(self) -> str:
         law = "pipelined" if self.pipelined else "sequential"

@@ -82,7 +82,24 @@ state within the budget, exact swap books, no new shapes after warmup.
 through the multi-tenant `runtime.server.ModelServer`; ``--tenants
 NAME:MODEL[:WEIGHT[:ADMISSION]][,...]`` routes a mixed Poisson trace by
 tenant and ``--tile-budget N`` caps the pool. The run exits nonzero on an
-unreconciled ledger or a starved tenant. The mesh path is a later slice.
+unreconciled ledger or a starved tenant.
+
+``--mesh data:D,model:M`` serves through the sharded engine
+(`runtime.engine.ShardedServeEngine`, DESIGN.md §11): decode slots over the
+data axis, programmed crossbar bit lines over the model axis as column
+pieces (one kernel launch each), tokens bit-equal to the single-device
+engine; with ``--cores N`` and ``--exec aimc`` it also prints the
+schedule's per-core books reconciled (`batcher.reconcile_cores`) and each
+mesh device's CM_* line (`CoreSchedule.mesh_placement`). The legacy
+``DxM`` spelling keeps the single-device engine, and ``--static`` refuses a
+named mesh. The mesh's positions fold round-robin onto the devices of
+``--device`` (``cuda``: every visible card; ``cpu``: the CPU), and the run
+prints the fold, e.g. "4 positions on 1 device (cuda:0)". The reference's
+``force_host_device_count`` (which sets XLA's host-platform device count
+before JAX starts) has no counterpart: positions fold onto whatever
+devices there are, and the fold is printed instead of refused. With
+``--models`` a named mesh builds every model's engine sharded
+(`runtime.server.build_server(mesh=)`).
 """
 
 from __future__ import annotations
@@ -118,6 +135,13 @@ def parse_args(argv=None):
                          "seconds, one per request")
     ap.add_argument("--eos", type=int, default=-1,
                     help="EOS token id for early retirement (-1: disabled)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="device mesh: 'data:D,model:M' serves through the "
+                         "sharded engine (slots over data, crossbar bit "
+                         "lines over model; bit-equal to the single-device "
+                         "path); legacy 'DxM' keeps the single-device "
+                         "engine. Positions fold round-robin onto the "
+                         "--device devices, and the fold is printed")
     ap.add_argument("--exec", dest="exec_mode", default="digital",
                     choices=["digital", "aimc"])
     ap.add_argument("--static", action="store_true",
@@ -343,6 +367,61 @@ def parse_args(argv=None):
     return args
 
 
+def parse_mesh(arg: str):
+    """(shape, axes, sharded) from a --mesh string.
+
+    ``data:D,model:M`` (any subset/order of named axes) selects the sharded
+    engine; the legacy ``DxM`` / ``PxDxM`` positional syntax keeps the
+    single-device `ServeEngine`."""
+    if ":" in arg:
+        pairs = [p.split(":", 1) for p in arg.split(",")]
+        bad = [p for p in pairs if len(p) != 2 or not p[1].isdigit()
+               or int(p[1]) < 1]
+        if bad or not pairs:
+            raise SystemExit(f"--mesh {arg!r}: expected AXIS:SIZE[,AXIS:SIZE]"
+                             " with SIZE >= 1 (e.g. data:2,model:1)")
+        axes = tuple(name for name, _ in pairs)
+        if len(set(axes)) != len(axes):
+            raise SystemExit(f"--mesh {arg!r}: duplicate axis")
+        return tuple(int(s) for _, s in pairs), axes, True
+    try:
+        shape = tuple(int(s) for s in arg.split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {arg!r}: expected DxM / PxDxM or the "
+                         "named AXIS:SIZE[,AXIS:SIZE] syntax") from None
+    if len(shape) not in (2, 3) or any(s < 1 for s in shape):
+        raise SystemExit(f"--mesh {arg!r}: positional syntax takes 2 (DxM) "
+                         "or 3 (PxDxM) sizes, each >= 1")
+    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}[len(shape)]
+    return shape, axes, False
+
+
+def parse_named_mesh(arg: str):
+    """(shape, axes) from a --mesh string, requiring the named syntax (the
+    positional spelling means "single-device engine" in this CLI and must
+    not select the sharded one elsewhere)."""
+    shape, axes, sharded = parse_mesh(arg)
+    if not sharded:
+        raise SystemExit(f"--mesh {arg!r}: this path takes the named "
+                         "AXIS:SIZE[,AXIS:SIZE] syntax (e.g. "
+                         "data:2,model:1); the positional DxM spelling "
+                         "selects the single-device engine in launch.serve")
+    return shape, axes
+
+
+def _named_mesh(args, device):
+    """The sharded engine's mesh for a named --mesh, its positions folded
+    onto ``device``'s devices (every visible card for ``cuda``), or None
+    for the legacy spelling."""
+    from repro_torch.launch.mesh import make_mesh, visible_devices
+    shape, axes, sharded = parse_mesh(args.mesh)
+    if not sharded:
+        return None
+    mesh = make_mesh(shape, axes, visible_devices(str(device)))
+    print(f"[serve] {mesh.describe()}")
+    return mesh
+
+
 def build_requests(args, vocab: int, min_prompt: int = 1):
     """The synthetic request stream the CLI serves. ``min_prompt`` floors
     the ragged prompt lengths (vlm prompts must cover the patch prefix)."""
@@ -465,6 +544,7 @@ def _run_server(args) -> ServerRun:
     device = resolve_device(args.device)
     specs = parse_models(args.models)
     tenants = parse_tenants(args.tenants, specs) if args.tenants else None
+    mesh = _named_mesh(args, device)
     rate = 100.0
     if args.trace:
         kind, _, param = args.trace.partition(":")
@@ -482,7 +562,7 @@ def _run_server(args) -> ServerRun:
         eos_id=None if args.eos < 0 else args.eos,
         decode_chunk=args.decode_chunk, page_size=args.page_size,
         n_pages=args.pages, prefix_cache=args.prefix_cache,
-        prefill_chunk=args.prefill_chunk, device=device)
+        prefill_chunk=args.prefill_chunk, device=device, mesh=mesh)
     server.warmup()
     print(f"[serve] {len(specs)} model(s) resident, "
           f"{len(server.policies)} tenant(s), {n_slots} slots each on "
@@ -543,10 +623,15 @@ def main(argv=None):
     from repro_torch.core.aimc import AimcConfig
     from repro_torch.core.prng import PRNGKey
     from repro_torch.models.layers import Execution
-    from repro_torch.runtime.batcher import reconcile
-    from repro_torch.runtime.engine import ServeEngine
+    from repro_torch.runtime.batcher import reconcile, reconcile_cores
+    from repro_torch.runtime.engine import ServeEngine, ShardedServeEngine
 
     device = resolve_device(args.device)
+    if parse_mesh(args.mesh)[2] and args.static:
+        raise SystemExit("--static is the single-device A/B oracle; "
+                         "the sharded engine needs the named-mesh engine "
+                         "path (drop --static or use the legacy DxM syntax)")
+    mesh = _named_mesh(args, device)
     spec = get_arch(args.arch)
     cfg = spec.smoke_cfg if args.smoke else spec.model_cfg
     if spec.family == "audio":
@@ -662,19 +747,21 @@ def main(argv=None):
     if args.heartbeat:
         from repro_torch.runtime.fault_tolerance import Heartbeat
         heartbeat = Heartbeat(args.heartbeat)
-    engine = ServeEngine(model, cfg, exe, params, n_slots=n_slots,
-                         prompt_pad=p, max_seq=p + g,
-                         cache_dtype=torch.float32, family=spec.family,
-                         module=spec.module, program=program,
-                         schedule=schedule,
-                         eos_id=None if args.eos < 0 else args.eos,
-                         admission=args.admission,
-                         decode_chunk=args.decode_chunk,
-                         page_size=args.page_size, n_pages=args.pages,
-                         prefix_cache=args.prefix_cache,
-                         prefill_chunk=args.prefill_chunk, health=health,
-                         chaos=chaos, heartbeat=heartbeat, rotation=rotation,
-                         rotation_params=rotation_params)
+    common = dict(n_slots=n_slots, prompt_pad=p, max_seq=p + g,
+                  cache_dtype=torch.float32, family=spec.family,
+                  module=spec.module, program=program, schedule=schedule,
+                  eos_id=None if args.eos < 0 else args.eos,
+                  admission=args.admission, decode_chunk=args.decode_chunk,
+                  page_size=args.page_size, n_pages=args.pages,
+                  prefix_cache=args.prefix_cache,
+                  prefill_chunk=args.prefill_chunk, health=health,
+                  chaos=chaos, heartbeat=heartbeat, rotation=rotation,
+                  rotation_params=rotation_params)
+    if mesh is not None:
+        engine = ShardedServeEngine(model, cfg, exe, params, mesh=mesh,
+                                    **common)
+    else:
+        engine = ServeEngine(model, cfg, exe, params, **common)
     t0 = time.time()
     counts0 = engine.warmup()
     print(f"[serve] engine warmed up in {time.time() - t0:.2f}s "
@@ -736,6 +823,18 @@ def main(argv=None):
               f"static accounting: {ok}")
         if not ok:
             raise SystemExit(1)
+        if mesh is not None and schedule is not None:
+            core_sum, sched_total = reconcile_cores(
+                engine.schedule, report.records, report.observed_vectors)
+            print(f"  per-core ledgers (aggregated across shards) "
+                  f"reconcile with the schedule totals: "
+                  f"{core_sum == sched_total}")
+            for dev, cm in sorted(engine.device_ledgers(report).items()):
+                print(f"    mesh device[{engine.model_axis}={dev}]: "
+                      f"queue={cm.queue} process={cm.process} "
+                      f"dequeue={cm.dequeue}")
+            if core_sum != sched_total:
+                raise SystemExit(1)
         if health is not None:
             _verify_resilience(engine, report, requests, chaos)
         _print_schedule(args, engine.schedule)

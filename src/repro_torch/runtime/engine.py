@@ -73,7 +73,18 @@ holds one uncapped program and one installed tree per rotation state
 (`AimcProgram.install_subset`; a layer outside a state serves digitally
 from its raw weight), and `_placement_tick` advances the state at chunk
 boundaries, billing each swap's incoming group as CM_INITIALIZE
-(`placement.reconcile_swaps`). The sharded engine is a later slice.
+(`placement.reconcile_swaps`).
+
+Sharded serving (DESIGN.md §11): `ShardedServeEngine` lays the same
+engine out on a `launch.mesh.Mesh` of positions. Programmed states become
+column pieces over the ``model`` axis (one kernel launch per piece, all
+with the one DAC scale), digital leaves replicate, and each lane's cache
+rows, token row and retirement rows live on its ``data`` position between
+chunks; a decode chunk gathers the lanes once, runs one forward per step
+over every lane and scatters them back, so its tokens equal this engine's
+bit for bit. Per-data-position compute (a cross-position DAC max and
+batch-invariant reductions) is not done: it needs a host with more than
+one card.
 """
 
 from __future__ import annotations
@@ -305,10 +316,10 @@ class _PrefillJob:
 
 
 def _signature(x):
-    """Shape signature of a closure input: tensors by shape and dtype,
-    containers by their items, host scalars by type (the reference traces
-    them as scalars)."""
-    if isinstance(x, torch.Tensor):
+    """Shape signature of a closure input: tensors (and a mesh's placed
+    tensors) by shape and dtype, containers by their items, host scalars by
+    type (the reference traces them as scalars)."""
+    if isinstance(x, torch.Tensor) or hasattr(x, "pieces"):
         return tuple(x.shape), x.dtype
     if isinstance(x, dict):
         return tuple((k, _signature(v)) for k, v in sorted(x.items()))
@@ -585,23 +596,23 @@ class ServeEngine:
         pages (prompt padding never read) route to the scratch page."""
         self._note("insert_paged", sess.cache, cache1, tok1, pt_row,
                    write_mask)
-        p, m = self.page_size, self._pt_width
-        n_rows = m * p
-
-        def to_pages(leaf, pool):
-            x = leaf[:, 0].to(pool.dtype)           # [L, max_seq, H, hd]
-            if n_rows != self.max_seq:
-                x = torch.nn.functional.pad(
-                    x, (0, 0, 0, 0, 0, n_rows - self.max_seq))
-            return x.reshape(x.shape[0], m, p, *x.shape[2:])
-
         pids = torch.where(write_mask, pt_row, torch.zeros_like(pt_row))
         cache = sess.cache
-        cache["kp"][:, pids] = to_pages(cache1["k"], cache["kp"])
-        cache["vp"][:, pids] = to_pages(cache1["v"], cache["vp"])
+        cache["kp"][:, pids] = self._to_pages(cache1["k"], cache["kp"].dtype)
+        cache["vp"][:, pids] = self._to_pages(cache1["v"], cache["vp"].dtype)
         cache["pt"][slot] = pt_row
         cache["len"][slot] = pos0
         self._arm(sess, tok1, slot, pos0, max_new)
+
+    def _to_pages(self, leaf, dtype):
+        """A dense [L, 1, max_seq, H, hd] prefill cache leaf as the
+        request's page-table row of pages, [L, M, page_size, H, hd]."""
+        p, m = self.page_size, self._pt_width
+        x = leaf[:, 0].to(dtype)                    # [L, max_seq, H, hd]
+        if m * p != self.max_seq:
+            x = torch.nn.functional.pad(
+                x, (0, 0, 0, 0, 0, m * p - self.max_seq))
+        return x.reshape(x.shape[0], m, p, *x.shape[2:])
 
     def _register(self, sess: EngineSession, tok1, slot: int, pos0: int,
                   max_new: int, pt_row):
@@ -837,6 +848,11 @@ class ServeEngine:
         """Serve ``params`` as rotation state ``state`` (without rotation:
         state 0, the engine's own tree)."""
         self._rot_state = state
+        self.params = params
+
+    def _set_params(self, params):
+        """Serve ``params``: a tree a resilience update changed (same
+        shapes)."""
         self.params = params
 
     def _count_retry(self):
@@ -1341,14 +1357,15 @@ class ServeEngine:
                 if ev.kind == chaos_lib.KILL:
                     self.health.mark_dead(ev.core)
                 if entries:
-                    self.params = prog.install_updates(self.params, entries)
+                    self._set_params(prog.install_updates(self.params,
+                                                          entries))
                 report.fault_events.append(ev)
                 forced = True
         if forced or self.health.due(now):
             drifted = self.health.drifted_entries(now)
             if drifted:
-                self.params = self.health.program.install_updates(
-                    self.params, drifted)
+                self._set_params(self.health.program.install_updates(
+                    self.params, drifted))
             sample = self.health.probe(installed_entries(self.params), now)
             report.probes += 1
             failing = self.health.failing_cores(sample)
@@ -1363,7 +1380,8 @@ class ServeEngine:
                             and self.schedule.name == "from_program"):
                         self.schedule = CoreSchedule.from_program(
                             prog, pipelined=self.schedule.pipelined)
-                    self.params = prog.install_updates(self.params, entries)
+                    self._set_params(prog.install_updates(self.params,
+                                                          entries))
                     _wait(next(iter(entries.values())).w_q)
                     ev = RecalEvent(
                         t=now,
@@ -1518,6 +1536,193 @@ class ServeEngine:
         if self.schedule is None:
             raise ValueError("per-core ledgers require a CoreSchedule")
         return aggregate_core_ledgers(self.schedule, report.records)
+
+
+class ShardedServeEngine(ServeEngine):
+    """`ServeEngine` laid out on a `launch.mesh.Mesh` (the reference's
+    `ShardedServeEngine`, `repro/runtime/engine.py:1792`).
+
+    The reference compiles its closures once with `NamedSharding`-pinned
+    inputs and outputs over a JAX mesh; the port is single-controller over
+    a grid of positions, each naming a torch device:
+      * parameters (`shardings.serve_engine_param_specs`): a programmed
+        state becomes one column piece per ``model`` position
+        (`shardings.place_params`; a state stays whole where its Np does
+        not divide ``128 * M``), every digital leaf replicates (positions
+        on one device share the tensor);
+      * decode slots (`slot_cache_specs` at the batch axes, the token
+        buffer, `slot_state_specs`): each lane's cache rows, token row and
+        retirement rows live on its ``data`` position between chunks; a
+        paged cache splits its pools at the page axis and its table and
+        lengths at the slot axis. `fit_spec` keeps a leaf whole where it
+        does not divide.
+    A decode chunk gathers the lanes once at its start, runs the inherited
+    decode (one forward per step over every lane, so the dynamic DAC scale
+    and MoE capacity routing stay batch-global) and scatters the lanes
+    back. Prefill runs ``[1, prompt_pad]`` as the single-device engine
+    does and inserts into the lane's data position; a paged insert or a
+    prefill leg moves only the request's pages. Its tokens equal the
+    single-device engine's bit for bit: no reduction dimension is split.
+    ``compile_counts`` counts each closure once, whatever the number of
+    positions. Rotation is refused, as in the reference."""
+
+    def __init__(self, model, cfg, exe: Execution, params, *, mesh,
+                 model_axis: str = "model", **kw):
+        # the launch layer is imported here, as the reference does, so the
+        # single-device engine does not depend on it
+        from repro_torch.launch import shardings
+        from repro_torch.launch.mesh import Mesh
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a launch.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if kw.get("rotation") is not None:
+            raise ValueError(
+                "ShardedServeEngine does not serve rotation plans: state "
+                "swaps would re-place every parameter tree on the mesh "
+                "mid-trace (use the single-device engine for overflow)")
+        self.mesh = mesh
+        self.model_axis = model_axis
+        self._sh = shardings
+        super().__init__(model, cfg, exe, params, **kw)
+        self._set_params(self.params)
+
+    def _set_params(self, params):
+        # a state an update replaced arrives whole: split it again
+        self.params = self._sh.place_params(params, self.mesh,
+                                            self.model_axis)
+
+    # -- placement of the slot state ----------------------------------------
+    def _place_slots(self, tree, axes):
+        sh = self._sh
+        specs = sh.slot_cache_specs(tree, axes, self.mesh)
+        return sh.place_tree(tree, specs, self.mesh)
+
+    def _empty_cache(self):
+        if self._paged_kv:
+            return ServeEngine._empty_cache(self)   # -> _paged_cache_dict
+        cache = ServeEngine._empty_cache(self)
+        return self._place_slots(cache, {n: _batch_dim(n) for n in cache})
+
+    def _fresh_pools(self):
+        kp, vp = ServeEngine._fresh_pools(self)
+        pools = self._place_slots({"kp": kp, "vp": vp}, {"kp": 1, "vp": 1})
+        return pools["kp"], pools["vp"]
+
+    def _paged_cache_dict(self, kp, vp):
+        cache = ServeEngine._paged_cache_dict(self, kp, vp)
+        rows = self._place_slots({"pt": cache["pt"], "len": cache["len"]},
+                                 {"pt": 0, "len": 0})
+        return {"kp": kp, "vp": vp, **rows}
+
+    def _empty_tok_buf(self):
+        from repro_torch.launch.mesh import dp_axes
+        sh = self._sh
+        tok = ServeEngine._empty_tok_buf(self)
+        spec = sh.fit_spec(sh.P(dp_axes(self.mesh), None), tuple(tok.shape),
+                           self.mesh)
+        return sh.place(tok, spec, self.mesh)
+
+    def _empty_state(self):
+        sh = self._sh
+        st = ServeEngine._empty_state(self)
+        return sh.place_tree(st, sh.slot_state_specs(st, self.mesh),
+                             self.mesh)
+
+    # -- writes into one lane's data position --------------------------------
+    def _arm(self, sess: EngineSession, tok1, slot: int, pos0: int,
+             max_new: int):
+        sess.tok_buf.write_(0, slot, tok1[0])
+        st = sess.state
+        st["active"].write_(0, slot, True)
+        st["gen"].write_(0, slot, 1)
+        st["pos"].write_(0, slot, pos0)
+        st["max_new"].write_(0, slot, max_new)
+
+    def _insert(self, sess: EngineSession, cache1, tok1, slot: int,
+                pos0: int, max_new: int):
+        self._note("insert", sess.cache, cache1, tok1)
+        for name, leaf in sess.cache.items():
+            dim = _batch_dim(name)
+            leaf.write_(dim, slot, cache1[name].select(dim, 0))
+        self._arm(sess, tok1, slot, pos0, max_new)
+
+    def _point(self, sess: EngineSession, tok1, slot: int, pos0: int,
+               max_new: int, pt_row):
+        sess.cache["pt"].write_(0, slot, pt_row)
+        sess.cache["len"].write_(0, slot, pos0)
+        self._arm(sess, tok1, slot, pos0, max_new)
+
+    def _register(self, sess: EngineSession, tok1, slot: int, pos0: int,
+                  max_new: int, pt_row):
+        self._note("register", sess.cache["pt"], sess.cache["len"], tok1,
+                   pt_row)
+        self._point(sess, tok1, slot, pos0, max_new, pt_row)
+
+    def _insert_paged(self, sess: EngineSession, cache1, tok1, slot: int,
+                      pos0: int, max_new: int, pt_row, write_mask):
+        # only this request's pages move, each into the data block that
+        # holds it (the page books are on the host: one read of the [M]
+        # row). Pages the mask drops are never read; the single-device
+        # engine parks them on the scratch page.
+        self._note("insert_paged", sess.cache, cache1, tok1, pt_row,
+                   write_mask)
+        row = pt_row.tolist()
+        keep = [j for j, k in enumerate(write_mask.tolist()) if k]
+        for pool, src in (("kp", "k"), ("vp", "v")):
+            placed = sess.cache[pool]
+            pages = self._to_pages(cache1[src], placed.dtype)
+            placed.put_rows_(1, [row[j] for j in keep], pages[:, keep])
+        self._point(sess, tok1, slot, pos0, max_new, pt_row)
+
+    def _leg_fn(self, tokens, kp, vp, pt_row, pos0: int, span: int):
+        # a leg reads and writes this request's pages only: copy them into
+        # a local pool behind a scratch page of its own, run the leg there
+        # and put back the pages it touched
+        row = pt_row.tolist()
+        local = torch.arange(1, len(row) + 1, dtype=pt_row.dtype,
+                             device=self.device)
+
+        def pool(placed):
+            pages = placed.rows(1, row, self.device)
+            return torch.cat([torch.zeros_like(pages[:, :1]), pages], dim=1)
+        tok, k_loc, v_loc = ServeEngine._leg_fn(self, tokens, pool(kp),
+                                                pool(vp), local, pos0, span)
+        p = self.page_size
+        touched = list(range(pos0 // p, (pos0 + span - 1) // p + 1))
+        at = [j + 1 for j in touched]
+        kp.put_rows_(1, [row[j] for j in touched], k_loc[:, at])
+        vp.put_rows_(1, [row[j] for j in touched], v_loc[:, at])
+        return tok, kp, vp
+
+    # -- decode: gather the lanes once per chunk -----------------------------
+    def _on_lanes(self, decode, cache, tok_buf, state, length: int):
+        sh, dev = self._sh, self.device
+        tok, new_cache, new_state, ys = decode(
+            sh.gather_tree(cache, dev), tok_buf.gather(dev),
+            sh.gather_tree(state, dev), length)
+        tok_buf.scatter_(tok)
+        sh.scatter_tree_(cache, new_cache)
+        sh.scatter_tree_(state, new_state)
+        return tok_buf, cache, state, ys
+
+    def _decode_fn(self, cache, tok_buf, state, length: int):
+        return self._on_lanes(super()._decode_fn, cache, tok_buf, state,
+                              length)
+
+    def _decode_paged_fn(self, cache, tok_buf, state, length: int):
+        return self._on_lanes(super()._decode_paged_fn, cache, tok_buf,
+                              state, length)
+
+    # -- books ---------------------------------------------------------------
+    def device_ledgers(self, report: ServeReport) -> dict:
+        """model-axis device slot -> CM_* totals for this run, through the
+        schedule's core -> slot placement (`CoreSchedule.mesh_placement`)."""
+        if self.schedule is None:
+            raise ValueError("device ledgers require a CoreSchedule")
+        n_vec = report.useful_vectors
+        return {dev: led.cm.scaled(n_vec)
+                for dev, led in self.schedule.device_ledgers(
+                    self.mesh, self.model_axis).items()}
 
 
 # ---------------------------------------------------------------------------

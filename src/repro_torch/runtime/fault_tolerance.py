@@ -19,9 +19,8 @@ This module implements the in-process half and the restart protocol:
     watch; doubles as the liveness probe in the launch scripts.
 
 Public surface: `is_transient(exc)`, `resilient_step(fn, max_retries,
-on_retry)`, `backoff_schedule`, `StragglerMonitor`, `Heartbeat`. The
-reference's `elastic_mesh_shapes` (a re-mesh table) waits for multi-card
-serving.
+on_retry)`, `backoff_schedule`, `StragglerMonitor`, `Heartbeat`,
+`elastic_mesh_shapes` (the re-mesh table over `launch.mesh` shapes).
 Invariant: classification is on the error MESSAGE, not the type —
 deterministic failures (RESOURCE_EXHAUSTED, INVALID_ARGUMENT, plain
 RuntimeErrors) raise immediately; only recognized infrastructure flakes
@@ -206,3 +205,14 @@ class Heartbeat:
         except (OSError, json.JSONDecodeError):
             return None
 
+
+def elastic_mesh_shapes(n_devices: int, model_parallel: int):
+    """Valid (data, model) meshes for whatever device count survives: the
+    re-mesh table the supervisor consults when restarting smaller."""
+    shapes = []
+    mp = model_parallel
+    while mp >= 1:
+        if n_devices % mp == 0:
+            shapes.append((n_devices // mp, mp))
+        mp //= 2
+    return shapes

@@ -29,8 +29,9 @@ boundaries.
 
 Public surface: `ModelSpec`, `build_server`, `ModelServer` (`warmup`,
 `serve(trace) -> ServerReport`, `reconcile`, `fair_shares`),
-`ServerReport`. A rotating engine (`core.placement`) is refused; ``mesh=``
-raises until the sharded engine is ported.
+`ServerReport`. A rotating engine (`core.placement`) is refused;
+``build_server(mesh=)`` builds every model's engine as a
+`runtime.engine.ShardedServeEngine` on that `launch.mesh.Mesh`.
 """
 
 from __future__ import annotations
@@ -358,11 +359,9 @@ def build_server(specs: Sequence[ModelSpec],
     from repro_torch.core.prng import PRNGKey
     from repro_torch.core.program import MappingPlan, TilePool, program_model
     from repro_torch.models.layers import Execution
-    from repro_torch.runtime.engine import RECURRENT_MODULES
+    from repro_torch.runtime.engine import (RECURRENT_MODULES,
+                                            ShardedServeEngine)
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_server(mesh=...): the sharded engine is not ported yet")
     if not specs:
         raise ValueError("build_server needs at least one ModelSpec")
     names = [s.name for s in specs]
@@ -420,5 +419,9 @@ def build_server(specs: Sequence[ModelSpec],
                 kw.update(page_size=page_size, n_pages=n_pages,
                           prefix_cache=prefix_cache,
                           prefill_chunk=prefill_chunk)
-        engines[spec.name] = ServeEngine(model, cfg, exe, params, **kw)
+        if mesh is not None:
+            engines[spec.name] = ShardedServeEngine(model, cfg, exe, params,
+                                                    mesh=mesh, **kw)
+        else:
+            engines[spec.name] = ServeEngine(model, cfg, exe, params, **kw)
     return ModelServer(engines, tenants, pool=pool)

@@ -50,7 +50,8 @@ def test_every_module_is_listed():
                  "repro_torch.launch.steps", "repro_torch.launch.train",
                  "repro_torch.models.encdec",
                  "repro_torch.configs.seamless_m4t_large_v2",
-                 "repro_torch.launch.modelstats"):
+                 "repro_torch.launch.modelstats",
+                 "repro_torch.launch.mesh", "repro_torch.launch.shardings"):
         assert must in mods
 
 

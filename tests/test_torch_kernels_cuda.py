@@ -33,6 +33,11 @@ Placement and rotation: each rotation state's `install_subset` tree on the
 card installs exactly its resident leaves (the rest stay the raw CUDA
 weights), its analog leaves run K2 within the bound above, and a rotating
 engine's K2 launches per pass follow the state in force.
+
+Sharded serving: K2, K3 and the expert entry launched over column pieces
+(`core.aimc.split_columns`, one launch per piece with the whole x's DAC
+scale) concatenate to the whole launch bit for bit at three shapes each,
+one of them with pieces in another grid mode than the whole.
 """
 
 import torch_threads  # noqa: F401  (first: torch's thread budget)
@@ -798,3 +803,101 @@ def test_ste_forward_backward_on_card_matches_cpu(dev):
         _close(yg, yc)
         _close(dxg, dxc)
         _close(dwg, dwc)
+
+
+def _piece_state(dev, lead, kb, np_, pieces, seed, m=512):
+    """A programmed state of random codes on the card, and the same state
+    split into ``pieces`` equal column pieces (`core.aimc.split_columns`)."""
+    from repro_torch.core import aimc as ta
+    gen = torch.Generator(dev).manual_seed(seed)
+    w_q = torch.randint(-127, 128, lead + (kb, m, np_), generator=gen,
+                        device=dev, dtype=torch.int8)
+    s_w = (torch.rand(lead + (kb, np_), generator=gen, device=dev)
+           + 0.5) * 1e-3
+    whole = ta.AimcLinearState(w_q=w_q, s_w=s_w, k=kb * m, n=np_)
+    w = np_ // pieces
+    return whole, ta.split_columns(
+        whole, [(i * w, (i + 1) * w) for i in range(pieces)], [dev] * pieces)
+
+
+def _plans(dev, b, st, g=1, experts=False):
+    """(whole, piece) launch plans: whether each splits over row blocks
+    and its rows per block."""
+    kb, m, np_ = st.w_q.shape[-3:]
+    out = []
+    for n in (np_, st.pieces[0].c1 - st.pieces[0].c0):
+        p = aimc_mvm.launch_plan(dev, b, kb, m, n, g, experts)
+        out.append((p["split"], p["rows_per_block"]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kb,np_,pieces,modes_differ", [
+    (4, 8, 14336, 2, False),     # granite w_gate at decode, model:2
+    (4, 8, 38400, 2, True),      # whole unsplit, pieces split over rows
+    (32, 8, 17920, 4, True)])    # 64-row whole tiles, 16-row piece tiles
+def test_k2_column_pieces_equal_whole_launch(dev, b, kb, np_, pieces,
+                                             modes_differ):
+    """`aimc_apply` over column pieces (one K2 launch each, the one DAC
+    scale of the whole x, the bias cut per piece) concatenates to the
+    whole launch bit for bit, including where a piece runs another grid
+    mode than the whole (the row-block split, `_plan`)."""
+    from repro_torch.core import aimc as ta
+    whole, split = _piece_state(dev, (), kb, np_, pieces, seed=b)
+    cfg = ta.AimcConfig()
+    gen = torch.Generator(dev).manual_seed(7)
+    x = torch.randn((b, kb * 512), generator=gen, device=dev)
+    bias = torch.randn((np_,), generator=gen, device=dev)
+    modes = _plans(dev, b, split)
+    assert (modes[0] != modes[1]) == modes_differ
+    want = ta.aimc_apply(whole, x, cfg, bias=bias, activation="relu")
+    aimc_mvm.reset_counts()
+    got = ta.aimc_apply(split, x, cfg, bias=bias, activation="relu")
+    assert aimc_mvm.LAUNCHES["aimc_mvm_v2"] == pieces
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kb,np_,g,pieces,modes_differ", [
+    (4, 8, 14336, 2, 2, False),  # granite w_gu stack (K3), model:2
+    (4, 8, 20480, 2, 2, True),   # whole unsplit, pieces split
+    (16, 28, 4096, 3, 4, False)])
+def test_k3_column_pieces_equal_whole_launch(dev, b, kb, np_, g, pieces,
+                                             modes_differ):
+    from repro_torch.core import aimc as ta
+    whole, split = _piece_state(dev, (g,), kb, np_, pieces, seed=g)
+    cfg = ta.AimcConfig()
+    gen = torch.Generator(dev).manual_seed(8)
+    x = torch.randn((b, kb * 512), generator=gen, device=dev)
+    biases = torch.randn((g, np_), generator=gen, device=dev)
+    modes = _plans(dev, b, split, g)
+    assert (modes[0] != modes[1]) == modes_differ
+    want = ta.aimc_apply_stacked(whole, x, cfg, biases=biases,
+                                 activations="relu")
+    aimc_mvm.reset_counts()
+    got = ta.aimc_apply_stacked(split, x, cfg, biases=biases,
+                                activations="relu")
+    assert aimc_mvm.LAUNCHES["aimc_mvm_stacked"] == pieces
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,kb,np_,pieces,modes_differ", [
+    (64, 4, 4, 1024, 2, True),   # olmoe expert stack at decode, model:2
+    (2, 4, 8, 19200, 2, True),   # whole unsplit, pieces split
+    (8, 16, 2, 2048, 4, False)])
+def test_expert_entry_column_pieces_equal_whole_launch(dev, e, c, kb, np_,
+                                                      pieces, modes_differ):
+    from repro_torch.core import aimc as ta
+    whole, split = _piece_state(dev, (e,), kb, np_, pieces, seed=e)
+    cfg = ta.AimcConfig()
+    gen = torch.Generator(dev).manual_seed(9)
+    x = torch.randn((e, c, kb * 512), generator=gen, device=dev)
+    x[0] = 0.0                                  # an expert with no token
+    modes = _plans(dev, c, split, e, experts=True)
+    assert (modes[0] != modes[1]) == modes_differ
+    want = ta.aimc_apply_experts(whole, x, cfg)
+    aimc_mvm.reset_counts()
+    got = ta.aimc_apply_experts(split, x, cfg)
+    assert aimc_mvm.LAUNCHES["aimc_mvm_experts"] == pieces
+    assert torch.equal(got, want)

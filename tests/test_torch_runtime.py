@@ -86,3 +86,10 @@ def test_resilient_step_retries_transient_only(tmp_path):
     hb = tf.Heartbeat(str(tmp_path / "hb.json"))
     hb.beat(3, slots_busy=2)
     assert hb.read()["step"] == 3 and hb.read()["slots_busy"] == 2
+
+
+def test_elastic_mesh_shapes_equal():
+    for n in range(1, 129):
+        for mp in range(1, 17):
+            assert tf.elastic_mesh_shapes(n, mp) == \
+                jf.elastic_mesh_shapes(n, mp)

@@ -336,3 +336,87 @@ def test_serve_cli_cores_prints_books_that_sum_to_program(capsys):
     assert run.schedule.ledger_totals() == run.program.mvm_counts()
     with pytest.raises(SystemExit):
         tserve.main(["--smoke", "--device", "cpu", "--cores", "2"])
+
+
+# ---------------------------------------------------------------------------
+# mesh execution and placement (sharded serving)
+# ---------------------------------------------------------------------------
+
+def _split_schedules(pj, pt, shards: int):
+    """Reference and port schedules splitting fc1 and fc2 of the MLP into
+    ``shards`` equal column shards each, one core per shard."""
+    def build(mod, prog):
+        out = []
+        for phase, name in enumerate(("fc1", "fc2")):
+            w = prog[name].n // shards
+            out += [mod.Shard(name, c, phase, cols=((c * w, (c + 1) * w),))
+                    for c in range(shards)]
+        return mod.CoreSchedule(prog, out)
+    return build(js, pj), build(ts, pt)
+
+
+@pytest.mark.parametrize("model,shards", [(2, 2), (2, 4), (4, 4)])
+def test_apply_sharded_equals_reference_apply(nets, model, shards):
+    from repro_torch.launch.mesh import make_mesh
+    pj, pt = _programs(nets, "mlp")
+    sj, st = _split_schedules(pj, pt, shards)
+    mesh = make_mesh((1, model), ("data", "model"), ["cpu"])
+    _, x = nets["mlp"]
+    xt = torch.from_numpy(x)
+    for name in ("fc1", "fc2"):
+        y = st.apply_sharded(name, xt, mesh)
+        assert torch.equal(y, st.apply(name, xt))
+        _close(y, sj.apply(name, jnp.asarray(x)))
+
+
+def test_apply_sharded_raises_where_reference_raises(nets):
+    from repro_torch.launch.mesh import make_mesh
+    pj, pt = _programs(nets, "mlp")
+    mesh = make_mesh((1, 4), ("data", "model"), ["cpu"])
+    xt = torch.from_numpy(nets["mlp"][1])
+    one = ts.mlp_schedule(pt, 1)
+    with pytest.raises(ValueError, match="single full shard"):
+        one.apply_sharded("fc1", xt, mesh)
+    _, two = _split_schedules(pj, pt, 2)
+    with pytest.raises(ValueError, match="not divisible"):
+        two.apply_sharded("fc1", xt, mesh)
+    n = pt["fc1"].n
+    uneven = ts.CoreSchedule(pt, [ts.Shard("fc1", 0, 0, cols=((0, 64),)),
+                                  ts.Shard("fc1", 1, 0, cols=((64, n),))])
+    with pytest.raises(ValueError, match="equal-size"):
+        uneven.apply_sharded("fc1", xt, make_mesh((1, 2), ("data", "model"),
+                                                  ["cpu"]))
+
+
+class _MeshStub:
+    """Only shape + axis_names: the placement law for any device count."""
+
+    def __init__(self, **axes):
+        self.axis_names = tuple(axes)
+        self.shape = dict(axes)
+
+
+@pytest.mark.parametrize("n_contexts", [1, 3, 4])
+def test_mesh_placement_and_device_ledgers_equal_reference(n_contexts):
+    spec = get_arch("granite-8b")
+    jparams = spec.model_module().init(jax.random.PRNGKey(0), spec.smoke_cfg)
+    plan_j = jp.MappingPlan(n_contexts=n_contexts)
+    plan_t = tp.MappingPlan(n_contexts=n_contexts)
+    sj = js.CoreSchedule.from_program(jp.program_model(
+        jparams, plan_j, JConfig(impl="ref")))
+    st = ts.CoreSchedule.from_program(tp.program_model(
+        _carry(jparams), plan_t, TConfig()))
+    for mesh, dead in [(_MeshStub(data=1, model=2), ()),
+                       (_MeshStub(data=2, model=3), ()),
+                       (_MeshStub(data=2, model=3), (1,)),
+                       (_MeshStub(model=4), (0, 2)),
+                       (_MeshStub(data=4), ())]:
+        assert st.mesh_placement(mesh, "model", dead=dead) == \
+            sj.mesh_placement(mesh, "model", dead=dead)
+        got = st.device_ledgers(mesh, "model", dead=dead)
+        want = sj.device_ledgers(mesh, "model", dead=dead)
+        assert {d: dataclasses.astuple(v) for d, v in got.items()} == \
+            {d: dataclasses.astuple(v) for d, v in want.items()}
+        assert isa.total(v.cm for v in got.values()) == st.ledger_totals()
+    with pytest.raises(ValueError, match="dead"):
+        st.mesh_placement(_MeshStub(model=2), "model", dead=(0, 1))

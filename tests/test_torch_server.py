@@ -234,7 +234,7 @@ def test_registry_and_trace_validation(served):
                                                         prompt=(1, 2)))])
     with pytest.raises(ValueError, match="duplicate model"):
         _build("torch", models=(("granite-8b", "aimc"),) * 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         _build("torch", mesh=object())
 
 
@@ -291,3 +291,65 @@ def test_model_and_tenant_specs_refused_like_reference(models, tenants):
         with pytest.raises(SystemExit):
             specs = mod.parse_models(models)
             mod.parse_tenants(tenants, specs)
+
+
+# ---------------------------------------------------------------------------
+# the mesh: --mesh parsing, build_server(mesh=), the sharded CLI
+# ---------------------------------------------------------------------------
+
+MESH_ARGS = ["1x1", "2x4", "2x2x4", "data:2,model:2", "model:4",
+             "data:1", "pod:2,data:2,model:2", "model:2,data:3",
+             # refused
+             "", "2", "2x", "axb", "0x2", "1x2x3x4", "data:0", "data:-1",
+             "data:2,data:2", "data:2,", "data", "data:x", ":2",
+             "data:2,model", "1x0"]
+
+
+@pytest.mark.parametrize("arg", MESH_ARGS)
+def test_parse_mesh_equals_reference(arg):
+    for fn in ("parse_mesh", "parse_named_mesh"):
+        try:
+            want = getattr(jserve, fn)(arg)
+        except SystemExit as e:
+            with pytest.raises(SystemExit) as got:
+                getattr(tserve, fn)(arg)
+            assert str(got.value) == str(e)
+            continue
+        assert getattr(tserve, fn)(arg) == want
+
+
+def test_build_server_on_a_mesh_equals_build_server():
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.engine import ShardedServeEngine
+    mesh = make_mesh((2, 2), ("data", "model"), ["cpu"])
+    plain, sharded = _build("torch", n_slots=4), _build("torch", n_slots=4,
+                                                        mesh=mesh)
+    assert all(isinstance(e, ShardedServeEngine)
+               for e in sharded.engines.values())
+    assert sharded.warmup() == plain.warmup()
+    reps = [srv.serve(_trace(tt)) for srv in (plain, sharded)]
+    assert _tokens(reps[1]) == _tokens(reps[0])
+    assert sharded.reconcile(reps[1]) == plain.reconcile(reps[0])
+    assert _ledgers(sharded, reps[1]) == _ledgers(plain, reps[0])
+
+
+def test_sharded_cli_serves_and_prints_mesh_books(capsys):
+    run = tserve.main(["--arch", "granite-8b", "--smoke", "--exec", "aimc",
+                       "--device", "cpu", "--requests", "4", "--prompt-len",
+                       "8", "--gen", "4", "--slots", "4", "--cores", "2",
+                       "--mesh", "data:2,model:2"])
+    out = capsys.readouterr().out
+    assert "mesh data:2,model:2: 4 positions on 1 device (cpu)" in out
+    assert ("per-core ledgers (aggregated across shards) reconcile with "
+            "the schedule totals: True") in out
+    assert "mesh device[model=0]" in out and "mesh device[model=1]" in out
+    one = tserve.main(["--arch", "granite-8b", "--smoke", "--exec", "aimc",
+                       "--device", "cpu", "--requests", "4", "--prompt-len",
+                       "8", "--gen", "4", "--slots", "4", "--cores", "2",
+                       "--mesh", "2x2"])
+    assert type(one.engine).__name__ == "ServeEngine"
+    for rid, rec in one.report.records.items():
+        assert run.report.tokens(rid) == rec.tokens
+    with pytest.raises(SystemExit, match="--static"):
+        tserve.main(["--smoke", "--device", "cpu", "--static", "--mesh",
+                     "data:2"])
