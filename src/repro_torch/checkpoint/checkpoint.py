@@ -14,8 +14,12 @@
     on a thread, so the train loop waits only for the device-to-host copy.
   * Keeps the newest 3 steps (``_gc``).
 
-Restoring onto a device mesh (``mesh=``/``pspecs=``) waits for the mesh
-slice and raises.
+A tree may hold `launch.shardings.Placed` layouts (a sharded train step's
+parameters and optimizer state): each is saved whole. ``restore(...,
+mesh=, pspecs=)`` places every restored leaf by its spec on the mesh, as
+the reference's ``device_put`` onto ``NamedSharding(mesh, spec)`` does:
+the whole on the target leaf's device, each position's piece a view of it
+there.
 """
 
 from __future__ import annotations
@@ -73,11 +77,16 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def _whole(leaf):
+    """A `Placed` layout's whole tensor (the leaf itself otherwise)."""
+    return leaf.whole() if hasattr(leaf, "whole") else leaf
+
+
 def _to_numpy(leaf):
     """(host numpy array as stored, logical dtype name)."""
     if isinstance(leaf, np.ndarray):
         return leaf, str(leaf.dtype)
-    t = leaf.detach().cpu()
+    t = _whole(leaf).detach().cpu()
     name = _dtype_name(t.dtype)
     if name in _VIEW_AS:
         view_t, view_np = _VIEW_AS[name]
@@ -123,7 +132,7 @@ def _host(tree):
         return type(tree)(*(_host(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_host(v) for v in tree)
-    return tree.detach().to("cpu", copy=True)
+    return _whole(tree).detach().to("cpu", copy=True)
 
 
 def save_async(path: str, step: int, tree, extra: dict | None = None):
@@ -143,45 +152,43 @@ def latest_step(path: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _not_ported(mesh, pspecs):
-    if mesh is not None or pspecs is not None:
-        raise NotImplementedError(
-            "restoring onto a device mesh (mesh=/pspecs=) is not ported; it "
-            "waits for the mesh slice (ROADMAP.md)")
-
-
 def _load_leaf(ckpt: str, entry: dict, like: torch.Tensor) -> torch.Tensor:
     arr = np.load(os.path.join(ckpt, entry["file"]))
     if list(arr.shape) != list(like.shape):
         raise ValueError(f"shape mismatch for {entry['name']}: "
                          f"ckpt {arr.shape} vs target {tuple(like.shape)}")
+    device = like.device
     if entry["dtype"] in _VIEW_AS:
         t = torch.from_numpy(arr.view(_SIGNED[arr.dtype])).view(
             getattr(torch, entry["dtype"]))
     else:
         t = torch.from_numpy(arr)
-    return t.to(device=like.device, dtype=like.dtype)
+    return t.to(device=device, dtype=like.dtype)
 
 
 def restore(path: str, step: int, target_tree, mesh=None, pspecs=None):
-    """Restore into the structure, dtypes and devices of ``target_tree``.
-    Returns (tree, extra)."""
-    _not_ported(mesh, pspecs)
+    """Restore into the structure, dtypes and devices of ``target_tree``
+    (whose leaves may be tensors or `Placed` layouts); with ``mesh`` and
+    ``pspecs`` (a matching tree of specs) every leaf is placed by its spec
+    (`launch.shardings.place`, views). Returns (tree, extra)."""
     ckpt = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(ckpt, "manifest.json")) as f:
         manifest = json.load(f)
     by_name = {e["name"]: e for e in manifest["leaves"]}
     leaves = [_load_leaf(ckpt, by_name[name], leaf)
               for name, leaf in _flatten_with_names(target_tree)]
-    return _unflatten(target_tree, iter(leaves)), manifest["extra"]
+    tree = _unflatten(target_tree, iter(leaves))
+    if mesh is not None and pspecs is not None:
+        from repro_torch.launch.shardings import place_tree
+        tree = place_tree(tree, pspecs, mesh, views=True)
+    return tree, manifest["extra"]
 
 
 def restore_latest(path: str, target_tree, mesh=None, pspecs=None):
-    _not_ported(mesh, pspecs)
     step = latest_step(path)
     if step is None:
         return None, None, None
-    tree, extra = restore(path, step, target_tree)
+    tree, extra = restore(path, step, target_tree, mesh, pspecs)
     return step, tree, extra
 
 

@@ -10,7 +10,8 @@ programmed state, matched by duck typing) becomes an `AimcLinearState`.
 ``launch.serve --weights`` takes. `opt_state_from_numpy` carries an AdamW
 or Adafactor state from the JAX package (numpy leaves, its NamedTuple
 fields ``step, mu, nu`` or ``step, vr, vc``) into the port's state, so
-both packages can start training from one state.
+both packages can start training from one state. bfloat16 leaves (the
+reference's bf16 parameters) carry across bit for bit.
 """
 
 from __future__ import annotations
@@ -22,7 +23,20 @@ from repro_torch.core.aimc import AimcLinearState
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    """A tensor of numpy array ``a``; a bfloat16 array (ml_dtypes, which
+    numpy and torch.from_numpy do not know) goes across as its 16-bit
+    pattern, so bf16 trees carry bit for bit."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of a tensor; bf16 widens to f32 exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def params_from_numpy(tree, device="cpu"):
@@ -45,8 +59,8 @@ def flatten_to_numpy(params, prefix: str = "") -> dict:
         if isinstance(v, dict):
             out |= flatten_to_numpy(v, path)
         else:
-            out[path] = np.asarray(v.cpu() if isinstance(v, torch.Tensor)
-                                   else v)
+            out[path] = (to_numpy(v) if isinstance(v, torch.Tensor)
+                         else np.asarray(v))
     return out
 
 

@@ -10,26 +10,33 @@ the reference's `vmap` of `aimc_apply`) runs as one launch of K2's expert
 entry, each expert with its own read seed. The DAC scale ``s_x`` stays a
 device tensor: no projection waits on the host.
 
-Column pieces (sharded serving): a state placed over a mesh's ``model``
-axis carries one `ColumnPiece` per model position, columns ``[c0, c1)`` of
-its padded Np made contiguous once on that position's device
-(`split_columns`). `aimc_apply`, `aimc_apply_stacked` and
-`aimc_apply_experts` then compute the DAC scale once from the whole x,
-launch one kernel per piece on its device (the bias cut per piece) and
-concatenate the outputs in column order on x's device. Column pieces are
-exact: the ADC, dequant, bias and activation act per column and the
-row-block sum runs over k in k order, so the result equals the whole
-launch bit for bit. A read key on a split state raises: the counter PRNG
-indexes noise by the global column, so a piece would draw other noise
-than the whole.
+Column pieces (sharded serving and training): a state placed over a
+mesh's ``model`` axis carries one `ColumnPiece` per model position,
+columns ``[c0, c1)`` of its padded Np (`split_columns`). On the whole's
+own device a piece is a view of the whole's codes and scales; only a
+piece on another device is a contiguous copy. `aimc_apply`,
+`aimc_apply_stacked` and `aimc_apply_experts` then compute the DAC scale
+once from the whole x, launch one kernel per piece on its device (the
+bias cut per piece; the kernel reads a view at the whole's row stride and
+draws the whole's read noise for the piece's columns, ``col0 = c0`` and
+``nc`` = the whole's Np) and concatenate the outputs in column order on
+x's device. Column pieces are exact, noise on or off: the ADC, dequant,
+bias and activation act per column and the row-block sum runs over k in
+k order, so the result equals the whole launch bit for bit.
 
 Noise-aware training: `aimc_linear_ste` (a `torch.autograd.Function`)
 programs W on the fly with a fresh programming-noise draw and applies it
 with per-call read noise; its backward is straight-through (y = x @ W).
 `aimc_linear_ste_experts` is the same over an `[E, K, N]` expert stack
 with a key per expert (the reference's `vmap` of the STE): one
-expert-entry launch forward, batched matmuls backward. Keys are host
-values (`core/prng.py`), so a recompute under `torch.utils.checkpoint`
+expert-entry launch forward, batched matmuls backward. Under an ambient
+mesh with a ``model`` axis (`compat.use_mesh`), each model position does
+its own share: the STE programs the whole W under its key (so the
+programming noise is the unsplit draw) and launches one K2 per column
+piece where Np divides ``128 * M`` (`mesh_pieces`); its backward is the
+whole ``g W^T``, ``x^T g`` on W's device, where the pieces' columns
+live. The expert STE launches the expert entry once per position over its
+``E / M`` experts, each with its own seeds. Keys are host values (`core/prng.py`), so a recompute under `torch.utils.checkpoint`
 draws the same noise without touching any global generator.
 """
 
@@ -39,6 +46,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import compat
 from repro_torch.core import noise as noise_lib
 from repro_torch.core import prng
 from repro_torch.core.quant import QMAX, adc_step_lsb, sym_scale
@@ -69,9 +77,10 @@ class AimcConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ColumnPiece:
-    """Columns ``[c0, c1)`` of a programmed state's padded Np, contiguous
-    on one mesh position's device (``c1 - c0`` a multiple of 128, the
-    kernels' column alignment)."""
+    """Columns ``[c0, c1)`` of a programmed state's padded Np on one mesh
+    position's device (``c1 - c0`` a multiple of 128, the kernels' column
+    alignment): a view of the whole's codes on the whole's device, a
+    contiguous copy elsewhere."""
 
     c0: int
     c1: int
@@ -130,10 +139,11 @@ def split_columns(state: AimcLinearState, bounds, devices
                   ) -> AimcLinearState:
     """``state`` carrying one `ColumnPiece` per ``(c0, c1)`` of ``bounds``
     (a cover of ``0..Np`` in order, each width a multiple of 128), piece j
-    made contiguous once on ``devices[j]``. The whole ``w_q``/``s_w`` stay
-    as they are: they are the program's own tensors, which the health
-    probes, recalibration and the books read, so the pieces are a second
-    copy of the codes (ROADMAP §1 item 1)."""
+    on ``devices[j]``. The whole ``w_q``/``s_w`` stay as they are (the
+    program's own tensors, which the health probes, recalibration and the
+    books read): a piece on their device is a view of its columns, so the
+    codes are stored once; a piece on another device is a contiguous copy
+    there."""
     np_ = state.w_q.shape[-1]
     edges = [c for b in bounds for c in b]
     if (not bounds or edges[0] != 0 or edges[-1] != np_
@@ -142,31 +152,57 @@ def split_columns(state: AimcLinearState, bounds, devices
                          f"cover of 0..{np_}")
     if any((c1 - c0) % 128 or c1 <= c0 for c0, c1 in bounds):
         raise ValueError(f"column pieces {list(bounds)} are not 128-aligned")
-    pieces = tuple(
-        ColumnPiece(c0, c1,
-                    state.w_q[..., c0:c1].to(dev).contiguous(),
-                    state.s_w[..., c0:c1].to(dev).contiguous())
-        for (c0, c1), dev in zip(bounds, devices))
+    def cols(t, c0, c1, dev):
+        dev = torch.device(dev)
+        if dev.type == "cuda" and dev.index is None:    # the current card
+            dev = torch.device("cuda", torch.cuda.current_device())
+        view = t[..., c0:c1]
+        return view if dev == t.device else view.to(dev).contiguous()
+    pieces = tuple(ColumnPiece(c0, c1, cols(state.w_q, c0, c1, dev),
+                               cols(state.s_w, c0, c1, dev))
+                   for (c0, c1), dev in zip(bounds, devices))
     return dataclasses.replace(state, pieces=pieces)
 
 
-def _no_read_key(state: AimcLinearState, key) -> None:
-    if state.pieces and key is not None:
-        raise ValueError(
-            "a read key on a column-split state: the counter PRNG indexes "
-            "noise by the global column, so a piece would draw other "
-            "noise than the whole (noise-on pieces need column offsets in "
-            "the kernel's counter)")
+def _model_devices(mesh, axis: str = "model") -> list:
+    """The device of each block of ``axis``: the first position
+    (row-major) whose ``axis`` index is j, for j in order."""
+    first = {}
+    for pos in mesh.positions():
+        j = dict(zip(mesh.axis_names, pos))[axis]
+        first.setdefault(j, mesh.device_at(pos))
+    return [first[j] for j in range(mesh.shape[axis])]
+
+
+def mesh_pieces(state: AimcLinearState, mesh=None) -> AimcLinearState:
+    """``state`` split into one column piece per position of the ambient
+    mesh's ``model`` axis (`compat.current_mesh`, or ``mesh``) where its Np
+    divides ``128 * M``; whole otherwise (no mesh, no ``model`` axis, M = 1
+    or a width that does not divide). The rule `launch.shardings`'
+    `place_aimc_state` applies to served states."""
+    if mesh is None:
+        mesh = compat.current_mesh()
+    if mesh is None or "model" not in mesh.axis_names or state.pieces:
+        return state
+    m = mesh.shape["model"]
+    np_ = state.w_q.shape[-1]
+    if m == 1 or np_ % (128 * m):
+        return state
+    w = np_ // m
+    return split_columns(state, [(j * w, (j + 1) * w) for j in range(m)],
+                         _model_devices(mesh))
 
 
 def _over_pieces(state: AimcLinearState, x: torch.Tensor, s_x, launch):
-    """Run ``launch(piece, x, s_x)`` on each column piece's device (x and
-    the one DAC scale copied there) and concatenate the outputs in column
-    order on x's device."""
+    """Run ``launch(piece, x, s_x, nc)`` on each column piece's device (x
+    and the one DAC scale copied there; ``nc`` the whole's Np, for the
+    noise counters) and concatenate the outputs in column order on x's
+    device."""
+    nc = state.w_q.shape[-1]
     outs = []
     for p in state.pieces:
         dev = p.w_q.device
-        outs.append(launch(p, x.to(dev), s_x.to(dev)).to(x.device))
+        outs.append(launch(p, x.to(dev), s_x.to(dev), nc).to(x.device))
     return torch.cat(outs, dim=-1)
 
 
@@ -290,22 +326,22 @@ def aimc_apply(state: AimcLinearState, x: torch.Tensor, cfg: AimcConfig,
     x [..., K] -> [..., N]. The epilogue runs inside the kernel when
     ``cfg.fuse_epilogue``, as the same f32 ops after it otherwise."""
     kb, m, np_ = state.w_q.shape
-    _no_read_key(state, key)
     xf, s_x, lead = _flatten_pad_input(x, state, cfg)
     seed, sigma = _noise_args(cfg, key, m)
     fuse = cfg.fuse_epilogue
     bias_p = _pad_bias(bias, state.n, np_) if fuse else None
     act = activation if fuse else "none"
 
-    def launch(w_q, s_w, xf, s_x, bias_p):
+    def launch(w_q, s_w, xf, s_x, bias_p, col0=0, nc=None):
         return kernel_ops.aimc_matmul_v2(
             xf, w_q, s_w, s_x, seed, bias_p, adc_step=cfg.adc_step,
-            sigma=sigma, activation=act, noise_source=cfg.noise_source)
+            sigma=sigma, activation=act, noise_source=cfg.noise_source,
+            **kernel_ops._cols(col0, nc))
 
     if state.pieces:
-        y = _over_pieces(state, xf, s_x, lambda p, xp, sp: launch(
+        y = _over_pieces(state, xf, s_x, lambda p, xp, sp, nc: launch(
             p.w_q, p.s_w, xp, sp, None if bias_p is None
-            else bias_p[p.c0:p.c1].to(xp.device)))
+            else bias_p[p.c0:p.c1].to(xp.device), p.c0, nc))
     else:
         y = launch(state.w_q, state.s_w, xf, s_x, bias_p)
     y = y[:, :state.n]
@@ -348,7 +384,6 @@ def aimc_apply_stacked(stack: AimcLinearState, x: torch.Tensor,
                          f"got stack shape {stack.stack_shape}")
     g_ = stack.stack_shape[0]
     kb, m, np_ = stack.w_q.shape[-3:]
-    _no_read_key(stack, key)
     xf, s_x, lead = _flatten_pad_input(x, stack, cfg)
     seed, sigma = _noise_args(cfg, key, m)
     if isinstance(activations, str):
@@ -366,15 +401,17 @@ def aimc_apply_stacked(stack: AimcLinearState, x: torch.Tensor,
                     if np_ != stack.n else biases).contiguous()
     acts = activations if fuse else "none"
 
-    def launch(w_q, s_w, xf, s_x, bias_arg):
+    def launch(w_q, s_w, xf, s_x, bias_arg, col0=0, nc=None):
         return kernel_ops.aimc_matmul_stacked(
             xf, w_q, s_w, s_x, seed, bias_arg, adc_step=cfg.adc_step,
-            sigma=sigma, activations=acts, noise_source=cfg.noise_source)
+            sigma=sigma, activations=acts, noise_source=cfg.noise_source,
+            **kernel_ops._cols(col0, nc))
 
     if stack.pieces:
-        y = _over_pieces(stack, xf, s_x, lambda p, xp, sp: launch(
+        y = _over_pieces(stack, xf, s_x, lambda p, xp, sp, nc: launch(
             p.w_q, p.s_w, xp, sp, None if bias_arg is None
-            else bias_arg[:, p.c0:p.c1].contiguous().to(xp.device)))
+            else bias_arg[:, p.c0:p.c1].contiguous().to(xp.device), p.c0,
+            nc))
     else:
         y = launch(stack.w_q, stack.s_w, xf, s_x, bias_arg)
     y = y[:, :, :stack.n]
@@ -406,7 +443,6 @@ def aimc_apply_experts(state: AimcLinearState, x: torch.Tensor,
     if k != state.k:
         raise ValueError(f"in_features mismatch: {k} != {state.k}")
     kb, m, _ = state.w_q.shape[-3:]
-    _no_read_key(state, keys)
     seeds, sigma = None, 0.0
     if keys is not None:
         if len(keys) != e:
@@ -423,14 +459,15 @@ def aimc_apply_experts(state: AimcLinearState, x: torch.Tensor,
                          device=x.device)
     else:
         s_x = sym_scale(xf.reshape(e, c * kb * m), dim=1).reshape(e)
-    def launch(w_q, s_w, xf, s_x):
+    def launch(w_q, s_w, xf, s_x, col0=0, nc=None):
         return kernel_ops.aimc_matmul_experts(xf, w_q, s_w, s_x, seeds,
                                               adc_step=cfg.adc_step,
-                                              sigma=sigma)
+                                              sigma=sigma,
+                                              **kernel_ops._cols(col0, nc))
 
     if state.pieces:
-        y = _over_pieces(state, xf, s_x,
-                         lambda p, xp, sp: launch(p.w_q, p.s_w, xp, sp))
+        y = _over_pieces(state, xf, s_x, lambda p, xp, sp, nc: launch(
+            p.w_q, p.s_w, xp, sp, p.c0, nc))
     else:
         y = launch(state.w_q, state.s_w, xf, s_x)
     return y[:, :, :state.n]
@@ -450,12 +487,16 @@ def _split_key(key):
 
 class _AimcLinearSTE(torch.autograd.Function):
     """y = AIMC(x, W) forward, y = x @ W backward (the reference's
-    `custom_vjp`, `repro/core/aimc.py:298-331`)."""
+    `custom_vjp`, `repro/core/aimc.py:298-331`). Under an ambient mesh the
+    forward launches one K2 per column piece (`mesh_pieces`); the backward
+    is the whole ``g W^T`` and ``x^T g`` on W's device, where every piece's
+    columns live, so a sharded step's gradients are the one-device step's
+    bit for bit."""
 
     @staticmethod
     def forward(ctx, x, w, key, cfg):
         kp, kr = _split_key(key)
-        state = program_linear(w.detach(), cfg, kp)
+        state = mesh_pieces(program_linear(w.detach(), cfg, kp))
         ctx.save_for_backward(x, w)
         return aimc_apply(state, x.detach(), cfg, kr)
 
@@ -485,7 +526,7 @@ class _AimcLinearSTEExperts(torch.autograd.Function):
             kr = [r for _, r in pairs]
         state = program_stacked(w.detach(), cfg, keys=kp)
         ctx.save_for_backward(x, w)
-        return aimc_apply_experts(state, x.detach(), cfg, kr)
+        return _experts_over_positions(state, x.detach(), cfg, kr)
 
     @staticmethod
     def backward(ctx, g):
@@ -494,6 +535,32 @@ class _AimcLinearSTEExperts(torch.autograd.Function):
         dx = gf @ w.transpose(1, 2).to(torch.float32)
         dw = x.to(torch.float32).transpose(1, 2) @ gf
         return dx.to(x.dtype), dw.to(w.dtype), None, None
+
+
+def _experts_over_positions(state: AimcLinearState, x: torch.Tensor,
+                            cfg: AimcConfig, keys) -> torch.Tensor:
+    """`aimc_apply_experts`, split over the ambient mesh's ``model`` axis
+    where M divides E: position j launches the expert entry on experts
+    ``[j E/M, (j+1) E/M)`` (views of the stack on its device), each with
+    its own read key, and the outputs are concatenated in expert order.
+    Exact: every expert has its own DAC scale and seed."""
+    mesh = compat.current_mesh()
+    e = state.stack_shape[0]
+    m = mesh.shape["model"] if (mesh is not None
+                                and "model" in mesh.axis_names) else 1
+    if m == 1 or e % m:
+        return aimc_apply_experts(state, x, cfg, keys)
+    el = e // m
+    outs = []
+    for j, dev in enumerate(_model_devices(mesh)):
+        sl = slice(j * el, (j + 1) * el)
+        part = AimcLinearState(w_q=state.w_q[sl].to(dev),
+                               s_w=state.s_w[sl].to(dev), k=state.k,
+                               n=state.n)
+        outs.append(aimc_apply_experts(
+            part, x[sl].to(dev), cfg,
+            None if keys is None else keys[sl]).to(x.device))
+    return torch.cat(outs, dim=0)
 
 
 def aimc_linear_ste(x: torch.Tensor, w: torch.Tensor, key,

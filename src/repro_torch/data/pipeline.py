@@ -6,8 +6,8 @@ Batch ``i`` is a pure function of ``(seed, step, shard)``: a restarted job
 regenerates exactly the token stream it would have seen, so
 checkpoint-resume needs no pipeline state. Two backends: a synthetic
 corpus (zipfian unigrams with document boundaries) and a memory-mapped
-uint32 token file. The reference's `make_global_array` (assembling
-per-shard host arrays on a device mesh) waits for the mesh slice.
+uint32 token file. `make_global_array` places a host batch's rows over a
+mesh's data positions (`launch.shardings.Placed`).
 """
 
 from __future__ import annotations
@@ -67,6 +67,28 @@ def host_batch(cfg: DataConfig, step: int, shard: int, n_shards: int):
     return {"tokens": toks.astype(np.int32),
             "labels": np.concatenate([toks[:, 1:], toks[:, :1]], axis=1
                                      ).astype(np.int32)}
+
+
+def make_global_array(local_batches: dict, mesh, pspec) -> dict:
+    """Place a host batch's rows over the mesh's data positions (the
+    reference's ``make_array_from_process_local_data`` under
+    ``NamedSharding(mesh, pspec)``): each array becomes a tensor on the
+    mesh's first device, laid out by ``pspec`` as a
+    `launch.shardings.Placed` whose pieces on that device are views of it
+    (a single process holds the whole global batch, as in the reference's
+    single-host run)."""
+    import torch
+
+    from repro_torch.launch.shardings import place
+
+    dev = mesh.devices[0]
+
+    def one(x):
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(x))
+        return place(t.to(dev), pspec, mesh, views=True)
+
+    return {k: one(v) for k, v in local_batches.items()}
 
 
 class DataIterator:

@@ -26,6 +26,9 @@ of CUDA kernels the call issues (the DAC pass, the tensor-core MVM and, on
 a split grid, the row-block sum): a run can read the counts to prove its
 path went through the kernels; K2/K3 calls that draw "hw" noise
 (sigma > 0, K4) count under the `_hw` names.
+The programmed operands may be column views of a wider state (a
+`core.aimc.ColumnPiece`): the kernels read them at the whole's row stride
+and draw the whole's noise for their columns (``col0``, ``nc``).
 Nothing here falls back to the plain version (`kernels/ref.py`);
 `kernels/ops.py` chooses by the device of the input.
 """
@@ -121,12 +124,14 @@ def _load():
                            + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_float, ctypes.c_uint,
                               ctypes.c_int, ctypes.c_uint, ctypes.c_int,
-                              ctypes.c_void_p, ctypes.c_void_p])
+                              ctypes.c_void_p, ctypes.c_void_p]
+                           + [ctypes.c_int] * 3)
             fn.restype = ctypes.c_int
             ex = lib.aimc_mvm_experts_launch
             ex.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_float,
-                              ctypes.c_void_p, ctypes.c_void_p])
+                              ctypes.c_void_p, ctypes.c_void_p]
+                           + [ctypes.c_int] * 3)
             ex.restype = ctypes.c_int
             for plan in (lib.aimc_mvm_plan, lib.aimc_mvm_experts_plan):
                 plan.argtypes = ([ctypes.c_int] * 5
@@ -140,7 +145,8 @@ def _load():
 def _plan(device_index: int, b: int, kb: int, m: int, np_: int,
           g: int, experts: bool = False) -> tuple[int, int]:
     """(plan code, workspace bytes) of the launcher for this shape; the plan
-    depends on the device's SM count."""
+    depends on the device's SM count. It depends on a column piece's own
+    width ``np_`` alone, not on the row stride it is read at."""
     work = ctypes.c_longlong(0)
     lib = _load()
     fn = lib.aimc_mvm_experts_plan if experts else lib.aimc_mvm_plan
@@ -176,9 +182,49 @@ def _check(t: torch.Tensor, name: str, dtype, device, ndim: int):
         raise ValueError(f"{name} must be 4-byte aligned")
 
 
+def _check_cols(w_q, s_w, device):
+    """Check a programmed operand pair w_q [G, KB, M, Np] / s_w [G, KB, Np]
+    that may be a column view of a wider state (each row read at one
+    stride, the columns contiguous); returns that row stride ``ld`` (Np
+    for a contiguous state)."""
+    for t, name, dtype in ((w_q, "w_q", torch.int8),
+                           (s_w, "s_w", torch.float32)):
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, x on {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if w_q.dim() != 4 or s_w.dim() != 3:
+        raise ValueError(f"w_q must be 4-D and s_w 3-D, got "
+                         f"{tuple(w_q.shape)} and {tuple(s_w.shape)}")
+    g, kb, m, np_ = w_q.shape
+    ld = w_q.stride(2) if m > 1 else np_
+    want_w = (kb * m * ld, m * ld, ld, 1)
+    want_s = (kb * ld, ld, 1)
+    for t, name, want in ((w_q, "w_q", want_w), (s_w, "s_w", want_s)):
+        if any(n > 1 and st != w for n, st, w in zip(t.shape, t.stride(),
+                                                    want)):
+            raise ValueError(f"{name} strides {t.stride()} are not a column "
+                             f"view at row stride {ld}")
+    if ld % 128 or w_q.data_ptr() % 16 or s_w.data_ptr() % 16:
+        raise ValueError(f"w_q/s_w must start on a 128-column boundary of "
+                         f"a 128-aligned state (row stride {ld})")
+    return ld
+
+
+def _cols(col0: int, nc, np_: int, ld: int) -> tuple[int, int]:
+    """(col0, nc) of a launch over columns [col0, col0 + Np) of a state nc
+    columns wide (default: the whole, ``ld`` wide)."""
+    nc = ld if nc is None else int(nc)
+    if col0 % 128 or nc % 128 or col0 < 0 or col0 + np_ > nc:
+        raise ValueError(f"columns [{col0}, {col0 + np_}) outside a "
+                         f"128-aligned state of {nc} columns")
+    return int(col0), nc
+
+
 def _launch(name, x, w_q, s_w, s_x, seed, bias, adc_step, sigma, acts,
-            stacked, noise_source="counter", noise=None):
-    """w_q [G, KB, M, Np], s_w [G, KB, Np], bias [G, Np] or None, noise
+            stacked, noise_source="counter", noise=None, col0=0, nc=None):
+    """w_q [G, KB, M, Np], s_w [G, KB, Np] (column views of a state ``nc``
+    wide starting at ``col0`` allowed), bias [G, Np] or None, noise
     [KB, B, Np] or None (K1)."""
     if not x.is_cuda:
         raise ValueError(f"{name} launches on a CUDA tensor; x is on "
@@ -186,8 +232,8 @@ def _launch(name, x, w_q, s_w, s_x, seed, bias, adc_step, sigma, acts,
     g, kb, m, np_ = w_q.shape
     b = x.shape[0]
     _check(x, "x", torch.float32, x.device, 2)
-    _check(w_q, "w_q", torch.int8, x.device, 4)
-    _check(s_w, "s_w", torch.float32, x.device, 3)
+    ld = _check_cols(w_q, s_w, x.device)
+    col0, nc = _cols(col0, nc, np_, ld)
     if x.shape[1] != kb * m:
         raise ValueError(f"x K={x.shape[1]} != KB*M={kb * m}")
     if tuple(s_w.shape) != (g, kb, np_):
@@ -227,7 +273,7 @@ def _launch(name, x, w_q, s_w, s_x, seed, bias, adc_step, sigma, acts,
             noise.data_ptr() if noise is not None else None, out.data_ptr(),
             b, kb, m, np_, g, float(adc_step), float(sigma),
             int(seed or 0) & 0xFFFFFFFF, int(stacked), packed,
-            int(noise_source == "hw"), stream, work.data_ptr())
+            int(noise_source == "hw"), stream, work.data_ptr(), ld, col0, nc)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name + ("_hw" if noise_source == "hw" and sigma > 0.0
@@ -247,26 +293,30 @@ def aimc_mvm_v1(x, w_q, s_w, s_x, read_noise, *, adc_step: float):
 
 def aimc_mvm_v2(x, w_q, s_w, s_x, seed=None, bias=None, *, adc_step: float,
                 sigma: float = 0.0, activation: str = "none",
-                noise_source: str = "counter"):
+                noise_source: str = "counter", col0: int = 0, nc=None):
     """K2: x f32 [B, KB*M], w_q int8 [KB, M, Np], s_w [KB, Np], s_x one f32
     device value, bias [Np] or None -> f32 [B, Np], epilogue applied; K4
-    when ``noise_source="hw"``."""
+    when ``noise_source="hw"``. ``w_q``/``s_w`` may be a column view
+    ``[..., col0:col0 + Np]`` of a state ``nc`` columns wide: the launch
+    reads them at the whole's row stride and draws the whole's noise for
+    its columns."""
     if activation not in _ACT_CODES:
         raise ValueError(f"unknown epilogue {activation!r}")
     np_ = w_q.shape[-1]
     y = _launch("aimc_mvm_v2", x, w_q.unsqueeze(0), s_w.unsqueeze(0), s_x,
                 seed, None if bias is None else bias.reshape(1, np_),
                 adc_step, sigma, (activation,), stacked=False,
-                noise_source=noise_source)
+                noise_source=noise_source, col0=col0, nc=nc)
     return y[0]
 
 
 def aimc_mvm_stacked(x, w_q, s_w, s_x, seed=None, bias=None, *,
                      adc_step: float, sigma: float = 0.0,
-                     activations="none", noise_source: str = "counter"):
+                     activations="none", noise_source: str = "counter",
+                     col0: int = 0, nc=None):
     """K3: w_q int8 [G, KB, M, Np], s_w [G, KB, Np], bias [G, Np] or None ->
     f32 [G, B, Np]; gate g draws noise under `cprng.stack_seed(seed, g)`
-    (counter or, K4, Philox)."""
+    (counter or, K4, Philox); column views as for `aimc_mvm_v2`."""
     g = w_q.shape[0]
     if isinstance(activations, str):
         activations = (activations,) * g
@@ -277,7 +327,7 @@ def aimc_mvm_stacked(x, w_q, s_w, s_x, seed=None, bias=None, *,
             raise ValueError(f"unknown epilogue {a!r}")
     return _launch("aimc_mvm_stacked", x, w_q, s_w, s_x, seed, bias,
                    adc_step, sigma, tuple(activations), stacked=True,
-                   noise_source=noise_source)
+                   noise_source=noise_source, col0=col0, nc=nc)
 
 
 def _device_seeds(seeds, e: int, device) -> torch.Tensor:
@@ -293,13 +343,14 @@ def _device_seeds(seeds, e: int, device) -> torch.Tensor:
 
 
 def aimc_mvm_experts(x, w_q, s_w, s_x, seeds=None, *, adc_step: float,
-                     sigma: float = 0.0):
+                     sigma: float = 0.0, col0: int = 0, nc=None):
     """K2 over an expert stack in one launch: x f32 [E, B, KB*M], w_q int8
     [E, KB, M, Np], s_w f32 [E, KB, Np], s_x f32 [E] (each expert's own DAC
     scale, on the device), ``seeds`` E uint32 read seeds (host ints; needed
     when ``sigma > 0``) -> f32 [E, B, Np], no epilogue. Expert e equals
     `aimc_mvm_v2(x[e], w_q[e], s_w[e], s_x[e], seeds[e], sigma=sigma)` bit
-    for bit: counter read noise over its own B rows."""
+    for bit: counter read noise over its own B rows. Column views as for
+    `aimc_mvm_v2`."""
     if sigma > 0.0 and seeds is None:
         raise ValueError("sigma > 0 requires a read seed per expert")
     if not x.is_cuda:
@@ -307,8 +358,8 @@ def aimc_mvm_experts(x, w_q, s_w, s_x, seeds=None, *, adc_step: float,
                          f"on {x.device}")
     e, kb, m, np_ = w_q.shape
     _check(x, "x", torch.float32, x.device, 3)
-    _check(w_q, "w_q", torch.int8, x.device, 4)
-    _check(s_w, "s_w", torch.float32, x.device, 3)
+    ld = _check_cols(w_q, s_w, x.device)
+    col0, nc = _cols(col0, nc, np_, ld)
     _check(s_x, "s_x", torch.float32, x.device, 1)
     b = x.shape[1]
     if x.shape[0] != e or x.shape[2] != kb * m:
@@ -330,7 +381,7 @@ def aimc_mvm_experts(x, w_q, s_w, s_x, seeds=None, *, adc_step: float,
             x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
             dev_seeds.data_ptr() if dev_seeds is not None else None,
             out.data_ptr(), b, kb, m, np_, e, float(adc_step), float(sigma),
-            stream, work.data_ptr())
+            stream, work.data_ptr(), ld, col0, nc)
     if err:
         raise RuntimeError(f"aimc_mvm_experts launch failed: CUDA error "
                            f"{err}")

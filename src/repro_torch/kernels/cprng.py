@@ -12,7 +12,9 @@ the CPU has no uint32 right shift. Multiplies split the 32-bit constant in
 
 The element counter of a `[KB, B, Np]` noise tensor is the row-major flat
 index ``(k * B + b) * Np + c`` in wrapping uint32 arithmetic; gate ``g`` of
-a stacked multi-MVM re-seeds via `stack_seed(seed, g)`.
+a stacked multi-MVM re-seeds via `stack_seed(seed, g)`. A column piece
+``[col0, col0 + Np)`` of a state ``nc`` columns wide draws the whole's
+counters, ``(k * B + b) * nc + col0 + c``.
 """
 
 from __future__ import annotations
@@ -87,8 +89,17 @@ def noise_tile(seed, k: int, row0: int, col0: int, bb: int, bn: int,
     return gauss_from_counter(seed, ctr & _M32)
 
 
-def read_noise_array(seed, kb: int, b: int, np_: int,
-                     device=None) -> torch.Tensor:
-    """The full `[KB, B, Np]` standard-normal tensor, counter-addressed."""
-    ctr = torch.arange(kb * b * np_, dtype=torch.int64, device=device)
-    return gauss_from_counter(seed, ctr & _M32).reshape(kb, b, np_)
+def read_noise_array(seed, kb: int, b: int, np_: int, device=None, *,
+                     col0: int = 0, nc: int | None = None) -> torch.Tensor:
+    """The full `[KB, B, Np]` standard-normal tensor, counter-addressed.
+    ``col0``/``nc``: the tensor is columns ``[col0, col0 + Np)`` of a
+    ``[KB, B, nc]`` one (a column piece of a wider state), counters
+    ``(k * B + b) * nc + col0 + c``."""
+    if col0 == 0 and nc in (None, np_):
+        ctr = torch.arange(kb * b * np_, dtype=torch.int64, device=device)
+        return gauss_from_counter(seed, ctr & _M32).reshape(kb, b, np_)
+    ks = torch.arange(kb, dtype=torch.int64, device=device)[:, None, None]
+    rows = torch.arange(b, dtype=torch.int64, device=device)[None, :, None]
+    cols = torch.arange(np_, dtype=torch.int64, device=device)[None, None]
+    ctr = (ks * b + rows) * nc + col0 + cols
+    return gauss_from_counter(seed, ctr & _M32)

@@ -61,7 +61,8 @@
 //  4. ADC at each row-block boundary, in the fragment's own registers: the
 //     int32 sums of a row block are exact whatever the k order, get their
 //     noise addressed by the LOGICAL element (counter (k*B + r)*Np + c;
-//     Philox (seed_g, k, r, c); K1's noise[k, r, c]) so no tiling moves a
+//     Philox (seed_g, k, r, c); K1's noise[k, r, c]; a column piece adds
+//     its offset, note 7) so no tiling moves a
 //     draw, then codes = clip(rintf((acc + sigma*z) / adc_step)) and
 //     out += codes * (s_w[k, c] * (adc_step * s_x)), in k order, the
 //     Pallas kernel's association. Bias and activation follow the last row
@@ -79,6 +80,16 @@
 //  6. Tiles: BN = 128 columns; BM = 16 rows (one m16 tile, 4 warps) unless
 //     B > 16 and BM = 64 (8 warps, 2 m16 tiles each) still gives at least
 //     one block per SM. Rows past B read zero codes and are not stored.
+//  7. Column pieces (a programmed state split over a mesh's model axis):
+//     a launch may cover columns [col0, col0 + Np) of a wider state. w_q
+//     and s_w are then read at the row stride ld (the whole's Np, so a
+//     piece is a view of the whole's codes, no copy), while the output,
+//     the bias and the split scratch keep the piece's own Np. Counter noise
+//     is addressed as (k*B + r)*nc + col0 + c, Philox by column col0 + c
+//     (nc: the whole's Np), so a piece draws the whole launch's noise for
+//     its columns. ld = nc = Np and col0 = 0 is the whole launch. ld, col0
+//     and nc are multiples of 128, which keeps every cp.async 16-byte
+//     aligned.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -208,7 +219,8 @@ aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
                     const float* __restrict__ noise, float* __restrict__ out,
                     float* __restrict__ part,
                     const uint32_t* __restrict__ seeds, int B, int KB, int M,
-                    int Mp, int Np, float adc_step, float sigma,
+                    int Mp, int Np, int ld, int col0, int nc,
+                    float adc_step, float sigma,
                     uint32_t seed, int stacked, uint32_t acts, int philox,
                     int per_gate_x) {
   constexpr int BM = 16 * MT * WM;
@@ -237,8 +249,8 @@ aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
   const int tiles = (k1 - k0) * KT;
   const size_t Kp = (size_t)KB * Mp;
 
-  const int8_t* wg = w_q + (size_t)g * KB * M * Np;
-  const float* swg = s_w + (size_t)g * KB * Np;
+  const int8_t* wg = w_q + (size_t)g * KB * M * ld;
+  const float* swg = s_w + (size_t)g * KB * ld;
   const int8_t* xg = per_gate_x ? xq + (size_t)g * B * Kp : xq;
   const uint32_t seed_g =
       seeds != nullptr ? seeds[g]
@@ -269,7 +281,7 @@ aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
       const int m = kt * BK + r;
       const bool ok = m < M;
       const int8_t* src =
-          ok ? wg + ((size_t)kk * M + m) * Np + n0 + ch * 16 : wg;
+          ok ? wg + ((size_t)kk * M + m) * ld + n0 + ch * 16 : wg;
       cp_async16(w + w_offset(r, ch), src, ok);
     }
   };
@@ -337,7 +349,7 @@ aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
     if ((it + 1) % KT != 0) continue;
     // ---- row block kk done: noise + ADC + dequant, in registers ---------
     const int kk = k0 + it / KT;
-    const float* swk = swg + (size_t)kk * Np + col;
+    const float* swk = swg + (size_t)kk * ld + col;
     float* partk = split ? part + ((size_t)g * KB + kk) * B * Np + col
                          : nullptr;
 #pragma unroll
@@ -363,11 +375,12 @@ aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
             float z0, z1;
             if (philox) {
               aimc::gauss_philox_pair(seed_g, (uint32_t)kk, (uint32_t)row,
-                                      (uint32_t)((col + c) >> 1), z0, z1);
+                                      (uint32_t)((col0 + col + c) >> 1), z0,
+                                      z1);
             } else {
               const uint32_t ctr =
                   ((uint32_t)kk * (uint32_t)B + (uint32_t)row) *
-                      (uint32_t)Np + (uint32_t)(col + c);
+                      (uint32_t)nc + (uint32_t)(col0 + col + c);
               z0 = aimc::gauss_from_counter(seed_g, ctr);
               z1 = aimc::gauss_from_counter(seed_g, ctr + 1u);
             }
@@ -483,9 +496,10 @@ template <int MT, int WM, int BK>
 int launch_mma(const int8_t* xq, const int8_t* w_q, const float* s_w,
                const float* s_x, const float* bias, const float* noise,
                float* out, float* part, const uint32_t* seeds, int B, int KB,
-               int M, int Mp, int Np, int G, float adc_step, float sigma,
-               uint32_t seed, int stacked, uint32_t acts, int philox,
-               int per_gate_x, cudaStream_t stream) {
+               int M, int Mp, int Np, int ld, int col0, int nc, int G,
+               float adc_step, float sigma, uint32_t seed, int stacked,
+               uint32_t acts, int philox, int per_gate_x,
+               cudaStream_t stream) {
   constexpr int BM = 16 * MT * WM;
   const size_t smem = (size_t)kStages * (BM * (BK + 16) + BK * kBN);
   if (smem > 48 * 1024) {
@@ -497,8 +511,8 @@ int launch_mma(const int8_t* xq, const int8_t* w_q, const float* s_w,
   const dim3 grid(Np / kBN, (B + BM - 1) / BM,
                   part != nullptr ? G * KB : G);
   aimc_mvm_mma_kernel<MT, WM, BK><<<grid, WM * 128, smem, stream>>>(
-      xq, w_q, s_w, s_x, bias, noise, out, part, seeds, B, KB, M, Mp, Np,
-      adc_step, sigma, seed, stacked, acts, philox, per_gate_x);
+      xq, w_q, s_w, s_x, bias, noise, out, part, seeds, B, KB, M, Mp, Np, ld,
+      col0, nc, adc_step, sigma, seed, stacked, acts, philox, per_gate_x);
   return (int)cudaGetLastError();
 }
 
@@ -512,12 +526,14 @@ int grid_for(size_t n, int threads) {
 int launch_all(const void* x, const void* w_q, const void* s_w,
                const void* s_x, const void* bias, const void* noise,
                const void* seeds, void* out, int B, int KB, int M, int Np,
-               int G, float adc_step, float sigma, unsigned int seed,
-               int stacked, unsigned int acts, int philox, int per_gate_x,
-               void* stream, void* work) {
+               int ld, int col0, int nc, int G, float adc_step, float sigma,
+               unsigned int seed, int stacked, unsigned int acts, int philox,
+               int per_gate_x, void* stream, void* work) {
   if (B <= 0) return 0;
   if (Np % kBN != 0 || G < 1 || M < 1 || KB < 1 || work == nullptr ||
-      reinterpret_cast<uintptr_t>(work) % 16 != 0)
+      reinterpret_cast<uintptr_t>(work) % 16 != 0 || ld % kBN != 0 ||
+      col0 % kBN != 0 || nc % kBN != 0 || col0 < 0 || ld < Np ||
+      col0 + Np > nc)
     return (int)cudaErrorInvalidValue;
   const Plan p = make_plan(B, KB, M, Np, G, per_gate_x);
   if ((long long)G * (p.split ? KB : 1) > kMaxGridZ)
@@ -544,12 +560,13 @@ int launch_all(const void* x, const void* w_q, const void* s_w,
   float* o = static_cast<float*>(out);
   err = p.bm == 64
             ? launch_mma<2, 2, 128>(codes, w, sw, sx, b, nz, o, part, sd, B,
-                                    KB, M, p.Mp, Np, G, adc_step, sigma,
-                                    seed, stacked, acts, philox, per_gate_x,
-                                    st)
+                                    KB, M, p.Mp, Np, ld, col0, nc, G,
+                                    adc_step, sigma, seed, stacked, acts,
+                                    philox, per_gate_x, st)
             : launch_mma<1, 1, 64>(codes, w, sw, sx, b, nz, o, part, sd, B,
-                                   KB, M, p.Mp, Np, G, adc_step, sigma, seed,
-                                   stacked, acts, philox, per_gate_x, st);
+                                   KB, M, p.Mp, Np, ld, col0, nc, G,
+                                   adc_step, sigma, seed, stacked, acts,
+                                   philox, per_gate_x, st);
   if (err || !p.split) return err;
   const size_t n = (size_t)G * B * Np;
   aimc_rowblock_sum_kernel<<<grid_for(n, 256), 256, 0, st>>>(
@@ -584,10 +601,13 @@ extern "C" int aimc_mvm_experts_plan(int B, int KB, int M, int Np, int G,
 }
 
 // C entry point bound with ctypes (repro_torch/kernels/aimc_mvm.py).
-// x f32 [B, KB*M] contiguous, w_q int8 [G, KB, M, Np], s_w f32 [G, KB, Np],
+// x f32 [B, KB*M] contiguous, w_q int8 [G, KB, M, Np] and s_w f32
+// [G, KB, Np] read at row stride ld (design note 7; ld = Np when whole),
 // s_x f32 [1], bias f32 [G, Np] or null, noise f32 [KB, B, Np] or null (K1:
 // G = 1, sigma = 0), out f32 [G, B, Np]; Np % 128 == 0; work holds the
-// bytes aimc_mvm_plan gives for the shape, 16-byte aligned.
+// bytes aimc_mvm_plan gives for the shape, 16-byte aligned. col0 and nc
+// place the launch's columns in the whole state for the noise counters
+// (col0 = 0, nc = Np for a whole state).
 // stacked = 0 is K2 (G must be 1, seed used as is), 1 is K3.
 // acts packs a 2-bit activation code per gate (0 none, 1 relu, 2 sigmoid,
 // 3 tanh). philox = 1 draws the sigma-scaled noise with Philox (K4), 0
@@ -600,11 +620,11 @@ extern "C" int aimc_mvm_launch(const void* x, const void* w_q, const void* s_w,
                                int M, int Np, int G, float adc_step,
                                float sigma, unsigned int seed, int stacked,
                                unsigned int acts, int philox, void* stream,
-                               void* work) {
+                               void* work, int ld, int col0, int nc) {
   if (G > kMaxGates) return (int)cudaErrorInvalidValue;
   return launch_all(x, w_q, s_w, s_x, bias, noise, nullptr, out, B, KB, M,
-                    Np, G, adc_step, sigma, seed, stacked, acts, philox, 0,
-                    stream, work);
+                    Np, ld, col0, nc, G, adc_step, sigma, seed, stacked,
+                    acts, philox, 0, stream, work);
 }
 
 // The expert entry: K2 over an [G] expert stack, expert g on its own input,
@@ -612,16 +632,19 @@ extern "C" int aimc_mvm_launch(const void* x, const void* w_q, const void* s_w,
 // f32 [G, KB, Np], s_x f32 [G], seeds uint32 [G] in device memory (null
 // when sigma == 0), out f32 [G, B, Np]; counter read noise of std sigma
 // (accumulator LSBs), no epilogue (the MoE experts' projections have none);
-// work holds the bytes aimc_mvm_experts_plan gives. Equal bit for bit to G
-// aimc_mvm_launch calls on x[g], w_q[g], s_w[g], s_x[g] with seed seeds[g].
+// work holds the bytes aimc_mvm_experts_plan gives; ld, col0 and nc as for
+// aimc_mvm_launch. Equal bit for bit to G aimc_mvm_launch calls on x[g],
+// w_q[g], s_w[g], s_x[g] with seed seeds[g].
 extern "C" int aimc_mvm_experts_launch(const void* x, const void* w_q,
                                        const void* s_w, const void* s_x,
                                        const void* seeds, void* out, int B,
                                        int KB, int M, int Np, int G,
                                        float adc_step, float sigma,
-                                       void* stream, void* work) {
+                                       void* stream, void* work, int ld,
+                                       int col0, int nc) {
   if (sigma > 0.0f && seeds == nullptr) return (int)cudaErrorInvalidValue;
   return launch_all(x, w_q, s_w, s_x, nullptr, nullptr,
-                    sigma > 0.0f ? seeds : nullptr, out, B, KB, M, Np, G,
-                    adc_step, sigma, 0u, 0, 0u, 0, 1, stream, work);
+                    sigma > 0.0f ? seeds : nullptr, out, B, KB, M, Np, ld,
+                    col0, nc, G, adc_step, sigma, 0u, 0, 0u, 0, 1, stream,
+                    work);
 }

@@ -30,6 +30,12 @@ def _check_noise_source(noise_source: str, sigma: float, x) -> None:
             'CPU tensor has no such generator (use "counter")')
 
 
+def _cols(col0: int, nc) -> dict:
+    """The column-piece arguments of a launch, passed on only for a piece
+    (a whole launch keeps the wrappers' call of before)."""
+    return {} if col0 == 0 and nc is None else {"col0": col0, "nc": nc}
+
+
 def aimc_matmul(x, w_q, s_w, s_x, read_noise=None, *, adc_step: float):
     """v1-contract AIMC matmul (kernel K1): an explicit `[KB, B, Np]` noise
     tensor in accumulator LSBs, no epilogue. ``read_noise=None`` is
@@ -45,10 +51,13 @@ def aimc_matmul(x, w_q, s_w, s_x, read_noise=None, *, adc_step: float):
 
 def aimc_matmul_v2(x, w_q, s_w, s_x, seed=None, bias=None, *,
                    adc_step: float, sigma: float = 0.0,
-                   activation: str = "none", noise_source: str = "counter"):
+                   activation: str = "none", noise_source: str = "counter",
+                   col0: int = 0, nc=None):
     """Fused AIMC matmul (kernel K2; K4 with ``noise_source="hw"``):
     x f32 [B, KB*M] -> f32 [B, Np], read noise drawn from ``seed`` when
-    ``sigma > 0``, epilogue applied."""
+    ``sigma > 0``, epilogue applied. ``w_q``/``s_w`` may be columns
+    ``[col0, col0 + Np)`` of a state ``nc`` columns wide (a view), which
+    draw the whole's noise for those columns."""
     if activation not in EPILOGUES:
         raise ValueError(f"unknown epilogue {activation!r}")
     _check_noise_source(noise_source, sigma, x)
@@ -56,15 +65,17 @@ def aimc_matmul_v2(x, w_q, s_w, s_x, seed=None, bias=None, *,
         return aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, seed, bias,
                                     adc_step=adc_step, sigma=sigma,
                                     activation=activation,
-                                    noise_source=noise_source)
+                                    noise_source=noise_source,
+                                    **_cols(col0, nc))
     return _ref.aimc_matmul_ref_v2(x, w_q, s_w, s_x, seed, bias,
                                    adc_step=adc_step, sigma=sigma,
-                                   activation=activation)
+                                   activation=activation, **_cols(col0, nc))
 
 
 def aimc_matmul_stacked(x, w_q, s_w, s_x, seed=None, bias=None, *,
                         adc_step: float, sigma: float = 0.0,
-                        activations="none", noise_source: str = "counter"):
+                        activations="none", noise_source: str = "counter",
+                        col0: int = 0, nc=None):
     """Gate-fused multi-MVM (kernel K3): `[G, KB, M, Np]` stack, shared x ->
     f32 [G, B, Np]; bit-equal to G `aimc_matmul_v2` calls with the seeds
     `cprng.stack_seed(seed, g)`, under either noise source."""
@@ -73,20 +84,24 @@ def aimc_matmul_stacked(x, w_q, s_w, s_x, seed=None, bias=None, *,
         return aimc_mvm.aimc_mvm_stacked(x, w_q, s_w, s_x, seed, bias,
                                          adc_step=adc_step, sigma=sigma,
                                          activations=activations,
-                                         noise_source=noise_source)
+                                         noise_source=noise_source,
+                                         **_cols(col0, nc))
     return _ref.aimc_matmul_stacked_ref(x, w_q, s_w, s_x, seed, bias,
                                         adc_step=adc_step, sigma=sigma,
-                                        activations=activations)
+                                        activations=activations,
+                                        **_cols(col0, nc))
 
 
 def aimc_matmul_experts(x, w_q, s_w, s_x, seeds=None, *, adc_step: float,
-                        sigma: float = 0.0):
+                        sigma: float = 0.0, col0: int = 0, nc=None):
     """K2 over an `[E, ...]` expert stack, expert e on its own input x[e],
     DAC scale s_x[e] and read seed seeds[e] (E host ints, needed when
     ``sigma > 0``): x f32 [E, B, KB*M] -> f32 [E, B, Np], one launch on the
     card (`aimc_mvm.aimc_mvm_experts`)."""
     if x.is_cuda:
         return aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, seeds,
-                                         adc_step=adc_step, sigma=sigma)
+                                         adc_step=adc_step, sigma=sigma,
+                                         **_cols(col0, nc))
     return _ref.aimc_matmul_experts_ref(x, w_q, s_w, s_x, seeds,
-                                        adc_step=adc_step, sigma=sigma)
+                                        adc_step=adc_step, sigma=sigma,
+                                        **_cols(col0, nc))

@@ -22,6 +22,10 @@ int32 GEMM.
 on its own input x[e], DAC scale s_x[e] and read seed seeds[e] (x
 [E, B, KB*M], s_x [E], E host ints).
 
+A column piece (`core.aimc.ColumnPiece`) passes ``w_q``/``s_w`` as views
+of the whole's columns ``[col0, col0 + Np)`` with the whole's width
+``nc``, and draws the whole launch's noise for those columns.
+
 Read noise of the v2/stacked versions comes from a scalar seed, by
 ``noise_source``: "counter" (`kernels/cprng`, the reference's generator) or
 "hw", the Philox4x32-10 stream that stands in on Hopper for the TPU's
@@ -77,14 +81,16 @@ def philox4x32(ctr, key):
 
 
 def philox_read_noise_array(seed, kb: int, b: int, np_: int,
-                            device=None) -> torch.Tensor:
+                            device=None, *, col0: int = 0) -> torch.Tensor:
     """The `[KB, B, Np]` standard-normal tensor of "hw" read noise: element
     (k, row, col) takes key ``(seed, k)`` and counter ``(row, col >> 1, 0,
     0)``; words 0-1 feed the even column and words 2-3 the odd one through
     Box-Muller. Addressed by the logical element, so no launch tiling or
-    batch padding moves a draw."""
+    batch padding moves a draw; a column piece starting at column ``col0``
+    (even) draws the whole's columns ``col0 + c``."""
     rows = torch.arange(b, dtype=torch.int64, device=device)[:, None]
-    cols = torch.arange(np_, dtype=torch.int64, device=device)[None, :]
+    cols = col0 + torch.arange(np_, dtype=torch.int64,
+                               device=device)[None, :]
     rows, pairs = torch.broadcast_tensors(rows, cols >> 1)
     odd = (cols & 1).bool()
     zero = torch.zeros_like(rows)
@@ -98,12 +104,17 @@ def philox_read_noise_array(seed, kb: int, b: int, np_: int,
 
 
 def read_noise_array(seed, kb: int, b: int, np_: int, noise_source: str,
-                     device=None) -> torch.Tensor:
-    """Standard-normal `[KB, B, Np]` read noise from ``seed``."""
+                     device=None, *, col0: int = 0,
+                     nc: int | None = None) -> torch.Tensor:
+    """Standard-normal `[KB, B, Np]` read noise from ``seed``: columns
+    ``[col0, col0 + Np)`` of a state ``nc`` columns wide (default: the
+    whole, ``col0 = 0``, ``nc = Np``)."""
     if noise_source == "counter":
-        return cprng.read_noise_array(seed, kb, b, np_, device=device)
+        return cprng.read_noise_array(seed, kb, b, np_, device=device,
+                                      col0=col0, nc=nc)
     if noise_source == "hw":
-        return philox_read_noise_array(seed, kb, b, np_, device=device)
+        return philox_read_noise_array(seed, kb, b, np_, device=device,
+                                       col0=col0)
     raise ValueError(f"unknown noise_source {noise_source!r}")
 
 
@@ -129,16 +140,20 @@ def aimc_matmul_ref(x, w_q, s_w, s_x, read_noise, *, adc_step: float):
 def aimc_matmul_ref_v2(x, w_q, s_w, s_x, seed=None, bias=None, *,
                        adc_step: float, sigma: float = 0.0,
                        activation: str = "none",
-                       noise_source: str = "counter"):
+                       noise_source: str = "counter", col0: int = 0,
+                       nc: int | None = None):
     """Plain version of kernel K2 (and of K4 with ``noise_source="hw"``):
-    seed-addressed noise + epilogue."""
+    seed-addressed noise + epilogue. ``col0``/``nc``: ``w_q``/``s_w`` are
+    columns ``[col0, col0 + Np)`` of a state ``nc`` columns wide (a column
+    piece, any strides), whose noise they draw."""
     kb, m, np_ = w_q.shape
     noise = None
     if sigma > 0.0:
         if seed is None:
             raise ValueError("sigma > 0 requires a seed")
         noise = sigma * read_noise_array(seed, kb, x.shape[0], np_,
-                                         noise_source, device=x.device)
+                                         noise_source, device=x.device,
+                                         col0=col0, nc=nc)
     y = aimc_matmul_ref(x, w_q, s_w, s_x, noise, adc_step=adc_step)
     if bias is not None:
         y = y + bias.reshape(1, np_).to(torch.float32)
@@ -148,7 +163,8 @@ def aimc_matmul_ref_v2(x, w_q, s_w, s_x, seed=None, bias=None, *,
 def aimc_matmul_stacked_ref(x, w_q, s_w, s_x, seed=None, bias=None, *,
                             adc_step: float, sigma: float = 0.0,
                             activations="none",
-                            noise_source: str = "counter"):
+                            noise_source: str = "counter", col0: int = 0,
+                            nc: int | None = None):
     """Plain version of kernel K3: per-gate K2 under `stack_seed`."""
     g_ = w_q.shape[0]
     if isinstance(activations, str):
@@ -159,12 +175,13 @@ def aimc_matmul_stacked_ref(x, w_q, s_w, s_x, seed=None, bias=None, *,
             cprng.stack_seed(seed, g) if seed is not None else None,
             bias[g] if bias is not None else None,
             adc_step=adc_step, sigma=sigma, activation=activations[g],
-            noise_source=noise_source)
+            noise_source=noise_source, col0=col0, nc=nc)
         for g in range(g_)])
 
 
 def aimc_matmul_experts_ref(x, w_q, s_w, s_x, seeds=None, *,
-                            adc_step: float, sigma: float = 0.0):
+                            adc_step: float, sigma: float = 0.0,
+                            col0: int = 0, nc: int | None = None):
     """Plain version of the expert entry: one plain K2 per expert on its own
     input, DAC scale and read seed (``seeds[e]``; counter noise when
     ``sigma > 0``), no epilogue -> f32 [E, B, Np]."""
@@ -174,5 +191,5 @@ def aimc_matmul_experts_ref(x, w_q, s_w, s_x, seeds=None, *,
     return torch.stack([
         aimc_matmul_ref_v2(x[i], w_q[i], s_w[i], s_x[i].reshape(1, 1),
                            seeds[i] if sigma > 0.0 else None,
-                           adc_step=adc_step, sigma=sigma)
+                           adc_step=adc_step, sigma=sigma, col0=col0, nc=nc)
         for i in range(e)])

@@ -88,11 +88,14 @@ unreconciled ledger or a starved tenant.
 (`runtime.engine.ShardedServeEngine`, DESIGN.md §11): decode slots over the
 data axis, programmed crossbar bit lines over the model axis as column
 pieces (one kernel launch each), tokens bit-equal to the single-device
-engine; with ``--cores N`` and ``--exec aimc`` it also prints the
+engine outside the ambient mesh; with ``--cores N`` and ``--exec aimc`` it also prints the
 schedule's per-core books reconciled (`batcher.reconcile_cores`) and each
 mesh device's CM_* line (`CoreSchedule.mesh_placement`). The legacy
 ``DxM`` spelling keeps the single-device engine, and ``--static`` refuses a
-named mesh. The mesh's positions fold round-robin onto the devices of
+named mesh. The engine path runs inside the ambient mesh of either
+spelling, and the ``--models`` path inside a named one
+(`compat.use_mesh`), where the reference's CLI enters its mesh: a digital
+MoE then dispatches per data shard (`moe._moe_sharded`). The mesh's positions fold round-robin onto the devices of
 ``--device`` (``cuda``: every visible card; ``cpu``: the CPU), and the run
 prints the fold, e.g. "4 positions on 1 device (cuda:0)". The reference's
 ``force_host_device_count`` (which sets XLA's host-platform device count
@@ -422,6 +425,15 @@ def _named_mesh(args, device):
     return mesh
 
 
+def _legacy_mesh(args, device):
+    """The ambient mesh of the legacy ``DxM`` / ``PxDxM`` spelling: the
+    engine stays single-device, but the reference serves inside this mesh
+    (so a digital MoE takes `moe._moe_sharded`), and so does the port."""
+    from repro_torch.launch.mesh import make_mesh, visible_devices
+    shape, axes, _ = parse_mesh(args.mesh)
+    return make_mesh(shape, axes, visible_devices(str(device)))
+
+
 def build_requests(args, vocab: int, min_prompt: int = 1):
     """The synthetic request stream the CLI serves. ``min_prompt`` floors
     the ragged prompt lengths (vlm prompts must cover the patch prefix)."""
@@ -537,10 +549,6 @@ class ServerRun:
 
 def _run_server(args) -> ServerRun:
     """The --models path: multi-tenant, multi-model serving on one pool."""
-    from repro_torch.configs import get_arch
-    from repro_torch.runtime.server import build_server
-    from repro_torch.runtime.tenancy import mixed_poisson_trace
-
     device = resolve_device(args.device)
     specs = parse_models(args.models)
     tenants = parse_tenants(args.tenants, specs) if args.tenants else None
@@ -552,6 +560,19 @@ def _run_server(args) -> ServerRun:
             raise SystemExit(f"unknown --trace kind {kind!r} "
                              "(supported: poisson:RATE)")
         rate = float(param or "100")
+    if mesh is not None:
+        from repro_torch import compat
+        with compat.use_mesh(mesh):
+            return _serve_models(args, device, specs, tenants, mesh, rate)
+    return _serve_models(args, device, specs, tenants, mesh, rate)
+
+
+def _serve_models(args, device, specs, tenants, mesh, rate) -> ServerRun:
+    """The --models path after parsing (inside a named mesh, when given)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.runtime.server import build_server
+    from repro_torch.runtime.tenancy import mixed_poisson_trace
+
     p, g = args.prompt_len, args.gen
     n_slots = args.slots or 4
     t0 = time.time()
@@ -619,12 +640,7 @@ def main(argv=None):
         raise SystemExit("--cores/--pipeline require the programmed AIMC "
                          "path (--exec aimc): the multi-core schedule lowers "
                          "an installed AimcProgram")
-    from repro_torch.configs import get_arch
-    from repro_torch.core.aimc import AimcConfig
-    from repro_torch.core.prng import PRNGKey
-    from repro_torch.models.layers import Execution
-    from repro_torch.runtime.batcher import reconcile, reconcile_cores
-    from repro_torch.runtime.engine import ServeEngine, ShardedServeEngine
+    from repro_torch import compat
 
     device = resolve_device(args.device)
     if parse_mesh(args.mesh)[2] and args.static:
@@ -632,6 +648,19 @@ def main(argv=None):
                          "the sharded engine needs the named-mesh engine "
                          "path (drop --static or use the legacy DxM syntax)")
     mesh = _named_mesh(args, device)
+    with compat.use_mesh(mesh or _legacy_mesh(args, device)):
+        return _serve_one(args, device, mesh)
+
+
+def _serve_one(args, device, mesh):
+    """The single-model path of `main`, inside the ambient mesh."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.models.layers import Execution
+    from repro_torch.runtime.batcher import reconcile, reconcile_cores
+    from repro_torch.runtime.engine import ServeEngine, ShardedServeEngine
+
     spec = get_arch(args.arch)
     cfg = spec.smoke_cfg if args.smoke else spec.model_cfg
     if spec.family == "audio":

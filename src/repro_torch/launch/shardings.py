@@ -18,7 +18,11 @@ lists and tuples; a programmed `AimcLinearState` is walked into its
 In place of ``to_named`` / ``NamedSharding``, `place` splits a tensor into
 per-position pieces by a spec (`Placed`: positions holding the same block
 on the same device share one tensor, so replication makes no copy there),
-and `Placed.gather` puts the pieces back together. `place_aimc_state`
+and `Placed.gather` puts the pieces back together. ``place(...,
+views=True)`` (the training trees: parameters, optimizer state,
+batches) keeps the tensor whole as the layout's ``base``
+and makes each piece on its device a view of it, so positions folded onto
+one device share one tensor and placing copies nothing. `place_aimc_state`
 splits a programmed state into column pieces over the model axis only where
 its Np divides ``128 * M`` (the kernels need 128-aligned columns; the
 reference's rule, `fit_spec`, is ``Np % M == 0``): anywhere else the state
@@ -389,15 +393,32 @@ def _blocks(spec, ndim: int):
 class Placed:
     """A tensor laid out on a mesh by a spec: position ``pos`` holds block
     ``block_of(pos)``, and positions holding the same block on the same
-    device share one tensor (``pieces``, keyed by (block, device))."""
+    device share one tensor (``pieces``, keyed by (block, device)).
+    ``base`` (views=True layouts) is the whole tensor, of which every
+    piece on its device is a view."""
 
-    def __init__(self, spec: P, shape, dtype, mesh, pieces: dict):
+    def __init__(self, spec: P, shape, dtype, mesh, pieces: dict,
+                 base=None):
         self.spec, self.shape, self.dtype, self.mesh = spec, tuple(shape), \
             dtype, mesh
         self.pieces = pieces
+        self.base = base
         self._axes = _blocks(spec, len(self.shape))
         self.counts = tuple(math.prod(mesh.shape[a] for a in ax)
                             for ax in self._axes)
+
+    @property
+    def device(self) -> torch.device:
+        """The controller's copy: ``base``'s device, else the first
+        position's."""
+        if self.base is not None:
+            return self.base.device
+        return self.mesh.devices[0]
+
+    def whole(self) -> torch.Tensor:
+        """The whole tensor on the controller's device (``base``, no copy,
+        where there is one)."""
+        return self.gather(self.device)
 
     def block_of(self, pos) -> tuple[int, ...]:
         idx = dict(zip(self.mesh.axis_names, pos))
@@ -427,9 +448,11 @@ class Placed:
 
     def gather(self, device) -> torch.Tensor:
         """The whole tensor on ``device``: the blocks concatenated in
-        order (a replicated layout on ``device`` is its own piece, no
-        copy)."""
+        order (a replicated layout on ``device`` is its own piece, and a
+        views=True layout its ``base``: no copy)."""
         device = torch.device(device)
+        if self.base is not None and self.base.device == device:
+            return self.base
         by = self.block_pieces(device)
 
         def cat(prefix, d):
@@ -483,25 +506,43 @@ class Placed:
                     row.fill_(value)
 
 
-def place(x: torch.Tensor, spec: P, mesh) -> Placed:
+def place(x: torch.Tensor, spec: P, mesh, views: bool = False) -> Placed:
     """Split ``x`` into per-position pieces by ``spec`` (`fit_spec` first:
     a dim that does not divide stays whole). Each piece is made contiguous
     on its position's device, once per (block, device); a piece that is
     already so (a leading-dim block, or a whole tensor on its own device)
-    shares ``x``'s storage."""
+    shares ``x``'s storage. ``views``: ``x`` stays whole as the layout's
+    ``base`` and a piece on ``x``'s device is a view of it, contiguous or
+    not (only a piece on another device is a copy)."""
     spec = fit_spec(P(*spec), tuple(x.shape), mesh)
-    out = Placed(spec, x.shape, x.dtype, mesh, {})
+    out = Placed(spec, x.shape, x.dtype, mesh, {},
+                 base=x if views else None)
     for pos in mesh.positions():
         dev = mesh.device_at(pos)
         blk = out.block_of(pos)
         if (blk, dev) not in out.pieces:
-            out.pieces[(blk, dev)] = x[out._slices(blk)].to(dev).contiguous()
+            piece = x[out._slices(blk)]
+            out.pieces[(blk, dev)] = (
+                piece if views and dev == x.device
+                else piece.to(dev).contiguous())
     return out
 
 
-def place_tree(tree, specs, mesh):
+def place_tree(tree, specs, mesh, views: bool = False):
     """`place` over matching trees of tensors and specs."""
-    return tree_map(lambda x, s: place(x, s, mesh), tree, specs)
+    return tree_map(lambda x, s: place(x, s, mesh, views), tree, specs)
+
+
+def is_placed(x) -> bool:
+    return isinstance(x, Placed)
+
+
+def whole_tree(tree):
+    """A tree of `Placed` layouts (or tensors) as whole tensors on the
+    controller's device (`Placed.whole`: no copy for views=True
+    layouts)."""
+    return tree_map(lambda p: p.whole() if isinstance(p, Placed) else p,
+                    tree, is_leaf=is_placed)
 
 
 def gather_tree(tree, device):

@@ -1,17 +1,34 @@
-"""Step builders on one device: train_step / prefill_step / serve_step per
-(architecture x shape cell) (PyTorch port of `repro/launch/steps.py`).
+"""Step builders: train_step / prefill_step / serve_step per (architecture
+x shape cell) (PyTorch port of `repro/launch/steps.py`).
 
 `make_train_step` keeps the reference's order of operations
 (`repro/launch/steps.py:144-220`): the global batch splits into
-``n_micro = global_batch // microbatch`` microbatches (every leaf of the
-batch: tokens and labels, an enc-dec batch's frames, a VLM batch's patch
-embeddings); microbatch ``i`` runs under ``key = fold_in(rng, i)``; its
-loss is the chunked cross entropy over non-negative labels plus ``0.01 *
-aux`` (`make_micro_grad`); gradients are taken with `torch.autograd.grad`
-and accumulated in f32 as ``g_acc + g / n_micro``; one ``opt_update(grads,
-opt_state, params, lr_scale)`` ends the step. Every family trains: the
-transformer (dense and MoE), xlstm, rglru and the enc-dec model, each
-block (pair, unit, layer) recomputed in the backward.
+``n_micro = global_batch // (dp_total * microbatch)`` microbatches (every
+leaf of the batch: tokens and labels, an enc-dec batch's frames, a VLM
+batch's patch embeddings); microbatch ``i`` runs under ``key =
+fold_in(rng, i)``; its loss is the chunked cross entropy over
+non-negative labels plus ``0.01 * aux`` (`make_micro_grad`); gradients
+are taken with `torch.autograd.grad` and accumulated in f32 as ``g_acc +
+g / n_micro``; one ``opt_update(grads, opt_state, params, lr_scale)``
+ends the step. Every family trains: the transformer (dense and MoE),
+xlstm, rglru and the enc-dec model, each block (pair, unit, layer)
+recomputed in the backward, with f32 or bf16 parameters.
+
+On a mesh (`launch.mesh.Mesh`; positions folded onto torch devices) the
+step runs inside the ambient mesh (`compat.use_mesh`): the parameters,
+optimizer state and batch are placed by the reference's specs
+(`fit_specs` of `get_param_specs` / `get_opt_specs` / `batch_specs`,
+views on the controller's device: no copy), ``dp_total`` is the data
+axes' size, and each microbatch is ONE forward and backward over all its
+``dp_total * microbatch`` rows, which keeps the dynamic DAC scale and MoE
+routing batch-global as XLA keeps them. The model axis is per-position
+work inside that pass (column pieces of every programmed projection, the
+expert STE per position's experts, `moe._moe_sharded` digitally). The
+positions share the controller's device, so the f32 gradient
+accumulators, the optimizer update and the new trees are whole tensors
+(one add per leaf, `optim` unchanged), and the new trees come back
+placed by the specs as views of them. ``mesh=None`` runs the same code
+as one position.
 
 `make_prefill_step` / `make_serve_step` build the serving cells on
 `runtime.engine.static_prefill_closure` / `static_decode_closure`, the
@@ -25,19 +42,23 @@ it). ``program`` (an `AimcProgram` or a `CoreSchedule`) means
 program-once serving: the parameters carry installed crossbar states.
 `StepBundle.abstract_inputs` holds the step's inputs as ``meta`` tensors
 (`_serve_params_shape`, `input_specs`), built without allocating a
-weight. The reference's sharding arguments have no counterpart on one
-device; a mesh and bf16 parameters raise, queued in ROADMAP.md.
+weight. The serving cells run on one device: a mesh raises there (the
+sharded serving cells are queued in ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
 import torch
 
+from repro_torch import compat
 from repro_torch.configs import ArchSpec, ShapeCell
 from repro_torch.core import prng
+from repro_torch.launch import shardings as sh
+from repro_torch.launch.mesh import axis_size, dp_axes
 from repro_torch.models.layers import Execution
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.adamw import tree_leaves
@@ -121,20 +142,11 @@ def _model_forward_hidden(model, spec: ArchSpec, cfg, exe: Execution):
     return fwd
 
 
-def check_trainable(spec: ArchSpec) -> None:
-    """Raise for what the port cannot train yet (ROADMAP.md queues it):
-    bf16 parameters."""
-    if spec.param_dtype != "float32":
-        raise NotImplementedError(
-            f"{spec.arch_id} trains {spec.param_dtype} parameters; weight "
-            f"init draws f32 only and bf16 init is not ported (ROADMAP.md)")
-
-
 def _check_one_device(mesh):
     if mesh is not None:
         raise NotImplementedError(
-            "a sharded step needs the mesh slice (ROADMAP.md); the port "
-            "trains and serves on one device (mesh=None)")
+            "the sharded serving cells are not ported (ROADMAP.md); the "
+            "port's prefill and decode cells run on one device (mesh=None)")
 
 
 def _tree_with(tree, leaves):
@@ -155,15 +167,13 @@ def make_micro_grad(spec: ArchSpec, exe: Execution = Execution()):
     ``(params, mb, key) -> (loss, grads)``, the forward's hidden states
     into `chunked_ce` over ``mb["labels"]`` (loss + 0.01 x aux is
     differentiated, the loss returned detached), gradients one per leaf of
-    ``params`` in `tree_leaves` order (None where a leaf is unused). What
-    the port cannot train (`check_trainable`) builds, and raises when
-    called."""
+    ``params`` in `tree_leaves` order (None where a leaf is unused), each
+    in its leaf's dtype (bf16 parameters get bf16 gradients)."""
     cfg = spec.model_cfg
     model = spec.model_module()
     fwd = _model_forward_hidden(model, spec, cfg, exe)
 
     def micro_grad(params, mb, key):
-        check_trainable(spec)
         leaves = tree_leaves(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
         p = _tree_with(params, live)
@@ -178,32 +188,53 @@ def make_micro_grad(spec: ArchSpec, exe: Execution = Execution()):
     return micro_grad
 
 
+def train_specs(mesh, params, opt_state):
+    """(param specs, optimizer-state specs) of a train step's trees on
+    ``mesh``: the reference's `get_param_specs` / `get_opt_specs`, fitted
+    to the shapes (`fit_specs`)."""
+    wp, wo = sh.whole_tree(params), sh.whole_tree(opt_state)
+    return (sh.fit_specs(sh.get_param_specs(wp, mesh), wp, mesh),
+            sh.fit_specs(sh.get_opt_specs(wo, wp, mesh), wo, mesh))
+
+
 def make_train_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
                     exe: Execution = Execution(), lr_scale: float = 1.0):
     """The training step ``(params, opt_state, batch, rng) -> (params,
-    opt_state, metrics)`` on one device; ``rng`` is a [2] key."""
-    _check_one_device(mesh)
+    opt_state, metrics)``; ``rng`` is a [2] key. ``mesh=None`` is one
+    position on the parameters' device: plain trees in and out. On a mesh
+    the step takes plain or placed trees (`Placed` leaves are read whole)
+    and returns the new parameters and optimizer state placed by
+    `train_specs`, as views of the whole tensors."""
     _, opt_update, _ = make_optimizer(spec.optimizer)
-    n_micro = max(1, cell.global_batch // spec.microbatch)
+    dp_total = 1 if mesh is None else axis_size(mesh, dp_axes(mesh))
+    n_micro = max(1, cell.global_batch // (dp_total * spec.microbatch))
     micro_grad = make_micro_grad(spec, exe)
 
     def train_step(params, opt_state, batch, rng):
+        params, opt_state, batch = (sh.whole_tree(t)
+                                    for t in (params, opt_state, batch))
         micro = {k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])
                  for k, v in batch.items()}
         leaves = tree_leaves(params)
         g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in leaves]
         loss_acc = 0.0
-        for i in range(n_micro):
-            mb = {k: v[i] for k, v in micro.items()}
-            loss, grads = micro_grad(params, mb, prng.fold_in(rng, i))
-            for a, g in zip(g_acc, grads):
-                if g is not None:
-                    a.add_(g.to(torch.float32) / n_micro)
-            del grads
-            loss_acc = loss_acc + loss / n_micro
+        with (compat.use_mesh(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            for i in range(n_micro):
+                mb = {k: v[i] for k, v in micro.items()}
+                loss, grads = micro_grad(params, mb, prng.fold_in(rng, i))
+                for a, g in zip(g_acc, grads):
+                    if g is not None:
+                        a.add_(g.to(torch.float32) / n_micro)
+                del grads
+                loss_acc = loss_acc + loss / n_micro
         new_params, new_opt, metrics = opt_update(
             _tree_with(params, g_acc), opt_state, params, lr_scale)
+        if mesh is not None:
+            pspecs, ospecs = train_specs(mesh, new_params, new_opt)
+            new_params = sh.place_tree(new_params, pspecs, mesh, views=True)
+            new_opt = sh.place_tree(new_opt, ospecs, mesh, views=True)
         return new_params, new_opt, dict(metrics, loss=loss_acc)
 
     return StepBundle(train_step, (abstract_batch(spec, cell),))

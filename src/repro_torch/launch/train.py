@@ -1,4 +1,4 @@
-"""Training CLI on one device (PyTorch port of `repro/launch/train.py`).
+"""Training CLI (PyTorch port of `repro/launch/train.py`).
 
     python -m repro_torch.launch.train --arch olmoe-1b-7b --layers 4 \\
         --steps 4 --global-batch 8 --seq-len 2048 [--exec aimc]
@@ -10,14 +10,25 @@
         --device cpu --steps 4
     python -m repro_torch.launch.train --arch seamless-m4t-large-v2 \\
         --global-batch 2 --seq-len 4096 --steps 2
+    python -m repro_torch.launch.train --arch olmoe-1b-7b --layers 4 \\
+        --mesh 2x2 --steps 2 --global-batch 8 --seq-len 2048
 
-The loop wires the substrate together as the reference's does: the
-restart-exact data pipeline (`data.pipeline.host_batch`), the one-device
-train step (`launch.steps.make_train_step`: microbatched gradient
-accumulation, every block recomputed in the backward), resume from the
-newest checkpoint in ``--ckpt-dir``, a straggler monitor and a heartbeat
-file, `resilient_step`, `checkpoint.save_async` every ``--ckpt-every``
-steps and a final save. ``--exec aimc`` trains through the on-the-fly
+The loop wires the substrate together as the reference's does, inside the
+ambient mesh (`compat.use_mesh`): the restart-exact data pipeline
+(`data.pipeline.host_batch`, placed over the data positions by
+`make_global_array` when the mesh has more than one position), the
+sharded train step (`launch.steps.make_train_step` on the mesh:
+microbatched gradient accumulation, every block recomputed in the
+backward), resume from the newest checkpoint in ``--ckpt-dir`` onto the
+mesh, a straggler monitor and a heartbeat file, `resilient_step`,
+`checkpoint.save_async` every ``--ckpt-every`` steps and a final save.
+``--mesh`` is the reference's: ``DxM`` is (data, model), ``PxDxM`` (pod,
+data, model). The mesh's positions fold round-robin onto ``--device``'s
+devices (``cuda``: every visible card; one H100 holds all four positions
+of ``2x2``), and the fold is printed as ``serve --mesh`` prints it.
+Parameters are initialised in the arch's ``param_dtype``: arctic-480b's
+bf16 leaves are drawn in f32 on the reference's keys and rounded one
+matrix at a time. ``--exec aimc`` trains through the on-the-fly
 crossbar (`core.aimc.aimc_linear_ste`): as in the reference CLI its
 `AimcConfig` has noise DISABLED, so the run trains with quantization and
 no noise; noise-aware training drives `make_train_step` with a noisy
@@ -36,10 +47,9 @@ here, and the first update turns the parameters non-finite.
 Port flags: ``--device`` (default cuda; cpu must be asked for) and
 ``--layers N`` (a depth cut: xlstm takes an even N, whole mLSTM/sLSTM
 pairs; rglru's N = 3k gives k units and no tail; the enc-dec family has
-two stacks and refuses it). ``--mesh`` takes only 1x1 (one device; the
-mesh slice is queued in ROADMAP.md); ``--no-xla-tuning`` is accepted and
-does nothing (there are no XLA flags here). bf16 parameters (arctic-480b)
-raise. `main` returns a `TrainRun` with every step's loss.
+two stacks and refuses it). ``--no-xla-tuning`` is accepted and does
+nothing (there are no XLA flags here). `main` returns a `TrainRun` with
+every step's loss and the final trees whole on the controller's device.
 """
 
 from __future__ import annotations
@@ -58,7 +68,8 @@ def parse_args(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--mesh", default="1x1",
-                    help="only 1x1: the port trains on one device")
+                    help="DxM or PxDxM, e.g. 2x2 or 2x1x2; the positions "
+                         "fold onto --device's devices")
     ap.add_argument("--global-batch", type=int, default=0,
                     help="0 = the train_4k cell's batch (or 4 with --smoke)")
     ap.add_argument("--seq-len", type=int, default=0)
@@ -82,8 +93,9 @@ def parse_args(argv=None):
 
 @dataclasses.dataclass
 class TrainRun:
-    """What a run leaves: the final trees and each step's loss and host
-    wall time (a step's wall includes its device sync for the loss)."""
+    """What a run leaves: the final trees (whole on the controller's
+    device) and each step's loss and host wall time (a step's wall
+    includes its device sync for the loss)."""
     params: dict
     opt_state: object
     losses: dict                 # step -> loss (float)
@@ -94,31 +106,27 @@ class TrainRun:
 
 def main(argv=None) -> TrainRun:
     args = parse_args(argv)
-    if args.mesh != "1x1":
-        raise SystemExit(
-            f"--mesh {args.mesh}: the port trains on one device; the "
-            f"sharded train step waits for the mesh slice (ROADMAP.md)")
 
-    from repro_torch.checkpoint import checkpoint
+    from repro_torch import compat
     from repro_torch.configs import ShapeCell, get_arch
     from repro_torch.core.aimc import AimcConfig
-    from repro_torch.core.prng import PRNGKey
-    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.launch.mesh import make_mesh, visible_devices
     from repro_torch.launch.serve import resolve_device
-    from repro_torch.launch.steps import check_trainable, make_step
     from repro_torch.models.layers import Execution
-    from repro_torch.optim import make_optimizer
-    from repro_torch.optim.schedule import warmup_cosine
-    from repro_torch.runtime.fault_tolerance import (Heartbeat,
-                                                     StragglerMonitor,
-                                                     resilient_step)
 
-    try:
-        spec = get_arch(args.arch)
-        check_trainable(spec)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from e
+    spec = get_arch(args.arch)
     device = resolve_device(args.device)
+    try:
+        shape = tuple(int(v) for v in args.mesh.split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {args.mesh!r}: expected DxM or PxDxM") \
+            from None
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        raise SystemExit(f"--mesh {args.mesh!r}: expected DxM or PxDxM, "
+                         f"each size >= 1")
+    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}[len(shape)]
+    mesh = make_mesh(shape, axes, visible_devices(str(device)))
+    print(f"[train] {mesh.describe()}")
     cfg = spec.smoke_cfg if args.smoke else spec.model_cfg
     if args.layers:
         if spec.family == "audio":
@@ -141,10 +149,29 @@ def main(argv=None) -> TrainRun:
     exe = (Execution(mode="aimc", aimc=AimcConfig(), compute_dtype=cdtype)
            if args.exec_mode == "aimc" else Execution(compute_dtype=cdtype))
 
-    bundle = make_step(spec, cell, None, exe)
+    with compat.use_mesh(mesh):
+        return _loop(args, spec, cfg, cell, exe, mesh, device, gb, sl)
+
+
+def _loop(args, spec, cfg, cell, exe, mesh, device, gb, sl) -> TrainRun:
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.data.pipeline import (DataConfig, host_batch,
+                                           make_global_array)
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.launch.steps import make_step, train_specs
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.runtime.fault_tolerance import (Heartbeat,
+                                                     StragglerMonitor,
+                                                     resilient_step)
+
+    bundle = make_step(spec, cell, mesh, exe)
     model = spec.model_module()
     t0 = time.time()
-    params = model.init(PRNGKey(args.seed), cfg, device=device)
+    params = model.init(PRNGKey(args.seed), cfg,
+                        dtype=getattr(torch, spec.param_dtype), device=device)
     opt_state = make_optimizer(spec.optimizer)[0](params)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -152,8 +179,10 @@ def main(argv=None) -> TrainRun:
 
     start = 0
     if args.ckpt_dir:
+        pspecs, ospecs = train_specs(mesh, params, opt_state)
         got, tree, _ = checkpoint.restore_latest(
-            args.ckpt_dir, {"params": params, "opt": opt_state})
+            args.ckpt_dir, {"params": params, "opt": opt_state}, mesh,
+            {"params": pspecs, "opt": ospecs})
         if got is not None:
             params, opt_state = tree["params"], tree["opt"]
             start = got
@@ -189,6 +218,8 @@ def main(argv=None) -> TrainRun:
                                            device=device),
                      "tokens": batch["tokens"][:, :tgt],
                      "labels": batch["labels"][:, :tgt]}
+        if len(mesh.devices) > 1:
+            batch = make_global_array(batch, mesh, sh.P(dp_axes(mesh), None))
         rng = torch.tensor([args.seed, step], dtype=torch.int64)
         lr = float(warmup_cosine(step, total=args.steps))
         params, opt_state, metrics = safe_step(params, opt_state, batch, rng)
@@ -213,7 +244,8 @@ def main(argv=None) -> TrainRun:
         checkpoint.save(args.ckpt_dir, args.steps,
                         {"params": params, "opt": opt_state})
     print("[train] done")
-    return TrainRun(params, opt_state, losses, step_s, start, init_s)
+    return TrainRun(sh.whole_tree(params), sh.whole_tree(opt_state), losses,
+                    step_s, start, init_s)
 
 
 if __name__ == "__main__":

@@ -24,11 +24,13 @@ counterpart on one card.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch import compat
 from repro_torch.core import prng
 from repro_torch.core.aimc import (AimcConfig, AimcLinearState, aimc_apply,
                                    aimc_apply_experts, aimc_apply_stacked,
@@ -62,6 +64,77 @@ def layer_slice(tree: dict, i: int) -> dict:
     return {name: ({k: v[i] for k, v in leaf.items()}
                    if isinstance(leaf, dict) else leaf[i])
             for name, leaf in tree.items()}
+
+
+def _bf16_scatter_add(tok, rows, shape, dtype):
+    """A zero ``shape`` table plus ``rows`` at ``tok``, added in ``tok``
+    order with a rounding to ``dtype`` after every add, as XLA adds a
+    bf16 scatter's updates one by one. The adds run one occurrence rank
+    at a time: rank k holds each token's k-th position, so no two updates
+    of one pass hit the same row. One host read (the ranks' sizes)."""
+    order = torch.argsort(tok, stable=True)
+    st = tok[order]
+    pos = torch.arange(st.numel(), device=tok.device)
+    first = torch.ones_like(st, dtype=torch.bool)
+    first[1:] = st[1:] != st[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    by_rank = order[torch.argsort(rank, stable=True)]
+    acc = torch.zeros(shape, dtype=dtype, device=rows.device)
+    lo = 0
+    for n in torch.bincount(rank).tolist():
+        sel = by_rank[lo:lo + n]
+        lo += n
+        t = tok[sel]
+        acc[t] = (acc[t].to(torch.float32)
+                  + rows[sel].to(torch.float32)).to(dtype)
+    return acc
+
+
+class _EmbedLookup(torch.autograd.Function):
+    """Rows ``tokens`` of a bf16 table, as ``dtype``; the backward is the
+    reference's bf16 scatter-add: each row gradient rounded to bf16 (the
+    gather's own dtype, as the reference's cast does), then added to its
+    table row in token order in bf16 (`_bf16_scatter_add`). Under an
+    ambient mesh with ``ndp`` data positions dividing the batch, each data
+    shard's rows make their own table, and the shards' tables are added
+    in shard order in bf16, as XLA partitions the scatter over the data
+    axes."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, dtype):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table[tokens].to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        mesh = compat.current_mesh()
+        ndp = 1 if mesh is None else math.prod(
+            mesh.shape[a] for a in mesh.axis_names if a != "model")
+        if tokens.dim() < 2 or tokens.shape[0] % ndp:
+            ndp = 1
+        rows = g.to(ctx.table_dtype)
+        acc = None
+        for tk, rw in zip(tokens.chunk(ndp), rows.chunk(ndp)):
+            part = _bf16_scatter_add(tk.reshape(-1).long(),
+                                     rw.reshape(-1, ctx.table_shape[-1]),
+                                     ctx.table_shape, ctx.table_dtype)
+            acc = part if acc is None else (
+                acc.to(torch.float32) + part.to(torch.float32)).to(
+                    ctx.table_dtype)
+        return acc, None, None
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """``table[tokens].to(dtype)``; a bf16 table that needs a gradient
+    takes `_EmbedLookup`, whose backward adds a repeated token's row
+    gradients in bf16 in token order, per data shard under a mesh, as the
+    reference's scatter does (the same forward bits)."""
+    if table.dtype == torch.bfloat16 and table.requires_grad:
+        return _EmbedLookup.apply(table, tokens, dtype)
+    return table[tokens].to(dtype)
 
 
 def as_weight(w, dtype: torch.dtype) -> torch.Tensor:
@@ -346,26 +419,22 @@ def gelu_mlp(x, w_in, b_in, w_out, b_out, exe: Execution, key=None):
     return linear(h, w_out, exe, k2, b_out)
 
 
-def _f32_only(dtype):
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"weight init draws f32 normals on JAX's keys; {dtype} is not "
-            f"ported yet")
-
-
 def dense_init(key: torch.Tensor, k: int, n: int, dtype=torch.float32,
                device="cuda") -> torch.Tensor:
     """N(0, 2/(k+n)) weights [k, n] from a JAX-compatible key
-    (`core.prng`), the reference's draw and f32 scaling."""
-    _f32_only(dtype)
-    return prng.normal(key, (k, n), device=device) * (2.0 / (k + n)) ** 0.5
+    (`core.prng`), the reference's draw and f32 scaling, rounded to
+    ``dtype`` (bf16 parameters: the reference's ``astype`` after its f32
+    init, one matrix at a time)."""
+    w = prng.normal(key, (k, n), device=device) * (2.0 / (k + n)) ** 0.5
+    return w if dtype == torch.float32 else w.to(dtype)
 
 
 def embed_init(key: torch.Tensor, v: int, d: int, dtype=torch.float32,
                device="cuda") -> torch.Tensor:
-    """N(0, 0.02^2) embeddings [v, d] from a JAX-compatible key."""
-    _f32_only(dtype)
-    return prng.normal(key, (v, d), device=device) * 0.02
+    """N(0, 0.02^2) embeddings [v, d] from a JAX-compatible key, rounded
+    to ``dtype``."""
+    w = prng.normal(key, (v, d), device=device) * 0.02
+    return w if dtype == torch.float32 else w.to(dtype)
 
 
 def stack_init(key: torch.Tensor, l: int, k: int, n: int,

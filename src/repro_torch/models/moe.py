@@ -22,8 +22,17 @@ training: programmed per expert on every call, one launch, a batched
 straight-through backward). A ``key`` splits into E x 3 keys, expert e's
 gate, up and down keys, as the reference does. Digitally, raw expert
 weights run three batched matmuls. The aux loss and the combine are
-differentiable. The reference's `_moe_sharded` (expert parallelism over a
-``model`` mesh axis) waits for the mesh slice.
+differentiable.
+
+Under an ambient mesh (`compat.use_mesh`) with a ``model`` axis and more
+than one data position, a digital MoE takes `_moe_sharded`, the
+reference's expert parallelism with explicit locality: each data shard
+of the tokens is dispatched on its own with a per-shard capacity
+``max(1, cap // ndp)``, each model position runs the expert FFN on its
+``E / M`` experts over every shard's capacity rows, and each shard
+combines from its own rows. Capacity, and so which assignments drop, is
+per shard: the tokens differ from the unsharded dispatch's wherever an
+expert overflows one shard and not the whole.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import os
 
 import torch
 
+from repro_torch import compat
 from repro_torch.core import prng
 from repro_torch.core.aimc import AimcLinearState
 from repro_torch.models.layers import Execution, as_weight, linear
@@ -81,6 +91,11 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     cap = capacity(t, top_k, e, capacity_factor)
     gate_vals, gate_idx, aux = route(x, router_w, top_k)
     xd = x.to(exe.cdtype)
+    if not os.environ.get("REPRO_MOE_EINSUM"):
+        y = _moe_sharded(xd, gate_idx, gate_vals, w_gate, w_up, w_down, e,
+                         cap, top_k, exe)
+        if y is not None:
+            return y.to(exe.cdtype), aux
     if os.environ.get("REPRO_MOE_EINSUM"):
         xe, combine = _dispatch_einsum(xd, gate_idx, gate_vals, e, cap,
                                        top_k)
@@ -106,6 +121,72 @@ def _experts(xe, w_gate, w_up, w_down, exe: Execution, key=None):
     g = linear(xe, w_gate, exe, keys[0])
     u = linear(xe, w_up, exe, keys[1])
     return linear(torch.nn.functional.silu(g) * u, w_down, exe, keys[2])
+
+
+def _moe_sharded(xd, gate_idx, gate_vals, w_gate, w_up, w_down, e: int,
+                 cap: int, top_k: int, exe: Execution):
+    """Expert parallelism with explicit locality under the ambient mesh
+    (the reference's `_moe_sharded`, `repro/models/moe.py:105-175`):
+
+      1. dispatch: data shard s (rows ``[s T/ndp, (s+1) T/ndp)``, the
+         data axes row-major) sorts its tokens into its own
+         ``[E, cap_loc, d]`` buffer, ``cap_loc = max(1, cap // ndp)``;
+         the buffers are laid side by side as the reference's
+         ``P(None, dp, None)``, shard-major capacity rows ``[E, ndp *
+         cap_loc, d]``;
+      2. expert FFN: model position j runs experts ``[j E/M, (j+1) E/M)``
+         over all those rows, on its device;
+      3. combine: shard s gathers its tokens' rows from its own
+         ``[E * cap_loc + 1]`` rows (the last one the zero overflow row).
+
+    Returns None wherever the reference does: no ambient mesh, no
+    ``model`` axis, the ``aimc`` mode or a programmed stack, one data
+    position, or tokens or experts that do not divide."""
+    mesh = compat.current_mesh()
+    if (mesh is None or "model" not in mesh.axis_names
+            or exe.mode == "aimc" or isinstance(w_gate, AimcLinearState)):
+        return None
+    ndp = 1
+    for a in mesh.axis_names:
+        if a != "model":
+            ndp *= mesh.shape[a]
+    nmodel = mesh.shape["model"]
+    t, d = xd.shape
+    cap_loc = max(1, cap // ndp)
+    if ndp == 1 or t % ndp or e % nmodel:
+        return None
+    tl = t // ndp
+    xes, slots = [], []
+    for s in range(ndp):
+        xe_s, slot_s = _dispatch_sort(xd[s * tl:(s + 1) * tl],
+                                      gate_idx[s * tl:(s + 1) * tl], e,
+                                      cap_loc, top_k)
+        xes.append(xe_s)
+        slots.append(slot_s)
+    xe = torch.cat(xes, dim=1)                       # [E, ndp*cap_loc, d]
+    el = e // nmodel
+    from repro_torch.core.aimc import _model_devices
+    ye = torch.cat([
+        _experts(xe[j * el:(j + 1) * el].to(dev),
+                 *(_expert_rows(w, slice(j * el, (j + 1) * el), dev)
+                   for w in (w_gate, w_up, w_down)), exe).to(xd.device)
+        for j, dev in enumerate(_model_devices(mesh))], dim=0)
+    ye = ye.to(exe.cdtype)
+    out = []
+    for s in range(ndp):
+        ye_s = ye[:, s * cap_loc:(s + 1) * cap_loc].reshape(e * cap_loc, d)
+        ye_flat = torch.cat([ye_s, ye_s.new_zeros((1, d))], dim=0)
+        gv = gate_vals[s * tl:(s + 1) * tl].to(exe.cdtype)
+        out.append(torch.einsum("tk,tkd->td", gv, ye_flat[slots[s]]))
+    return torch.cat(out, dim=0)
+
+
+def _expert_rows(w, sl: slice, device):
+    """Experts ``sl`` of a raw stack (or of an int8 {"q", "s"} pair) on
+    ``device``: a view where it already lies there."""
+    if isinstance(w, dict):
+        return {k: v[sl].to(device) for k, v in w.items()}
+    return w[sl].to(device)
 
 
 def _combine(ye, gate_vals, slot_o, combine, exe: Execution):

@@ -45,7 +45,7 @@ from repro_torch.core.aimc import AimcLinearState, stack_states
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (Execution, as_weight,
                                        decode_attention, dense_init,
-                                       embed_init,
+                                       embed_init, embed_lookup,
                                        expert_stack_init, flash_attention,
                                        linear, linear_stack, layer_slice,
                                        rmsnorm, rope, stack_init, swiglu)
@@ -275,7 +275,7 @@ def forward(params, tokens, cfg: TransformerConfig, exe: Execution = None,
 
 def embed_tokens(params, tokens, cfg: TransformerConfig, exe: Execution,
                  patch_embeds=None):
-    h = params["embed"][tokens].to(exe.cdtype)
+    h = embed_lookup(params["embed"], tokens, exe.cdtype)
     if cfg.n_patches and patch_embeds is not None:
         # VLM frontend stub: positions [0, n_patches) carry precomputed
         # patch embeddings instead of token embeddings
@@ -352,7 +352,7 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig,
     exe = exe or Execution()
     b = tokens.shape[0]
     dev = tokens.device
-    h = params["embed"][tokens].to(exe.cdtype)
+    h = embed_lookup(params["embed"], tokens, exe.cdtype)
     lens = cache["len"]
     positions = lens[:, None]
     max_seq = cache["k"].shape[2]

@@ -161,9 +161,35 @@ def test_checkpoint_save_async(tmp_path):
 
 
 def test_checkpoint_mesh_restore_raises(tmp_path):
-    checkpoint.save(str(tmp_path), 1, _tree())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        checkpoint.restore_latest(str(tmp_path), _tree(), mesh=object())
+    """Restoring onto a mesh raises where a leaf's shape differs from the
+    target's, as a plain restore does; otherwise each leaf comes back
+    placed by its spec (views of one whole tensor per leaf)."""
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import shardings as ts
+    m = tmesh.make_mesh((2, 2), ("data", "model"), ["cpu"])
+    tree = _tree()
+    checkpoint.save(str(tmp_path), 1, tree)
+    specs = ts.tree_map(lambda x: ts.P(*(["data"] + [None] * (x.dim() - 1))
+                                       if x.dim() else ()), tree)
+    bad = ts.tree_map(lambda x: torch.zeros(tuple(s + 1 for s in x.shape),
+                                            dtype=x.dtype), tree)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        checkpoint.restore_latest(str(tmp_path), bad, mesh=m, pspecs=specs)
+    got, placed, _ = checkpoint.restore_latest(str(tmp_path), tree, mesh=m,
+                                               pspecs=specs)
+    assert got == 1
+    ts.tree_map(lambda p, x: _same_placed(p, x), placed, tree,
+                is_leaf=ts.is_placed)
+
+
+def _same_placed(p, x):
+    assert ts_is_views(p) and torch.equal(p.whole(), x)
+
+
+def ts_is_views(p):
+    return p.base is not None and all(
+        t.untyped_storage().data_ptr() == p.base.untyped_storage().data_ptr()
+        for t in p.pieces.values())
 
 
 # across the two packages

@@ -51,7 +51,10 @@ def test_every_module_is_listed():
                  "repro_torch.models.encdec",
                  "repro_torch.configs.seamless_m4t_large_v2",
                  "repro_torch.launch.modelstats",
-                 "repro_torch.launch.mesh", "repro_torch.launch.shardings"):
+                 "repro_torch.launch.mesh", "repro_torch.launch.shardings",
+                 "repro_torch.compat", "repro_torch.core.aimc",
+                 "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+                 "repro_torch.kernels.cprng", "repro_torch.models.layers"):
         assert must in mods
 
 

@@ -37,7 +37,10 @@ engine's K2 launches per pass follow the state in force.
 Sharded serving: K2, K3 and the expert entry launched over column pieces
 (`core.aimc.split_columns`, one launch per piece with the whole x's DAC
 scale) concatenate to the whole launch bit for bit at three shapes each,
-one of them with pieces in another grid mode than the whole.
+one of them with pieces in another grid mode than the whole. The pieces
+are views of the whole's codes (the kernels read them at the whole's row
+stride); with a read key they draw the whole launch's noise (counter and
+"hw"), a contiguous copy of a piece too.
 """
 
 import torch_threads  # noqa: F401  (first: torch's thread budget)
@@ -901,3 +904,43 @@ def test_expert_entry_column_pieces_equal_whole_launch(dev, e, c, kb, np_,
     got = ta.aimc_apply_experts(split, x, cfg)
     assert aimc_mvm.LAUNCHES["aimc_mvm_experts"] == pieces
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_source", ["counter", "hw"])
+@pytest.mark.parametrize("b,kb,np_,pieces", [
+    (4, 8, 14336, 2),            # a split grid at decode
+    (8192, 4, 2048, 2)])         # olmoe's training projection
+def test_noisy_view_pieces_draw_the_whole_launch_noise(dev, b, kb, np_,
+                                                       pieces, noise_source):
+    """Column pieces that are views of the whole's codes (row stride = the
+    whole's Np, no copy) with a read key: each piece draws the whole
+    launch's noise for its columns (counter and "hw"), so the pieces
+    concatenate to the whole launch bit for bit; a contiguous copy of a
+    piece, given the same column offset, does too."""
+    import dataclasses
+
+    from repro_torch.core import aimc as ta
+    from repro_torch.core.noise import NoiseModel
+    from repro_torch.core.prng import PRNGKey
+    whole, split = _piece_state(dev, (), kb, np_, pieces, seed=b)
+    for p in split.pieces:
+        assert p.w_q.untyped_storage().data_ptr() == \
+            whole.w_q.untyped_storage().data_ptr()
+    cfg = ta.AimcConfig(noise=NoiseModel(sigma_read=0.01),
+                        noise_source=noise_source)
+    x = torch.randn((b, kb * 512), generator=torch.Generator(dev)
+                    .manual_seed(10), device=dev)
+    want = ta.aimc_apply(whole, x, cfg, PRNGKey(3))
+    assert not torch.equal(want, ta.aimc_apply(whole, x, cfg))
+    aimc_mvm.reset_counts()
+    got = ta.aimc_apply(split, x, cfg, PRNGKey(3))
+    name = "aimc_mvm_v2" + ("_hw" if noise_source == "hw" else "")
+    assert aimc_mvm.LAUNCHES[name] == pieces
+    assert torch.equal(got, want)
+    p = split.pieces[-1]
+    copy = ta.ColumnPiece(p.c0, p.c1, p.w_q.contiguous(),
+                          p.s_w.contiguous())
+    cp = ta.aimc_apply(dataclasses.replace(split, pieces=(
+        *split.pieces[:-1], copy)), x, cfg, PRNGKey(3))
+    assert torch.equal(cp, want)

@@ -21,7 +21,8 @@ kernel call per column piece (counted at the dispatch, the plain version
 here), the CM_* ledgers, `reconcile_cores` and `device_ledgers` against
 the schedule's totals; paged, prefix-cache, legged and snapshot runs equal
 to their single-device twins with the same books; a chaos run at a fixed
-DAC scale; rotation refused; a read key on a split state raises.
+DAC scale; rotation refused; a read key on a split state draws the
+whole's noise.
 Tolerance: tokens equal; books equal (integers). Every request arrives
 before the first decode step (rate 1e7), so both frameworks decode the same
 batches and with them the same dynamic DAC scale; the Poisson trace runs
@@ -408,5 +409,9 @@ def test_rotation_refused_and_read_key_on_pieces_raises():
     y = ta.aimc_apply(st, x, cfg)
     whole = dataclasses.replace(st, pieces=())
     assert torch.equal(y, ta.aimc_apply(whole, x, cfg))
-    with pytest.raises(ValueError, match="read key"):
-        ta.aimc_apply(st, x, cfg, PRNGKey(1))
+    # a read key on the pieces draws the whole launch's noise: each piece's
+    # counters carry its column offset and the whole's width
+    noisy = dataclasses.replace(cfg, noise=type(cfg.noise)(sigma_read=0.01))
+    yk = ta.aimc_apply(st, x, noisy, PRNGKey(1))
+    assert torch.equal(yk, ta.aimc_apply(whole, x, noisy, PRNGKey(1)))
+    assert not torch.equal(yk, ta.aimc_apply(whole, x, noisy))

@@ -285,8 +285,9 @@ def test_column_pieces_follow_the_128_aligned_rule():
     placed = ts.place_aimc_state(st, spec, m4)
     assert [(p.c0, p.c1) for p in placed.pieces] == [
         (0, 256), (256, 512), (512, 768), (768, 1024)]
-    for p in placed.pieces:
-        assert p.w_q.is_contiguous() and p.s_w.is_contiguous()
+    for p in placed.pieces:     # views of the whole's codes: stored once
+        assert p.w_q.data_ptr() == st.w_q[..., p.c0:p.c1].data_ptr()
+        assert p.s_w.data_ptr() == st.s_w[..., p.c0:p.c1].data_ptr()
         assert torch.equal(p.w_q, st.w_q[..., p.c0:p.c1])
     assert placed[1].pieces[2].w_q.shape == (1, 512, 256)
     # the reference's rule is Np % M: 640 splits over 2 there, stays whole

@@ -249,8 +249,14 @@ def test_cli_resume_continues_from_checkpoint(tmp_path):
     ["--arch", "arctic-480b"]],
     ids=["mesh", "bf16-params"])
 def test_cli_refuses_what_is_not_ported(argv):
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        ttrain.main(argv + ["--smoke", "--device", "cpu", "--steps", "1"])
+    """What the CLI refused until sharded training was ported (a mesh
+    other than 1x1, bf16 parameters) now trains one finite step; a mesh
+    spelling the reference does not parse is still refused."""
+    run = ttrain.main(argv + ["--smoke", "--device", "cpu", "--steps", "1"])
+    assert np.isfinite(run.losses[0])
+    with pytest.raises(SystemExit, match="DxM"):
+        ttrain.main(argv[:2] + ["--mesh", "2x2x2x2", "--smoke", "--device",
+                                "cpu", "--steps", "1"])
 
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "xlstm-350m",
@@ -396,9 +402,9 @@ def test_train_step_matches_composed_reference_families(arch, monkeypatch):
 
 
 def test_make_step_refuses_serving_cells_and_meshes():
-    """A mesh is refused for every kind of cell (serving cells build on one
-    device now; `tests/test_torch_serve_steps.py` holds them to the
-    reference)."""
+    """A mesh is refused for the serving cells (they build on one device;
+    `tests/test_torch_serve_steps.py` holds them to the reference); a
+    train cell builds on one (`tests/test_torch_sharded_train.py`)."""
     spec = tget("llama3.2-3b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsteps.make_step(spec, ShapeCell("p", 16, 2, "prefill"),
@@ -406,9 +412,10 @@ def test_make_step_refuses_serving_cells_and_meshes():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsteps.make_step(spec, ShapeCell("d", 16, 2, "decode"),
                          mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_train_step(spec, ShapeCell("t", 16, 2, "train"),
-                               mesh=object())
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2, 1), ("data", "model"), ["cpu"])
+    assert callable(tsteps.make_step(spec, ShapeCell("t", 16, 2, "train"),
+                                     mesh=mesh).fn)
     assert tsteps.batch_kind(spec) == "lm"
     assert tsteps.batch_shapes(spec, ShapeCell("t", 16, 2, "train")) == {
         "tokens": ((2, 16), torch.int32), "labels": ((2, 16), torch.int32)}

@@ -215,23 +215,25 @@ def test_init_keeps_no_generator_and_refuses_unported():
     import inspect
     src = inspect.getsource(TM) + inspect.getsource(tl)
     assert "Generator" not in src
-    with pytest.raises(NotImplementedError):
-        tl.dense_init(prng.PRNGKey(0), 4, 4, dtype=torch.bfloat16,
-                      device="cpu")
-    with pytest.raises(NotImplementedError):
-        tl.expert_stack_init(prng.PRNGKey(0), 1, 2, 4, 4,
-                             dtype=torch.bfloat16, device="cpu")
+    # bf16 init (ported): the f32 draw on the same key, rounded once
+    k = prng.PRNGKey(0)
+    got = tl.expert_stack_init(k, 1, 2, 4, 4, dtype=torch.bfloat16,
+                               device="cpu")
+    want = tl.expert_stack_init(k, 1, 2, 4, 4, device="cpu")
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16))
 
 
 def test_unported_paths_raise():
-    """What is not ported raises (bf16 weight init; an unknown arch is a
-    KeyError); the on-the-fly AIMC linear is ported now and runs the
-    STE."""
+    """What is not there raises (an unknown arch is a KeyError); bf16
+    weight init and the on-the-fly AIMC linear are ported now: the init
+    rounds the f32 draw, the linear runs the STE."""
     with pytest.raises(KeyError):
         tget("no-such-arch")
-    with pytest.raises(NotImplementedError):
-        tl.dense_init(prng.PRNGKey(0), 4, 4, dtype=torch.bfloat16,
-                      device="cpu")
+    k = prng.PRNGKey(0)
+    assert torch.equal(
+        tl.dense_init(k, 4, 4, dtype=torch.bfloat16, device="cpu"),
+        tl.dense_init(k, 4, 4, device="cpu").to(torch.bfloat16))
     x = torch.linspace(-1.0, 1.0, 8).reshape(2, 4)
     w = torch.linspace(-0.5, 0.5, 16).reshape(4, 4)
     exe = TExe(mode="aimc", programmed=False, compute_dtype="float32")

@@ -7,11 +7,15 @@ noise, Philox ("hw") noise and K1's explicit noise operand. Each output of
 this checkout must equal the other's bit for bit; both are timed in turns
 (other, this, this, other; CUDA events, L2 read-flushed per launch).
 
-    python3 tools/kernel_ab.py --other DIR     # DIR: root of the other tree
+    python3 tools/kernel_ab.py --other DIR [--other-abi work|pre-work]
 
-The other tree's kernel is called through the C entry point it had before
-the launcher took a workspace (`aimc_mvm_launch` without the trailing
-`work` pointer). Results go to chiprun_out/kernel_ab.json.
+DIR is the root of the other tree. Its kernel is called through the C
+entry point of its time: ``work`` (the default) is `aimc_mvm_launch` with
+the trailing workspace pointer and no column-piece arguments, the entry
+from the launcher's workspace until the row stride and column offset came
+in; ``pre-work`` is the entry before the workspace. This tree's kernels
+run through their wrappers with the column-piece arguments at their
+defaults (the whole state). Results go to chiprun_out/kernel_ab.json.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 
-def build_other(other: Path) -> ctypes.CDLL:
+def build_other(other: Path, abi: str) -> ctypes.CDLL:
     from repro_torch.kernels import aimc_mvm
     src = other / "src" / "repro_torch" / "kernels" / "csrc" / "aimc_mvm.cu"
     out = ROOT / "chiprun_out" / "ab_build" / "libaimc_mvm_other.so"
@@ -43,8 +47,14 @@ def build_other(other: Path) -> ctypes.CDLL:
     lib.aimc_mvm_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_int,
-           ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
+           ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+        + ([ctypes.c_void_p] if abi == "work" else []))
     lib.aimc_mvm_launch.restype = ctypes.c_int
+    if abi == "work":
+        lib.aimc_mvm_plan.argtypes = ([ctypes.c_int] * 5
+                                      + [ctypes.POINTER(ctypes.c_longlong)])
+        lib.aimc_mvm_plan.restype = ctypes.c_int
+    lib.abi = abi
     return lib
 
 
@@ -60,13 +70,20 @@ def other_call(lib, x, w_q, s_w, s_x, seed, bias, noise, *, adc_step, sigma,
     packed = 0
     for i, a in enumerate(acts):
         packed |= _ACT_CODES[a] << (2 * i)
+    extra = []
+    if lib.abi == "work":
+        need = ctypes.c_longlong(0)
+        lib.aimc_mvm_plan(x.shape[0], kb, m, np_, g, ctypes.byref(need))
+        work = torch.empty(max(int(need.value), 16), dtype=torch.uint8,
+                           device=x.device)
+        extra = [work.data_ptr()]
     err = lib.aimc_mvm_launch(
         x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
         bias.data_ptr() if bias is not None else None,
         noise.data_ptr() if noise is not None else None, out.data_ptr(),
         x.shape[0], kb, m, np_, g, float(adc_step), float(sigma),
         int(seed) & 0xFFFFFFFF, int(stacked), packed, int(philox),
-        torch.cuda.current_stream().cuda_stream)
+        torch.cuda.current_stream().cuda_stream, *extra)
     if err:
         raise RuntimeError(f"other library launch failed: CUDA error {err}")
     return out
@@ -76,6 +93,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, required=True)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--other-abi", choices=("work", "pre-work"),
+                    default="work")
     args = ap.parse_args()
 
     import torch
@@ -93,7 +112,7 @@ def main() -> int:
                          text=True).stdout.strip().splitlines()[0]
     print(f"[ab] {smi}", flush=True)
     aimc_mvm.build()
-    other = build_other(args.other.resolve())
+    other = build_other(args.other.resolve(), args.other_abi)
     cfg = AimcConfig()
     step = cfg.adc_step
     gen = torch.Generator(device=dev).manual_seed(11)
