@@ -12,8 +12,11 @@ so the recurrent and enc-dec families (xlstm-350m and
 seamless-m4t-large-v2 uncut, recurrentgemma-9b at 3 of 38 layers), serve
 seamless-m4t-large-v2 uncut through the prefill and decode step builders,
 serve granite-8b and xlstm-350m sharded on a data:2,model:2 mesh of
-positions folded onto the card, train olmoe-1b-7b on that mesh and take a
-bf16 microbatch of arctic-480b at full width, and
+positions folded onto the card (granite-8b also through the sharded
+prefill and decode cells), train olmoe-1b-7b on that mesh and take a
+bf16 microbatch of arctic-480b at full width, serve granite-8b with
+per-call reprogramming against program-once, dry-run granite-8b's cells
+on the production mesh folded onto ``meta``, and
 run the paper's MLP, LSTM and CNN-F/M/S at theirs with read noise on,
 single-core and in the paper's multi-core mappings, through the
 hand-written Hopper kernels K1-K4 and K2's expert entry.
@@ -259,13 +262,13 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      families at their published widths, weights from seed 0 on JAX's keys,
      every block (pair, unit, layer) recomputed in the backward. (a)
      xlstm-350m uncut (24 layers): the train CLI digitally in bf16 at global
-     batch 2 x 64 (2 microbatches), 2 steps (finite losses, the last below
+     batch 2 x 32 (2 microbatches), 2 steps (finite losses, the last below
      the first, no crossbar launch), then `make_train_step` with the paper's
-     noise at 1 x 1024 (2 mLSTM chunks) and 2 of its 12 pairs (the sLSTM
+     noise at 1 x 1024 (2 mLSTM chunks) and 1 of its 12 pairs (the sLSTM
      loop's host time grows with batch, length and depth: a noise-on step
-     at 12 pairs took ~49 s, at 4 ~15 s), 2 steps: the last loss at most
-     1.05 x the first, exactly 44 K2 per step (11 per pair x 2 pairs x
-     forward and recompute), the sLSTM loops' host time read from a
+     at 12 pairs took ~49 s, at 4 ~15 s, at 2 7.8 s), 2 steps: the last
+     loss at most 1.05 x the first, exactly 22 K2 per step (11 per pair x
+     1 pair x forward and recompute), the sLSTM loops' host time read from a
      host-clock range. (b) recurrentgemma-9b at 3 of 38 layers (one unit:
      two RG-LRU blocks and a local-attention block), batch 1 x 4096 so the
      2048 window binds: the train step's own microbatch loss and gradients
@@ -277,9 +280,9 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      finite loss, and before the clip the pattern that the reference's zero
      frames give at this depth: some encoder gradients overflow, every
      decoder, norm, embedding and head gradient is finite (any other
-     non-finite pattern fails); then `make_train_step` on seeded random
-     frames with `batch_shapes`' 1024 target tokens, digitally and with
-     noise on, 2 steps each, 1536 K2 per noise-on step; the same bars as
+     non-finite pattern fails); then `make_train_step` on 1 x 4096 seeded
+     random frames with `batch_shapes`' 1024 target tokens, digitally and
+     with noise on, 2 steps each, 768 K2 per noise-on step; the same bars as
      (a). Counts are zeroed just before and read just after each leg. Each
      leg prints ms/step (host), tok/s, the profiled last step's device busy
      and idle share, K2 device ms and peak GB (the xlstm and seamless steps
@@ -287,7 +290,8 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      events took minutes; the xlstm and seamless noise-on legs' last steps
      are not traced at all: stopping the profiler over their ~10^6 kernels
      took ~25-50 s, and their host clocks and ranges are kept). (d) On the card at published
-     widths, uncut, digital f32: xlstm-350m's and recurrentgemma-9b's
+     widths, digital f32, xlstm-350m uncut and recurrentgemma-9b at 3 of
+     38 layers (one unit: both block kinds; its uncut init took 15 s):
      `forward` over 2 x 16 tokens equals 16 `decode_step`s at the last
      position within the reference's atol 5e-3. (e) One noise-on train
      step of each family's smoke config on the card and on the CPU from one
@@ -352,6 +356,16 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      CM_* lines and reconciled core books, K2 per pass equals the piece
      reckoning it prints (a state splits only where Np divides 128 x 2),
      and its tokens equal a single-device engine's on the CLI's own tree.
+     (f) The sharded serving cells: phase 5's prompts through
+     `launch.steps.make_step`'s prefill cell ([4 x 16], 24 cache rows)
+     and 7 decode-cell steps on data:2,model:2, the serve phase's program
+     under its 4-core schedule (`shard_aimc_states`), the DAC scale fixed
+     at 0.05: tokens bit-equal to phase 5's one-device cells, exactly 504
+     K2 per pass (each of the 252 states in two column pieces), counts
+     zeroed just before and read just after; placing the parameters by
+     the cell's specs adds at most MESH_PLACE_GB_MAX. Prefill ms and
+     decode ms/step (host clock) of the one-device and the mesh cells in
+     turns.
  24. sharded training — on `launch.mesh` data:2,model:2, four positions
      folded onto the card, weights from seed 0 on JAX's keys. (a)
      olmoe-1b-7b at its published widths (d_model 2048, 16 heads, 64
@@ -392,6 +406,24 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      and a contiguous copy of the piece with the same column offset, equal
      the whole launch's columns bit for bit and are within 1e-5 x max(1,
      max|y|) of the plain version on the view; piece and whole timed.
+ 25. reprogram (after phase 23) — `serve --reprogram`'s per-call path
+     against program-once on granite-8b at its published widths, uncut
+     (weights from seed 0, noise off, dynamic DAC scale): 4 synchronized
+     requests (prompt 16, gen 8, 4 slots) through a `ServeEngine` on the
+     installed program and one on the raw f32 weights with
+     ``Execution(programmed=False)``, which re-programs every projection
+     on every forward (`layers.linear` -> `aimc_linear_ste`): tokens
+     equal, K2 7 x 36 per pass on both (counts zeroed just before and
+     read just after each serve). Decode ms/step of both in turns and a
+     profiled step of each; the per-call programming's device ms is the
+     reprogram step's device busy less program-once's; init seconds and
+     peak GB.
+ 26. dryrun — `launch.dryrun.run_cell` for granite-8b's cells
+     (`configs.cells`) on the single production mesh, 256 positions folded
+     onto ``meta``: every cell builds; each record's argument GB per
+     position against the card's memory, model FLOPs per position and
+     lower bounds are printed with the card's name and memory read from
+     the device.
 
 The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
@@ -399,7 +431,8 @@ per-kernel JSON record (K2/K3 timed per granite layer at decode, K1/K4 per
 MLP forward, the expert entry per olmoe-1b-7b training layer and
 microbatch with read noise on, its launches those of phase 24's
 one-device noise-on oracle and, under ``sharded_train_launches``, those of
-the sharded noise-on step (K2's too); K2's max |err| covers its training
+the sharded noise-on step (K2's too; K2's ``mesh_cells_launches`` are phase
+23 (f)'s); K2's max |err| covers its training
 shapes of phases 21 and 24 and its serving shapes of phase 22, listed
 under ``train_shapes`` and ``serve_shapes`` as padded B x K -> N, and the
 view pieces of phase 24 (c), as do K3's, K4's and the expert entry's). Each phase's seconds are
@@ -434,9 +467,6 @@ LSTM_NH, LSTM_X, LSTM_T, LSTM_B = 750, 50, 20, 8
 CNN_IMG, CNN_B, CNN_CLASSES = 224, 8, 1000
 # the reference's multi-core configurations (benchmarks/bench_pipeline.py)
 MC_MLP_N, MC_LSTM_NH = 1024, 600
-# published dense peaks of the card (data sheets): bytes/s, int8 ops/s
-PEAKS = {"H200": (4.8e12, 1979e12), "H100 PCIe": (2.0e12, 1513e12),
-         "H100": (3.35e12, 1979e12)}
 
 
 def paper_noise():
@@ -457,10 +487,13 @@ def check(cond: bool, msg: str):
 
 
 def peaks_for(name: str):
-    for key, val in PEAKS.items():
-        if all(part in name for part in key.split()):
-            return val
-    fail(f"no published peaks for card {name!r}")
+    """(HBM bytes/s, int8 ops/s) of the card: its published dense peaks
+    (`launch.dryrun.CARDS`)."""
+    from repro_torch.launch.dryrun import peaks_of
+    peaks = peaks_of(name)
+    if peaks is None:
+        fail(f"no published peaks for card {name!r}")
+    return peaks["hbm_bytes_s"], peaks["int8_ops"]
 
 
 def flush_buffer(dev):
@@ -1365,6 +1398,117 @@ def mesh_xlstm(dev, mesh, card):
             "whole_states": split}
 
 
+def _cell_tokens(pre, dec, params, batch):
+    """The prefill cell, then GEN - 1 decode-cell steps -> (the tokens [B,
+    GEN] whole on the controller's device, the last cache)."""
+    import torch
+
+    from repro_torch.launch.shardings import whole_tree
+    tok, cache = pre.fn(params, batch)
+    out = [whole_tree(tok)]
+    for _ in range(GEN - 1):
+        tok, cache = dec.fn(params, cache, tok)
+        out.append(whole_tree(tok))
+    return torch.cat(out, dim=1), cache
+
+
+def _cell_times(pre, dec, params, batch, dev):
+    """Host-clock ms of the prefill cell and per decode-cell step (one
+    synchronised run of GEN - 1 steps)."""
+    import torch
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    tok, cache = pre.fn(params, batch)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    for _ in range(GEN - 1):
+        tok, cache = dec.fn(params, cache, tok)
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    return {"prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_step": (t2 - t1) * 1e3 / (GEN - 1)}
+
+
+def mesh_cells(run, mesh, card, want_tokens):
+    """(f) The static gate's prompts through `launch.steps.make_step`'s
+    prefill cell ([N_REQ x PROMPT], PROMPT + GEN cache rows) and GEN - 1
+    decode-cell steps on the mesh, the serve phase's program under its
+    4-core schedule, the DAC scale fixed at PREFIX_SCALE: the tokens equal
+    the one-device cells' (`granite_step_cells`) bit for bit; exactly 504
+    K2 per pass (each of the 252 states in two column pieces), counts
+    zeroed just before and read just after; placing the parameters by the
+    cell's specs adds at most MESH_PLACE_GB_MAX. Prefill ms and decode
+    ms/step of the one-device and mesh cells in turns, and a profiled
+    decode-cell step of each."""
+    import torch
+
+    from repro_torch.configs import ShapeCell, get_arch
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.steps import make_step
+    from repro_torch.runtime.batcher import synchronized_trace
+
+    eng = run.engine
+    dev = eng.device
+    spec = get_arch(ARCH)
+    exe_f = dataclasses.replace(eng.exe, aimc=dataclasses.replace(
+        eng.exe.aimc, input_scale=PREFIX_SCALE))
+    reqs = synchronized_trace(N_REQ, prompt_len=PROMPT, max_new=GEN,
+                              seed=SEED + 1, vocab=eng.cfg.vocab)
+    prompts = torch.tensor([r.prompt for r in reqs], dtype=torch.int32,
+                           device=dev)
+    seq = PROMPT + GEN
+    cells = {where: tuple(make_step(spec, ShapeCell(kind, seq, N_REQ, kind),
+                                    m, exe_f, program=prog)
+                          for kind in ("prefill", "decode"))
+             for where, m, prog in (("one device", None, run.program),
+                                    ("mesh", mesh, run.schedule))}
+    pre, dec = cells["mesh"]
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    params = sh.place_tree(eng.params, pre.in_specs[0], mesh, views=True)
+    batch = sh.place_tree({"tokens": prompts}, pre.in_specs[1], mesh,
+                          views=True)
+    torch.cuda.synchronize(dev)
+    place_gb = (torch.cuda.memory_allocated(dev) - before) / 1e9
+    per_pass = 7 * eng.cfg.n_layers * 2
+    aimc_mvm.reset_counts()
+    got, _ = _cell_tokens(pre, dec, params, batch)
+    torch.cuda.synchronize(dev)
+    counts = {k: v for k, v in aimc_mvm.LAUNCHES.items() if v}
+    check(counts == {"aimc_mvm_v2": per_pass * GEN},
+          f"granite mesh cells launches {counts} != {per_pass} x {GEN}")
+    check(got.tolist() == want_tokens, f"granite mesh cells tokens "
+          f"{got.tolist()} != the one-device cells' {want_tokens}")
+    check(place_gb <= MESH_PLACE_GB_MAX, f"placing the cells' parameters "
+          f"added {place_gb:.3f} GB (> {MESH_PLACE_GB_MAX})")
+    args = {"one device": (eng.params, {"tokens": prompts}),
+            "mesh": (params, batch)}
+    times = {k: [] for k in args}
+    for where in ("one device", "mesh", "mesh", "one device"):
+        times[where].append(_cell_times(*cells[where], *args[where], dev))
+    profiles = {}
+    for where, (p, d) in cells.items():
+        tok, cache = p.fn(*args[where])
+        profiles[where] = device_profile(
+            lambda: d.fn(args[where][0], cache, tok), dev)
+        print(f"[mesh] (f) {where} decode-cell step, profiled:", flush=True)
+        print_profile("mesh", profiles[where])
+    ms = {k: "; ".join(f"{t['prefill_ms']:.1f} / "
+                       f"{t['decode_ms_per_step']:.2f}" for t in v)
+          for k, v in times.items()}
+    print(f"[mesh] (f) granite-8b through make_step's cells on "
+          f"{mesh.describe()}: prefill [{N_REQ} x {PROMPT}] and {GEN - 1} "
+          f"decode-cell steps, tokens == the one-device cells' bit for bit, "
+          f"launches {counts} = {per_pass} K2 per pass; placing the "
+          f"parameters by the cell's specs added {place_gb:.3f} GB; prefill "
+          f"ms / decode ms per step (host clock, in turns one device/mesh/"
+          f"mesh/one device): one device {ms['one device']}; mesh "
+          f"{ms['mesh']}; on {card}", flush=True)
+    return {"launches": counts, "per_pass": per_pass, "place_gb": place_gb,
+            "times": times, "profiles": profiles}
+
+
 def mesh_pieces(run, mesh, flush, card):
     """(d) K2 at a granite decode shape, K3 at w_gu and the expert entry at
     an olmoe expert shape, on random codes: the pieces' launches
@@ -1437,7 +1581,7 @@ def mesh_pieces(run, mesh, flush, card):
     return out
 
 
-def mesh_phase(run, card):
+def mesh_phase(run, card, static):
     """Phase 23: sharded serving on data:2,model:2, four positions folded
     onto the card."""
     import torch
@@ -1449,11 +1593,149 @@ def mesh_phase(run, card):
     out = {"fold": mesh.fold(), "granite": mesh_granite(run, mesh, card)}
     gc.collect()
     torch.cuda.empty_cache()
+    out["cells"] = mesh_cells(run, mesh, card, static["make_step"]["tokens"])
+    gc.collect()
+    torch.cuda.empty_cache()
     flush = flush_buffer(dev)
     out["pieces"] = mesh_pieces(run, mesh, flush, card)
     del flush
     out["xlstm"] = mesh_xlstm(dev, mesh, card)
     return out
+
+
+def _busy_decode_step(eng, prompt):
+    """A decode step of ``eng`` with every slot holding ``prompt``'s
+    prefill (as `step_times` sets it up), as a closure."""
+    tokens, vl = eng._pad_prompt(prompt)
+    tok1, cache1 = eng._prefill_fn(tokens, vl)
+    sess = eng.begin()
+    for slot in range(eng.n_slots):
+        eng._insert(sess, cache1, tok1, slot, int(vl[0]), GEN)
+    return lambda: eng._decode_fn(sess.cache, sess.tok_buf, sess.state, 1)
+
+
+def reprogram_phase(dev, card):
+    """Phase 25: `serve --reprogram`'s per-call path against program-once
+    on granite-8b at its published widths (weights from SEED, noise off,
+    dynamic DAC scale): the same N_REQ synchronized requests through a
+    `ServeEngine` on the installed program and one on the raw weights
+    with ``Execution(programmed=False)``, where every forward re-programs
+    each projection (`layers.linear` -> `aimc_linear_ste`). Gates: tokens
+    equal, K2 7 x 36 per pass on both (counts zeroed just before, read
+    just after each serve, warmup included). Decode ms/step of both in
+    turns (host clock, every slot busy) and a profiled step of each; the
+    per-call programming's device ms is the reprogram step's device busy
+    less program-once's (the two run the same kernels otherwise)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.aimc import AimcConfig
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.core.program import MappingPlan, program_model
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.models.layers import Execution
+    from repro_torch.runtime.batcher import synchronized_trace
+    from repro_torch.runtime.engine import ServeEngine
+
+    spec = get_arch(ARCH)
+    cfg, model = spec.model_cfg, spec.model_module()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(PRNGKey(SEED), cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    acfg = AimcConfig()
+    prog = program_model(params, MappingPlan(), acfg, PRNGKey(SEED + 2))
+    once = Execution(mode="aimc", aimc=acfg, compute_dtype="float32",
+                     programmed=True)
+    kw = dict(n_slots=SLOTS, prompt_pad=PROMPT, max_seq=PROMPT + GEN)
+    engines = {"program-once": ServeEngine(model, cfg, once,
+                                           prog.install(params),
+                                           program=prog, **kw),
+               "reprogram": ServeEngine(
+                   model, cfg, dataclasses.replace(once, programmed=False),
+                   params, **kw)}
+    reqs = synchronized_trace(N_REQ, prompt_len=PROMPT, max_new=GEN,
+                              seed=SEED + 4, vocab=cfg.vocab)
+    reports, counts = {}, {}
+    for name, e in engines.items():
+        aimc_mvm.reset_counts()
+        e.warmup()
+        reports[name] = e.serve(list(reqs))
+        torch.cuda.synchronize(dev)
+        counts[name] = dict(aimc_mvm.LAUNCHES)
+        per = 7 * cfg.n_layers * e.forward_passes
+        check(counts[name]["aimc_mvm_v2"] == per
+              and counts[name]["aimc_mvm_stacked"] == 0,
+              f"[reprogram] {name}: launches {counts[name]} != {per} K2")
+    for r in reqs:
+        check(reports["reprogram"].tokens(r.rid)
+              == reports["program-once"].tokens(r.rid),
+              f"[reprogram] request {r.rid}: per-call tokens "
+              f"{reports['reprogram'].tokens(r.rid)} != program-once "
+              f"{reports['program-once'].tokens(r.rid)}")
+    steps = {k: _busy_decode_step(e, reqs[0].prompt)
+             for k, e in engines.items()}
+    times = {k: [] for k in engines}
+    for name in ("program-once", "reprogram", "reprogram", "program-once"):
+        times[name].append(timed(steps[name], dev, reps=3)[0])
+    profiles = {k: device_profile(fn, dev) for k, fn in steps.items()}
+    busy = {k: p["device_busy_ms"] for k, p in profiles.items()}
+    check(None not in busy.values(),
+          f"[reprogram] the profiler saw no device time: {busy}")
+    for k, p in profiles.items():
+        print(f"[reprogram] {k} decode step, profiled:", flush=True)
+        print_profile("reprogram", p)
+    # the two steps run the same kernels but for the per-call programming
+    programming_ms = busy["reprogram"] - busy["program-once"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    ms = {k: ", ".join(f"{t:.2f}" for t in v) for k, v in times.items()}
+    print(f"[reprogram] granite-8b (init {init_s:.1f} s): {N_REQ} "
+          f"synchronized requests, per-call reprogram tokens == "
+          f"program-once's ({reports['reprogram'].generated_tokens} "
+          f"tokens), K2 7 x 36 per pass on both; decode ms/step (host "
+          f"clock, {SLOTS} busy slots, in turns): program-once "
+          f"{ms['program-once']}; reprogram {ms['reprogram']}; device busy "
+          f"per profiled step {busy}, so per-call programming takes "
+          f"{programming_ms:.2f} ms of device per decode step (8.2e9 "
+          f"weights); peak {peak_gb:.2f} GB; on {card}", flush=True)
+    return {"init_s": init_s, "launches": counts,
+            "decode_ms_per_step": times, "profiles": profiles,
+            "programming_device_ms": programming_ms, "peak_gb": peak_gb,
+            "tokens": reports["reprogram"].generated_tokens}
+
+
+def dryrun_phase(card):
+    """Phase 26: `launch.dryrun` for granite-8b's cells on the single
+    production mesh (16x16 positions folded onto ``meta``): every cell
+    builds, and each record's argument GB per position, model FLOPs and
+    lower bounds are printed with the card's name read from the device."""
+    from repro_torch.configs import cells
+    from repro_torch.launch import dryrun
+
+    cd = dryrun.card()
+    check(cd["source"] == "device", f"dryrun read the card from {cd}")
+    out = {}
+    for arch, shape in cells(ARCH):
+        rec = dryrun.run_cell(arch, shape, False, save=False)
+        check(rec["ok"], f"[dryrun] {arch} {shape}: {rec.get('error')}")
+        m, r = rec["memory"], rec["roofline"]
+        print(f"[dryrun] {arch} {shape} ({rec['kind']}) on {rec['mesh']} "
+              f"({rec['fold']}): {m['argument_bytes'] / 1e9:.3f} GB of "
+              f"arguments per position of the card's "
+              f"{cd['memory_bytes'] / 1e9:.1f} GB (fits {m['fits']}; "
+              f"activations not reckoned), parts "
+              f"{ {k: round(v / 1e9, 3) for k, v in m['argument_parts'].items()} }"
+              f" GB; {rec['model_flops_per_position']:.3g} model FLOPs per "
+              f"position; bounds compute {r['compute_s']:.3g} s, memory "
+              f"{r['memory_s']:.3g} s on {cd['name']} (the device's name; "
+              f"nvidia-smi: {card})",
+              flush=True)
+        out[shape] = {k: rec[k] for k in ("kind", "mesh", "positions",
+                                          "memory", "roofline",
+                                          "model_flops_per_position",
+                                          "build_s")}
+    return {"card": cd["name"], "cells": out}
 
 
 def paper_shapes():
@@ -5142,18 +5424,21 @@ def train_phase(dev, peaks, card):
 # the recurrent and enc-dec families' training (phase 21)
 FAM_XLSTM, FAM_RGLRU, FAM_ENCDEC = ("xlstm-350m", "recurrentgemma-9b",
                                     "seamless-m4t-large-v2")
-XLSTM_GB, XLSTM_SEQ = 2, 64            # the CLI: 2 microbatches of one
+XLSTM_GB, XLSTM_SEQ = 2, 32            # the CLI: 2 microbatches of one
                                        # partial mLSTM chunk
 XLSTM_NOISE_GB, XLSTM_NOISE_SEQ = 1, 1024   # noise on: 2 mLSTM chunks, K2
                                             # at B 1024; the sLSTM loop's
                                             # host time sets the batch
-XLSTM_NOISE_PAIRS = 2                  # noise on: 2 of 12 pairs (the
+XLSTM_NOISE_PAIRS = 1                  # noise on: 1 of 12 pairs (the
                                        # sLSTM loop's host time grows with
                                        # depth: 12 pairs took ~49 s a step,
-                                       # 4 pairs ~15 s)
+                                       # 4 pairs ~15 s, 2 pairs 7.8 s)
 RGLRU_LAYERS, RGLRU_SEQ = 3, 4096      # one unit; the 2048 window binds
 ENCDEC_GB, ENCDEC_SEQ = 2, 4096        # frames; 1024 target tokens
                                        # (batch_shapes), 512 in the CLI
+ENCDEC_TRAIN_GB = 1                    # make_train_step's random frames:
+                                       # 1 x 4096 (2 x 4096 took ~10 / ~22
+                                       # s a digital / noise-on step)
 DECODE_LEN, DECODE_ATOL = 16, 5e-3     # tests/test_models_smoke.py:166-172
 
 
@@ -5191,11 +5476,11 @@ def _cli_digital(dev, card, arch, base, steps=2, cpu_ops=True):
 
 
 def xlstm_train_leg(dev, peaks, card):
-    """xlstm-350m: the CLI uncut, digitally at global batch 2 x 64 (2
+    """xlstm-350m: the CLI uncut, digitally at global batch 2 x 32 (2
     microbatches), its profiled step recording the device activity alone,
     then `make_train_step` with the paper's noise at 1 x 1024 (one
     microbatch of 2 mLSTM chunks, so the chunk-carried (C, n, m) and K2 at
-    B 1024 run) at 2 of 12 pairs (XLSTM_NOISE_PAIRS; 44 K2 per step, the
+    B 1024 run) at 1 of 12 pairs (XLSTM_NOISE_PAIRS; 22 K2 per step, the
     published widths), its last step on the host clock, not
     traced (stopping the profiler over its ~10^6 kernels took ~50 s of the
     smoke's limit; PR 22 measured it: idle 0.93-0.94); the sLSTM loop's
@@ -5385,9 +5670,10 @@ def _named_leaves(tree, path=""):
 def encdec_train_leg(dev, peaks, card):
     """seamless-m4t-large-v2 uncut: the CLI's own batch for one step
     (`encdec_cli_leg`), then `make_train_step` on seeded random frames
-    [2, 4096, 1024] and `batch_shapes`' 1024 target tokens: digitally, 2
-    steps (the last loss below the first, no launch), and with the paper's
-    noise, 2 steps, 1536 K2 per step, its last step on the host clock, not
+    [1, 4096, 1024] (ENCDEC_TRAIN_GB) and `batch_shapes`' 1024 target
+    tokens: digitally, 2 steps (the last loss below the first, no launch),
+    and with the paper's noise, 2 steps, 768 K2 per step, its last step on
+    the host clock, not
     traced (tracing it took ~25 s of the smoke's time); K2 at each
     shape."""
     import torch
@@ -5402,10 +5688,11 @@ def encdec_train_leg(dev, peaks, card):
     out = {"cli": encdec_cli_leg(dev, card)}
     gc.collect()
     torch.cuda.empty_cache()
-    cell = ShapeCell("train", ENCDEC_SEQ, ENCDEC_GB, "train")
+    cell = ShapeCell("train", ENCDEC_SEQ, ENCDEC_TRAIN_GB, "train")
     shapes = batch_shapes(spec, cell)
     tgt = shapes["tokens"][0][1]
-    dcfg = DataConfig(vocab=cfg.vocab, seq_len=tgt, global_batch=ENCDEC_GB,
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=tgt,
+                      global_batch=ENCDEC_TRAIN_GB,
                       seed=SEED)
 
     def batch_at(step):
@@ -5422,7 +5709,7 @@ def encdec_train_leg(dev, peaks, card):
     gc.collect()
     torch.cuda.empty_cache()
     k2_calls = {}
-    n_micro = ENCDEC_GB // spec.microbatch
+    n_micro = ENCDEC_TRAIN_GB // spec.microbatch
     leg = direct_train_steps(
         dev, card, f"{FAM_ENCDEC} noise on", spec, cell, 2, batch_at,
         {"aimc_mvm_v2": 2 * family_k2_per_pass(spec) * n_micro},
@@ -5434,17 +5721,18 @@ def encdec_train_leg(dev, peaks, card):
     return out
 
 
-def forward_decode_check(dev, arch):
+def forward_decode_check(dev, arch, layers=0):
     """The reference's own claim (`tests/test_models_smoke.py:166-172`) on
-    the card at ``arch``'s published widths, uncut, digital f32: the last
-    position's logits of `forward` over 2 x 16 tokens against those of 16
-    `decode_step`s from a fresh cache, within DECODE_ATOL."""
+    the card at ``arch``'s published widths (cut to ``layers`` if given),
+    digital f32: the last position's logits of `forward` over 2 x 16
+    tokens against those of 16 `decode_step`s from a fresh cache, within
+    DECODE_ATOL."""
     import torch
 
     from repro_torch.core.prng import PRNGKey
     from repro_torch.models.layers import Execution
 
-    spec = _family_spec(arch)
+    spec = _family_spec(arch, layers)
     cfg, model = spec.model_cfg, spec.model_module()
     exe = Execution(compute_dtype="float32")
     t0 = time.perf_counter()
@@ -5463,7 +5751,8 @@ def forward_decode_check(dev, arch):
           f"{arch}: forward vs decode recurrence max |err| {err} > "
           f"{DECODE_ATOL}")
     secs = time.perf_counter() - t0
-    print(f"[train] {arch} uncut: forward == {DECODE_LEN} decode steps on "
+    depth = f"at {layers} layers" if layers else "uncut"
+    print(f"[train] {arch} {depth}: forward == {DECODE_LEN} decode steps on "
           f"the card, last-position logits max |err| {err:.3g} (atol "
           f"{DECODE_ATOL}), {secs:.1f} s with init", flush=True)
     del params, cache, full, step
@@ -5484,8 +5773,9 @@ def family_train_phase(dev, peaks, card):
         out[arch] = fn(dev, peaks, card)
         gc.collect()
         torch.cuda.empty_cache()
-    out["forward_decode"] = {a: forward_decode_check(dev, a)
-                             for a in (FAM_XLSTM, FAM_RGLRU)}
+    out["forward_decode"] = {
+        FAM_XLSTM: forward_decode_check(dev, FAM_XLSTM),
+        FAM_RGLRU: forward_decode_check(dev, FAM_RGLRU, RGLRU_LAYERS)}
     out["card_vs_cpu"] = {a: train_card_vs_cpu(dev, a)
                           for a in (FAM_XLSTM, FAM_RGLRU, FAM_ENCDEC)}
     return out
@@ -6247,9 +6537,12 @@ def main() -> int:
     run, serve_stats = phase("serve", serve_phase, dev)
     stacked = phase("stacked", stacked_phase, run)
     static = phase("static", static_gate_phase, run, smi)
-    mesh = phase("mesh", mesh_phase, run, smi)
+    mesh = phase("mesh", mesh_phase, run, smi, static)
     del run                       # free granite's weights before the next
     free()
+    reprogram = phase("reprogram", reprogram_phase, dev, smi)
+    free()
+    dry = phase("dryrun", dryrun_phase, smi)
     init = phase("init", init_phase, dev, serve_stats["init_s"])
     free()
     staged = phase("staged", staged_v1_phase, dev)
@@ -6351,6 +6644,7 @@ def main() -> int:
              if r["kernel"] == "K2"]),
          "sharded_train_launches": noise["sharded"]["launches"][
              "aimc_mvm_v2"],
+         "mesh_cells_launches": mesh["cells"]["launches"]["aimc_mvm_v2"],
          "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
@@ -6404,6 +6698,7 @@ def main() -> int:
         "int8": int8, "placement": placement, "server": server,
         "train": train, "train_families": families,
         "encdec_serve": encdec_serve, "mesh": mesh,
+        "reprogram": reprogram, "dryrun": dry,
         "sharded_train": sharded,
         "phase_seconds": seconds},
         indent=1))

@@ -55,6 +55,14 @@ request an explicit arrival offset; ``--eos ID`` retires a lane early on
 that token; ``--tile-rows``/``--adc-alpha``/``--input-scale`` set the
 crossbar's word lines, ADC full scale and a fixed DAC scale.
 
+``--reprogram`` restores the per-call STE path: nothing is programmed
+before serving and every forward re-programs each projection
+(`layers.linear` -> `core.aimc.aimc_linear_ste`), for A/B measurement of
+the program-once speed-up; with the noise off its tokens are program-once's.
+It refuses --placement, --chaos/--drift, --models and --cores/--pipeline
+with the reference's messages, and --fuse-gates (whose stacks are
+programmed states).
+
 ``--int8`` serves int8-native: every projection is packed into per-channel
 int8 codes + scales (`core.quant.quantize_params_int8`, other float
 leaves bf16) and dequantized per call on the digital path; with
@@ -147,6 +155,9 @@ def parse_args(argv=None):
                          "--device devices, and the fold is printed")
     ap.add_argument("--exec", dest="exec_mode", default="digital",
                     choices=["digital", "aimc"])
+    ap.add_argument("--reprogram", action="store_true",
+                    help="legacy AIMC path: re-program every forward call "
+                         "(per-call STE) instead of program-once/apply-many")
     ap.add_argument("--static", action="store_true",
                     help="legacy monolithic static-batch loop (A/B baseline)")
     ap.add_argument("--admission", default="fifo", choices=["fifo", "sjf"])
@@ -284,9 +295,9 @@ def parse_args(argv=None):
         if budget and int(budget) < 1:
             ap.error(f"--placement budget must be >= 1, got {budget}")
         args.placement_budget = int(budget) if budget else 0
-        if args.exec_mode != "aimc":
+        if args.exec_mode != "aimc" or args.reprogram:
             ap.error("--placement searches the programmed AIMC path "
-                     "(--exec aimc)")
+                     "(--exec aimc, without --reprogram)")
         for on, name in [(args.models, "--models"),
                          (args.static, "--static"),
                          (args.drift, "--drift"), (args.chaos, "--chaos"),
@@ -308,6 +319,7 @@ def parse_args(argv=None):
         ap.error(f"--swap-every must be >= 1, got {args.swap_every}")
     if args.models:
         for on, name in [(args.static, "--static"), (args.int8, "--int8"),
+                         (args.reprogram, "--reprogram"),
                          (args.cores > 1, "--cores"),
                          (args.pipeline, "--pipeline"),
                          (args.arrivals, "--arrivals"),
@@ -329,9 +341,9 @@ def parse_args(argv=None):
         ap.error("--tile-rows/--adc-alpha/--input-scale must be >= 0")
     if args.chaos or args.drift:
         flag = "--chaos" if args.chaos else "--drift"
-        if args.exec_mode != "aimc":
+        if args.exec_mode != "aimc" or args.reprogram:
             ap.error(f"{flag} degrades/repairs PROGRAMMED crossbar states: "
-                     "it requires --exec aimc")
+                     "it requires --exec aimc without --reprogram")
         if args.static:
             ap.error(f"{flag} runs through the engine's chunk-boundary "
                      "resilience tick (drop --static)")
@@ -344,6 +356,14 @@ def parse_args(argv=None):
                  "surviving peers, so there must be at least one")
     if args.drift < 0:
         ap.error(f"--drift must be >= 0, got {args.drift}")
+    if ((args.cores > 1 or args.pipeline)
+            and (args.exec_mode != "aimc" or args.reprogram)):
+        ap.error("--cores/--pipeline require the programmed AIMC path "
+                 "(--exec aimc, without --reprogram): the multi-core "
+                 "schedule lowers an installed AimcProgram")
+    if args.fuse_gates and args.reprogram:
+        ap.error("--fuse-gates stacks programmed states; --reprogram "
+                 "programs every forward call instead")
     if args.trace and args.arrivals:
         ap.error("--trace and --arrivals are mutually exclusive")
     if args.page_size < 0 or args.pages < 0 or args.prefill_chunk < 0 \
@@ -636,10 +656,6 @@ def main(argv=None):
     if args.fuse_gates and args.exec_mode != "aimc":
         raise SystemExit("--fuse-gates stacks programmed states: it needs "
                          "--exec aimc")
-    if (args.cores > 1 or args.pipeline) and args.exec_mode != "aimc":
-        raise SystemExit("--cores/--pipeline require the programmed AIMC "
-                         "path (--exec aimc): the multi-core schedule lowers "
-                         "an installed AimcProgram")
     from repro_torch import compat
 
     device = resolve_device(args.device)
@@ -681,7 +697,7 @@ def _serve_one(args, device, mesh):
         aimc_kw["adc_alpha"] = args.adc_alpha
     aimc_cfg = AimcConfig(input_scale=args.input_scale, **aimc_kw)
     exe = (Execution(mode="aimc", aimc=aimc_cfg, compute_dtype="float32",
-                     programmed=True)
+                     programmed=not args.reprogram)
            if args.exec_mode == "aimc"
            else Execution(compute_dtype="float32" if args.smoke
                           else "bfloat16", serve_int8=args.int8))
@@ -713,7 +729,7 @@ def _serve_one(args, device, mesh):
 
     program = schedule = health = chaos = None
     placement = rotation = rotation_params = params_raw = None
-    if args.exec_mode == "aimc":
+    if args.exec_mode == "aimc" and not args.reprogram:
         # CM_INITIALIZE: program the whole network once, outside the
         # serving loop (paper §IV-B); the raw float weights of the mapped
         # projections are dropped with the raw tree. --cores spreads the
@@ -766,6 +782,8 @@ def _serve_one(args, device, mesh):
             params_raw = None    # frees the raw weights of mapped leaves
     print(f"[serve] {spec.arch_id} exec={args.exec_mode} int8={args.int8} "
           f"requests={b}"
+          + (" (per-call reprogram)" if args.exec_mode == "aimc"
+             and args.reprogram else "")
           + (" (gate-fused stacks)" if args.fuse_gates else ""))
     if args.static:
         return _run_static(args, cfg, exe, model, params, program, schedule,

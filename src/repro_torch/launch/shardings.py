@@ -590,17 +590,23 @@ def place_aimc_state(state: AimcLinearState, spec: P, mesh
                          [first[j] for j in range(m)])
 
 
-def place_params(params, mesh, axis: str = "model"):
-    """The serving engine's parameter tree on ``mesh``
-    (`serve_engine_param_specs`): programmed states become column pieces
-    (`place_aimc_state`); digital leaves replicate, and the single
-    controller's forward reads the replica on its own device, the leaf as
-    it is."""
-    specs = serve_engine_param_specs(params, mesh, axis)
-
+def place_states(params, specs, mesh):
+    """``params`` with every programmed state split into column pieces by
+    its w_q spec in ``specs`` (`place_aimc_state`); every other leaf as it
+    is: the single controller's forward reads it on its own device."""
     def one(leaf, spec):
         if isinstance(leaf, AimcLinearState):
             return place_aimc_state(leaf, spec.w_q, mesh)
         return leaf
     return tree_map(one, params, specs,
                     is_leaf=lambda v: isinstance(v, AimcLinearState))
+
+
+def place_params(params, mesh, axis: str = "model"):
+    """The serving engine's parameter tree on ``mesh``
+    (`serve_engine_param_specs`): programmed states become column pieces
+    (`place_states`); digital leaves replicate, and the single
+    controller's forward reads the replica on its own device, the leaf as
+    it is."""
+    return place_states(params, serve_engine_param_specs(params, mesh, axis),
+                        mesh)

@@ -42,8 +42,24 @@ it). ``program`` (an `AimcProgram` or a `CoreSchedule`) means
 program-once serving: the parameters carry installed crossbar states.
 `StepBundle.abstract_inputs` holds the step's inputs as ``meta`` tensors
 (`_serve_params_shape`, `input_specs`), built without allocating a
-weight. The serving cells run on one device: a mesh raises there (the
-sharded serving cells are queued in ROADMAP.md).
+weight.
+
+On a mesh every cell also carries the reference's ``in_specs`` and
+``out_specs`` (the port's `PartitionSpec` trees; None on one device). A
+serving cell's parameters take `fit_specs(get_param_specs)`, through
+`shard_aimc_states` under a multi-core `CoreSchedule` and `strip_fsdp`
+under ``Execution.serve_int8``; the batch `batch_specs(mesh,
+batch_kind(spec))`, the cache `cache_specs` and the next token ``P(dp,
+None)``, each fitted to its shape. The cell takes plain or `Placed`
+trees, splits each programmed state into column pieces by its spec
+(`place_aimc_state`: views of the codes, whole where Np does not divide
+``128 * M``), runs the closure inside the ambient mesh (`compat.use_mesh`:
+a digital MoE dispatches per data shard, `moe._moe_sharded`) as ONE
+forward over every row, which keeps the dynamic DAC scale batch-global,
+and returns the token and the cache placed by ``out_specs`` as views.
+Column pieces are exact, so a dense or recurrent cell's tokens and cache
+equal the one-device cell's bit for bit. A train cell's abstract inputs
+are its parameters, optimizer state and batch.
 """
 
 from __future__ import annotations
@@ -109,12 +125,16 @@ def batch_kind(spec: ArchSpec) -> str:
 
 @dataclasses.dataclass
 class StepBundle:
-    """A step function and its inputs' shapes (the reference's shardings
-    and donation have no counterpart on one device)."""
+    """A step function, its inputs' shapes and, on a mesh, the reference's
+    in/out shardings as `PartitionSpec` trees (donation has no
+    counterpart: eager PyTorch frees an input when its last reference
+    goes)."""
     fn: Callable
     abstract_inputs: tuple         # the step's inputs as meta tensors
     schedule: Any = None           # core.schedule.CoreSchedule, when serving
                                    # through a multi-core mapping
+    in_specs: Any = None           # per input, a spec tree (mesh only)
+    out_specs: Any = None          # per output, a spec tree (mesh only)
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -140,13 +160,6 @@ def _model_forward_hidden(model, spec: ArchSpec, cfg, exe: Execution):
         return model.forward(params, batch["tokens"], cfg, exe, rng,
                              return_hidden=True)
     return fwd
-
-
-def _check_one_device(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded serving cells are not ported (ROADMAP.md); the "
-            "port's prefill and decode cells run on one device (mesh=None)")
 
 
 def _tree_with(tree, leaves):
@@ -205,7 +218,7 @@ def make_train_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
     the step takes plain or placed trees (`Placed` leaves are read whole)
     and returns the new parameters and optimizer state placed by
     `train_specs`, as views of the whole tensors."""
-    _, opt_update, _ = make_optimizer(spec.optimizer)
+    opt_init, opt_update, _ = make_optimizer(spec.optimizer)
     dp_total = 1 if mesh is None else axis_size(mesh, dp_axes(mesh))
     n_micro = max(1, cell.global_batch // (dp_total * spec.microbatch))
     micro_grad = make_micro_grad(spec, exe)
@@ -237,7 +250,18 @@ def make_train_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
             new_opt = sh.place_tree(new_opt, ospecs, mesh, views=True)
         return new_params, new_opt, dict(metrics, loss=loss_acc)
 
-    return StepBundle(train_step, (abstract_batch(spec, cell),))
+    params_shape = spec.model_module().init(
+        prng.PRNGKey(0), spec.model_cfg,
+        dtype=getattr(torch, spec.param_dtype), device="meta")
+    opt_shape = opt_init(params_shape)
+    abstract = (params_shape, opt_shape, abstract_batch(spec, cell))
+    if mesh is None:
+        return StepBundle(train_step, abstract)
+    pspecs, ospecs = train_specs(mesh, params_shape, opt_shape)
+    bspecs = sh.fit_specs(sh.batch_specs(mesh, batch_kind(spec)),
+                          abstract[2], mesh)
+    return StepBundle(train_step, abstract, in_specs=(pspecs, ospecs, bspecs),
+                      out_specs=(pspecs, ospecs, None))
 
 
 def _unwrap_program(program):
@@ -282,21 +306,80 @@ def _serve_params(model, spec: ArchSpec, cfg, exe: Execution, program):
     return params_shape, schedule
 
 
+def _serve_param_specs(params_shape, mesh, exe: Execution, schedule=None):
+    """A serving cell's parameter specs on ``mesh``, as the reference's
+    cells build them: `fit_specs(get_param_specs)`, the programmed states
+    column-sharded over ``model`` under a multi-core schedule
+    (`shard_aimc_states`), the FSDP axes dropped under int8 serving
+    (`strip_fsdp`)."""
+    pspecs = sh.fit_specs(sh.get_param_specs(params_shape, mesh),
+                          params_shape, mesh)
+    if schedule is not None and schedule.n_cores > 1:
+        pspecs = sh.shard_aimc_states(pspecs, params_shape, mesh)
+    if exe.serve_int8:
+        pspecs = sh.strip_fsdp(pspecs, mesh)
+    return pspecs
+
+
+def _mesh_cell(fn, mesh, pspecs, out_specs):
+    """``fn(params, *rest) -> (tok, cache)`` as a cell on ``mesh``: plain or
+    `Placed` inputs read whole, the programmed states placed by
+    ``pspecs``, ``fn`` run inside the ambient mesh, the outputs placed by
+    ``out_specs`` as views of the whole tensors."""
+    tok_spec, cspecs = out_specs
+
+    def cell(params, *rest):
+        params = sh.place_states(sh.whole_tree(params), pspecs, mesh)
+        rest = [sh.whole_tree(r) for r in rest]
+        with compat.use_mesh(mesh):
+            tok, cache = fn(params, *rest)
+        return (sh.place(tok, tok_spec, mesh, views=True),
+                sh.place_tree(cache, cspecs, mesh, views=True))
+    return cell
+
+
+def _cache_shape(model, spec: ArchSpec, cfg, b: int, s: int, src: int,
+                 cache_dt):
+    """A ``[b]``-row cache of ``s`` rows as ``meta`` tensors (an enc-dec
+    cache with ``src`` cross frames)."""
+    if spec.family == "audio":
+        return model.init_cache(cfg, b, s, src, cache_dt, device="meta")
+    return model.init_cache(cfg, b, s, cache_dt, device="meta")
+
+
 def make_prefill_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
                       exe: Execution = Execution(),
                       program=None) -> StepBundle:
     """The prefill cell: ``(params, batch) -> (next_tok [B, 1] int32,
-    cache)`` with max_seq = ``cell.seq_len`` and the spec's cache dtype."""
-    _check_one_device(mesh)
+    cache)`` with max_seq = ``cell.seq_len`` and the spec's cache dtype (on
+    a mesh, both placed by ``out_specs``)."""
     from repro_torch.runtime.engine import static_prefill_closure
     cfg = spec.model_cfg
     model = spec.model_module()
+    cache_dt = getattr(torch, spec.cache_dtype)
     params_shape, schedule = _serve_params(model, spec, cfg, exe, program)
     prefill = static_prefill_closure(
         model, cfg, exe, family=spec.family, module=spec.module,
-        max_seq=cell.seq_len, cache_dtype=getattr(torch, spec.cache_dtype))
-    return StepBundle(prefill, (params_shape, abstract_batch(spec, cell)),
-                      schedule=schedule)
+        max_seq=cell.seq_len, cache_dtype=cache_dt)
+    abstract = (params_shape, abstract_batch(spec, cell))
+    if mesh is None:
+        return StepBundle(prefill, abstract, schedule=schedule)
+    b, s = cell.global_batch, cell.seq_len
+    # the prefill's own cache: ``s`` rows (an enc-dec batch's ``s``
+    # frames); a recurrent prefill returns none
+    forward_only = (spec.family not in ("audio", "vlm")
+                    and spec.module != "transformer")
+    cache_shape = (() if forward_only
+                   else _cache_shape(model, spec, cfg, b, s, s, cache_dt))
+    cspecs = (sh.fit_specs(sh.cache_specs(cache_shape, mesh), cache_shape,
+                           mesh) if cache_shape != () else ())
+    pspecs = _serve_param_specs(params_shape, mesh, exe, schedule)
+    bspecs = sh.fit_specs(sh.batch_specs(mesh, batch_kind(spec)),
+                          abstract[1], mesh)
+    out_specs = (sh.fit_spec(sh.P(dp_axes(mesh), None), (b, 1), mesh), cspecs)
+    return StepBundle(_mesh_cell(prefill, mesh, pspecs, out_specs), abstract,
+                      schedule=schedule, in_specs=(pspecs, bspecs),
+                      out_specs=out_specs)
 
 
 def make_serve_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
@@ -306,23 +389,26 @@ def make_serve_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
     ``(params, cache, tokens [B, 1]) -> (next_tok, cache)``. An enc-dec
     cell's cache holds cross K/V of ``max(seq_len // tgt_ratio, 64)``
     encoder frames; the step itself takes any cache ``prefill`` made."""
-    _check_one_device(mesh)
     from repro_torch.runtime.engine import static_decode_closure
     cfg = spec.model_cfg
     model = spec.model_module()
     cache_dt = getattr(torch, spec.cache_dtype)
     params_shape, schedule = _serve_params(model, spec, cfg, exe, program)
     b, s = cell.global_batch, cell.seq_len
-    if spec.family == "audio":
-        src = max(s // spec.tgt_ratio, 64)
-        cache_shape = model.init_cache(cfg, b, s, src, cache_dt,
-                                       device="meta")
-    else:
-        cache_shape = model.init_cache(cfg, b, s, cache_dt, device="meta")
-    return StepBundle(static_decode_closure(model, cfg, exe),
-                      (params_shape, cache_shape,
-                       _meta((b, 1), torch.int32)),
-                      schedule=schedule)
+    src = max(s // spec.tgt_ratio, 64) if spec.family == "audio" else 0
+    cache_shape = _cache_shape(model, spec, cfg, b, s, src, cache_dt)
+    abstract = (params_shape, cache_shape, _meta((b, 1), torch.int32))
+    step = static_decode_closure(model, cfg, exe)
+    if mesh is None:
+        return StepBundle(step, abstract, schedule=schedule)
+    pspecs = _serve_param_specs(params_shape, mesh, exe, schedule)
+    cspecs = sh.fit_specs(sh.cache_specs(cache_shape, mesh), cache_shape,
+                          mesh)
+    tok_spec = sh.fit_spec(sh.P(dp_axes(mesh), None), (b, 1), mesh)
+    out_specs = (tok_spec, cspecs)
+    return StepBundle(_mesh_cell(step, mesh, pspecs, out_specs), abstract,
+                      schedule=schedule, in_specs=(pspecs, cspecs, tok_spec),
+                      out_specs=out_specs)
 
 
 def make_step(spec: ArchSpec, cell: ShapeCell, mesh=None,

@@ -309,8 +309,19 @@ def test_make_step_builds_every_cell():
 
 def test_serving_steps_carry_the_schedule_and_refuse_a_mesh():
     """A `CoreSchedule` serves through its program and rides on the bundle
-    (per-core ledgers); a training cell refuses a program; a mesh raises
-    for every kind (the port serves and trains on one device)."""
+    (per-core ledgers); a training cell refuses a program; a mesh now
+    builds both serving cells (the sharded serving cells), each with the
+    reference's in specs leaf for leaf (`make_step` on an `AbstractMesh`
+    of data:2,model:2: the states column-sharded under the 2-core
+    schedule, a programmed state's spec keeping ``model`` where its Np
+    divides 2)."""
+    from jax.sharding import AbstractMesh
+    from jax.sharding import PartitionSpec as JP
+
+    from repro.core.schedule import CoreSchedule as JSched
+    from repro.launch import shardings as js
+    from repro_torch.launch import shardings as ts
+    from repro_torch.launch.mesh import make_mesh
     spec = _smoke_spec(tconfigs.get_arch("granite-8b"))
     params = spec.model_module().init(prng.PRNGKey(0), spec.model_cfg,
                                       device="cpu")
@@ -326,8 +337,29 @@ def test_serving_steps_carry_the_schedule_and_refuse_a_mesh():
             sorted(prog.names)
         assert tsteps.make_step(spec, cell, None, exe,
                                 program=prog).schedule is None
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsteps.make_step(spec, cell, object(), exe)
+        bundle = tsteps.make_step(spec, cell,
+                                  make_mesh((2, 2), ("data", "model"),
+                                            ["cpu"]), exe, program=sched)
+        assert bundle.schedule is sched and callable(bundle.fn)
+        jspec = _smoke_spec(jconfigs.get_arch("granite-8b"))
+        jparams = jspec.model_module().init(jax.random.PRNGKey(0),
+                                            jspec.model_cfg)
+        jprog = jp.program_model(jparams, jp.MappingPlan(n_contexts=2),
+                                 ja.AimcConfig(impl="ref"))
+        want = jsteps.make_step(
+            jspec, jconfigs.ShapeCell(kind, cell.seq_len, cell.global_batch,
+                                      kind),
+            AbstractMesh((2, 2), ("data", "model")),
+            JExe(mode="aimc", aimc=ja.AimcConfig(impl="ref"),
+                 compute_dtype="float32", programmed=True),
+            program=JSched.from_program(jprog))
+        for got, ref in zip(bundle.in_specs, want.in_shardings):
+            flat_ref = {"/".join(js._path_str(p)): tuple(s) for p, s in
+                        jax.tree_util.tree_flatten_with_path(
+                            ref, is_leaf=lambda x: isinstance(x, JP))[0]}
+            assert {"/".join(ts._path_str(p)): tuple(s) for p, s in
+                    ts._flatten_with_path(got, is_leaf=ts._is_spec)} \
+                == flat_ref, kind
     with pytest.raises(ValueError, match="serving-only"):
         tsteps.make_step(spec, ShapeCell("t", 16, 2, "train"), None, exe,
                          program=prog)

@@ -5,8 +5,10 @@ carried across with `params_from_numpy`), the same program (both programmed
 under `PRNGKey(2)`) and the same trace: the reference's own claim is that
 its sharded engine emits the single-device engine's tokens bit for bit
 (`repro/runtime/engine.py:1807-1810`), so the single-device JAX engine is
-the oracle at every mesh. The reference's sharded engine itself cannot run
-here (its mesh tests fail under this jax; ROADMAP §3). As a second check,
+the oracle at every mesh. The reference's sharded engine itself runs as
+the oracle of `tests/test_torch_mesh_serve.py` (on 4 forced host devices,
+its mesh built with ``Auto`` axes, `tests/torch_mesh_oracle.py`). As a
+second check,
 every sharded run also equals the port's own single-device `ServeEngine`
 on the same trace, books included.
 

@@ -402,20 +402,51 @@ def test_train_step_matches_composed_reference_families(arch, monkeypatch):
 
 
 def test_make_step_refuses_serving_cells_and_meshes():
-    """A mesh is refused for the serving cells (they build on one device;
-    `tests/test_torch_serve_steps.py` holds them to the reference); a
-    train cell builds on one (`tests/test_torch_sharded_train.py`)."""
-    spec = tget("llama3.2-3b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_step(spec, ShapeCell("p", 16, 2, "prefill"),
-                         mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_step(spec, ShapeCell("d", 16, 2, "decode"),
-                         mesh=object())
+    """A mesh now builds every cell kind (the serving cells since the
+    sharded serving cells were ported; `tests/test_torch_mesh_cells.py`
+    holds them to the reference's jitted cells): the prefill, decode and
+    train bundles on data:2,model:1 carry the reference's in/out specs,
+    leaf for leaf, as `make_step` builds them on an `AbstractMesh`; a
+    one-device bundle carries none."""
+    from jax.sharding import AbstractMesh
+    from jax.sharding import PartitionSpec as JP
+
+    from repro.configs import SHAPES
+    from repro.launch import shardings as js
+    from repro.launch import steps as jsteps
+    from repro_torch.launch import shardings as ts
     from repro_torch.launch.mesh import make_mesh
+
+    def flat_ref(t):
+        leaves = jax.tree_util.tree_flatten_with_path(
+            t, is_leaf=lambda x: isinstance(x, JP) or x is None)[0]
+        return {"/".join(js._path_str(p)): None if s is None else tuple(s)
+                for p, s in leaves}
+
+    def flat_port(t):
+        if t is None:
+            return {"": None}
+        return {"/".join(ts._path_str(p)): tuple(s) for p, s in
+                ts._flatten_with_path(t, is_leaf=ts._is_spec)}
+
+    spec, jspec = tget("llama3.2-3b"), get_arch("llama3.2-3b")
     mesh = make_mesh((2, 1), ("data", "model"), ["cpu"])
-    assert callable(tsteps.make_step(spec, ShapeCell("t", 16, 2, "train"),
-                                     mesh=mesh).fn)
+    jmesh = AbstractMesh((2, 1), ("data", "model"))
+    for kind, shape in (("prefill", "prefill_32k"), ("decode", "decode_32k"),
+                        ("train", "train_4k")):
+        cell = ShapeCell(kind, 16, 2, kind)
+        bundle = tsteps.make_step(spec, cell, mesh=mesh)
+        assert callable(bundle.fn)
+        want = jsteps.make_step(jspec, dataclasses.replace(
+            SHAPES[shape], seq_len=16, global_batch=2), jmesh)
+        got_in = bundle.in_specs
+        want_in = want.in_shardings[:len(got_in)]   # the train rng's P()
+        assert len(got_in) == len(bundle.abstract_inputs)
+        for g, w in zip(got_in, want_in):
+            assert flat_port(g) == flat_ref(w), kind
+        for g, w in zip(bundle.out_specs, want.out_shardings):
+            assert flat_port(g) == flat_ref(w), kind
+        assert tsteps.make_step(spec, cell).in_specs is None
     assert tsteps.batch_kind(spec) == "lm"
     assert tsteps.batch_shapes(spec, ShapeCell("t", 16, 2, "train")) == {
         "tokens": ((2, 16), torch.int32), "labels": ((2, 16), torch.int32)}

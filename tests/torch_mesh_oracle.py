@@ -5,6 +5,7 @@ in their own process):
 
     python tests/torch_mesh_oracle.py train OUT.pkl CKPT_DIR
     python tests/torch_mesh_oracle.py serve OUT.pkl
+    python tests/torch_mesh_oracle.py cells OUT.pkl
 
 The mesh is built as ``jax.make_mesh(shape, axes, axis_types=(Auto,) *
 n)``: the reference's `launch.mesh.make_mesh` leaves this jax's default
@@ -18,6 +19,10 @@ the seed-0 init, the seed-0 batch and rng [0, 0] (the DAC and programmed
 codes logged for `torch_code_replay`), `moe_ffn` under `use_mesh` for
 `MOE_CASES`, `make_global_array` and `checkpoint.restore(mesh=, pspecs=)`
 per device. ``serve``: tokens of `ShardedServeEngine` for `SERVE_CASES`.
+``cells``: the jitted `make_prefill_step` / `make_serve_step` of each
+`CELL_CASES` entry inside ``use_mesh``: their spec trees, one prefill cell
+and `CELL_STEPS` decode-cell steps on seeded numpy inputs (f32 caches; the
+DAC codes logged for `torch_code_replay`).
 """
 
 import contextlib
@@ -48,6 +53,53 @@ SERVE_CASES = {
     "granite-prog-1x2": ("granite-8b", True, (1, 2), False),
     "xlstm-digital-2x1": ("xlstm-350m", False, (2, 1), False),
 }
+
+# name -> (arch, mode, mesh shape); mode "prog" is programmed under a
+# 2-context CoreSchedule (fixed DAC scale 0.1, program key 2), "int8" the
+# digital int8 tree
+CELL_CASES = {
+    "granite-prog-2x2": ("granite-8b", "prog", (2, 2)),
+    "granite-prog-1x2": ("granite-8b", "prog", (1, 2)),
+    "granite-int8-2x1": ("granite-8b", "int8", (2, 1)),
+    "olmoe-digital-2x2": ("olmoe-1b-7b", "digital", (2, 2)),
+    "xlstm-digital-2x2": ("xlstm-350m", "digital", (2, 2)),
+    "seamless-digital-2x2": ("seamless-m4t-large-v2", "digital", (2, 2)),
+}
+CELL_STEPS = 5
+# (batch, prompt, cell seq_len): xlstm's chunkwise forward needs a
+# seq_len that its chunk (8) divides. The audio cell's frames and decoder
+# tokens are those of tests/test_torch_encdec_serve.py; its seq_len is the
+# least at which the reference builds the prefill cell (whose abstract
+# batch holds max(seq // tgt_ratio, 64) decoder tokens in seq rows)
+CELL_LM = (4, 8, 16)
+CELL_AUDIO = (2, 24, 10, 64)     # batch, frames, decoder tokens, seq_len
+
+
+def cell_inputs(spec, seed=0):
+    """(the cell's seq_len, a numpy batch with every `batch_shapes` key):
+    seeded tokens (and labels, which the prefill ignores), f32 frames."""
+    rng = np.random.default_rng(seed)
+    vocab = spec.smoke_cfg.vocab
+    if spec.family == "audio":
+        b, src, tgt, seq = CELL_AUDIO
+        toks = rng.integers(1, vocab, (b, tgt)).astype(np.int32)
+        frames = rng.standard_normal(
+            (b, src, spec.smoke_cfg.d_model)).astype(np.float32)
+        return seq, {"frames": frames, "tokens": toks, "labels": toks}
+    b, prompt, seq = CELL_LM
+    toks = rng.integers(1, vocab, (b, prompt)).astype(np.int32)
+    return seq, {"tokens": toks, "labels": toks}
+
+
+def flat_specs(tree):
+    """{path: spec as a tuple} of a spec tree."""
+    import jax
+    from jax.sharding import PartitionSpec as JP
+
+    from repro.launch import shardings as js
+    leaves = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, JP))[0]
+    return {"/".join(js._path_str(p)): tuple(s) for p, s in leaves}
 
 
 def auto_mesh(shape, axes=("data", "model")):
@@ -230,6 +282,87 @@ def serve_case(name):
     return {r.rid: list(rep.tokens(r.rid)) for r in reqs}
 
 
+def cells_case(name):
+    import jax
+    import jax.numpy as jnp
+
+    from repro.compat import use_mesh
+    from repro.configs import ShapeCell, get_arch
+    from repro.core.aimc import AimcConfig
+    from repro.core.program import MappingPlan, program_model
+    from repro.core.quant import quantize_params_int8
+    from repro.core.schedule import CoreSchedule
+    from repro.launch import shardings as js
+    from repro.launch.steps import make_prefill_step, make_serve_step
+    from repro.models.layers import Execution
+    from torch_code_replay import logging_reference
+
+    arch, mode, shape = CELL_CASES[name]
+    spec = get_arch(arch)
+    spec = dataclasses.replace(spec, model_cfg=spec.smoke_cfg,
+                               cache_dtype="float32")
+    cfg = spec.model_cfg
+    model = spec.model_module()
+    raw = model.init(jax.random.PRNGKey(0), cfg)
+    params, program, codes = raw, None, {}
+    exe = Execution(compute_dtype="float32")
+    if mode == "prog":
+        aimc = AimcConfig(impl="ref", input_scale=0.1)
+        exe = Execution(mode="aimc", aimc=aimc, compute_dtype="float32",
+                        programmed=True)
+        prog = program_model(raw, MappingPlan(n_contexts=2), aimc,
+                             jax.random.PRNGKey(2))
+        params = prog.install(raw)
+        program = CoreSchedule.from_program(prog)
+        codes = {n: np.asarray(st.w_q) for n, st in zip(prog.names,
+                                                         prog.states)}
+    elif mode == "int8":
+        exe = Execution(compute_dtype="float32", serve_int8=True)
+        params = quantize_params_int8(
+            raw, js.IN_PROJ | js.OUT_PROJ | js.EXPERT_IN | js.EXPERT_OUT
+            | {"unembed"})
+    seq, batch = cell_inputs(spec)
+    b = batch["tokens"].shape[0]
+    mesh = auto_mesh(shape)
+    log = {}
+    out = {"raw": _np(raw), "codes": codes, "batch": batch,
+           "params": _np(params) if mode == "int8" else None}
+    with use_mesh(mesh), logging_reference(log):
+        pre = make_prefill_step(spec, ShapeCell("p", seq, b, "prefill"),
+                                mesh, exe, program=program)
+        dec = make_serve_step(spec, ShapeCell("d", seq, b, "decode"),
+                              mesh, exe, program=program)
+        out["specs"] = {
+            "prefill_in": [flat_specs(t) for t in pre.in_shardings],
+            "prefill_out": [flat_specs(t) for t in pre.out_shardings],
+            "decode_in": [flat_specs(t) for t in dec.in_shardings],
+            "decode_out": [flat_specs(t) for t in dec.out_shardings]}
+
+        def jitted(bundle):
+            named = js.to_named(bundle.in_shardings, mesh)
+            fn = jax.jit(bundle.fn, in_shardings=named,
+                         out_shardings=js.to_named(bundle.out_shardings,
+                                                   mesh))
+            return lambda *a: fn(*(jax.device_put(x, s)
+                                   for x, s in zip(a, named)))
+
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        tok, cache = jitted(pre)(params, jb)
+        out["prefill"] = (np.asarray(tok), _np(cache))
+        tok = jnp.asarray(np.asarray(tok))
+        if cache == ():          # a recurrent prefill cell: forward-only
+            cache = model.prefill(params, jb["tokens"], cfg, exe,
+                                  max_seq=seq, cache_dtype=jnp.float32)[1]
+        out["cache0"] = _np(cache)
+        step = jitted(dec)
+        out["decode"] = []
+        for _ in range(CELL_STEPS):
+            tok, cache = step(params, cache, tok)
+            out["decode"].append((np.asarray(tok), _np(cache)))
+    out["log"] = log
+    return out
+
+
 def main(argv):
     # only in the oracle's own process, before JAX starts its backend: the
     # parity tests import this module for its case tables
@@ -246,6 +379,8 @@ def main(argv):
                "placement": placement_case(argv[2])}
     elif what == "serve":
         res = {n: serve_case(n) for n in SERVE_CASES}
+    elif what == "cells":
+        res = {n: cells_case(n) for n in CELL_CASES}
     else:
         raise SystemExit(f"unknown oracle {what!r}")
     with open(out_path, "wb") as f:
