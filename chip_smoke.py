@@ -25,9 +25,13 @@ hand-written Hopper kernels K1-K4 and K2's expert entry.
 
 Phases (any failure exits non-zero; nothing falls back to a plain version):
   1. build — nvcc builds the kernel library from src/repro_torch/kernels/csrc
-     (sm_90a); the compiler's register/spill report is printed, and
-     `cuobjdump -sass` must show tensor-core (IMMA/HMMA) instructions in the
-     MVM kernel (`aimc_mvm_mma_kernel`).
+     (sm_90a; one nvcc per translation unit, started together); the
+     compiler's register/spill report is printed, and `cuobjdump -sass`
+     must show tensor-core (IMMA/HMMA/IGMMA) instructions in both MVM
+     bodies (`aimc_mvm_mma_kernel`, the expert entry's
+     `aimc_experts_wide_kernel`). The card's top SM clock, with a fixed
+     count of the operations one noise-on epilogue element needs
+     (`DRAW_OPS`), sets the draw term of the expert entry's bound.
   2. kernels — K2 (`aimc_mvm_v2`) and K3 (`aimc_mvm_stacked`) at every
      granite-8b projection shape, at the decode slot count and the prompt
      pad, noise off and on, every epilogue with a bias: each held against
@@ -39,6 +43,12 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      B 4099), each timed and held to its plain version; with s_x fixed,
      x[:4] on the split grid equals the first 4 rows of the unsplit B 4099
      launch bit for bit, noise off and under "hw" noise.
+     expert fast paths — the wide expert body's branch-free epilogue
+     (`aimc_mvm.check_fast_paths`) against the library calls it stands for:
+     no mismatch with sqrtf and cosf over all 2^24 arguments of a draw's
+     radius and cosine, with the counter draw on 2^24 counters, with the
+     IEEE division on every float |a| <= 2^25 at the launches' ADC step;
+     the wrapper takes them only where this check passed.
   3. small model — the granite smoke config served on the card (kernels);
      its prefill logits within 1e-4 of the same programmed weights run on
      the CPU (plain versions).
@@ -429,7 +439,9 @@ The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
 per-kernel JSON record (K2/K3 timed per granite layer at decode, K1/K4 per
 MLP forward, the expert entry per olmoe-1b-7b training layer and
-microbatch with read noise on, its launches those of phase 24's
+microbatch with read noise on, bound by the larger of its bytes and its
+counter draws (``bytes_bound_ms``, ``draws_bound_ms``; ``body`` names the
+body that ran), its launches those of phase 24's
 one-device noise-on oracle and, under ``sharded_train_launches``, those of
 the sharded noise-on step (K2's too; K2's ``mesh_cells_launches`` are phase
 23 (f)'s); K2's max |err| covers its training
@@ -536,20 +548,20 @@ def bound_ms(b, kb, m, np_, g, peaks, bias: bool, noise_bytes: int = 0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def build_report(lib: Path, report: str) -> dict:
+def build_report(report: str, sass: str) -> dict:
     """Per CUDA kernel of the library: registers, stack and spill bytes from
     the ptxas report, and the tensor-core instructions (IMMA/HMMA class) in
-    its SASS (`cuobjdump -sass`). Fails if the MVM kernel has none."""
+    its SASS (``sass``, `sass_listing`). Fails if an MVM kernel (either
+    expert body's) has none."""
     import re
 
-    from repro_torch.kernels import aimc_mvm
-
     def short(mangled):
-        m = re.search(r"(aimc_(?:dac|mvm_mma|rowblock_sum)_kernel)"
-                      r"(?:I((?:Li\d+E)+)E)?", mangled)
+        m = re.search(r"(aimc_(?:dac|mvm_mma|rowblock_sum|experts_check|"
+                      r"experts_wide)_kernel)(?:I((?:L[ib]\d+E)+)E)?",
+                      mangled)
         if m is None:
             return mangled
-        args = re.findall(r"Li(\d+)E", m.group(2) or "")
+        args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
         return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
     kernels: dict = {}
@@ -567,16 +579,13 @@ def build_report(lib: Path, report: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
-    cuobjdump = Path(aimc_mvm._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, timeout=300).stdout
     cur = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = kernels.setdefault(short(m.group(1)), {})
             cur["tensor_core_instructions"] = {}
-        m = re.search(r"\b([IH]MMA\.\S+)", line)
+        m = re.search(r"\b([IH]G?MMA\.\S+)", line)
         if m and cur is not None:
             ops = cur["tensor_core_instructions"]
             ops[m.group(1)] = ops.get(m.group(1), 0) + 1
@@ -585,10 +594,62 @@ def build_report(lib: Path, report: str) -> dict:
               f"{info.get('spill_store_bytes')} bytes spill stores, "
               f"{info.get('spill_load_bytes')} bytes spill loads; tensor-core "
               f"SASS {info.get('tensor_core_instructions')}", flush=True)
-    mma = [v for k, v in kernels.items() if k.startswith("aimc_mvm_mma")]
-    check(bool(mma) and all(v.get("tensor_core_instructions") for v in mma),
-          "the MVM kernel has no IMMA/HMMA instruction in its SASS")
+    for body in ("aimc_mvm_mma", "aimc_experts_wide"):
+        mma = [v for k, v in kernels.items() if k.startswith(body)]
+        check(bool(mma) and all(v.get("tensor_core_instructions")
+                                for v in mma),
+              f"the MVM kernel {body} has no IMMA/HMMA instruction in its "
+              f"SASS")
     return kernels
+
+
+def sass_listing(lib: Path) -> str:
+    from repro_torch.kernels import aimc_mvm
+    cuobjdump = Path(aimc_mvm._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300).stdout
+
+
+# The least operations of one noise-on epilogue element of the expert
+# entry, counted from what it computes (cprng.cuh's draw, the ADC, the
+# dequant), one instruction each: a yardstick fixed here, which no build of
+# the kernel moves (tools/expert_profile.py prints what a build spends).
+DRAW_OPS = {
+    "counter (k*C + r)*nc + c": 1,
+    "two mix32 hashes (3 xor-shifts of 2, 2 multiplies each)": 16,
+    "hash inputs (ctr ^ seed, h1 + golden)": 2,
+    "two uniforms (shift, int->float, scale; + 1)": 7,
+    "logf (exponent split 3, degree-8 polynomial, + e ln 2)": 12,
+    "radius (-2 log, rsqrt, 2 products, Newton step 2)": 6,
+    "cos (angle, quadrant 3, 3-part reduction, r^2, polynomial 4, "
+    "quadrant swap and sign 3)": 15,
+    "noise (r cos, sigma z, int->float of the sum, add)": 4,
+    "ADC (division 3, rint, clip 2)": 6,
+    "dequant (scale, add)": 2}
+
+
+def draw_floor_ms(draws: int, ops_per_draw: int, sm_mhz: float,
+                  sms: int = 132, lanes: int = 128) -> float:
+    """Least time to issue ``draws`` elements of the noise-on epilogue
+    (``ops_per_draw`` instructions each, `DRAW_OPS`): every SM's
+    ``lanes`` lanes issuing one instruction a clock at ``sm_mhz``."""
+    return draws * ops_per_draw / (sms * lanes * sm_mhz * 1e6) * 1e3
+
+
+def expert_fast_path_phase(dev):
+    """The wide expert body's branch-free epilogue against the library calls
+    it stands for (`aimc_mvm.check_fast_paths` at the ADC step of 512-row
+    tiles, the step of every launch here): no mismatch anywhere, so the
+    launches take them (`aimc_mvm.fast_epilogue`)."""
+    from repro_torch.core.quant import adc_step_lsb
+    from repro_torch.kernels import aimc_mvm
+    got = aimc_mvm.check_fast_paths(dev, adc_step_lsb(512, 1.0))
+    print(f"[kernels] wide expert body's fast paths against sqrtf, cosf, "
+          f"the counter draw and the IEEE division: {got}", flush=True)
+    check(all(v == 0 for k, v in got.items() if k != "min_abs_cos")
+          and got["min_abs_cos"] > 0.0,
+          f"the wide expert body's fast paths differ: {got}")
+    return got
 
 
 def kernel_phase(dev, peaks, slots: int, prompt_pad: int):
@@ -694,7 +755,7 @@ def kernel_phase(dev, peaks, slots: int, prompt_pad: int):
 
 
 def plan_str(plan) -> str:
-    return (f"{plan['rows_per_block']} rows/block, "
+    return (f"{plan['body']} body, {plan['rows_per_block']} rows/block, "
             f"{'split' if plan['split'] else 'unsplit'}, "
             f"{plan['kernels_per_call']} kernels/call")
 
@@ -3464,15 +3525,36 @@ def moe_launches(cfg, fused: bool = False):
     return ((1 if fused else 4) + dense) * l, (l if fused else 0), 3 * l
 
 
-def expert_bound_ms(e, b, kb, m, np_, peaks):
-    """Least time of one expert launch: each expert's x, codes, scales,
-    DAC scale and output moved once, against its int8 MACs."""
+# the counter draw's cost: operations of one noise-on epilogue element
+# (`DRAW_OPS`) and the card's top SM clock (set by the build phase)
+DRAW_COST = {"ops_per_draw": sum(DRAW_OPS.values()), "sm_mhz": None}
+
+
+def expert_bound_terms(e, b, kb, m, np_, peaks, sigma: float = 0.0):
+    """The least times of one expert launch, ms: each expert's x, codes,
+    scales, DAC scale and output moved once ("bytes"); its int8 MACs
+    ("operations"); with read noise, its E x C x Np x KB counter draws at
+    `DRAW_COST`'s operations each, issued by every SM's 128 lanes at the
+    top clock ("draws", `draw_floor_ms`)."""
     k_pad = kb * m
     nbytes = e * (b * k_pad * 4 + k_pad * np_ + kb * np_ * 4 + b * np_ * 4
                   + 4)
-    t_bytes = nbytes / peaks[0] * 1e3
-    t_ops = 2 * e * b * k_pad * np_ / peaks[1] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    terms = {"bytes": nbytes / peaks[0] * 1e3,
+             "operations": 2 * e * b * k_pad * np_ / peaks[1] * 1e3}
+    if sigma > 0.0:
+        check(DRAW_COST["sm_mhz"] is not None,
+              "the SM clock is read in the build phase")
+        terms["draws"] = draw_floor_ms(e * b * np_ * kb,
+                                       DRAW_COST["ops_per_draw"],
+                                       DRAW_COST["sm_mhz"])
+    return terms
+
+
+def expert_bound_ms(e, b, kb, m, np_, peaks, sigma: float = 0.0):
+    """(least time, the term that sets it) of `expert_bound_terms`."""
+    terms = expert_bound_terms(e, b, kb, m, np_, peaks, sigma)
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 def moe_expert_rows(arch, eng, peaks, flush, gen, card, caps):
@@ -4641,7 +4723,7 @@ def _ranged(label, fn, host):
 
 
 CROSSBAR_KERNELS = ("aimc_mvm_mma_kernel", "aimc_dac_kernel",
-                    "aimc_rowblock_sum_kernel")
+                    "aimc_experts_wide_kernel", "aimc_rowblock_sum_kernel")
 
 
 def train_step_profile(fn, dev, extra=None, cpu_ops=True, trace=True):
@@ -5035,8 +5117,10 @@ def train_expert_rows(calls, peaks, card):
                                             experts=True),
                "ms": time_ms(kern, flush, KERNEL_REPS),
                "plain_ms": time_ms(plain, flush, 2)}
-        row["bound_ms"], row["bound_by"] = expert_bound_ms(e, b, kb, m, np_,
-                                                           peaks)
+        row["bound_terms"] = expert_bound_terms(e, b, kb, m, np_, peaks,
+                                                sigma)
+        row["bound_ms"], row["bound_by"] = expert_bound_ms(
+            e, b, kb, m, np_, peaks, sigma)
         rows.append(row)
         print(f"[train] expert entry E {e} x [{b}x{xs[2]}] KB {kb} Np {np_} "
               f"sigma {sigma} ({plan_str(row['plan'])}): == {e} seeded K2 "
@@ -6521,14 +6605,25 @@ def main() -> int:
         print(f"[build] {lib.name}\n"
               f"{aimc_mvm.BUILD_LOG.get('report', '(cached build)')}",
               flush=True)
-        return build_report(lib, aimc_mvm.BUILD_LOG.get("report", ""))
+        return build_report(aimc_mvm.BUILD_LOG.get("report", ""),
+                            sass_listing(lib))
 
     def free():
         gc.collect()              # the engine holds a reference cycle
         torch.cuda.empty_cache()
 
     build = phase("build", build_phase)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0])
+    DRAW_COST.update(sm_mhz=sm_mhz)
+    print(f"[build] {DRAW_COST['ops_per_draw']} operations per noise-on "
+          f"epilogue element (DRAW_OPS); top SM clock {sm_mhz:.0f} MHz: "
+          f"{draw_floor_ms(1 << 30, DRAW_COST['ops_per_draw'], sm_mhz):.4f}"
+          f" ms per 2^30 draws", flush=True)
     rows, worst = phase("kernels", kernel_phase, dev, peaks, SLOTS, PROMPT)
+    fast_paths = phase("expert fast paths", expert_fast_path_phase, dev)
     free()
     v1_rows, v1_worst = phase("v1/hw kernels", v1_hw_kernel_phase, dev, peaks)
     hw_draws = phase("hw draws", hw_draw_phase, dev)
@@ -6618,6 +6713,8 @@ def main() -> int:
     kx = {key: 2 * gate[key] + down[key]
           for key in ("ms", "plain_ms", "bound_ms")}
     kx["bound_by"] = gate["bound_by"]
+    kx |= {f"{term}_bound_ms": 2 * gate["bound_terms"][term]
+           + down["bound_terms"][term] for term in gate["bound_terms"]}
     kx_err = max([r["max_abs_err"] for arch in ("olmoe-1b-7b", "arctic-480b")
                   for r in moe[arch]["expert_rows"]]
                  + [r["max_abs_err"] for r in resilience["b"]["probe_rows"]]
@@ -6683,13 +6780,16 @@ def main() -> int:
              "aimc_mvm_experts"],
          "max_abs_err": kx_err, "ms": kx["ms"], "plain_ms": kx["plain_ms"],
          "bound_ms": kx["bound_ms"], "bound_by": kx["bound_by"],
-         "library_ms": None}]}
+         "bytes_bound_ms": kx["bytes_bound_ms"],
+         "draws_bound_ms": kx.get("draws_bound_ms"),
+         "body": gate["plan"]["body"], "library_ms": None}]}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": smi, "torch": torch.__version__, "kernels": record,
         "build": build,
         "kernel_rows": rows, "v1_hw_kernel_rows": v1_rows,
         "hw_draws": hw_draws, "small_model_max_err": small_err,
+        "expert_fast_paths": fast_paths, "draw_cost": DRAW_COST,
         "serve": serve_stats, "stacked": stacked, "static": static,
         "moe": moe,
         "staged_v1": staged, "paper_nets": paper, "init": init,

@@ -13,15 +13,24 @@
   * `aimc_mvm_experts` — K2 over an `[E, ...]` expert stack, each expert
     on its own input, DAC scale and read seed: the counterpart of
     `jax.vmap` over `aimc_matmul_pallas_v2` in the MoE FFN
-    (`repro/models/moe.py:74-86`), one launch for all E experts.
+    (`repro/models/moe.py:74-86`), one launch for all E experts. Two
+    bodies, the same bits: `csrc/aimc_mvm.cu`'s ("mma", small capacities)
+    and `csrc/aimc_experts.cuh`'s ("wide", C >= 32 rows per expert with
+    a tile for every SM: wgmma fed by TMA, warp-specialised, its
+    noise draws overlapping the MACs); `expert_body` chooses from the shape
+    and the SM count and `launch_plan(..., experts=True)` reports the
+    choice. The wide body's branch-free epilogue is taken only at an ADC
+    step where `check_fast_paths` passed on the card (`fast_epilogue`).
 
-The shared library is compiled with `nvcc` for `sm_90a` at first use, into
-``build/`` beside this file (listed in `.gitignore`), named by a hash of its
-sources so an edited kernel is rebuilt. Each wrapper checks its operands,
-allocates the output and the launch's workspace (int8 DAC codes, and the
-per-row-block scratch of a split grid) with `torch.empty`, launches on
-PyTorch's current stream without synchronising, raises if a launch was
-refused, and adds one to `LAUNCHES[name]` per wrapper call, whatever number
+The shared library (`csrc/aimc_mvm.cu` and `csrc/aimc_experts.cu`, one
+`nvcc -c` each, started together, then linked) is compiled for `sm_90a` at
+first use, into ``build/`` beside this file (listed in `.gitignore`), named
+by a hash of its sources so an edited kernel is rebuilt. Each wrapper
+checks its operands, allocates the output and the launch's workspace (int8
+DAC codes, and the per-row-block scratch of a split grid) with
+`torch.empty`, launches on PyTorch's current stream without synchronising,
+raises if a launch was refused, and adds one to `LAUNCHES[name]` per
+wrapper call, whatever number
 of CUDA kernels the call issues (the DAC pass, the tensor-core MVM and, on
 a split grid, the row-block sum): a run can read the counts to prove its
 path went through the kernels; K2/K3 calls that draw "hw" noise
@@ -51,7 +60,8 @@ from repro_torch.kernels.ref import NOISE_SOURCES
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "build"
-_SOURCES = ("aimc_mvm.cu", "cprng.cuh", "philox.cuh")
+_UNITS = ("aimc_mvm.cu", "aimc_experts.cu")   # one nvcc each, in parallel
+_SOURCES = (*_UNITS, "aimc_experts.cuh", "cprng.cuh", "philox.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -95,22 +105,46 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernel library if this source hash has no build yet.
-    Returns its path; the compiler's report lands in `BUILD_LOG`."""
+    """Compile the kernel library if this source hash has no build yet:
+    one ``nvcc -c`` per translation unit, all started together, then one
+    link. Returns its path; the compiler's report lands in `BUILD_LOG`
+    (and beside the library, for a later process that finds it built)."""
     out = library_path()
+    report_path = out.with_suffix(".txt")
     if out.exists():
+        if not BUILD_LOG and report_path.exists():
+            BUILD_LOG.update(cmd="(built earlier)",
+                             report=report_path.read_text())
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / "aimc_mvm.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)      # atomic: concurrent builders agree
-    BUILD_LOG.update(cmd=" ".join(cmd), report=proc.stderr + proc.stdout)
+    tmp = Path(tempfile.mkdtemp(dir=_BUILD))
+    try:
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        cmds = [[_nvcc(), *compile_flags, "-c", "-o",
+                 str(tmp / f"{Path(unit).stem}.o"), str(_CSRC / unit)]
+                for unit in _UNITS]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        outs = [proc.communicate() for proc in procs]
+        report = "".join(err + so for so, err in outs)
+        for proc, (so, err) in zip(procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{so}\n{err}")
+        link = [_nvcc(), "-shared", "-o", str(tmp / "lib.so"),
+                *(c[c.index("-o") + 1] for c in cmds)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        (tmp / "report.txt").write_text(report)
+        os.replace(tmp / "report.txt", report_path)
+        os.replace(tmp / "lib.so", out)   # atomic: concurrent builders agree
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    BUILD_LOG.update(cmd="\n".join(" ".join(c) for c in [*cmds, link]),
+                     report=report)
     return out
 
 
@@ -131,42 +165,120 @@ def _load():
             ex.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_float,
                               ctypes.c_void_p, ctypes.c_void_p]
-                           + [ctypes.c_int] * 3)
+                           + [ctypes.c_int] * 5)
             ex.restype = ctypes.c_int
+            lib.aimc_mvm_plan.argtypes = (
+                [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)])
+            lib.aimc_mvm_experts_plan.argtypes = (
+                [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)])
             for plan in (lib.aimc_mvm_plan, lib.aimc_mvm_experts_plan):
-                plan.argtypes = ([ctypes.c_int] * 5
-                                 + [ctypes.POINTER(ctypes.c_longlong)])
                 plan.restype = ctypes.c_int
+            lib.aimc_experts_check.argtypes = [
+                ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+            lib.aimc_experts_check.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
+# the expert entry's bodies: aimc_mvm.cu's (small capacities, any grid)
+# and aimc_experts.cuh's (tiles of WIDE_ROWS rows x 128 columns, one
+# persistent block per SM)
+EXPERT_BODIES = ("mma", "wide")
+WIDE_ROWS = 128
+
+
+def expert_body(b: int, kb: int, m: int, np_: int, e: int,
+                sms: int) -> str:
+    """The body the expert entry runs for ``e`` experts of ``b`` rows each
+    on x [E, B, KB*M] and a panel ``np_`` columns wide, on a card with
+    ``sms`` SMs: "wide" (`csrc/aimc_experts.cuh`) once an expert fills a
+    quarter of a 128-row tile (B >= 32) and the tiles cover every SM, else
+    "mma" (`csrc/aimc_mvm.cu`'s expert body: decode, prefill and the
+    health probes, 1-2 rows per expert). The line is where the bodies'
+    times cross on an H100 (`tools/expert_profile.py`'s sweep): under 32
+    rows the wide body spends a 128-row tile's MACs and draws on fewer
+    rows, and with fewer tiles than SMs its draws run on fewer warps than
+    the small body's. Both give the same bits."""
+    tiles = (np_ // 128) * -(-b // WIDE_ROWS) * e
+    return "wide" if b >= WIDE_ROWS // 4 and tiles >= sms else "mma"
+
+
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=1024)
 def _plan(device_index: int, b: int, kb: int, m: int, np_: int,
-          g: int, experts: bool = False) -> tuple[int, int]:
-    """(plan code, workspace bytes) of the launcher for this shape; the plan
-    depends on the device's SM count. It depends on a column piece's own
-    width ``np_`` alone, not on the row stride it is read at."""
+          g: int, experts: bool = False) -> tuple[int, int, str]:
+    """(plan code, workspace bytes, body) of the launcher for this shape;
+    the plan depends on the device's SM count. It depends on a column
+    piece's own width ``np_`` alone, not on the row stride it is read
+    at."""
     work = ctypes.c_longlong(0)
     lib = _load()
-    fn = lib.aimc_mvm_experts_plan if experts else lib.aimc_mvm_plan
+    body = (expert_body(b, kb, m, np_, g, _sms(device_index)) if experts
+            else "mma")
     with torch.cuda.device(device_index):
-        code = fn(b, kb, m, np_, g, ctypes.byref(work))
-    return int(code), int(work.value)
+        if experts:
+            code = lib.aimc_mvm_experts_plan(b, kb, m, np_, g,
+                                             EXPERT_BODIES.index(body),
+                                             ctypes.byref(work))
+        else:
+            code = lib.aimc_mvm_plan(b, kb, m, np_, g, ctypes.byref(work))
+    return int(code), int(work.value), body
 
 
 def launch_plan(device, b: int, kb: int, m: int, np_: int, g: int = 1,
                 experts: bool = False):
     """The launcher's choice for a call of this shape on ``device``: rows
-    per block (16 or 64), whether the grid splits over row blocks, the CUDA
-    kernels the call issues (DAC pass, MVM, and the row-block sum when
-    split) and the workspace bytes. ``experts``: the expert entry, with
-    ``g`` experts of ``b`` rows each."""
-    code, work = _plan(torch.device(device).index or 0, b, kb, m, np_, g,
-                       experts)
+    per block (16 or 64; the wide expert body's 128 per tile), whether the
+    grid splits over row blocks, the CUDA kernels the call issues (DAC
+    pass, MVM, and the row-block sum when split), the workspace bytes and
+    the body. ``experts``: the expert entry, with ``g`` experts of ``b``
+    rows each, whose body is `expert_body`'s choice."""
+    code, work, body = _plan(torch.device(device).index or 0, b, kb, m,
+                             np_, g, experts)
     split = bool(code & 256)
     return {"rows_per_block": code & 255, "split": split,
-            "kernels_per_call": 3 if split else 2, "workspace_bytes": work}
+            "kernels_per_call": 3 if split else 2, "workspace_bytes": work,
+            "body": body}
+
+
+def check_fast_paths(device, adc_step: float) -> dict:
+    """The wide expert body's branch-free epilogue (`csrc/aimc_experts.cuh`)
+    against the library calls it stands for, on ``device``: mismatches of
+    its Box-Muller radius and cosine against sqrtf/cosf over all 2^24
+    arguments each, of its division against IEEE ``a / adc_step`` over
+    every float |a| <= 2^25 (every sum a launch that takes it can give),
+    of its draw against the counter draw on 2^24 counters, and the least
+    nonzero |cos| of a draw. Every count is 0 where the body's bits equal
+    the library calls' at this step."""
+    dev = torch.device(device)
+    bad = torch.zeros(5, dtype=torch.int64, device=dev)
+    bad[4] = 0x7F800000
+    lib = _load()
+    with torch.cuda.device(dev):
+        err = lib.aimc_experts_check(
+            float(adc_step), bad.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"aimc_experts_check failed: CUDA error {err}")
+    v = bad.tolist()
+    return {"radius_mismatches": v[0], "cos_mismatches": v[1],
+            "div_mismatches": v[2], "draw_mismatches": v[3],
+            "min_abs_cos": float(torch.tensor([v[4]], dtype=torch.int32)
+                                 .view(torch.float32))}
+
+
+@functools.lru_cache(maxsize=64)
+def fast_epilogue(device_index: int, adc_step: float) -> bool:
+    """Whether the wide body may take its branch-free epilogue at
+    ``adc_step`` on this card: `check_fast_paths` found no mismatch (run
+    once per card and step, synchronously; a few ms). Otherwise the body
+    runs the library calls, which give the same bits more slowly."""
+    got = check_fast_paths(torch.device("cuda", device_index), adc_step)
+    return got["min_abs_cos"] > 0.0 and not any(
+        v for k, v in got.items() if k != "min_abs_cos")
 
 
 def _check(t: torch.Tensor, name: str, dtype, device, ndim: int):
@@ -373,15 +485,18 @@ def aimc_mvm_experts(x, w_q, s_w, s_x, seeds=None, *, adc_step: float,
     dev_seeds = _device_seeds(seeds, e, x.device) if sigma > 0.0 else None
     out = torch.empty((e, b, np_), dtype=torch.float32, device=x.device)
     lib = _load()
-    work = torch.empty(_plan(x.device.index or 0, b, kb, m, np_, e, True)[1],
-                       dtype=torch.uint8, device=x.device)
+    _, need, body = _plan(x.device.index or 0, b, kb, m, np_, e, True)
+    work = torch.empty(need, dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.aimc_mvm_experts_launch(
             x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
             dev_seeds.data_ptr() if dev_seeds is not None else None,
             out.data_ptr(), b, kb, m, np_, e, float(adc_step), float(sigma),
-            stream, work.data_ptr(), ld, col0, nc)
+            stream, work.data_ptr(), ld, col0, nc,
+            EXPERT_BODIES.index(body),
+            int(body == "wide" and fast_epilogue(x.device.index or 0,
+                                                 float(adc_step))))
     if err:
         raise RuntimeError(f"aimc_mvm_experts launch failed: CUDA error "
                            f"{err}")

@@ -14,9 +14,14 @@
 // DAC scale are shared. The expert entry (aimc_mvm_experts_launch) is K2
 // over a [G] stack where gate g also reads its own x[g] and s_x[g] and
 // draws its counter read noise from its own seed seeds[g] (the reference's
-// vmap hands each expert its own read key), no epilogue. K1 is K2 with the noise read from an explicit
-// [KB, B, Np] operand and no epilogue. K4 is K2/K3 with the per-element
-// noise drawn by Philox4x32-10 (philox.cuh) in place of the counter hash.
+// vmap hands each expert its own read key), no epilogue; at large
+// capacities (training: C >= 32 rows per expert, a tile for every SM)
+// the expert entry runs a second body instead, aimc_experts.cuh's, whose
+// header says what bounds it there; expert_body in
+// repro_torch/kernels/aimc_mvm.py chooses. K1 is K2 with the noise read
+// from an explicit [KB, B, Np] operand and no epilogue. K4 is K2/K3 with
+// the per-element noise drawn by Philox4x32-10 (philox.cuh) in place of
+// the counter hash.
 // The plain PyTorch versions are repro_torch/kernels/ref.py
 // (aimc_matmul_ref, aimc_matmul_ref_v2, aimc_matmul_stacked_ref,
 // aimc_matmul_experts_ref; noise_source="hw" for K4).
@@ -516,13 +521,32 @@ int launch_mma(const int8_t* xq, const int8_t* w_q, const float* s_w,
   return (int)cudaGetLastError();
 }
 
+// DAC pass, MVM and (split) row-block sum of one call on `stream`.
 int grid_for(size_t n, int threads) {
   const size_t blocks = (n + threads - 1) / threads;
   const size_t cap = (size_t)sm_count() * 16;
   return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
 }
 
-// DAC pass, MVM and (split) row-block sum of one call on `stream`.
+}  // namespace
+
+// The DAC pass on `stream`: codes [rows, KB*Mp] (Mp >= M, a multiple of 4)
+// from x f32 [rows, KB*M], row r scaled by s_x[r / rows_per_scale].
+// Returns cudaGetLastError() after the launch. aimc_experts.cu's body
+// takes its codes from here too.
+extern "C" int aimc_dac_launch(const void* x, const void* s_x, void* codes,
+                               int rows, int KB, int M, int Mp,
+                               int rows_per_scale, void* stream) {
+  const size_t quads = (size_t)rows * KB * Mp / 4;
+  aimc_dac_kernel<<<grid_for(quads, 256), 256, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(s_x),
+      static_cast<int8_t*>(codes), rows, KB, M, Mp, rows_per_scale);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
 int launch_all(const void* x, const void* w_q, const void* s_w,
                const void* s_x, const void* bias, const void* noise,
                const void* seeds, void* out, int B, int KB, int M, int Np,
@@ -544,12 +568,8 @@ int launch_all(const void* x, const void* w_q, const void* s_w,
                               static_cast<unsigned char*>(work) +
                               p.codes_bytes)
                         : nullptr;
-  const int rows = per_gate_x ? G * B : B;
-  const size_t quads = (size_t)rows * KB * p.Mp / 4;
-  aimc_dac_kernel<<<grid_for(quads, 256), 256, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(s_x), codes,
-      rows, KB, M, p.Mp, B);
-  int err = (int)cudaGetLastError();
+  int err = aimc_dac_launch(x, s_x, codes, per_gate_x ? G * B : B, KB, M,
+                            p.Mp, B, st);
   if (err) return err;
   const int8_t* w = static_cast<const int8_t*>(w_q);
   const float* sw = static_cast<const float*>(s_w);
@@ -594,9 +614,23 @@ extern "C" int aimc_mvm_plan(int B, int KB, int M, int Np, int G,
   return plan_code(B, KB, M, Np, G, 0, work_bytes);
 }
 
-// The same for aimc_mvm_experts_launch (its codes are per expert).
+// The large-capacity expert body (aimc_experts.cu, aimc_experts.cuh).
+extern "C" int aimc_experts_wide_plan(int B, int KB, int M, int Np, int G,
+                                      long long* work_bytes);
+extern "C" int aimc_experts_wide_launch(const void* x, const void* w_q,
+                                        const void* s_w, const void* s_x,
+                                        const void* seeds, void* out, int B,
+                                        int KB, int M, int Np, int G,
+                                        float adc_step, float sigma,
+                                        void* stream, void* work, int ld,
+                                        int col0, int nc, int fast);
+
+// The same for aimc_mvm_experts_launch (its codes are per expert) with
+// the body the wrapper chose: 0 this file's, 1 aimc_experts.cu's (whose
+// code is its rows per tile; never split).
 extern "C" int aimc_mvm_experts_plan(int B, int KB, int M, int Np, int G,
-                                     long long* work_bytes) {
+                                     int body, long long* work_bytes) {
+  if (body == 1) return aimc_experts_wide_plan(B, KB, M, Np, G, work_bytes);
   return plan_code(B, KB, M, Np, G, 1, work_bytes);
 }
 
@@ -634,15 +668,26 @@ extern "C" int aimc_mvm_launch(const void* x, const void* w_q, const void* s_w,
 // (accumulator LSBs), no epilogue (the MoE experts' projections have none);
 // work holds the bytes aimc_mvm_experts_plan gives; ld, col0 and nc as for
 // aimc_mvm_launch. Equal bit for bit to G aimc_mvm_launch calls on x[g],
-// w_q[g], s_w[g], s_x[g] with seed seeds[g].
+// w_q[g], s_w[g], s_x[g] with seed seeds[g], under either body: body 0
+// runs this file's (small capacities), 1 aimc_experts.cu's (large ones);
+// the wrapper chooses (repro_torch/kernels/aimc_mvm.expert_body). fast = 1
+// lets body 1 take its branch-free epilogue, which the wrapper passes only
+// once aimc_experts_check found it equal to the library calls at this
+// adc_step on this card.
 extern "C" int aimc_mvm_experts_launch(const void* x, const void* w_q,
                                        const void* s_w, const void* s_x,
                                        const void* seeds, void* out, int B,
                                        int KB, int M, int Np, int G,
                                        float adc_step, float sigma,
                                        void* stream, void* work, int ld,
-                                       int col0, int nc) {
+                                       int col0, int nc, int body, int fast) {
   if (sigma > 0.0f && seeds == nullptr) return (int)cudaErrorInvalidValue;
+  if (body == 1)
+    return aimc_experts_wide_launch(x, w_q, s_w, s_x,
+                                    sigma > 0.0f ? seeds : nullptr, out, B,
+                                    KB, M, Np, G, adc_step, sigma, stream,
+                                    work, ld, col0, nc, fast);
+  if (body != 0) return (int)cudaErrorInvalidValue;
   return launch_all(x, w_q, s_w, s_x, nullptr, nullptr,
                     sigma > 0.0f ? seeds : nullptr, out, B, KB, M, Np, ld,
                     col0, nc, G, adc_step, sigma, 0u, 0, 0u, 0, 1, stream,

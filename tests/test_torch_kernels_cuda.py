@@ -34,6 +34,16 @@ card installs exactly its resident leaves (the rest stay the raw CUDA
 weights), its analog leaves run K2 within the bound above, and a rotating
 engine's K2 launches per pass follow the state in force.
 
+The expert entry's second body (`csrc/aimc_experts.cu`, "wide", chosen
+for large capacities) equals E seeded K2 launches bit for bit at
+olmoe-1b-7b's training projections cut in E only (E 8, C 2560), at a
+ragged C, past 16 experts, at KB 1, at M 300 and on a column piece, noise
+off and on, and its plain version within the bound above; its branch-free
+epilogue equals sqrtf, cosf, the counter draw and the IEEE division on
+every argument a draw or a sum can give (`aimc_mvm.check_fast_paths`), and
+a read noise whose sums pass what that check covers takes the library
+calls.
+
 Sharded serving: K2, K3 and the expert entry launched over column pieces
 (`core.aimc.split_columns`, one launch per piece with the whole x's DAC
 scale) concatenate to the whole launch bit for bit at three shapes each,
@@ -766,6 +776,94 @@ def test_expert_entry_with_seeds_equals_seeded_k2(dev, e, b, kb, np_):
                                           adc_step=step, sigma=sigma))
     assert not torch.equal(y, aimc_mvm.aimc_mvm_experts(
         x, w_q, s_w, s_x, adc_step=step))
+
+
+# (E, C, K, N, M, col0, ld): olmoe-1b-7b's training projections cut in E
+# only, ragged C, more than 16 experts, KB 1, M off the 128-code stage, a
+# column piece of a wider state (read at row stride ld, noise of the
+# whole's columns col0..); each with the tiles (one per SM at least) that
+# `expert_body` wants for the wide body
+WIDE_CASES = {
+    "olmoe we_gate train E 8": (8, 2560, 2048, 1024, 512, 0, None),
+    "olmoe we_down train E 8": (8, 2560, 1024, 2048, 512, 0, None),
+    "ragged C 333": (64, 333, 1024, 1024, 512, 0, None),
+    "E 20 > 16": (20, 128, 1536, 4096, 512, 0, None),
+    "KB 1": (16, 256, 512, 4096, 512, 0, None),
+    "M 300": (40, 128, 600, 2048, 300, 0, None),
+    "column piece col0 128": (96, 384, 1024, 256, 512, 128, 512)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [0.0, 57.5])
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_expert_body_bit_equal_to_seeded_k2(dev, case, sigma):
+    """The large-capacity expert body (`csrc/aimc_experts.cu`, chosen by
+    `expert_body` for these shapes) equals E K2 launches, each on its own
+    x[e], s_x[e] and seed, bit for bit, and its plain version within
+    1e-5 x max(1, max|y|); expert 1 got no token; read noise moves the
+    output. One wrapper call counts one launch."""
+    e, c, k, n, m, col0, ld = WIDE_CASES[case]
+    kb = -(-k // m)
+    rng = np.random.default_rng(e + c + n)
+    x, w_q, s_w, s_x = _expert_operands(e, c, kb, ld or n, e + c, dev, m=m)
+    w_q, s_w = w_q[..., col0:col0 + n], s_w[..., col0:col0 + n]
+    cols = {} if ld is None else {"col0": col0, "nc": ld}
+    step = adc_step_lsb(512, 1.0)
+    seeds = [int(v) for v in rng.integers(0, 2 ** 32, e, dtype=np.uint64)]
+    plan = aimc_mvm.launch_plan(dev, c, kb, m, n, e, experts=True)
+    assert plan["body"] == "wide" and plan["kernels_per_call"] == 2, plan
+    aimc_mvm.reset_counts()
+    y = aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, seeds, adc_step=step,
+                                  sigma=sigma, **cols)
+    assert aimc_mvm.LAUNCHES["aimc_mvm_experts"] == 1
+    for i in range(e):
+        assert torch.equal(y[i], aimc_mvm.aimc_mvm_v2(
+            x[i], w_q[i], s_w[i], s_x[i:i + 1], seeds[i], adc_step=step,
+            sigma=sigma, **cols)), i
+    _close(y, ref.aimc_matmul_experts_ref(x, w_q, s_w, s_x, seeds,
+                                          adc_step=step, sigma=sigma,
+                                          **cols))
+    assert not y[1].any()          # |sigma z| never reaches half an ADC step
+    if sigma > 0.0:
+        assert not torch.equal(y, aimc_mvm.aimc_mvm_experts(
+            x, w_q, s_w, s_x, adc_step=step, **cols))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rows", [64, 512, 4096])
+def test_wide_body_fast_paths_equal_library_calls(dev, tile_rows):
+    """The wide body's branch-free epilogue (`aimc_mvm.check_fast_paths`):
+    its Box-Muller radius and cosine equal sqrtf/cosf on all 2^24
+    arguments each, its draw the counter draw, and its division the IEEE
+    one on every float |a| <= 2^25 at the ADC steps of three tile
+    heights; so the wrapper takes it there (`fast_epilogue`)."""
+    step = adc_step_lsb(tile_rows, 1.0)
+    got = aimc_mvm.check_fast_paths(dev, step)
+    assert got["min_abs_cos"] > 0.0, got
+    assert {k: v for k, v in got.items() if k != "min_abs_cos"} == {
+        "radius_mismatches": 0, "cos_mismatches": 0, "div_mismatches": 0,
+        "draw_mismatches": 0}, got
+    assert aimc_mvm.fast_epilogue(dev.index or 0, step)
+
+
+@pytest.mark.cuda
+def test_wide_body_exact_division_outside_fast_domain(dev):
+    """A read noise whose sums may pass 2^25, beyond what the check covers
+    (M 127^2 + 6 sigma > 2^25), runs the wide body with the library calls:
+    still E seeded K2 launches bit for bit."""
+    e, c, kb, n = 16, 256, 1, 4096
+    x, w_q, s_w, s_x = _expert_operands(e, c, kb, n, 3, dev)
+    step, sigma = adc_step_lsb(512, 1.0), 5.0e6
+    assert 512 * 127 ** 2 + 6 * sigma > 2 ** 25
+    seeds = list(range(101, 101 + e))
+    assert aimc_mvm.launch_plan(dev, c, kb, 512, n, e,
+                                experts=True)["body"] == "wide"
+    y = aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, seeds, adc_step=step,
+                                  sigma=sigma)
+    for i in range(e):
+        assert torch.equal(y[i], aimc_mvm.aimc_mvm_v2(
+            x[i], w_q[i], s_w[i], s_x[i:i + 1], seeds[i], adc_step=step,
+            sigma=sigma)), i
 
 
 @pytest.mark.cuda

@@ -3,19 +3,29 @@
 CUDA card: both libraries get the same operands at every shape the port's
 main paths run (granite-8b at decode and prompt pad, K3's w_gu stack, the
 paper nets' MVMs at their published widths), with read noise off, counter
-noise, Philox ("hw") noise and K1's explicit noise operand. Each output of
+noise, Philox ("hw") noise and K1's explicit noise operand; and the MoE
+expert entry at every expert shape the paths run (olmoe-1b-7b's training
+projections at E 64 x C 2560 whole and per data:2,model:2 position, E 32;
+olmoe's and arctic-480b's serving stacks at decode and prefill capacity;
+granite-8b's [36] health-probe stacks at B 2; a ragged C 333 and E 20,
+each with the tiles that send it to the wide body),
+noise off and with counter noise and a seed per expert. Each output of
 this checkout must equal the other's bit for bit; both are timed in turns
 (other, this, this, other; CUDA events, L2 read-flushed per launch).
 
-    python3 tools/kernel_ab.py --other DIR [--other-abi work|pre-work]
+    python3 tools/kernel_ab.py --other DIR [--other-abi cols|work|pre-work]
 
 DIR is the root of the other tree. Its kernel is called through the C
-entry point of its time: ``work`` (the default) is `aimc_mvm_launch` with
-the trailing workspace pointer and no column-piece arguments, the entry
-from the launcher's workspace until the row stride and column offset came
-in; ``pre-work`` is the entry before the workspace. This tree's kernels
-run through their wrappers with the column-piece arguments at their
-defaults (the whole state). Results go to chiprun_out/kernel_ab.json.
+entry point of its time: ``cols`` (the default) is `aimc_mvm_launch` with
+the trailing workspace pointer, row stride, column offset and state
+width, and `aimc_mvm_experts_launch` with the same trailing arguments
+(the entries since column pieces came in); ``work`` is `aimc_mvm_launch`
+with the workspace pointer alone, ``pre-work`` the entry before the
+workspace (neither has the expert entry's seeds: no expert cases). This
+tree's kernels run through their wrappers with the column-piece arguments
+at their defaults (the whole state); each expert row records the body
+this tree's `expert_body` chose. Results go to
+chiprun_out/kernel_ab.json.
 """
 
 from __future__ import annotations
@@ -48,12 +58,20 @@ def build_other(other: Path, abi: str) -> ctypes.CDLL:
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_int,
            ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
-        + ([ctypes.c_void_p] if abi == "work" else []))
+        + ([ctypes.c_void_p] if abi != "pre-work" else [])
+        + ([ctypes.c_int] * 3 if abi == "cols" else []))
     lib.aimc_mvm_launch.restype = ctypes.c_int
-    if abi == "work":
-        lib.aimc_mvm_plan.argtypes = ([ctypes.c_int] * 5
-                                      + [ctypes.POINTER(ctypes.c_longlong)])
-        lib.aimc_mvm_plan.restype = ctypes.c_int
+    plans = [lib.aimc_mvm_plan] if abi != "pre-work" else []
+    if abi == "cols":
+        ex = lib.aimc_mvm_experts_launch
+        ex.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                          ctypes.c_void_p] + [ctypes.c_int] * 3)
+        ex.restype = ctypes.c_int
+        plans.append(lib.aimc_mvm_experts_plan)
+    for plan in plans:
+        plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        plan.restype = ctypes.c_int
     lib.abi = abi
     return lib
 
@@ -71,12 +89,13 @@ def other_call(lib, x, w_q, s_w, s_x, seed, bias, noise, *, adc_step, sigma,
     for i, a in enumerate(acts):
         packed |= _ACT_CODES[a] << (2 * i)
     extra = []
-    if lib.abi == "work":
+    if lib.abi != "pre-work":
         need = ctypes.c_longlong(0)
         lib.aimc_mvm_plan(x.shape[0], kb, m, np_, g, ctypes.byref(need))
         work = torch.empty(max(int(need.value), 16), dtype=torch.uint8,
                            device=x.device)
-        extra = [work.data_ptr()]
+        extra = [work.data_ptr()] + ([np_, 0, np_] if lib.abi == "cols"
+                                     else [])
     err = lib.aimc_mvm_launch(
         x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
         bias.data_ptr() if bias is not None else None,
@@ -89,12 +108,113 @@ def other_call(lib, x, w_q, s_w, s_x, seed, bias, noise, *, adc_step, sigma,
     return out
 
 
+def other_experts_call(lib, x, w_q, s_w, s_x, seeds, *, adc_step, sigma):
+    """One expert-entry launch of the other library (its entry with the
+    trailing row stride, column offset and state width):
+    x [E, C, KB*M], w_q [E, KB, M, Np], s_x [E], ``seeds`` E host ints or
+    None, uploaded as this tree's wrapper uploads them (and as the other
+    tree's did), so both timings hold the same host-to-device copy."""
+    import torch
+
+    from repro_torch.kernels.aimc_mvm import _device_seeds
+    e, kb, m, np_ = w_q.shape
+    if seeds is not None:
+        seeds = _device_seeds(seeds, e, x.device)
+    c = x.shape[1]
+    out = torch.empty((e, c, np_), dtype=torch.float32, device=x.device)
+    need = ctypes.c_longlong(0)
+    lib.aimc_mvm_experts_plan(c, kb, m, np_, e, ctypes.byref(need))
+    work = torch.empty(max(int(need.value), 16), dtype=torch.uint8,
+                       device=x.device)
+    err = lib.aimc_mvm_experts_launch(
+        x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
+        seeds.data_ptr() if seeds is not None else None, out.data_ptr(), c,
+        kb, m, np_, e, float(adc_step), float(sigma),
+        torch.cuda.current_stream().cuda_stream, work.data_ptr(), np_, 0,
+        np_)
+    if err:
+        raise RuntimeError(f"other library's expert launch failed: CUDA "
+                           f"error {err}")
+    return out
+
+
+def expert_shapes():
+    """(name, E, C, K, N) of every expert-entry shape the paths run."""
+    olmoe = (("we_gate", 2048, 1024), ("we_down", 1024, 2048))
+    arctic = (("we_gate", 7168, 4864), ("we_down", 4864, 7168))
+    granite = (("wq", 4096, 4096), ("wk", 4096, 1024),
+               ("w_gate", 4096, 14336), ("w_down", 14336, 4096))
+    out = [(f"olmoe train {p}", 64, 2560, k, n) for p, k, n in olmoe]
+    out += [(f"olmoe train piece {p}", 32, 2560, k, n) for p, k, n in olmoe]
+    out += [(f"olmoe serve {p} C={c}", 64, c, k, n) for c in (1, 2)
+            for p, k, n in olmoe]
+    out += [(f"arctic serve {p}", 128, 1, k, n) for p, k, n in arctic]
+    out += [(f"granite probe {p}", 36, 2, k, n) for p, k, n in granite]
+    out += [("ragged C 333", 64, 333, 1024, 1024),
+            ("E 20", 20, 128, 1536, 4096)]
+    return out
+
+
+def expert_rows(other, dev, flush, gen, reps):
+    """The expert entry of both libraries at `expert_shapes`, noise off and
+    with counter noise and E seeds: bit-equal, timed in turns."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core.quant import adc_step_lsb, sym_scale
+    from repro_torch.kernels import aimc_mvm
+    step = adc_step_lsb(512, 1.0)
+    rows = []
+    for name, e, c, k, n in expert_shapes():
+        kb, m = -(-k // 512), 512
+        w_q = torch.randint(-127, 128, (e, kb, m, n), generator=gen,
+                            device=dev, dtype=torch.int8)
+        s_w = torch.rand((e, kb, n), generator=gen, device=dev) * 1e-3 + 5e-4
+        x = torch.zeros((e, c, kb * m), device=dev)
+        x[:, :, :k] = torch.randn((e, c, k), generator=gen, device=dev)
+        x[1] = 0.0                                # an expert with no token
+        s_x = sym_scale(x.reshape(e, -1), dim=1).reshape(e)
+        seeds = torch.randint(0, 2 ** 31, (e,), generator=gen, device=dev,
+                              dtype=torch.int32).tolist()
+        plan = aimc_mvm.launch_plan(dev, c, kb, m, n, e, experts=True)
+        for mode, sigma in (("off", 0.0), ("counter", cs.NOISE_SIGMA)):
+            mine = functools.partial(
+                aimc_mvm.aimc_mvm_experts, x, w_q, s_w, s_x,
+                seeds if sigma > 0.0 else None, adc_step=step, sigma=sigma)
+            theirs = functools.partial(
+                other_experts_call, other, x, w_q, s_w, s_x,
+                seeds if sigma > 0.0 else None, adc_step=step, sigma=sigma)
+            y_mine, y_theirs = mine(), theirs()
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(y_mine, y_theirs))
+            diff = float((y_mine - y_theirs).abs().max())
+            t_other = [cs.time_ms(theirs, flush, reps)]
+            t_mine = [cs.time_ms(mine, flush, reps) for _ in range(2)]
+            t_other.append(cs.time_ms(theirs, flush, reps))
+            row = {"shape": name, "E": e, "B": c, "K": k, "N": n,
+                   "kernel": "experts", "noise": mode, "bit_equal": equal,
+                   "max_abs_diff": diff, "ms": sum(t_mine) / 2,
+                   "other_ms": sum(t_other) / 2, "ms_runs": t_mine,
+                   "other_ms_runs": t_other, "plan": plan}
+            rows.append(row)
+            print(f"[ab] experts {name} E {e} x [{c}x{k}]x[{k}x{n}] noise "
+                  f"{mode} (this: {plan['body']} body): "
+                  f"{'bit-equal' if equal else f'DIFFERS by {diff:.3g}'}; "
+                  f"this {row['ms']:.4f} ms {t_mine}, other "
+                  f"{row['other_ms']:.4f} ms {t_other} "
+                  f"({row['other_ms'] / row['ms']:.2f}x)", flush=True)
+            del y_mine, y_theirs
+        del w_q, s_w, x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, required=True)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--other-abi", choices=("work", "pre-work"),
-                    default="work")
+    ap.add_argument("--other-abi", choices=("cols", "work", "pre-work"),
+                    default="cols")
     args = ap.parse_args()
 
     import torch
@@ -186,6 +306,8 @@ def main() -> int:
                   f"this {row['ms']:.4f} ms, other {row['other_ms']:.4f} ms "
                   f"({row['other_ms'] / row['ms']:.2f}x)", flush=True)
         del st, x
+    if args.other_abi == "cols":
+        rows += expert_rows(other, dev, flush, gen, args.reps)
     out = ROOT / "chiprun_out" / "kernel_ab.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps({"card": smi, "rows": rows}, indent=1))
