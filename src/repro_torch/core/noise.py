@@ -10,8 +10,8 @@
     compensation.
 
 Random draws take the reference's JAX PRNG keys (`core/prng.py`): the
-same key gives the same bits as `jax.random`, and Gaussians within a few
-ulps of it. Serving runs with `DISABLED`.
+same key gives the same bits and the same Gaussians as `jax.random`, bit
+for bit. Serving runs with `DISABLED`.
 """
 
 from __future__ import annotations

@@ -17,17 +17,20 @@ computed in chunks with no change to any value (a full-width CNN-M dense
 layer is 86528 x 4096 draws): `CHUNK[device type]` elements, sized to stay
 in cache on the CPU and to amortise kernel launches on the card.
 
-PyTorch has no uint32 right shift on the CPU, so the words live in int64
-masked to 32 bits. Threefry needs only add, xor and rotate, so one
-`threefry2x32` serves Python ints and int64 tensors alike.
+Keys are derived by `threefry2x32` on Python ints. A draw's counters run
+through `_threefry_bits`: the same rounds on the words' bit patterns in
+int32 tensors (PyTorch has no uint32 right shift on the CPU), whose adds
+wrap mod 2^32 as uint32's do and whose right shift is masked to a logical
+one, at half the bytes a pass of int64 would move (the draws of init and
+programming noise are bandwidth-bound elementwise passes on the card).
 
-`normal` is ``sqrt(2) * erf_inv(u)`` on ``u ~ U(nextafter(-1, 0), 1)``
-with XLA's f32 `erf_inv` polynomial written in torch ops (`torch.erfinv`
-differs from it by tens of ulps). XLA's `log1p` is not PyTorch's, so
-`normal` agrees with jax within a few ulps, not bit for bit. The `log1p` and
-the `sqrt` inside `erf_inv` run in f64 and round to f32 once: PyTorch's f32
-CPU kernels for them do not give the same bits on every call (a first call
-of f32 `torch.sqrt` was seen 1e-4 off), and a draw must.
+`normal` is ``sqrt(2) * erf_inv(u)`` on ``u ~ U(nextafter(-1, 0), 1)``,
+bit for bit with jax: `erf_inv` is XLA's f32 ErfInv as XLA:CPU compiles it
+(its `log1p` is `f32math.log1p`, its Horner steps fused where XLA fuses
+them; `torch.erfinv` differs from it by tens of ulps). The one `sqrt`
+inside runs in f64 and rounds to f32 once, the correctly rounded f32 root:
+PyTorch's f32 CPU `sqrt` does not give the same bits on every call (a first
+call was seen 1e-4 off), and a draw must.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.core import f32math
 
 M32 = 0xFFFFFFFF
 CHUNK = {"cpu": 1 << 18, "cuda": 1 << 24}
@@ -57,7 +62,9 @@ def _rotl(x, r: int):
 
 def threefry2x32(k0: int, k1: int, x0, x1):
     """Threefry-2x32 with 20 rounds (jax's `_threefry2x32_lowering`) on
-    uint32 words held in Python ints or int64 tensors; returns (y0, y1)."""
+    uint32 words held in Python ints; returns (y0, y1). `split` and
+    `fold_in` derive keys with it; a draw's counters go through
+    `_threefry_bits`."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & M32
     x1 = (x1 + ks[1]) & M32
@@ -68,6 +75,32 @@ def threefry2x32(k0: int, k1: int, x0, x1):
         x0 = (x0 + ks[(i + 1) % 3]) & M32
         x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
     return x0, x1
+
+
+def _i32(v):
+    """uint32 words (a Python int or an int64 tensor) as int32 of the same
+    bits."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.int32)
+    v = int(v) & M32
+    return v - (1 << 32) if v >> 31 else v
+
+
+def _threefry_bits(k0, k1, i: torch.Tensor) -> torch.Tensor:
+    """``y0 ^ y1`` of ``threefry2x32(k0, k1, i >> 32, i & M32)`` for int64
+    counters ``i`` (keys: Python ints or int64 tensors that broadcast
+    against ``i``), as int32 bit patterns: the rounds of `threefry2x32` in
+    wrapping int32 arithmetic."""
+    ks = (_i32(k0), _i32(k1), _i32(k0 ^ k1 ^ _PARITY))
+    x0 = _i32(i >> 32) + ks[0]
+    x1 = _i32(i & M32) + ks[1]
+    for j in range(5):
+        for r in _ROTATIONS[j % 2]:
+            x0 = x0 + x1
+            x1 = ((x1 << r) | ((x1 >> (32 - r)) & ((1 << r) - 1))) ^ x0
+        x0 = x0 + ks[(j + 1) % 3]
+        x1 = x1 + ks[(j + 2) % 3] + (j + 1)
+    return x0 ^ x1
 
 
 def key_words(key: torch.Tensor) -> tuple[int, int]:
@@ -104,7 +137,8 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 def _draw(key: torch.Tensor, shape, device, fn, dtype) -> torch.Tensor:
     """``fn(bits)`` over the flat draw of ``shape``, CHUNK elements at a
-    time; ``bits`` are the uint32 draws (int64) of one chunk."""
+    time; ``bits`` are the uint32 draws of one chunk as int32 bit patterns
+    (`_threefry_bits`)."""
     k0, k1 = key_words(key)
     shape = tuple(int(d) for d in shape)
     device = key.device if device is None else torch.device(device)
@@ -116,8 +150,7 @@ def _draw(key: torch.Tensor, shape, device, fn, dtype) -> torch.Tensor:
     for start in range(0, total, chunk):
         i = torch.arange(start, min(start + chunk, total), dtype=torch.int64,
                          device=device)
-        y0, y1 = threefry2x32(k0, k1, i >> 32, i & M32)
-        out[start:start + i.numel()] = fn(y0 ^ y1)
+        out[start:start + i.numel()] = fn(_threefry_bits(k0, k1, i))
     return out.reshape(shape)
 
 
@@ -148,19 +181,22 @@ def normal_batch(keys, shape=(), device=None) -> torch.Tensor:
     for start in range(0, total, chunk):
         i = torch.arange(start, min(start + chunk, total), dtype=torch.int64,
                          device=dev)[None, :]
-        y0, y1 = threefry2x32(k0, k1, i >> 32, i & M32)
-        out[:, start:start + i.shape[1]] = sqrt2 * erf_inv(unif(y0 ^ y1))
+        out[:, start:start + i.shape[1]] = sqrt2 * erf_inv(
+            unif(_threefry_bits(k0, k1, i)))
     return out.reshape((n, *shape))
 
 
 def bits(key: torch.Tensor, shape=(), device=None) -> torch.Tensor:
     """`jax.random.bits(key, shape, uint32)`, as int64 values in [0, 2^32)."""
-    return _draw(key, shape, device, lambda b: b, torch.int64)
+    return _draw(key, shape, device, lambda b: b.to(torch.int64) & M32,
+                 torch.int64)
 
 
 def _unit(b: torch.Tensor) -> torch.Tensor:
-    """[1, 2) from the top 23 bits, minus 1: jax's mantissa trick."""
-    return ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    """[1, 2) from the top 23 bits of uint32 draws (their bit patterns in
+    int32 or int64), minus 1: jax's mantissa trick."""
+    return (((b >> 9) & 0x7FFFFF) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
 
 
 def _f32(v: float, device) -> torch.Tensor:
@@ -188,16 +224,20 @@ def uniform(key: torch.Tensor, shape=(), lo: float = 0.0, hi: float = 1.0,
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
-    """XLA's f32 ErfInv polynomial; ``+-inf`` at ``|x| == 1``."""
-    w = -torch.log1p((-x * x).double()).float()
-    lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
-    p = torch.where(lt, _f32(_ERFINV_LT5[0], x.device),
-                    _f32(_ERFINV_GE5[0], x.device))
+    """XLA's f32 ErfInv as XLA:CPU computes it, bit for bit: ``w =
+    -log1p(-x * x)``, a degree-8 polynomial in ``w - 2.5`` (w < 5) or
+    ``sqrt(w) - 3`` (each Horner step one fused multiply-add), times x;
+    ``+-inf`` at ``|x| == 1``. Subnormal inputs and results are zero, as
+    under XLA:CPU's DAZ/FTZ."""
+    x = f32math.flush(x)
+    lg = f32math.log1p(-x * x)
+    lt = lg > -5.0
+    w = torch.where(lt, -2.5 - lg, torch.sqrt((-lg).double()).float() - 3.0)
+    ww = w.double()
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
     for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = torch.where(lt, _f32(c_lt, x.device),
-                        _f32(c_ge, x.device)) + p * w
-    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+        p = f32math.fma(p, ww, torch.where(lt, c_lt, c_ge))
+    return f32math.flush(x * torch.where(x.abs() == 1.0, math.inf, p))
 
 
 _NEXT_M1 = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
@@ -205,5 +245,5 @@ _SQRT2 = float(torch.tensor(math.sqrt(2.0), dtype=torch.float32))
 
 
 def normal(key: torch.Tensor, shape=(), device=None) -> torch.Tensor:
-    """`jax.random.normal(key, shape, float32)` within a few ulps."""
+    """`jax.random.normal(key, shape, float32)`, bit for bit."""
     return normal_batch([key], shape, device)[0]

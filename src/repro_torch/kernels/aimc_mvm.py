@@ -21,6 +21,9 @@
     and the SM count and `launch_plan(..., experts=True)` reports the
     choice. The wide body's branch-free epilogue is taken only at an ADC
     step where `check_fast_paths` passed on the card (`fast_epilogue`).
+  * `draws` — the draw functions alone (``aimc_draws``: the counter draw,
+    Box-Muller's radius and cosine, `f32math.log1p`), held to their plain
+    versions (`ref.draws_ref`) bit for bit; it replaces no TPU kernel.
 
 The shared library (`csrc/aimc_mvm.cu` and `csrc/aimc_experts.cu`, one
 `nvcc -c` each, started together, then linked) is compiled for `sm_90a` at
@@ -56,12 +59,14 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.ref import NOISE_SOURCES
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "build"
 _UNITS = ("aimc_mvm.cu", "aimc_experts.cu")   # one nvcc each, in parallel
-_SOURCES = (*_UNITS, "aimc_experts.cuh", "cprng.cuh", "philox.cuh")
+_SOURCES = (*_UNITS, "aimc_experts.cuh", "cprng.cuh", "f32math.cuh",
+            "philox.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -176,6 +181,10 @@ def _load():
             lib.aimc_experts_check.argtypes = [
                 ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
             lib.aimc_experts_check.restype = ctypes.c_int
+            lib.aimc_draws.argtypes = [
+                ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+            lib.aimc_draws.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -247,15 +256,15 @@ def launch_plan(device, b: int, kb: int, m: int, np_: int, g: int = 1,
 def check_fast_paths(device, adc_step: float) -> dict:
     """The wide expert body's branch-free epilogue (`csrc/aimc_experts.cuh`)
     against the library calls it stands for, on ``device``: mismatches of
-    its Box-Muller radius and cosine against sqrtf/cosf over all 2^24
-    arguments each, of its division against IEEE ``a / adc_step`` over
-    every float |a| <= 2^25 (every sum a launch that takes it can give),
-    of its draw against the counter draw on 2^24 counters, and the least
-    nonzero |cos| of a draw. Every count is 0 where the body's bits equal
-    the library calls' at this step."""
+    its Box-Muller radius against `csrc/cprng.cuh`'s (sqrtf of f32math's
+    log) over all 2^24 words, of its division against IEEE
+    ``a / adc_step`` over every float |a| <= 2^25 (every sum a launch that
+    takes it can give), of its draw against the counter draw on 2^24
+    counters, and the least nonzero |cos| of a draw. Every count is 0 where
+    the body's bits equal the library calls' at this step."""
     dev = torch.device(device)
-    bad = torch.zeros(5, dtype=torch.int64, device=dev)
-    bad[4] = 0x7F800000
+    bad = torch.zeros(4, dtype=torch.int64, device=dev)
+    bad[3] = 0x7F800000
     lib = _load()
     with torch.cuda.device(dev):
         err = lib.aimc_experts_check(
@@ -264,10 +273,38 @@ def check_fast_paths(device, adc_step: float) -> dict:
     if err:
         raise RuntimeError(f"aimc_experts_check failed: CUDA error {err}")
     v = bad.tolist()
-    return {"radius_mismatches": v[0], "cos_mismatches": v[1],
-            "div_mismatches": v[2], "draw_mismatches": v[3],
-            "min_abs_cos": float(torch.tensor([v[4]], dtype=torch.int32)
+    return {"radius_mismatches": v[0], "div_mismatches": v[1],
+            "draw_mismatches": v[2],
+            "min_abs_cos": float(torch.tensor([v[3]], dtype=torch.int32)
                                  .view(torch.float32))}
+
+
+def draws(what: str, *, n: int = 1 << 24, i0: int = 0, seed: int = 0,
+          x: torch.Tensor | None = None, device=None) -> torch.Tensor:
+    """The kernels' draw functions alone, computed by the library's
+    ``aimc_draws`` on a CUDA ``device`` (``x``'s for log1p): f32 [n] of
+    ``ref.draws_ref`` (`csrc/cprng.cuh`, `csrc/f32math.cuh`), which holds
+    them to their plain versions bit for bit. It replaces no TPU kernel and
+    counts no launch."""
+    if what == "log1p":
+        x = ref.check_draws(what, n, i0, x)
+        dev, n = x.device, x.numel()
+    else:
+        ref.check_draws(what, n, i0, x)
+        dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the draws kernel runs on a CUDA device, not "
+                         f"{dev}")
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        err = lib.aimc_draws(ref.DRAWS.index(what), int(seed) & 0xFFFFFFFF,
+                             int(i0), x.data_ptr() if x is not None else None,
+                             out.data_ptr(), n,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"aimc_draws failed: CUDA error {err}")
+    return out
 
 
 @functools.lru_cache(maxsize=64)

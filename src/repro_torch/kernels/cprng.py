@@ -4,7 +4,9 @@ version (PyTorch port of `repro/kernels/cprng.py`).
 Every noise element is a pure function of (seed, global element counter): a
 lowbias32 integer hash feeding a Box-Muller transform, so the kernel (which
 draws per tile, `csrc/cprng.cuh`) and the plain version (which draws in
-bulk, here) read the same values whatever the block shape.
+bulk, here) read the same values whatever the block shape. Box-Muller's
+`log` and `cos` are `core.f32math`'s (XLA:CPU's f32 `log`, glibc's `cosf`),
+so every draw equals the reference's bit for bit.
 
 The uint32 arithmetic runs in int64 tensors masked to 32 bits: PyTorch on
 the CPU has no uint32 right shift. Multiplies split the 32-bit constant in
@@ -20,6 +22,8 @@ counters, ``(k * B + b) * nc + col0 + c``.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import f32math
 
 GOLDEN = 0x9E3779B9
 _M32 = 0xFFFFFFFF
@@ -56,19 +60,31 @@ def stack_seed(seed: int, g: int) -> int:
     return int(mix32(torch.tensor(v, dtype=torch.int64)))
 
 
-def box_muller(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
-    """Standard-normal f32 draws from two uint32 words per element (the
-    reference kernel's own mapping): u1 in (0, 1], u2 in [0, 1).
+def radius(n: torch.Tensor) -> torch.Tensor:
+    """Box-Muller's radius ``sqrt(-2 log u1)`` of ``u1 = (n + 1) 2^-24``
+    in (0, 1], for the top 24 bits ``n`` of the first hash word.
 
     The square root is taken in f64 and rounded once to f32: that is the
     correctly rounded f32 root (53 >= 2 * 24 + 2 bits, so the double
-    rounding is exact), which the card's `sqrtf` gives too, and it keeps
-    off PyTorch's f32 CPU `sqrt`, whose first call in a process has
+    rounding is exact), which XLA and the card's `sqrtf` give too, and it
+    keeps off PyTorch's f32 CPU `sqrt`, whose first call in a process has
     returned values 1e-4 off."""
-    u1 = ((h1 >> 8).to(torch.float32) + 1.0) * _U24
-    u2 = (h2 >> 8).to(torch.float32) * _U24
-    r = torch.sqrt((-2.0 * torch.log(u1)).double()).to(torch.float32)
-    return r * torch.cos(_TWO_PI * u2)
+    u1 = (n.to(torch.float32) + 1.0) * _U24
+    return torch.sqrt((-2.0 * f32math.log(u1)).double()).to(torch.float32)
+
+
+def angle_cos(n: torch.Tensor) -> torch.Tensor:
+    """Box-Muller's ``cos(2 pi u2)`` of ``u2 = n 2^-24`` in [0, 1), for the
+    top 24 bits ``n`` of the second hash word."""
+    return f32math.cos(_TWO_PI * (n.to(torch.float32) * _U24))
+
+
+def box_muller(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """Standard-normal f32 draws from two uint32 words per element (the
+    reference kernel's own mapping), bit for bit with the reference's
+    ``sqrt(-2 log u1) cos(2 pi u2)`` as XLA:CPU computes it: its `log` and
+    `cos` are `f32math`'s."""
+    return radius(h1 >> 8) * angle_cos(h2 >> 8)
 
 
 def gauss_from_counter(seed, ctr: torch.Tensor) -> torch.Tensor:

@@ -17,15 +17,15 @@ size_t codes_bytes(int B, int KB, int M, int G) {
 }
 
 // The branch-free epilogue against the library calls it replaces, bit for
-// bit: over every 24-bit word n, bm_radius(n) against sqrtf(-2 logf(u1))
-// (bad[0]) and bm_cos(n) against cosf(2 pi u2) (bad[1]); every float a in
-// the division's domain (+0 and kDivLeast <= |a| <= kDivMost, both signs)
-// through div_fast against a / adc_step (bad[2]); gauss_fast against
-// cprng.cuh's gauss_from_counter on 2^24 counters (bad[3]). bad[4] takes
-// the least nonzero |bm_cos| (its float bits).
+// bit: over every 24-bit word n, bm_radius(n) against cprng.cuh's radius
+// (sqrtf of -2 log u1, bad[0]); every float a in the division's domain (+0
+// and kDivLeast <= |a| <= kDivMost, both signs) through div_fast against
+// a / adc_step (bad[1]); gauss_fast against cprng.cuh's gauss_from_counter
+// on 2^24 counters (bad[2]). bad[3] takes the least nonzero |angle_cos|
+// (its float bits), which the division's domain relies on.
 __global__ void aimc_experts_check_kernel(float adc_step, float rcp,
                                           unsigned long long* bad) {
-  unsigned* min_cos = reinterpret_cast<unsigned*>(bad + 4);
+  unsigned* min_cos = reinterpret_cast<unsigned*>(bad + 3);
   const uint32_t least = __float_as_uint(kDivLeast);
   const uint32_t top = __float_as_uint(kDivMost);
   const uint32_t stride = blockDim.x * gridDim.x;
@@ -38,24 +38,19 @@ __global__ void aimc_experts_check_kernel(float adc_step, float rcp,
         const float a = __uint_as_float(i | (sign << 31));
         if (__float_as_uint(div_fast(a, adc_step, rcp)) !=
             __float_as_uint(a / adc_step))
-          atomicAdd(&bad[2], 1ull);
+          atomicAdd(&bad[1], 1ull);
       }
     }
     if (i >= (1u << 24)) continue;
-    const float u1 = ((float)i + 1.0f) * 5.9604644775390625e-08f;
-    if (__float_as_uint(bm_radius(i)) !=
-        __float_as_uint(sqrtf(-2.0f * logf(u1))))
+    if (__float_as_uint(bm_radius(i)) != __float_as_uint(aimc::radius(i)))
       atomicAdd(&bad[0], 1ull);
-    const float u2 = (float)i * 5.9604644775390625e-08f;
-    const float c = bm_cos(i);
-    if (__float_as_uint(c) != __float_as_uint(cosf(6.283185307179586f * u2)))
-      atomicAdd(&bad[1], 1ull);
+    const float c = aimc::angle_cos(i);
     if (c != 0.0f && fabsf(c) < 1e-3f)
       atomicMin(min_cos, __float_as_uint(fabsf(c)));
     const uint32_t seed = 0xC0FFEEu;
     if (__float_as_uint(gauss_fast(seed, i)) !=
         __float_as_uint(aimc::gauss_from_counter(seed, i)))
-      atomicAdd(&bad[3], 1ull);
+      atomicAdd(&bad[2], 1ull);
   }
 }
 
@@ -111,8 +106,8 @@ extern "C" int aimc_experts_wide_launch(const void* x, const void* w_q,
   }
 }
 
-// Launch aimc_experts_check_kernel on `stream`: bad is 5 uint64 on the
-// device, zero but for bad[4] = 0x7f800000 (+inf's bits); returns
+// Launch aimc_experts_check_kernel on `stream`: bad is 4 uint64 on the
+// device, zero but for bad[3] = 0x7f800000 (+inf's bits); returns
 // cudaGetLastError() after the launch.
 extern "C" int aimc_experts_check(float adc_step, void* bad, void* stream) {
   aimc_experts_check_kernel<<<sm_count() * 8, 256, 0,

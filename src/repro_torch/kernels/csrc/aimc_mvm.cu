@@ -213,8 +213,11 @@ __global__ void aimc_dac_kernel(const float* __restrict__ x,
 // expert entry); otherwise every gate shares codes [B, KB*Mp] and s_x[0].
 // seeds != nullptr: gate g draws its noise from seeds[g] (device memory),
 // with K2's counter layout over its own B rows, so gate g equals a K2
-// launch on x[g] with seed seeds[g].
-template <int MT, int WM, int BK>
+// launch on x[g] with seed seeds[g]. kDraw: the instance that draws read
+// noise (sigma > 0, no noise operand). The draw's double-precision cos
+// needs registers that would lower every launch's occupancy; the instance
+// without it keeps noise-off and K1 launches at the body's own count.
+template <int MT, int WM, int BK, bool kDraw>
 __global__ void __launch_bounds__(WM * 128)
 aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
                     const int8_t* __restrict__ w_q,
@@ -376,7 +379,7 @@ aimc_mvm_mma_kernel(const int8_t* __restrict__ xq,
               a0 = a0 + nz.x;
               a1 = a1 + nz.y;
             }
-          } else if (sigma > 0.0f && live) {
+          } else if (kDraw && live) {
             float z0, z1;
             if (philox) {
               aimc::gauss_philox_pair(seed_g, (uint32_t)kk, (uint32_t)row,
@@ -497,7 +500,7 @@ Plan make_plan(int B, int KB, int M, int Np, int G, int per_gate_x) {
   return p;
 }
 
-template <int MT, int WM, int BK>
+template <int MT, int WM, int BK, bool kDraw>
 int launch_mma(const int8_t* xq, const int8_t* w_q, const float* s_w,
                const float* s_x, const float* bias, const float* noise,
                float* out, float* part, const uint32_t* seeds, int B, int KB,
@@ -509,13 +512,13 @@ int launch_mma(const int8_t* xq, const int8_t* w_q, const float* s_w,
   const size_t smem = (size_t)kStages * (BM * (BK + 16) + BK * kBN);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        aimc_mvm_mma_kernel<MT, WM, BK>,
+        aimc_mvm_mma_kernel<MT, WM, BK, kDraw>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(Np / kBN, (B + BM - 1) / BM,
                   part != nullptr ? G * KB : G);
-  aimc_mvm_mma_kernel<MT, WM, BK><<<grid, WM * 128, smem, stream>>>(
+  aimc_mvm_mma_kernel<MT, WM, BK, kDraw><<<grid, WM * 128, smem, stream>>>(
       xq, w_q, s_w, s_x, bias, noise, out, part, seeds, B, KB, M, Mp, Np, ld,
       col0, nc, adc_step, sigma, seed, stacked, acts, philox, per_gate_x);
   return (int)cudaGetLastError();
@@ -578,15 +581,24 @@ int launch_all(const void* x, const void* w_q, const void* s_w,
   const float* nz = static_cast<const float*>(noise);
   const uint32_t* sd = static_cast<const uint32_t*>(seeds);
   float* o = static_cast<float*>(out);
+  const bool draw = nz == nullptr && sigma > 0.0f;
   err = p.bm == 64
-            ? launch_mma<2, 2, 128>(codes, w, sw, sx, b, nz, o, part, sd, B,
-                                    KB, M, p.Mp, Np, ld, col0, nc, G,
-                                    adc_step, sigma, seed, stacked, acts,
-                                    philox, per_gate_x, st)
-            : launch_mma<1, 1, 64>(codes, w, sw, sx, b, nz, o, part, sd, B,
-                                   KB, M, p.Mp, Np, ld, col0, nc, G,
-                                   adc_step, sigma, seed, stacked, acts,
-                                   philox, per_gate_x, st);
+            ? (draw ? launch_mma<2, 2, 128, true>(
+                          codes, w, sw, sx, b, nz, o, part, sd, B, KB, M,
+                          p.Mp, Np, ld, col0, nc, G, adc_step, sigma, seed,
+                          stacked, acts, philox, per_gate_x, st)
+                    : launch_mma<2, 2, 128, false>(
+                          codes, w, sw, sx, b, nz, o, part, sd, B, KB, M,
+                          p.Mp, Np, ld, col0, nc, G, adc_step, sigma, seed,
+                          stacked, acts, philox, per_gate_x, st))
+            : (draw ? launch_mma<1, 1, 64, true>(
+                          codes, w, sw, sx, b, nz, o, part, sd, B, KB, M,
+                          p.Mp, Np, ld, col0, nc, G, adc_step, sigma, seed,
+                          stacked, acts, philox, per_gate_x, st)
+                    : launch_mma<1, 1, 64, false>(
+                          codes, w, sw, sx, b, nz, o, part, sd, B, KB, M,
+                          p.Mp, Np, ld, col0, nc, G, adc_step, sigma, seed,
+                          stacked, acts, philox, per_gate_x, st));
   if (err || !p.split) return err;
   const size_t n = (size_t)G * B * Np;
   aimc_rowblock_sum_kernel<<<grid_for(n, 256), 256, 0, st>>>(
@@ -692,4 +704,51 @@ extern "C" int aimc_mvm_experts_launch(const void* x, const void* w_q,
                     sigma > 0.0f ? seeds : nullptr, out, B, KB, M, Np, ld,
                     col0, nc, G, adc_step, sigma, 0u, 0, 0u, 0, 1, stream,
                     work);
+}
+
+namespace {
+
+// The draws alone, element i of a grid-stride range: what 0 is
+// gauss_from_counter(seed, i0 + i), 1 the Box-Muller radius and 2 the
+// cosine of the 24-bit word i0 + i (cprng.cuh's radius and angle_cos),
+// 3 f32math::log1p(x[i]).
+__global__ void aimc_draws_kernel(int what, uint32_t seed, uint32_t i0,
+                                  const float* __restrict__ x,
+                                  float* __restrict__ out, long long n) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x) {
+    const uint32_t c = i0 + (uint32_t)i;
+    float v;
+    if (what == 0)
+      v = aimc::gauss_from_counter(seed, c);
+    else if (what == 1)
+      v = aimc::radius(c);
+    else if (what == 2)
+      v = aimc::angle_cos(c);
+    else
+      v = f32math::log1p(x[i]);
+    out[i] = v;
+  }
+}
+
+}  // namespace
+
+// The kernels' draw functions alone, for holding them to their plain
+// versions bit for bit (repro_torch/kernels/aimc_mvm.draws): out f32 [n]
+// gets, by `what` (aimc_draws_kernel), the counter draws of counters
+// [i0, i0 + n), the radius or cosine of words [i0, i0 + n) (i0 + n <=
+// 2^24), or log1p of x f32 [n]. It replaces no TPU kernel: it is the
+// device side of the draws check (chip_smoke.py's draws phase). Returns
+// cudaGetLastError() after the launch.
+extern "C" int aimc_draws(int what, unsigned int seed, unsigned int i0,
+                          const void* x, void* out, long long n,
+                          void* stream) {
+  if (what < 0 || what > 3 || n < 0 || (what == 3 && x == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  aimc_draws_kernel<<<grid_for((size_t)n, 256), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      what, seed, i0, static_cast<const float*>(x), static_cast<float*>(out),
+      n);
+  return (int)cudaGetLastError();
 }

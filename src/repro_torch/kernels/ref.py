@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import f32math
 from repro_torch.core.quant import adc_quantize, quantize
 from repro_torch.kernels import cprng
 
@@ -193,3 +194,36 @@ def aimc_matmul_experts_ref(x, w_q, s_w, s_x, seeds=None, *,
                            seeds[i] if sigma > 0.0 else None,
                            adc_step=adc_step, sigma=sigma, col0=col0, nc=nc)
         for i in range(e)])
+
+
+DRAWS = ("gauss", "radius", "cos", "log1p")
+
+
+def check_draws(what: str, n: int, i0: int, x):
+    """Check a draws call (`draws_ref`, `aimc_mvm.draws`); returns log1p's
+    ``x`` flat."""
+    if what not in DRAWS:
+        raise ValueError(f"what must be one of {DRAWS}, got {what!r}")
+    if what == "log1p":
+        if x is None or x.dtype != torch.float32:
+            raise ValueError("log1p draws take an f32 x")
+        return x.contiguous().reshape(-1)
+    if i0 < 0 or n < 0 or i0 + n > (1 << 32 if what == "gauss" else 1 << 24):
+        raise ValueError(f"{what} over [{i0}, {i0 + n}) is out of range")
+    return None
+
+
+def draws_ref(what: str, *, n: int = 1 << 24, i0: int = 0, seed: int = 0,
+              x=None, device=None) -> torch.Tensor:
+    """Plain version of the draws kernel (`aimc_mvm.draws`), f32 [n]:
+    ``"gauss"`` the counter draws of counters ``[i0, i0 + n)`` under
+    ``seed``, ``"radius"`` and ``"cos"`` Box-Muller's two factors of the
+    24-bit words ``[i0, i0 + n)`` (`cprng.radius`, `cprng.angle_cos`),
+    ``"log1p"`` `f32math.log1p` of ``x`` (n = x.numel())."""
+    x = check_draws(what, n, i0, x)
+    if what == "log1p":
+        return f32math.log1p(x)
+    idx = torch.arange(i0, i0 + n, dtype=torch.int64, device=device)
+    if what == "gauss":
+        return cprng.gauss_from_counter(seed, idx)
+    return (cprng.radius if what == "radius" else cprng.angle_cos)(idx)

@@ -14,7 +14,7 @@ digital fp32 and on programmed AIMC crossbars through `core.aimclib`:
     to XLA outside any kernel).
 
 Weights are drawn with the reference's keys (`core.prng`), so the same key
-gives the same weights as the JAX package (within a few ulps). The
+gives the same weights as the JAX package, bit for bit. The
 ``*_init`` functions place them on ``device``, the card unless the caller
 asks for the CPU; every forward runs where its inputs lie.
 

@@ -96,7 +96,7 @@ def init(key: torch.Tensor, cfg: TransformerConfig, dtype=torch.float32,
     MoE: the router from ks[5], the expert stacks we_gate/we_up/we_down
     [L, E, ...] from ks[6..8] (`expert_stack_init`), and the dense residual
     wd_* (moe_dense_residual) from ks[9..11]. The same key gives the
-    reference's weights within a few ulps (`prng.normal`)."""
+    reference's weights bit for bit (`prng.normal`)."""
     l, d, hq, hkv, hd, ff = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                              cfg.n_kv_heads, cfg.hd, cfg.d_ff)
     ks = prng.split(key, 16)

@@ -1731,16 +1731,19 @@ class ShardedServeEngine(ServeEngine):
 
 def _static_closures(model, cfg, exe: Execution, max_seq: int, cache_dtype):
     """The static path's (prefill, decode): ``prefill(params, prompts,
-    frames=None)`` (``frames`` feed an enc-dec encoder) -> (logits, cache),
+    frames=None, valid_len=None)`` (``frames`` feed an enc-dec encoder,
+    ``valid_len`` serves right-padded prompts) -> (logits, cache),
     ``decode(params, cache, tokens)`` -> (logits, cache); both without
     autograd."""
     @torch.no_grad()
-    def prefill(params, prompts, frames=None):
+    def prefill(params, prompts, frames=None, valid_len=None):
+        kw = {} if valid_len is None else {"valid_len": valid_len}
         if frames is not None:
             return model.prefill(params, frames, prompts, cfg, exe,
-                                 max_seq=max_seq, cache_dtype=cache_dtype)
+                                 max_seq=max_seq, cache_dtype=cache_dtype,
+                                 **kw)
         return model.prefill(params, prompts, cfg, exe, max_seq=max_seq,
-                             cache_dtype=cache_dtype)
+                             cache_dtype=cache_dtype, **kw)
 
     @torch.no_grad()
     def decode(params, cache, tokens):
@@ -1750,20 +1753,24 @@ def _static_closures(model, cfg, exe: Execution, max_seq: int, cache_dtype):
 
 def static_generate(model, cfg, exe: Execution, params, prompts, gen: int,
                     max_seq: int | None = None, cache_dtype=torch.float32,
-                    frames=None):
+                    frames=None, valid_len=None):
     """The monolithic serve loop the engine replaced: one synchronized
     batch, one prompt length, ``gen`` lockstep decode steps.
 
     prompts: [B, P] int32 on the device of ``params``; ``frames`` [B, S, d]
     are an enc-dec model's encoder input (the prompts are then its decoder
-    tokens). Returns ([B, gen] tokens, wall seconds (prefill_s,
-    decode_s)). ``gen=1`` is prefill-only: no decode loop runs and the
-    decode time is 0.0."""
+    tokens); ``valid_len`` ([1] int32, a port-only option) serves one
+    right-padded prompt (B = 1) from its last valid position, at the
+    engine's [1, prompt_pad] prefill shape. Returns
+    ([B, gen] tokens, wall seconds (prefill_s, decode_s)). ``gen=1`` is
+    prefill-only: no decode loop runs and the decode time is 0.0."""
     b, p = prompts.shape
+    if valid_len is not None and b != 1:
+        raise ValueError(f"valid_len serves one padded prompt, got {b}")
     max_seq = max_seq or (p + gen)
     prefill, decode = _static_closures(model, cfg, exe, max_seq, cache_dtype)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, prompts, frames)
+    logits, cache = prefill(params, prompts, frames, valid_len)
     out = [logits[:, -1].argmax(-1).to(torch.int32)[:, None]]
     _wait(out[-1])
     t_prefill = time.perf_counter() - t0

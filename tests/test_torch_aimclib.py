@@ -4,7 +4,7 @@ CM_* instruction counts, tile placements and program names, and the same
 context key gives the same programming noise and read seeds.
 
 Tolerances: counts, placements and names are exact; programmed codes are
-exact here (no code of these draws sits on a rounding tie) and outputs
+exact (the draws are the reference's bit for bit) and outputs
 agree within 1e-5 * max(1, max|y|), the f32 association of the row-block
 sum.
 """

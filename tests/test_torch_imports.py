@@ -54,7 +54,8 @@ def test_every_module_is_listed():
                  "repro_torch.launch.mesh", "repro_torch.launch.shardings",
                  "repro_torch.compat", "repro_torch.core.aimc",
                  "repro_torch.kernels.ops", "repro_torch.kernels.ref",
-                 "repro_torch.kernels.cprng", "repro_torch.models.layers"):
+                 "repro_torch.kernels.cprng", "repro_torch.models.layers",
+                 "repro_torch.core.f32math"):
         assert must in mods
 
 

@@ -39,10 +39,16 @@ for large capacities) equals E seeded K2 launches bit for bit at
 olmoe-1b-7b's training projections cut in E only (E 8, C 2560), at a
 ragged C, past 16 experts, at KB 1, at M 300 and on a column piece, noise
 off and on, and its plain version within the bound above; its branch-free
-epilogue equals sqrtf, cosf, the counter draw and the IEEE division on
-every argument a draw or a sum can give (`aimc_mvm.check_fast_paths`), and
-a read noise whose sums pass what that check covers takes the library
-calls.
+epilogue equals cprng.cuh's radius and cosine, the counter draw and the
+IEEE division on every argument a draw or a sum can give
+(`aimc_mvm.check_fast_paths`), and a read noise whose sums pass what that
+check covers takes the library calls.
+
+The draws (`aimc_mvm.draws`, csrc/cprng.cuh through csrc/f32math.cuh)
+equal their plain versions on the card bit for bit: the counter draws of
+2^24 counters, Box-Muller's radius and cosine of every 24-bit word, and
+log1p of -u^2 over the 2^23 uniforms of `prng.normal`; so do K2 (counter
+noise) and K4 ("hw") at zero weights, where every output is a draw's code.
 
 Sharded serving: K2, K3 and the expert entry launched over column pieces
 (`core.aimc.split_columns`, one launch per piece with the whole x's DAC
@@ -833,17 +839,56 @@ def test_wide_expert_body_bit_equal_to_seeded_k2(dev, case, sigma):
 @pytest.mark.parametrize("tile_rows", [64, 512, 4096])
 def test_wide_body_fast_paths_equal_library_calls(dev, tile_rows):
     """The wide body's branch-free epilogue (`aimc_mvm.check_fast_paths`):
-    its Box-Muller radius and cosine equal sqrtf/cosf on all 2^24
-    arguments each, its draw the counter draw, and its division the IEEE
-    one on every float |a| <= 2^25 at the ADC steps of three tile
-    heights; so the wrapper takes it there (`fast_epilogue`)."""
+    its Box-Muller radius equals cprng.cuh's on all 2^24 words, its draw
+    the counter draw, and its division the IEEE one on every
+    float |a| <= 2^25 at the ADC steps of three tile heights; so the
+    wrapper takes it there (`fast_epilogue`)."""
     step = adc_step_lsb(tile_rows, 1.0)
     got = aimc_mvm.check_fast_paths(dev, step)
     assert got["min_abs_cos"] > 0.0, got
     assert {k: v for k, v in got.items() if k != "min_abs_cos"} == {
-        "radius_mismatches": 0, "cos_mismatches": 0, "div_mismatches": 0,
+        "radius_mismatches": 0, "div_mismatches": 0,
         "draw_mismatches": 0}, got
     assert aimc_mvm.fast_epilogue(dev.index or 0, step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what,seed", [("gauss", 0), ("gauss", 0xC0FFEE),
+                                       ("radius", 0), ("cos", 0),
+                                       ("log1p", 0)])
+def test_draws_equal_plain_bit_for_bit(dev, what, seed):
+    """The kernels' draws alone (`aimc_mvm.draws`) equal their plain
+    versions on the card (`ref.draws_ref`) bit for bit: 2^24 counters or
+    words, or log1p of -u^2 over `prng.normal`'s 2^23 uniforms."""
+    from repro_torch.core import prng
+    if what == "log1p":
+        k = torch.arange(1 << 23, dtype=torch.int64, device=dev)
+        u = prng._uniform_fn(prng._NEXT_M1, 1.0, dev)(k << 9)
+        kw = {"x": -u * u}
+    else:
+        kw = {"seed": seed, "device": dev}
+    got = aimc_mvm.draws(what, **kw)
+    want = ref.draws_ref(what, **kw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_source", ["counter", "hw"])
+def test_noise_at_zero_weights_equals_plain(dev, noise_source):
+    """K2 (counter) and K4 ("hw") at zero weights, unit scales and ADC
+    step, sigma 16: every output is rint(16 z) of one draw, and equals the
+    plain version's (in value: a code that rounds to zero from below is -0
+    in the kernel's float code, 0 in the plain version's int code)."""
+    b, np_ = 512, 4096
+    x = torch.ones((b, 64), device=dev)
+    w_q = torch.zeros((1, 64, np_), dtype=torch.int8, device=dev)
+    s_w = torch.ones((1, np_), device=dev)
+    s_x = torch.ones((1, 1), device=dev)
+    kw = dict(adc_step=1.0, sigma=16.0, noise_source=noise_source)
+    y = aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, 0x5EED, **kw)
+    want = ref.aimc_matmul_ref_v2(x, w_q, s_w, s_x, 0x5EED, **kw)
+    assert torch.equal(y, want)
+    assert y.abs().max() > 16.0
 
 
 @pytest.mark.cuda
@@ -871,8 +916,8 @@ def test_ste_forward_backward_on_card_matches_cpu(dev):
     """One STE call and one expert-STE call with programming and read
     noise on the card (K2 and the seeded expert entry) against the same
     calls on the CPU (plain versions): outputs within the bound (the
-    programming normals agree within a few ulps, a code may move on a
-    tie), gradients equal to the straight-through matmuls within it."""
+    programming normals are equal, the row-block sums associate apart),
+    gradients equal to the straight-through matmuls within it."""
     from repro_torch.core import aimc as ta
     from repro_torch.core import prng
     from repro_torch.core.noise import NoiseModel

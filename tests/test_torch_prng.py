@@ -1,10 +1,11 @@
 """Parity of the port's JAX-compatible keys (`repro_torch/core/prng.py`) with
 `jax.random` (threefry2x32, partitionable mode, 64-bit mode off).
 
-Tolerances: `PRNGKey`, `split`, `fold_in`, `bits` and `uniform` are
-bit-exact. `normal` is within 4 ulps: it runs XLA's f32 erf_inv polynomial,
-but PyTorch's `log1p` is not XLA's (measured: at most 3 ulps, on under 5%
-of 2^22 draws). A draw computed in chunks equals one computed whole.
+Tolerances: none. `PRNGKey`, `split`, `fold_in`, `bits`, `uniform` and
+`normal` are bit-exact: `normal` runs XLA's f32 erf_inv as XLA:CPU compiles
+it, its `log1p` included (`core.f32math`; the exhaustive checks over every
+uniform a draw can give are tests/test_torch_f32math.py). A draw computed
+in chunks equals one computed whole.
 """
 
 import torch_threads  # noqa: F401  (first: torch's thread budget)
@@ -18,11 +19,6 @@ import torch
 from repro_torch.core import prng
 
 SEEDS = [0, 7, 123456, 2**31 + 5, 2**32 - 1]
-
-
-def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    return np.abs(a.view(np.int32).astype(np.int64)
-                  - b.view(np.int32).astype(np.int64))
 
 
 def test_pinned_vectors():
@@ -67,11 +63,29 @@ def test_uniform_bit_exact(seed, lo, hi):
 
 
 @pytest.mark.parametrize("seed", [0, 3, 2**32 - 1])
-def test_normal_within_4_ulps(seed):
+def test_normal_bit_exact(seed):
+    """Equal to the reference's draw bit for bit."""
     want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (1 << 17,)))
     got = prng.normal(prng.PRNGKey(seed), (1 << 17,)).numpy()
     assert np.isfinite(got).all()
-    assert _ulps(got, want).max() <= 4
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_int32_rounds_equal_python_int_rounds():
+    """A draw's threefry rounds on int32 bit patterns (`_threefry_bits`)
+    equal `threefry2x32` on Python ints, counters past 2^32 and keys with
+    the top bit set included."""
+    rng = np.random.default_rng(5)
+    i = rng.integers(0, 2**40, 509, dtype=np.int64)
+    i[:3] = [0, 2**32 - 1, 2**32]
+    for k0, k1 in ((0, 7), (2**32 - 1, 2**31), (0x9E3779B9, 12345)):
+        want = [np.uint32(a ^ b) for a, b in (
+            prng.threefry2x32(k0, k1, int(c) >> 32, int(c) & prng.M32)
+            for c in i)]
+        got = prng._threefry_bits(k0, k1, torch.from_numpy(i))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      np.array(want, dtype=np.uint32))
 
 
 def test_chunked_draw_equals_whole(monkeypatch):

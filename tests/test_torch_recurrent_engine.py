@@ -234,6 +234,35 @@ def test_static_generate_is_the_engine_oracle(arch, mode):
     assert t0 == 0.0
 
 
+@pytest.mark.parametrize("mode", ["digital", "aimc"])
+@pytest.mark.parametrize("arch", ARCHS + ("granite-8b",))
+def test_static_generate_on_a_padded_prompt_is_the_engine_oracle(arch, mode):
+    """A ragged prompt served alone equals `static_generate` on the same
+    prompt right-padded to prompt_pad with its ``valid_len`` (the engine's
+    [1, prompt_pad] prefill) bit for bit; ``valid_len`` takes one prompt."""
+    from repro_torch.runtime.engine import PAD_ID
+    spec = get_arch(arch)
+    cfg, model = spec.smoke_cfg, spec.model_module()
+    params, exe = weights(arch)[1], EXE
+    if mode == "aimc":
+        exe = _fixed_scale_exe()
+        params = tp.program_model(params, tp.MappingPlan(),
+                                  exe.aimc).install(params)
+    prompt = tuple(int(t) for t in np.random.default_rng(6).integers(
+        1, cfg.vocab, 4))
+    eng = port_engine(arch, params=params, exe=exe)
+    report = eng.serve([tb.Request(0, prompt, max_new=5)])
+    padded = torch.tensor([list(prompt) + [PAD_ID] * (KW["prompt_pad"] - 4)],
+                          dtype=torch.int32)
+    gen, _ = static_generate(model, cfg, exe, params, padded, 5,
+                             max_seq=KW["max_seq"],
+                             valid_len=torch.tensor([4], dtype=torch.int32))
+    assert report.tokens(0) == gen[0].tolist()
+    with pytest.raises(ValueError, match="one padded prompt"):
+        static_generate(model, cfg, exe, params, padded.repeat(2, 1), 2,
+                        valid_len=torch.tensor([4, 4], dtype=torch.int32))
+
+
 @pytest.mark.parametrize("arch", ARCHS + ("granite-8b",))
 def test_static_generate_matches_reference(arch):
     js = jget(arch)

@@ -25,10 +25,9 @@ reference's scanned and op-by-op evaluations differ by 5.3e-4, and the port
 is 2.0e-4 from the reference; the mLSTM normalizer ``num / max(|den|,
 exp(-m))`` divides by small, cancelling sums. In the AIMC cases the
 reference logs the values its DAC and programming codes round from and the
-port takes the reference's code wherever one rounds the other way at a tie
-(`tests/torch_code_replay.py`; at these inputs one programmed rglru code,
-in the forward and again in the recompute); a code that differs away from
-a tie fails. The rglru scan equals
+port would take the reference's code wherever one rounds the other way at
+a tie (`tests/torch_code_replay.py`): at these inputs none may, since the
+programming noise draws are the reference's bit for bit. The rglru scan equals
 `jax.lax.associative_scan` bit for bit when JAX runs it op by op; under
 `jax.jit` XLA fuses each ``a2 b1 + b2`` into one multiply-add, and the port
 is within SCAN_ULPS = 8 ulps of the largest |r| of the scan (measured up to
@@ -242,7 +241,7 @@ def case(request):
                 dict(_walk(tsteps._tree_with(params, tgrads), ref["grads"])))
 
     loss_, h_, aux_, grads_ = port_run(seen=replay)
-    assert replay.get("away", 0) == 0, replay
+    assert not any(replay.values()), replay
     spread = {}
 
     def grad_spread():

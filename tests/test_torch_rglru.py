@@ -5,8 +5,8 @@ d_model 48, window 16) and on a 6-layer variant with no tail, weights
 carried across with `params_from_numpy`, digital and programmed (noise off;
 b_a/b_x ride K2's bias epilogue on the port's plain version).
 
-Pinned: `init` on JAX's keys (constant leaves exact, drawn leaves within 4
-ulps, the tail's w_ff_down from ``fold_in(key, 99)``, the noise-free codes
+Pinned: `init` on JAX's keys (every leaf bit for bit, the drawn ones
+included, the tail's w_ff_down from ``fold_in(key, 99)``, the noise-free codes
 equal); `decode_step` for 20 steps, past the 16-slot window so the ring
 buffer wraps; ragged `prefill` (``valid_len``) and a `prefill_chunk` leg
 from a carried state — logits and every cache leaf within ATOL.
@@ -166,12 +166,6 @@ def _tokens(b=3, s=8, seed=0):
     return rng.integers(1, SMOKE.vocab, (b, s)).astype(np.int32)
 
 
-def _ulps(a, b):
-    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
-    return np.abs(a.view(np.int32).astype(np.int64)
-                  - b.view(np.int32).astype(np.int64))
-
-
 def _leaves(tree):
     flat = jax.tree_util.tree_flatten_with_path(tree)[0]
     return {"/".join(str(getattr(k, "key", getattr(k, "name", k)))
@@ -192,10 +186,7 @@ def test_init_on_keys_matches_reference(seed, n_layers):
     for path, t in tl_.items():
         j = np.asarray(jl[path])
         assert tuple(t.shape) == j.shape and t.dtype == torch.float32, path
-        if np.unique(j).size <= 2:
-            np.testing.assert_array_equal(t.numpy(), j, err_msg=path)
-        else:
-            assert _ulps(t.numpy(), j).max() <= 4, path
+        np.testing.assert_array_equal(t.numpy(), j, err_msg=path)
     pj = jp.program_model(jparams, jp.MappingPlan(), ja.AimcConfig(impl="ref"))
     pt = tp.program_model(tparams, tp.MappingPlan(), ta.AimcConfig())
     assert pt.names == pj.names

@@ -15,9 +15,9 @@ forced host-platform devices, meshes built with ``Auto`` axes):
     (1 - b1)``) is under FLIP x its leaf's max may flip sign and is excused
     and counted (at most 0.1% of a leaf), as `test_torch_train.py` does. A
     bf16 parameter may differ by one bf16 ulp of its value where the f32
-    values round apart. DAC and programmed codes that the frameworks round
-    apart at a tie are replayed (`torch_code_replay`); a code that differs
-    away from a tie fails;
+    values round apart. The noise-on steps run under the code replay
+    (`torch_code_replay`), which must replay no DAC or programmed code:
+    the draws are the reference's, so none rounds apart;
   * a 1x1 mesh equals ``mesh=None`` bit for bit;
   * `moe._moe_sharded` against the reference's `moe_ffn` under
     `use_mesh` on data:2,model:2 (outputs and aux within 1e-6 of max(1,
@@ -169,7 +169,7 @@ def test_sharded_train_step_matches_reference_mesh_step(oracle, case):
     new_p, new_o, met, seen = _port_step(case, ref)
     ref["params_dtype"] = {p: v.dtype for p, v in _leaves(ref["params"])}
     assert float(met["loss"]) == pytest.approx(ref["loss"], rel=TOL)
-    assert seen.get("away", 0) == 0, seen
+    assert not any(seen.values()), seen
     opt = new_o._asdict()
     for field, tree in ref["new_opt"].items():
         if field == "step":
@@ -337,9 +337,8 @@ def test_plain_kernels_on_a_view_piece_equal_the_whole(source):
 def test_bf16_init_is_the_f32_init_rounded_once():
     """arctic smoke in bf16: every leaf is the port's f32 init rounded to
     bf16 bit for bit (one matrix at a time, the whole f32 tree never
-    built), and the reference's f32 init ``astype(bfloat16)`` wherever the
-    two frameworks' f32 draws agree (they differ by a few ulps in a few
-    draws, `core.prng.normal`)."""
+    built), and that f32 init is the reference's, so every bf16 leaf is the
+    reference's f32 init ``astype(bfloat16)`` bit for bit."""
     spec = get_arch("arctic-480b")
     model = spec.model_module()
     p16 = model.init(PRNGKey(0), spec.smoke_cfg, dtype=torch.bfloat16,
@@ -353,12 +352,10 @@ def test_bf16_init_is_the_f32_init_rounded_once():
     for path, want in _leaves(j16):
         assert got16[path].dtype == torch.bfloat16, path
         assert torch.equal(got16[path], got32[path].to(torch.bfloat16)), path
-        same32 = _f32(got32[path]) == j32[path]
-        g, w = _f32(got16[path]), want.astype(np.float32)
-        np.testing.assert_array_equal(g[same32], w[same32], err_msg=path)
-        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(w), 1e-30))) - 7)
-        assert (np.abs(g - w) <= ulp).all(), path
-        assert same32.mean() > 0.9, path
+        np.testing.assert_array_equal(_f32(got32[path]), j32[path],
+                                      err_msg=path)
+        np.testing.assert_array_equal(_f32(got16[path]),
+                                      want.astype(np.float32), err_msg=path)
 
 
 def test_bf16_embedding_gradient_is_the_reference_scatter():

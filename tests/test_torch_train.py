@@ -327,9 +327,12 @@ def test_train_step_matches_composed_reference_families(arch, monkeypatch):
     way at a tie takes the reference's value and is counted, and a code
     that differs away from a tie fails. Nothing is excused. (Here xlstm
     replays one programmed weight code, in microbatch 0's forward and
-    again in its recompute; rglru and the enc-dec model replay none.
-    Without the replay xlstm's microbatch 0 loss is 1.0e-4 relative from
-    the reference's.) Then the step, codes replayed alike: its loss the
+    again in its recompute; rglru and the enc-dec model replay none. The
+    draws are the reference's bit for bit; the tie comes from the noise's
+    arithmetic around them, which XLA fuses into multiply-adds under the
+    reference's jit, ``sigma_min + (sigma_max - sigma_min) * level`` and
+    ``codes + sigma * z``. Without the replay xlstm's microbatch 0 loss is
+    1.0e-4 relative from the reference's.) Then the step, codes replayed alike: its loss the
     mean of the microbatches', its gradients their f32 accumulation
     g_acc + g / 2 bit for bit, the step counter advanced. The
     enc-dec batch carries its frames [2, 32, d] (drawn with numpy) through

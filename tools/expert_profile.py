@@ -99,8 +99,8 @@ def build_diag() -> Path:
 def hot_path_length(code: list) -> int:
     """Instructions issued on a function's hot path: from its entry to its
     unpredicated EXIT, taking every forward branch (each slow path of the
-    division, sqrtf and cosf is skipped by a branch taken on the fast
-    path, or called as a subroutine past EXIT) and falling through every
+    division and sqrtf is skipped by a branch taken on the fast path, or
+    called as a subroutine past EXIT) and falling through every
     backward one. ``code``: (address, predicate, text) in order."""
     at = {addr: i for i, (addr, _, _) in enumerate(code)}
     i, count = 0, 0

@@ -13,19 +13,32 @@ noise off and with counter noise and a seed per expert. Each output of
 this checkout must equal the other's bit for bit; both are timed in turns
 (other, this, this, other; CUDA events, L2 read-flushed per launch).
 
-    python3 tools/kernel_ab.py --other DIR [--other-abi cols|work|pre-work]
+    python3 tools/kernel_ab.py --other DIR
+        [--other-abi bodies|cols|work|pre-work] [--draws-differ]
 
-DIR is the root of the other tree. Its kernel is called through the C
-entry point of its time: ``cols`` (the default) is `aimc_mvm_launch` with
-the trailing workspace pointer, row stride, column offset and state
-width, and `aimc_mvm_experts_launch` with the same trailing arguments
-(the entries since column pieces came in); ``work`` is `aimc_mvm_launch`
-with the workspace pointer alone, ``pre-work`` the entry before the
-workspace (neither has the expert entry's seeds: no expert cases). This
-tree's kernels run through their wrappers with the column-piece arguments
-at their defaults (the whole state); each expert row records the body
-this tree's `expert_body` chose. Results go to
-chiprun_out/kernel_ab.json.
+``--draws-differ``: the other tree draws its read noise with other
+functions (before `csrc/f32math.cuh`, its Box-Muller ran the card's
+`logf` and `cosf`), so the rows with counter or "hw" noise differ from it
+by design: they are timed and their differences reported, and only the
+rows that draw nothing (noise off, K1's explicit operand) must be
+bit-equal.
+
+DIR is the root of the other tree (its `csrc/aimc_mvm.cu`, and
+`aimc_experts.cu` where it has one, are built into one library). Its
+kernel is called through the C entry point of its time: ``bodies`` (the
+default) is the entry since the expert entry has two bodies, whose
+`aimc_mvm_experts_plan` and `aimc_mvm_experts_launch` take the body this
+tree's `expert_body` chose and its launch a trailing flag for the wide
+body's branch-free epilogue, set where the other library's own
+`aimc_experts_check` passes; ``cols`` is `aimc_mvm_launch` with the
+trailing workspace pointer, row stride, column offset and state width, and
+`aimc_mvm_experts_launch` with the same trailing arguments (the entries
+since column pieces came in); ``work`` is `aimc_mvm_launch` with the
+workspace pointer alone, ``pre-work`` the entry before the workspace
+(neither has the expert entry's seeds: no expert cases). This tree's
+kernels run through their wrappers with the column-piece arguments at
+their defaults (the whole state); each expert row records the body this
+tree's `expert_body` chose. Results go to chiprun_out/kernel_ab.json.
 """
 
 from __future__ import annotations
@@ -45,35 +58,64 @@ sys.path.insert(0, str(ROOT))
 
 def build_other(other: Path, abi: str) -> ctypes.CDLL:
     from repro_torch.kernels import aimc_mvm
-    src = other / "src" / "repro_torch" / "kernels" / "csrc" / "aimc_mvm.cu"
+    csrc = other / "src" / "repro_torch" / "kernels" / "csrc"
+    units = [str(csrc / u) for u in ("aimc_mvm.cu", "aimc_experts.cu")
+             if (csrc / u).exists()]
     out = ROOT / "chiprun_out" / "ab_build" / "libaimc_mvm_other.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([aimc_mvm._nvcc(), *aimc_mvm.NVCC_FLAGS, "-o",
-                           str(out), str(src)], capture_output=True,
+                           str(out), *units], capture_output=True,
                           text=True)
     if proc.returncode:
-        raise SystemExit(f"nvcc failed on {src}:\n{proc.stderr}")
+        raise SystemExit(f"nvcc failed on {units}:\n{proc.stderr}")
     lib = ctypes.CDLL(str(out))
     lib.aimc_mvm_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_int,
            ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
         + ([ctypes.c_void_p] if abi != "pre-work" else [])
-        + ([ctypes.c_int] * 3 if abi == "cols" else []))
+        + ([ctypes.c_int] * 3 if abi in ("bodies", "cols") else []))
     lib.aimc_mvm_launch.restype = ctypes.c_int
-    plans = [lib.aimc_mvm_plan] if abi != "pre-work" else []
-    if abi == "cols":
+    plans = [(lib.aimc_mvm_plan, 5)] if abi != "pre-work" else []
+    if abi in ("bodies", "cols"):
         ex = lib.aimc_mvm_experts_launch
         ex.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-                          ctypes.c_void_p] + [ctypes.c_int] * 3)
+                          ctypes.c_void_p]
+                       + [ctypes.c_int] * (5 if abi == "bodies" else 3))
         ex.restype = ctypes.c_int
-        plans.append(lib.aimc_mvm_experts_plan)
-    for plan in plans:
-        plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        plans.append((lib.aimc_mvm_experts_plan, 6 if abi == "bodies" else 5))
+    if abi == "bodies":
+        lib.aimc_experts_check.argtypes = [ctypes.c_float, ctypes.c_void_p,
+                                           ctypes.c_void_p]
+        lib.aimc_experts_check.restype = ctypes.c_int
+    for plan, ints in plans:
+        plan.argtypes = ([ctypes.c_int] * ints
+                         + [ctypes.POINTER(ctypes.c_longlong)])
         plan.restype = ctypes.c_int
     lib.abi = abi
+    lib.fast = {}
     return lib
+
+
+def other_fast(lib, adc_step: float, device) -> int:
+    """1 where the other library's own check of its wide body's branch-free
+    epilogue (`aimc_experts_check`, as `aimc_mvm.check_fast_paths` reads
+    it) passes at ``adc_step``, else 0; once per step. Its counts come
+    first and the least |cos| last: 4 slots in a library with the
+    `aimc_draws` export, 5 before (a cosine column, since dropped)."""
+    import torch
+    if adc_step not in lib.fast:
+        n = 4 if hasattr(lib, "aimc_draws") else 5
+        bad = torch.zeros(n, dtype=torch.int64, device=device)
+        bad[n - 1] = 0x7F800000
+        err = lib.aimc_experts_check(float(adc_step), bad.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"other aimc_experts_check: CUDA error {err}")
+        v = bad.tolist()
+        lib.fast[adc_step] = int(not any(v[:-1]) and v[-1] != 0)
+    return lib.fast[adc_step]
 
 
 def other_call(lib, x, w_q, s_w, s_x, seed, bias, noise, *, adc_step, sigma,
@@ -94,7 +136,8 @@ def other_call(lib, x, w_q, s_w, s_x, seed, bias, noise, *, adc_step, sigma,
         lib.aimc_mvm_plan(x.shape[0], kb, m, np_, g, ctypes.byref(need))
         work = torch.empty(max(int(need.value), 16), dtype=torch.uint8,
                            device=x.device)
-        extra = [work.data_ptr()] + ([np_, 0, np_] if lib.abi == "cols"
+        extra = [work.data_ptr()] + ([np_, 0, np_]
+                                     if lib.abi in ("bodies", "cols")
                                      else [])
     err = lib.aimc_mvm_launch(
         x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
@@ -116,6 +159,7 @@ def other_experts_call(lib, x, w_q, s_w, s_x, seeds, *, adc_step, sigma):
     tree's did), so both timings hold the same host-to-device copy."""
     import torch
 
+    from repro_torch.kernels import aimc_mvm
     from repro_torch.kernels.aimc_mvm import _device_seeds
     e, kb, m, np_ = w_q.shape
     if seeds is not None:
@@ -123,15 +167,21 @@ def other_experts_call(lib, x, w_q, s_w, s_x, seeds, *, adc_step, sigma):
     c = x.shape[1]
     out = torch.empty((e, c, np_), dtype=torch.float32, device=x.device)
     need = ctypes.c_longlong(0)
-    lib.aimc_mvm_experts_plan(c, kb, m, np_, e, ctypes.byref(need))
+    body = []
+    if lib.abi == "bodies":
+        plan = aimc_mvm.launch_plan(x.device, c, kb, m, np_, e, experts=True)
+        body = [aimc_mvm.EXPERT_BODIES.index(plan["body"])]
+    lib.aimc_mvm_experts_plan(c, kb, m, np_, e, *body, ctypes.byref(need))
     work = torch.empty(max(int(need.value), 16), dtype=torch.uint8,
                        device=x.device)
+    if body:
+        body.append(other_fast(lib, adc_step, x.device))
     err = lib.aimc_mvm_experts_launch(
         x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
         seeds.data_ptr() if seeds is not None else None, out.data_ptr(), c,
         kb, m, np_, e, float(adc_step), float(sigma),
         torch.cuda.current_stream().cuda_stream, work.data_ptr(), np_, 0,
-        np_)
+        np_, *body)
     if err:
         raise RuntimeError(f"other library's expert launch failed: CUDA "
                            f"error {err}")
@@ -155,9 +205,10 @@ def expert_shapes():
     return out
 
 
-def expert_rows(other, dev, flush, gen, reps):
+def expert_rows(other, dev, flush, gen, reps, draws_differ=False):
     """The expert entry of both libraries at `expert_shapes`, noise off and
-    with counter noise and E seeds: bit-equal, timed in turns."""
+    with counter noise and E seeds: bit-equal (noise off only, under
+    ``draws_differ``), timed in turns."""
     import torch
 
     import chip_smoke as cs
@@ -193,6 +244,7 @@ def expert_rows(other, dev, flush, gen, reps):
             t_other.append(cs.time_ms(theirs, flush, reps))
             row = {"shape": name, "E": e, "B": c, "K": k, "N": n,
                    "kernel": "experts", "noise": mode, "bit_equal": equal,
+                   "must_equal": mode == "off" or not draws_differ,
                    "max_abs_diff": diff, "ms": sum(t_mine) / 2,
                    "other_ms": sum(t_other) / 2, "ms_runs": t_mine,
                    "other_ms_runs": t_other, "plan": plan}
@@ -213,8 +265,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, required=True)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--other-abi", choices=("cols", "work", "pre-work"),
-                    default="cols")
+    ap.add_argument("--other-abi",
+                    choices=("bodies", "cols", "work", "pre-work"),
+                    default="bodies")
+    ap.add_argument("--draws-differ", action="store_true",
+                    help="the other tree's read noise draws with other "
+                         "functions: only noise-off rows must be equal")
     args = ap.parse_args()
 
     import torch
@@ -296,7 +352,9 @@ def main() -> int:
                       for _ in range(2)]
             t_other.append(cs.time_ms(theirs, flush, args.reps))
             row = {"shape": name, "B": b, "K": k, "N": n, "G": g,
-                   "noise": mode, "bit_equal": equal, "max_abs_diff": diff,
+                   "noise": mode, "bit_equal": equal,
+                   "must_equal": sigma == 0.0 or not args.draws_differ,
+                   "max_abs_diff": diff,
                    "ms": sum(t_mine) / 2, "other_ms": sum(t_other) / 2,
                    "ms_runs": t_mine, "other_ms_runs": t_other,
                    "plan": aimc_mvm.launch_plan(dev, b, kb, m, np_, g)}
@@ -306,14 +364,20 @@ def main() -> int:
                   f"this {row['ms']:.4f} ms, other {row['other_ms']:.4f} ms "
                   f"({row['other_ms'] / row['ms']:.2f}x)", flush=True)
         del st, x
-    if args.other_abi == "cols":
-        rows += expert_rows(other, dev, flush, gen, args.reps)
+    if args.other_abi in ("bodies", "cols"):
+        rows += expert_rows(other, dev, flush, gen, args.reps,
+                            args.draws_differ)
     out = ROOT / "chiprun_out" / "kernel_ab.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps({"card": smi, "rows": rows}, indent=1))
-    bad = [r for r in rows if not r["bit_equal"]]
-    print(f"[ab] {len(rows) - len(bad)} of {len(rows)} bit-equal; "
-          f"written to {out}", flush=True)
+    bad = [r for r in rows if r["must_equal"] and not r["bit_equal"]]
+    drawn = [r for r in rows if not r["must_equal"]]
+    print(f"[ab] {sum(r['bit_equal'] for r in rows)} of {len(rows)} "
+          f"bit-equal; {len(rows) - len(drawn)} must be, of which "
+          f"{len(bad)} differ; {len(drawn)} rows draw read noise with "
+          f"functions the other tree does not have, and differ from it by "
+          f"design ({sum(not r['bit_equal'] for r in drawn)} do); written "
+          f"to {out}", flush=True)
     return 1 if bad else 0
 
 
