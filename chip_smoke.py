@@ -448,12 +448,20 @@ Phases (any failure exits non-zero; nothing falls back to a plain version):
      profiled step of each; the per-call programming's device ms is the
      reprogram step's device busy less program-once's; init seconds and
      peak GB.
- 26. dryrun — `launch.dryrun.run_cell` for granite-8b's cells
+ 26. dryrun (after phase 23, on the serve phase's granite, before phase
+     25) — (a) `launch.dryrun.run_cell` for granite-8b's cells
      (`configs.cells`) on the single production mesh, 256 positions folded
-     onto ``meta``: every cell builds; each record's argument GB per
-     position against the card's memory, model FLOPs per position and
-     lower bounds are printed with the card's name and memory read from
-     the device.
+     onto ``meta``: every cell builds and is counted by
+     `launch.stepstats`; each record's argument and peak GB per position
+     against the card's memory, counted FLOPs and bytes, collectives,
+     useful ratio and roofline are printed with the card's name, memory
+     and SM count read from the device. (b) Phase 23 (e)'s one-device
+     prefill and decode cells, each run once on the card and counted once
+     on ``meta`` at the same shapes: the counted launches equal
+     `LAUNCHES`, the counted temporary + output bytes are within 10% (or
+     64 MB) of the card's `max_memory_allocated` over the call, and the
+     counted bytes over the call's device time are printed as achieved
+     GB/s; the counter's Python launcher plans equal the library's.
 
 The last two lines are the card's nvidia-smi name/power limit and the
 contract line {"ok": true, "device": {...}}; the line before them is the
@@ -1904,11 +1912,113 @@ def reprogram_phase(dev, card):
             "tokens": reports["reprogram"].generated_tokens}
 
 
-def dryrun_phase(card):
-    """Phase 26: `launch.dryrun` for granite-8b's cells on the single
-    production mesh (16x16 positions folded onto ``meta``): every cell
-    builds, and each record's argument GB per position, model FLOPs and
-    lower bounds are printed with the card's name read from the device."""
+# phase 26's check of the step counter against the card: the counted
+# temporary + output bytes within this share of the card's measured peak
+# over the step, or within COUNT_MEM_FLOOR bytes, whichever is larger
+COUNT_MEM_TOL, COUNT_MEM_FLOOR = 0.10, 64 << 20
+
+
+def count_check(run, card, sms):
+    """Phase 26 (b): the one-device prefill and decode cells of phase 23
+    (e) (`launch.steps.make_step`, the serve phase's program, DAC scale
+    fixed at PREFIX_SCALE, PROMPT + GEN cache rows), each run once on the
+    card after a warm-up call and counted once on ``meta`` at the shapes
+    and dtypes the card's call took (`launch.stepstats.count_step` on
+    `meta_like` of its arguments: the engine's parameters, the cache, the
+    tokens; the card's SM count): the counted launches per kernel name
+    equal `LAUNCHES`, the counted
+    temporary + output bytes are within COUNT_MEM_TOL (or COUNT_MEM_FLOOR)
+    of `max_memory_allocated` less the bytes allocated before the call
+    (its peak statistics reset first), and the counted bytes over the
+    call's device time (CUDA events) are printed as achieved GB/s. The
+    launcher plans that the counter reckons in Python
+    (`aimc_mvm.plan_for`) equal the library's for every programmed shape
+    at both cells' rows."""
+    import torch
+
+    from repro_torch.configs import ShapeCell, get_arch
+    from repro_torch.kernels import aimc_mvm
+    from repro_torch.launch.stepstats import count_step, meta_like
+    from repro_torch.launch.steps import make_step
+    from repro_torch.runtime.batcher import synchronized_trace
+
+    eng = run.engine
+    dev = eng.device
+    spec = get_arch(ARCH)
+    exe_f = dataclasses.replace(eng.exe, aimc=dataclasses.replace(
+        eng.exe.aimc, input_scale=PREFIX_SCALE))
+    reqs = synchronized_trace(N_REQ, prompt_len=PROMPT, max_new=GEN,
+                              seed=SEED + 1, vocab=eng.cfg.vocab)
+    prompts = torch.tensor([r.prompt for r in reqs], dtype=torch.int32,
+                           device=dev)
+    seq = PROMPT + GEN
+    pre, dec = (make_step(spec, ShapeCell(kind, seq, N_REQ, kind), None,
+                          exe_f, program=eng.program)
+                for kind in ("prefill", "decode"))
+    prog = getattr(eng.program, "program", eng.program)
+    shapes = {tuple(st.w_q.shape) for st in prog.states}
+    bad = [(b, shp) for b in (N_REQ * PROMPT, N_REQ) for shp in shapes
+           if aimc_mvm.plan_for(b, *shp, 1, sms)[:2]
+           != aimc_mvm._plan(dev.index or 0, b, *shp, 1)[:2]]
+    check(not bad, f"plan_for differs from the library's plan at {bad}")
+    tok, cache = pre.fn(eng.params, {"tokens": prompts})
+    dec.fn(eng.params, cache, tok)                   # warm-up
+    out = {}
+    for kind, bundle, args in (("prefill", pre,
+                                (eng.params, {"tokens": prompts})),
+                               ("decode", dec, (eng.params, cache, tok))):
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        aimc_mvm.reset_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = bundle.fn(*args)
+        ev[1].record()
+        torch.cuda.synchronize(dev)
+        ms = ev[0].elapsed_time(ev[1])
+        measured = torch.cuda.max_memory_allocated(dev) - before
+        launches = {k: v for k, v in aimc_mvm.LAUNCHES.items() if v}
+        del res
+        t0 = time.perf_counter()
+        st = count_step(bundle.fn, *meta_like(args), sms=sms)
+        count_s = time.perf_counter() - t0
+        counted = st["temp_bytes"] + st["output_bytes"]
+        check(st["launches"] == launches, f"[dryrun] counted {kind} "
+              f"launches {st['launches']} != the card's {launches}")
+        tol = max(COUNT_MEM_TOL * measured, COUNT_MEM_FLOOR)
+        check(abs(counted - measured) <= tol, f"[dryrun] counted {kind} "
+              f"temp + output {counted} B vs the card's peak {measured} B "
+              f"over the call (> {tol:.0f} B apart)")
+        gbs = st["bytes"] / (ms * 1e-3) / 1e9
+        print(f"[dryrun] (b) granite-8b {kind} cell [{N_REQ} x "
+              f"{PROMPT if kind == 'prefill' else 1}], {seq} cache rows: "
+              f"counted launches {st['launches']} == the card's; counted "
+              f"temp + output {counted / 1e6:.3f} MB vs the card's peak "
+              f"over the call {measured / 1e6:.3f} MB (max_memory_allocated"
+              f" less {before / 1e9:.3f} GB before; "
+              f"{(counted - measured) / max(measured, 1):+.3f}); counted "
+              f"{st['bytes'] / 1e9:.3f} GB and {st['flops'] / 1e9:.2f} G "
+              f"FLOPs ({st['flops_by_class']['crossbar'] / 1e9:.2f} G int8 "
+              f"crossbar ops) in {ms:.3f} ms of device time (CUDA events, "
+              f"one call) = {gbs:.1f} GB/s achieved; counted in "
+              f"{count_s:.2f} s on the host, {st['runs']} runs; on {card}",
+              flush=True)
+        out[kind] = {"launches": launches, "counted_launches": st["launches"],
+                     "measured_bytes": measured, "counted_bytes": counted,
+                     "bytes": st["bytes"], "flops": st["flops"], "ms": ms,
+                     "achieved_gb_s": gbs, "count_s": count_s}
+    return out
+
+
+def dryrun_phase(run, card):
+    """Phase 26: (a) `launch.dryrun.run_cell` for granite-8b's cells on the
+    single production mesh (16x16 positions folded onto ``meta``): every
+    cell builds and is counted (`launch.stepstats`), and each record's
+    argument and peak GB per position, counted FLOPs and bytes per
+    position, collectives, useful ratio and roofline are printed with the
+    card's name read from the device; (b) `count_check`."""
     from repro_torch.configs import cells
     from repro_torch.launch import dryrun
 
@@ -1919,22 +2029,28 @@ def dryrun_phase(card):
         rec = dryrun.run_cell(arch, shape, False, save=False)
         check(rec["ok"], f"[dryrun] {arch} {shape}: {rec.get('error')}")
         m, r = rec["memory"], rec["roofline"]
-        print(f"[dryrun] {arch} {shape} ({rec['kind']}) on {rec['mesh']} "
-              f"({rec['fold']}): {m['argument_bytes'] / 1e9:.3f} GB of "
-              f"arguments per position of the card's "
-              f"{cd['memory_bytes'] / 1e9:.1f} GB (fits {m['fits']}; "
-              f"activations not reckoned), parts "
-              f"{ {k: round(v / 1e9, 3) for k, v in m['argument_parts'].items()} }"
-              f" GB; {rec['model_flops_per_position']:.3g} model FLOPs per "
-              f"position; bounds compute {r['compute_s']:.3g} s, memory "
-              f"{r['memory_s']:.3g} s on {cd['name']} (the device's name; "
-              f"nvidia-smi: {card})",
-              flush=True)
-        out[shape] = {k: rec[k] for k in ("kind", "mesh", "positions",
-                                          "memory", "roofline",
-                                          "model_flops_per_position",
-                                          "build_s")}
-    return {"card": cd["name"], "cells": out}
+        print(f"[dryrun] (a) {arch} {shape} ({rec['kind']}) on {rec['mesh']}"
+              f" ({rec['fold']}), counted in {rec['count_s']} s "
+              f"({rec['count_runs']} runs): per position "
+              f"{m['argument_bytes'] / 1e9:.3f} GB of arguments, peak "
+              f"{m['peak_bytes'] / 1e9:.3f} GB of the card's "
+              f"{cd['memory_bytes'] / 1e9:.1f} GB (fits {m['fits']}); "
+              f"{rec['hlo_flops']:.4g} FLOPs, {rec['hlo_bytes']:.4g} bytes, "
+              f"collectives {rec['collectives']['total'] / 1e9:.3f} GB; "
+              f"{rec['model_flops_per_position']:.4g} model FLOPs (useful "
+              f"{rec['useful_ratio']:.3f}); bounds compute "
+              f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+              f"collective {r['collective_s']:.4g} s, dominant "
+              f"{r['dominant']}, roofline fraction "
+              f"{r['roofline_fraction']:.4f} on {cd['name']} ({cd['sms']} "
+              f"SMs; nvidia-smi: {card})", flush=True)
+        out[shape] = {k: rec[k] for k in (
+            "kind", "mesh", "positions", "memory", "roofline", "hlo_flops",
+            "hlo_bytes", "flops_by_class", "launches", "collectives",
+            "useful_ratio", "model_flops_per_position", "build_s",
+            "count_s", "count_runs")}
+    return {"card": cd["name"], "cells": out,
+            "card_check": count_check(run, card, cd["sms"])}
 
 
 def paper_shapes():
@@ -6836,11 +6952,11 @@ def main() -> int:
     stacked = phase("stacked", stacked_phase, run)
     static = phase("static", static_gate_phase, run, smi)
     mesh = phase("mesh", mesh_phase, run, smi, static)
+    dry = phase("dryrun", dryrun_phase, run, smi)
     del run                       # free granite's weights before the next
     free()
     reprogram = phase("reprogram", reprogram_phase, dev, smi)
     free()
-    dry = phase("dryrun", dryrun_phase, smi)
     init = phase("init", init_phase, dev, serve_stats["init_s"])
     free()
     staged = phase("staged", staged_v1_phase, dev)

@@ -51,6 +51,7 @@ from repro_torch.core import noise as noise_lib
 from repro_torch.core import prng
 from repro_torch.core.quant import QMAX, adc_step_lsb, sym_scale
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.launch import stepstats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,7 +204,11 @@ def _over_pieces(state: AimcLinearState, x: torch.Tensor, s_x, launch):
     for p in state.pieces:
         dev = p.w_q.device
         outs.append(launch(p, x.to(dev), s_x.to(dev), nc).to(x.device))
-    return torch.cat(outs, dim=-1)
+    y = torch.cat(outs, dim=-1)
+    c = stepstats.counting(y)
+    if c is not None:                    # the pieces' join over ``model``
+        c.collective("all-gather", y.numel() * y.element_size())
+    return y
 
 
 def _pad_to(v: int, m: int) -> int:

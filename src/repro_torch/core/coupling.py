@@ -103,14 +103,26 @@ def hbm_bytes_tight(state: AimcLinearState, batch: int, *,
         the output.
     """
     kb, m, np_ = state.w_q.shape
+    return tight_bytes(batch, kb, m, np_, rows_per_block=rows_per_block,
+                       split=split)
+
+
+def tight_bytes(b: int, kb: int, m: int, np_: int, *, rows_per_block: int,
+                split: bool, g: int = 1, per_gate_x: bool = False) -> int:
+    """`hbm_bytes_tight` by shape, for ``g`` gates (K3: one x, one DAC
+    pass) or ``g`` experts (``per_gate_x``: each its own x [B, KB*M], as
+    the expert entry takes it): the DAC pass over every x row, then per
+    gate the codes re-read per column block, the weights per row block,
+    the split scratch and the output."""
     mp = -(-m // MP_ALIGN) * MP_ALIGN
-    row_tiles = -(-batch // rows_per_block)
-    dac = batch * kb * m * 4 + batch * kb * mp
-    codes = (np_ // BN) * batch * kb * mp
+    row_tiles = -(-b // rows_per_block)
+    rows = b * (g if per_gate_x else 1)
+    dac = rows * kb * m * 4 + rows * kb * mp
+    codes = (np_ // BN) * b * kb * mp
     weights = row_tiles * (kb * m * np_ + kb * np_ * 4)
-    out = batch * np_ * 4
-    scratch = 2 * kb * batch * np_ * 4 if split else 0
-    return dac + codes + weights + scratch + out
+    out = b * np_ * 4
+    scratch = 2 * kb * b * np_ * 4 if split else 0
+    return dac + g * (codes + weights + scratch + out)
 
 
 def hbm_bytes_loose(state: AimcLinearState, batch: int) -> int:

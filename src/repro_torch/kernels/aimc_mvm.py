@@ -212,6 +212,29 @@ def expert_body(b: int, kb: int, m: int, np_: int, e: int,
     return "wide" if b >= WIDE_ROWS // 4 and tiles >= sms else "mma"
 
 
+def plan_for(b: int, kb: int, m: int, np_: int, g: int, sms: int,
+             experts: bool = False) -> tuple[int, int, str]:
+    """`_plan`'s (plan code, workspace bytes, body) reckoned in Python for
+    a card with ``sms`` SMs, without the library (`csrc/aimc_mvm.cu`'s
+    ``make_plan`` / ``plan_code`` and `csrc/aimc_experts.cu`'s
+    ``aimc_experts_wide_plan``): the step counter's kernels on ``meta``
+    allocate this workspace."""
+    body = expert_body(b, kb, m, np_, g, sms) if experts else "mma"
+    if b <= 0 or kb < 1 or m < 1 or g < 1:
+        return 0, 0, body
+    mp = -(-m // 128) * 128
+    if body == "wide":
+        return WIDE_ROWS, -(-(g * b * kb * mp) // 256) * 256, body
+    cols = (np_ // 128) * g
+    bm = 64 if b > 16 and -(-b // 64) * cols >= sms else 16
+    split = kb > 1 and -(-b // bm) * cols < 2 * sms and 8 * b <= m
+    rows = b * (g if experts else 1)
+    work = -(-(rows * kb * mp) // 256) * 256
+    if split:
+        work += g * kb * b * np_ * 4
+    return bm | (256 if split else 0), work, body
+
+
 def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 

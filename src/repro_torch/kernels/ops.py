@@ -7,6 +7,10 @@ version. The reference's TPU block picking (`_pick_blocks`) has no
 counterpart: the CUDA launcher tiles by itself and masks the ragged batch
 edge, so x is never padded here.
 
+Under a step counter (`launch.stepstats`) a ``meta`` tensor takes neither:
+each wrapper returns its output's shape and counts one launch of its
+kernel, its int8 operations and its bytes.
+
 ``noise_source="hw"`` (kernel K4, Philox on the card) has no CPU version,
 just as the reference's oracle has no hardware PRNG: with read noise on, a
 CPU tensor raises instead of quietly drawing counter noise.
@@ -14,11 +18,39 @@ CPU tensor raises instead of quietly drawing counter noise.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import aimc_mvm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import EPILOGUE_FNS  # noqa: F401  (re-export)
+from repro_torch.launch import stepstats
 
 EPILOGUES = tuple(EPILOGUE_FNS)
+
+
+def _counted(c, name: str, x, w_q, *, experts: bool = False):
+    """A wrapper's call on a ``meta`` x under a step counter
+    (`launch.stepstats`): the output's shape and what `aimc_mvm._launch`
+    allocates (the output, and the workspace of the launcher's plan on
+    the counter's card), counted as one crossbar launch of ``name``:
+    2*G*B*KB*M*Np int8 operations and `core.coupling.tight_bytes` for that
+    plan. w_q is [G, KB, M, Np] (E in place of G for the expert entry)."""
+    from repro_torch.core.coupling import tight_bytes
+    g, kb, m, np_ = w_q.shape
+    b = x.shape[-2]
+    code, work, _ = aimc_mvm.plan_for(b, kb, m, np_, g, c.sms, experts)
+    out = torch.empty((g, b, np_), dtype=torch.float32, device=x.device)
+    ws = torch.empty(work, dtype=torch.uint8, device=x.device)
+    del ws
+    c.crossbar(name, 2 * g * b * kb * m * np_,
+               tight_bytes(b, kb, m, np_, rows_per_block=code & 255,
+                           split=bool(code & 256), g=g,
+                           per_gate_x=experts))
+    return out
+
+
+def _hw(name: str, noise_source: str, sigma: float) -> str:
+    return name + ("_hw" if noise_source == "hw" and sigma > 0.0 else "")
 
 
 def _check_noise_source(noise_source: str, sigma: float, x) -> None:
@@ -42,6 +74,9 @@ def aimc_matmul(x, w_q, s_w, s_x, read_noise=None, *, adc_step: float):
     noise-off and runs kernel K2 with no operand."""
     if read_noise is None:
         return aimc_matmul_v2(x, w_q, s_w, s_x, adc_step=adc_step)
+    c = stepstats.counting(x)
+    if c is not None:
+        return _counted(c, "aimc_mvm_v1", x, w_q.unsqueeze(0))[0]
     if x.is_cuda:
         return aimc_mvm.aimc_mvm_v1(x, w_q, s_w, s_x, read_noise,
                                     adc_step=adc_step)
@@ -61,6 +96,10 @@ def aimc_matmul_v2(x, w_q, s_w, s_x, seed=None, bias=None, *,
     if activation not in EPILOGUES:
         raise ValueError(f"unknown epilogue {activation!r}")
     _check_noise_source(noise_source, sigma, x)
+    c = stepstats.counting(x)
+    if c is not None:
+        return _counted(c, _hw("aimc_mvm_v2", noise_source, sigma), x,
+                        w_q.unsqueeze(0))[0]
     if x.is_cuda:
         return aimc_mvm.aimc_mvm_v2(x, w_q, s_w, s_x, seed, bias,
                                     adc_step=adc_step, sigma=sigma,
@@ -80,6 +119,10 @@ def aimc_matmul_stacked(x, w_q, s_w, s_x, seed=None, bias=None, *,
     f32 [G, B, Np]; bit-equal to G `aimc_matmul_v2` calls with the seeds
     `cprng.stack_seed(seed, g)`, under either noise source."""
     _check_noise_source(noise_source, sigma, x)
+    c = stepstats.counting(x)
+    if c is not None:
+        return _counted(c, _hw("aimc_mvm_stacked", noise_source, sigma), x,
+                        w_q)
     if x.is_cuda:
         return aimc_mvm.aimc_mvm_stacked(x, w_q, s_w, s_x, seed, bias,
                                          adc_step=adc_step, sigma=sigma,
@@ -98,6 +141,9 @@ def aimc_matmul_experts(x, w_q, s_w, s_x, seeds=None, *, adc_step: float,
     DAC scale s_x[e] and read seed seeds[e] (E host ints, needed when
     ``sigma > 0``): x f32 [E, B, KB*M] -> f32 [E, B, Np], one launch on the
     card (`aimc_mvm.aimc_mvm_experts`)."""
+    c = stepstats.counting(x)
+    if c is not None:
+        return _counted(c, "aimc_mvm_experts", x, w_q, experts=True)
     if x.is_cuda:
         return aimc_mvm.aimc_mvm_experts(x, w_q, s_w, s_x, seeds,
                                          adc_step=adc_step, sigma=sigma,

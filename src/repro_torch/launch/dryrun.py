@@ -9,42 +9,56 @@
 For each cell the step is built with `launch.steps.make_step` on the
 production mesh (16x16 data x model, or 2x16x16 with ``pod``) folded onto
 the ``meta`` device: 256 or 512 positions, no tensor placed or allocated.
-From the bundle's abstract inputs and ``in_specs`` alone the record gives,
-per position:
+The step then runs once on its abstract inputs (a train cell on a CPU
+key) under `launch.stepstats.count_step`, the counterpart of the
+reference's `hlostats`: every aten op it dispatches is counted, each
+kernel wrapper as one crossbar launch, and every loop over layers,
+sequence chunks or microbatches is counted over a few trips and
+extrapolated to its full trip count. Per position the record gives:
 
-  * ``argument_bytes``: each input leaf's shard shape (its dims divided by
-    the mesh axes its spec names) times its item size, summed over the
-    parameters, a train cell's optimizer state, the batch and a decode
-    cell's cache and token (``argument_parts`` splits it by input);
-  * ``model_flops_per_position``: `launch.modelstats.model_flops` over the
-    positions;
-  * the lower bounds ``compute_s`` (model FLOPs against the card's dense
-    bf16 peak, or its int8 peak under ``--exec aimc``) and ``memory_s``
-    (the argument bytes read once against its HBM bandwidth);
-  * ``fits``: whether the arguments fit the card's memory.
+  * ``memory``: ``argument_bytes``, each input leaf's shard shape (its
+    dims divided by the mesh axes its spec names) times its item size,
+    summed over the parameters, a train cell's optimizer state and key,
+    the batch and a decode cell's cache and token (``argument_parts``
+    splits it by input); ``output_bytes`` and ``temp_bytes``, the counted
+    step's results and the rest of its peak above its arguments, over the
+    positions; ``peak_bytes`` = arguments + outputs + temporaries, which
+    ``fits`` compares with the card's memory;
+  * ``hlo_flops`` / ``hlo_bytes``: the counted step over the positions.
+    The names are the reference's, so the two packages' records line up,
+    but the counts come from the dispatcher, not from HLO: eager PyTorch
+    fuses nothing, so the bytes are every op's result and operands, and
+    the folded step computes each position's share once, where XLA's
+    per-device count also holds the work it replicates;
+    ``flops_by_class`` splits the FLOPs into matmul, crossbar, elementwise
+    and reduce; ``launches`` counts the whole step's kernel launches;
+  * ``collectives``: wire bytes per position by kind (an all-reduce at
+    twice its size, an all-gather at its result, hlostats' factors): the
+    joins the port's sharded code makes (column pieces concatenated,
+    `Placed.gather`), counted where they happen over the data positions,
+    and a train cell's gradient reduction, reckoned from its ``in_specs``:
+    each parameter's f32 gradient shard is all-reduced over the data axes
+    on which the parameter is replicated and reduce-scattered over those
+    it is sharded on. The positions share one device, so none of this is
+    measured traffic;
+  * ``model_flops_per_position`` (`launch.modelstats.model_flops` over the
+    positions) and ``useful_ratio`` = model FLOPs / counted FLOPs;
+  * ``roofline``: ``compute_s`` (crossbar operations at the card's int8
+    peak, every other FLOP at its dense bf16 peak), ``memory_s`` (counted
+    bytes over its HBM bandwidth), ``collective_s`` (wire bytes over its
+    NVLink bandwidth per direction), ``dominant``, ``step_s_bound`` (the
+    largest) and ``roofline_fraction`` (model FLOPs at the peak of the
+    cell's execution, int8 under ``--exec aimc``, over the bound).
+
+``xla_flops_raw`` / ``xla_bytes_raw`` stay ``None``: they are XLA's
+`cost_analysis`, and there is no XLA here.
 
 The card is the one torch sees (`torch.cuda.get_device_properties`: its
-name and memory), its peaks from `CARDS` by name; without a card, the
-H100 SXM of `CARDS`. The record names the card and where its figures came
-from. The reference's TPU v5e constants do not carry over.
-
-What has no counterpart is recorded as ``None``:
-
-  * ``temp_bytes``, ``output_bytes`` and ``peak_bytes``: they are XLA's
-    `memory_analysis` of a compiled executable, and eager PyTorch compiles
-    none, so activations are not reckoned and ``fits`` is a lower bound
-    (``fits_is_lower_bound``);
-  * ``hlo_flops`` / ``hlo_bytes`` and ``xla_*_raw``: XLA's cost analysis
-    of the optimized HLO;
-  * ``collectives`` and ``collective_s``: the positions fold onto devices
-    of one process, so nothing moves between them.
-
-`repro/launch/hlostats.py` has no counterpart either: it re-derives XLA's
-per-``while``-body counts (scanned layers, microbatches, CE chunks) from
-optimized HLO text, because `cost_analysis` counts each loop body once.
-Eager PyTorch has no HLO, and it runs every loop iteration, so there is
-nothing to correct. Failures are recorded per cell (``ok: false``) and the
-sweep goes on; the CLI exits 1 if any cell failed.
+name, memory and SM count), its peaks from `CARDS` by name; without a
+card, the H100 SXM of `CARDS`. The record names the card and where its
+figures came from. The reference's TPU v5e constants do not carry over.
+Failures are recorded per cell (``ok: false``) and the sweep goes on; the
+CLI exits 1 if any cell failed.
 """
 
 from __future__ import annotations
@@ -57,15 +71,20 @@ import time
 import traceback
 
 # published dense peaks (data sheets): HBM bytes/s, bf16 FLOP/s, int8
-# ops/s, memory bytes; the first key whose every word is in the card's
-# name wins
+# ops/s, memory bytes, SMs, and NVLink bytes/s per direction (half the
+# data sheet's bidirectional "NVLink: 900GB/s" for SXM cards, 600GB/s for
+# the PCIe card's bridge); the first key whose every word is in the
+# card's name wins
 CARDS = {
     "H200": {"hbm_bytes_s": 4.8e12, "bf16_flops": 989e12,
-             "int8_ops": 1979e12, "memory_bytes": 141e9},
+             "int8_ops": 1979e12, "memory_bytes": 141e9, "sms": 132,
+             "nvlink_bytes_s": 450e9},
     "H100 PCIe": {"hbm_bytes_s": 2.0e12, "bf16_flops": 756e12,
-                  "int8_ops": 1513e12, "memory_bytes": 80e9},
+                  "int8_ops": 1513e12, "memory_bytes": 80e9, "sms": 114,
+                  "nvlink_bytes_s": 300e9},
     "H100": {"hbm_bytes_s": 3.35e12, "bf16_flops": 989e12,
-             "int8_ops": 1979e12, "memory_bytes": 80e9},
+             "int8_ops": 1979e12, "memory_bytes": 80e9, "sms": 132,
+             "nvlink_bytes_s": 450e9},
 }
 DEFAULT_CARD = "NVIDIA H100 80GB HBM3"
 
@@ -77,19 +96,31 @@ def peaks_of(name: str) -> dict | None:
 
 
 def card() -> dict:
-    """The card's name, memory and peaks: the device's own name and memory
-    where torch sees a card, else `DEFAULT_CARD`'s table entry."""
+    """The card's name, memory, SM count and peaks: the device's own name,
+    memory and SMs where torch sees a card, else `DEFAULT_CARD`'s table
+    entry."""
     import torch
     if torch.cuda.is_available():
         props = torch.cuda.get_device_properties(0)
         name, memory, source = props.name, props.total_memory, "device"
+        sms = props.multi_processor_count
     else:
-        name, memory, source = DEFAULT_CARD, None, "table"
+        name, memory, source, sms = DEFAULT_CARD, None, "table", None
     peaks = peaks_of(name)
     if peaks is None:
         raise ValueError(f"no peaks for card {name!r} in CARDS")
     return dict(peaks, name=name, source=source,
-                memory_bytes=memory or peaks["memory_bytes"])
+                memory_bytes=memory or peaks["memory_bytes"],
+                sms=sms or peaks["sms"])
+
+
+def _shard_shape(x, spec, mesh) -> list:
+    shape = list(x.shape)
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            shape[d] //= math.prod(mesh.shape[a] for a in axes)
+    return shape
 
 
 def position_bytes(tree, specs, mesh) -> int:
@@ -99,14 +130,52 @@ def position_bytes(tree, specs, mesh) -> int:
     total = [0]
 
     def one(x, spec):
-        shape = list(x.shape)
-        for d, entry in enumerate(spec):
-            if entry is not None:
-                axes = entry if isinstance(entry, tuple) else (entry,)
-                shape[d] //= math.prod(mesh.shape[a] for a in axes)
-        total[0] += math.prod(shape) * x.element_size()
+        total[0] += math.prod(_shard_shape(x, spec, mesh)) * x.element_size()
     sh.tree_map(one, tree, specs)
     return total[0]
+
+
+def grad_collectives(params, specs, mesh) -> dict:
+    """Wire bytes per position of a train step's gradient reduction: each
+    parameter's f32 gradient shard (its spec's shard shape) all-reduced
+    over the data axes on which the parameter is replicated, and
+    reduce-scattered over the data axes it is sharded on (operand: the
+    shard before the scatter), with hlostats' factors."""
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import dp_axes
+    out = {"all-reduce": 0, "reduce-scatter": 0}
+
+    def one(x, spec):
+        named = set()
+        for entry in spec:
+            if entry is not None:
+                named |= set(entry if isinstance(entry, tuple) else (entry,))
+        shard = math.prod(_shard_shape(x, spec, mesh)) * 4
+        rep = math.prod(mesh.shape[a] for a in dp_axes(mesh)
+                        if a not in named)
+        scat = math.prod(mesh.shape[a] for a in dp_axes(mesh) if a in named)
+        if rep > 1:
+            out["all-reduce"] += 2 * shard
+        if scat > 1:
+            out["reduce-scatter"] += shard * scat
+    sh.tree_map(one, params, specs)
+    return {k: v for k, v in out.items() if v}
+
+
+def position_collectives(bundle, kind: str, counted: dict, mesh) -> dict:
+    """Wire bytes per position by kind: the counted step's joins (made
+    once over all rows of the folded step) over the data positions, plus
+    a train cell's `grad_collectives`; ``total`` sums them."""
+    from repro_torch.launch.mesh import axis_size, dp_axes
+    dp = axis_size(mesh, dp_axes(mesh))
+    coll = {k: v / dp for k, v in counted["collectives"].items()
+            if k != "total"}
+    if kind == "train":
+        for k, v in grad_collectives(bundle.abstract_inputs[0],
+                                     bundle.in_specs[0], mesh).items():
+            coll[k] = coll.get(k, 0) + v
+    coll["total"] = sum(coll.values())
+    return coll
 
 
 def _exe(exec_mode: str):
@@ -119,9 +188,30 @@ def _exe(exec_mode: str):
     return Execution()
 
 
-_INPUTS = {"train": ("params", "opt_state", "batch"),
+_INPUTS = {"train": ("params", "opt_state", "batch", "rng"),
            "prefill": ("params", "batch"),
            "decode": ("params", "cache", "tokens")}
+
+
+def step_inputs(bundle, kind: str) -> tuple:
+    """The bundle's abstract inputs as the step takes them: a train cell's
+    key on the host (the step reads its words there)."""
+    from repro_torch.core import prng
+    args = tuple(bundle.abstract_inputs)
+    if kind == "train":
+        args = args[:3] + (prng.PRNGKey(0),)
+    return args
+
+
+def count(bundle, kind: str, sms: int) -> dict:
+    """`stepstats.count_step` of the bundle's step on its inputs, its
+    placed outputs read whole (`Placed` views: no copy)."""
+    from repro_torch.launch.shardings import whole_tree
+    from repro_torch.launch.stepstats import count_step
+
+    def step(*args):
+        return whole_tree(bundle.fn(*args))
+    return count_step(step, *step_inputs(bundle, kind), sms=sms)
 
 
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
@@ -142,29 +232,46 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
            "fold": mesh.fold(), "exec": exec_mode, "variant": variant,
            "card": {k: cd[k] for k in ("name", "source", "memory_bytes",
                                        "hbm_bytes_s", "bf16_flops",
-                                       "int8_ops")}}
+                                       "int8_ops", "sms",
+                                       "nvlink_bytes_s")}}
     t0 = time.time()
     try:
         bundle = make_step(spec, cell, mesh, _exe(exec_mode))
+        t1 = time.time()
         parts = {name: position_bytes(x, s, mesh) for name, x, s in zip(
             _INPUTS[cell.kind], bundle.abstract_inputs, bundle.in_specs)}
         arg = sum(parts.values())
+        st = count(bundle, cell.kind, cd["sms"])
+        t2 = time.time()
+        coll = position_collectives(bundle, cell.kind, st, mesh)
+        flops, nbytes = st["flops"] / n, st["bytes"] / n
+        by_class = {k: v / n for k, v in st["flops_by_class"].items()}
+        out_b = st["output_bytes"] / n
+        extra = (st["peak_bytes"] - st["argument_bytes"]) / n
         mflops = model_flops(spec, cell) / n
         peak = cd["int8_ops"] if exec_mode == "aimc" else cd["bf16_flops"]
-        roof = {"compute_s": mflops / peak,
-                "memory_s": arg / cd["hbm_bytes_s"], "collective_s": None}
-        roof["dominant"] = max(("compute_s", "memory_s"), key=roof.get)
+        roof = {"compute_s": by_class["crossbar"] / cd["int8_ops"]
+                + (flops - by_class["crossbar"]) / cd["bf16_flops"],
+                "memory_s": nbytes / cd["hbm_bytes_s"],
+                "collective_s": coll["total"] / cd["nvlink_bytes_s"]}
+        roof["dominant"] = max(("compute_s", "memory_s", "collective_s"),
+                               key=roof.get)
         roof["step_s_bound"] = roof[roof["dominant"]]
+        roof["roofline_fraction"] = ((mflops / peak) / roof["step_s_bound"]
+                                     if roof["step_s_bound"] else 0.0)
         rec |= {
-            "ok": True, "build_s": round(time.time() - t0, 3),
+            "ok": True, "build_s": round(t1 - t0, 3),
+            "count_s": round(t2 - t1, 3), "count_runs": st["runs"],
             "memory": {"argument_bytes": arg, "argument_parts": parts,
-                       "output_bytes": None, "temp_bytes": None,
-                       "peak_bytes": None,
-                       "fits": arg <= cd["memory_bytes"],
-                       "fits_is_lower_bound": True},
-            "hlo_flops": None, "hlo_bytes": None, "xla_flops_raw": None,
-            "xla_bytes_raw": None, "collectives": None,
-            "model_flops_per_position": mflops, "roofline": roof}
+                       "output_bytes": out_b, "temp_bytes": extra - out_b,
+                       "peak_bytes": arg + extra,
+                       "fits": arg + extra <= cd["memory_bytes"]},
+            "hlo_flops": flops, "hlo_bytes": nbytes, "xla_flops_raw": None,
+            "xla_bytes_raw": None, "flops_by_class": by_class,
+            "launches": st["launches"], "collectives": coll,
+            "model_flops_per_position": mflops,
+            "useful_ratio": mflops / flops if flops else 0.0,
+            "roofline": roof}
     except Exception as e:  # noqa: BLE001 (record the failure, keep sweeping)
         rec |= {"ok": False, "error": f"{type(e).__name__}: {e}",
                 "traceback": traceback.format_exc()[-2000:]}
@@ -219,11 +326,14 @@ def main(argv=None) -> list:
             if rec["ok"]:
                 m, r = rec["memory"], rec["roofline"]
                 print(f"OK  {tag}: {rec['positions']} positions on meta, "
-                      f"args {m['argument_bytes'] / 1e9:.3f} GB/position "
-                      f"(fits {m['fits']}, activations not reckoned), "
-                      f"model flops {rec['model_flops_per_position']:.3g}"
-                      f"/position, compute {r['compute_s']:.3g} s, memory "
-                      f"{r['memory_s']:.3g} s, dominant {r['dominant']}")
+                      f"counted in {rec['count_s']} s: "
+                      f"flops={rec['hlo_flops']:.3g}/position "
+                      f"peak={m['peak_bytes'] / 1e9:.3f}GB/position "
+                      f"(args {m['argument_bytes'] / 1e9:.3f}, fits "
+                      f"{m['fits']}) coll="
+                      f"{rec['collectives']['total'] / 1e9:.3f}GB "
+                      f"useful={rec['useful_ratio']:.3f} "
+                      f"dominant={r['dominant']}")
             else:
                 failures += 1
                 print(f"FAIL {tag}: {rec['error']}")

@@ -37,6 +37,7 @@ import math
 import torch
 
 from repro_torch.core.aimc import AimcLinearState, split_columns
+from repro_torch.launch import stepstats
 from repro_torch.launch.mesh import dp_axes, fsdp_axes
 
 # projection weight names: [..., K(reduce), N(out)]
@@ -460,7 +461,11 @@ class Placed:
                 return by[prefix].to(device)
             parts = [cat(prefix + (b,), d + 1) for b in range(self.counts[d])]
             return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
-        return cat((), 0)
+        out = cat((), 0)
+        c = stepstats.counting(out)
+        if c is not None and math.prod(self.counts) > 1:   # an all-gather
+            c.collective("all-gather", out.numel() * out.element_size())
+        return out
 
     def _slices(self, blk):
         return tuple(slice(*self.block_range(d, b)) for d, b in enumerate(blk))

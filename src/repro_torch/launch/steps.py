@@ -59,7 +59,10 @@ forward over every row, which keeps the dynamic DAC scale batch-global,
 and returns the token and the cache placed by ``out_specs`` as views.
 Column pieces are exact, so a dense or recurrent cell's tokens and cache
 equal the one-device cell's bit for bit. A train cell's abstract inputs
-are its parameters, optimizer state and batch.
+are its parameters, optimizer state, batch and [2] key (replicated,
+``P()``, as in the reference's bundle; the port's key holds its two
+uint32 words in int64, `core.prng`). The step reads the key's words on
+the host, so a caller passes a CPU key.
 """
 
 from __future__ import annotations
@@ -74,6 +77,7 @@ from repro_torch import compat
 from repro_torch.configs import ArchSpec, ShapeCell
 from repro_torch.core import prng
 from repro_torch.launch import shardings as sh
+from repro_torch.launch import stepstats
 from repro_torch.launch.mesh import axis_size, dp_axes
 from repro_torch.models.layers import Execution
 from repro_torch.optim import make_optimizer
@@ -90,7 +94,7 @@ def chunked_ce(h, unembed, labels, chunk: int = CE_CHUNK):
     b, s, _ = h.shape
     chunk = min(chunk, s)
     loss, n = 0.0, 0.0
-    for c in range(s // chunk):
+    for c in stepstats.trips(s // chunk, h):
         hx = h[:, c * chunk:(c + 1) * chunk]
         lx = labels[:, c * chunk:(c + 1) * chunk]
         logits = hx.to(torch.float32) @ unembed.to(torch.float32)
@@ -175,6 +179,17 @@ def _tree_with(tree, leaves):
     return go(tree)
 
 
+def _place_out(tree, specs, mesh):
+    """A cell's output placed by ``specs`` as views of the whole tensors;
+    under a step counter (`launch.stepstats`), where views cost nothing,
+    the whole tree itself."""
+    if stepstats.active() is not None:
+        return tree
+    if isinstance(tree, torch.Tensor):
+        return sh.place(tree, specs, mesh, views=True)
+    return sh.place_tree(tree, specs, mesh, views=True)
+
+
 def make_micro_grad(spec: ArchSpec, exe: Execution = Execution()):
     """The train step's per-microbatch loss and its gradients:
     ``(params, mb, key) -> (loss, grads)``, the forward's hidden states
@@ -234,7 +249,7 @@ def make_train_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
         loss_acc = 0.0
         with (compat.use_mesh(mesh) if mesh is not None
               else contextlib.nullcontext()):
-            for i in range(n_micro):
+            for i in stepstats.trips(n_micro, batch["labels"]):
                 mb = {k: v[i] for k, v in micro.items()}
                 loss, grads = micro_grad(params, mb, prng.fold_in(rng, i))
                 for a, g in zip(g_acc, grads):
@@ -246,21 +261,23 @@ def make_train_step(spec: ArchSpec, cell: ShapeCell, mesh=None,
             _tree_with(params, g_acc), opt_state, params, lr_scale)
         if mesh is not None:
             pspecs, ospecs = train_specs(mesh, new_params, new_opt)
-            new_params = sh.place_tree(new_params, pspecs, mesh, views=True)
-            new_opt = sh.place_tree(new_opt, ospecs, mesh, views=True)
+            new_params = _place_out(new_params, pspecs, mesh)
+            new_opt = _place_out(new_opt, ospecs, mesh)
         return new_params, new_opt, dict(metrics, loss=loss_acc)
 
     params_shape = spec.model_module().init(
         prng.PRNGKey(0), spec.model_cfg,
         dtype=getattr(torch, spec.param_dtype), device="meta")
     opt_shape = opt_init(params_shape)
-    abstract = (params_shape, opt_shape, abstract_batch(spec, cell))
+    abstract = (params_shape, opt_shape, abstract_batch(spec, cell),
+                _meta((2,), torch.int64))
     if mesh is None:
         return StepBundle(train_step, abstract)
     pspecs, ospecs = train_specs(mesh, params_shape, opt_shape)
     bspecs = sh.fit_specs(sh.batch_specs(mesh, batch_kind(spec)),
                           abstract[2], mesh)
-    return StepBundle(train_step, abstract, in_specs=(pspecs, ospecs, bspecs),
+    return StepBundle(train_step, abstract,
+                      in_specs=(pspecs, ospecs, bspecs, sh.P()),
                       out_specs=(pspecs, ospecs, None))
 
 
@@ -333,8 +350,8 @@ def _mesh_cell(fn, mesh, pspecs, out_specs):
         rest = [sh.whole_tree(r) for r in rest]
         with compat.use_mesh(mesh):
             tok, cache = fn(params, *rest)
-        return (sh.place(tok, tok_spec, mesh, views=True),
-                sh.place_tree(cache, cspecs, mesh, views=True))
+        return (_place_out(tok, tok_spec, mesh),
+                _place_out(cache, cspecs, mesh))
     return cell
 
 

@@ -39,6 +39,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import prng
+from repro_torch.launch.stepstats import fill, keep_context, trips
 from repro_torch.models.layers import (Execution, as_weight,
                                        decode_attention, dense_init,
                                        embed_init, flash_attention,
@@ -179,7 +180,8 @@ def _run(fn, *args):
     (recomputed in the backward)."""
     if torch.is_grad_enabled():
         return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False)
+            keep_context(fn), *args, use_reentrant=False,
+            preserve_rng_state=False)
     return fn(*args)
 
 
@@ -194,7 +196,7 @@ def encode(params, frames, cfg: EncDecConfig, exe: Execution = None,
     positions = torch.arange(s, device=frames.device).expand(b, s)
     n = cfg.n_enc_layers
     lkeys = prng.split(rng, n) if rng is not None else [None] * n
-    for i in range(n):
+    for i in trips(n, h):
         h = _run(_enc_layer, h, layer_slice(params["enc"], i), cfg, exe,
                  lkeys[i], positions)
     return layernorm(h, params["enc_norm_s"], params["enc_norm_b"],
@@ -214,7 +216,7 @@ def decode_train(params, enc_out, tokens, cfg: EncDecConfig,
     n = cfg.n_dec_layers
     lkeys = (prng.split(prng.fold_in(rng, 1), n) if rng is not None
              else [None] * n)
-    for i in range(n):
+    for i in trips(n, h):
         h = _run(_dec_layer, h, enc_out, layer_slice(params["dec"], i), cfg,
                  exe, lkeys[i], positions)
     h = layernorm(h, params["dec_norm_s"], params["dec_norm_b"],
@@ -243,13 +245,14 @@ def _dec_cross_kv(params, enc_out, cfg: EncDecConfig, exe: Execution):
     ([n_dec, B, S_src, Hkv, hd], same) in the compute dtype."""
     b, s, _ = enc_out.shape
     ck, cv = [], []
-    for i in range(cfg.n_dec_layers):
+    for i in trips(cfg.n_dec_layers, enc_out):
         blk = layer_slice(params["dec"], i)
         ck.append(linear(enc_out, blk["ck"], exe).reshape(
             b, s, cfg.n_kv_heads, cfg.hd))
         cv.append(linear(enc_out, blk["cv"], exe).reshape(
             b, s, cfg.n_kv_heads, cfg.hd))
-    return torch.stack(ck), torch.stack(cv)
+    n = cfg.n_dec_layers
+    return torch.stack(fill(ck, n)), torch.stack(fill(cv, n))
 
 
 # ---------------------------------------------------------------------------
@@ -291,7 +294,7 @@ def prefill(params, frames, tokens, cfg: EncDecConfig, exe: Execution = None,
              "ck": ek.to(cache_dtype), "cv": ev.to(cache_dtype),
              "len": torch.full((b,), s, dtype=torch.int32, device=dev)}
     keys = (None,) * 7
-    for i in range(cfg.n_dec_layers):
+    for i in trips(cfg.n_dec_layers, h):
         blk = layer_slice(params["dec"], i)
         h, (k, v) = _self_attn(h, blk, cfg, exe, keys, positions,
                                causal=True)
@@ -321,7 +324,7 @@ def decode_step(params, cache, tokens, cfg: EncDecConfig,
     oh = (torch.arange(max_seq, device=lens.device)[None]
           == lens[:, None].long()).to(cache["k"].dtype)[..., None, None]
     ks, vs = [], []
-    for i in range(cfg.n_dec_layers):
+    for i in trips(cfg.n_dec_layers, h):
         blk = layer_slice(params["dec"], i)
         hn = layernorm(h, blk["ln1_s"], blk["ln1_b"], cfg.norm_eps)
         q = rope(linear(hn, blk["wq"], exe).reshape(
@@ -345,8 +348,9 @@ def decode_step(params, cache, tokens, cfg: EncDecConfig,
     h = layernorm(h, params["dec_norm_s"], params["dec_norm_b"],
                   cfg.norm_eps)
     logits = h.to(torch.float32) @ as_weight(params["unembed"], torch.float32)
-    return logits, dict(cache, k=torch.stack(ks), v=torch.stack(vs),
-                        len=lens + 1)
+    n = cfg.n_dec_layers
+    return logits, dict(cache, k=torch.stack(fill(ks, n)),
+                        v=torch.stack(fill(vs, n)), len=lens + 1)
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ from repro_torch.core.aimc import (AimcConfig, AimcLinearState, aimc_apply,
                                    aimc_apply_experts, aimc_apply_stacked,
                                    aimc_linear_ste, aimc_linear_ste_experts)
 from repro_torch.kernels.ref import EPILOGUE_FNS
+from repro_torch.launch import stepstats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +72,14 @@ def _bf16_scatter_add(tok, rows, shape, dtype):
     order with a rounding to ``dtype`` after every add, as XLA adds a
     bf16 scatter's updates one by one. The adds run one occurrence rank
     at a time: rank k holds each token's k-th position, so no two updates
-    of one pass hit the same row. One host read (the ranks' sizes)."""
+    of one pass hit the same row. One host read (the ranks' sizes); under
+    a step counter on ``meta`` (`launch.stepstats`) the table's shape,
+    counted as XLA's one scatter."""
+    c = stepstats.counting(rows)
+    if c is not None:
+        acc = torch.empty(shape, dtype=dtype, device=rows.device)
+        c.scatter((tok, rows), acc)
+        return acc
     order = torch.argsort(tok, stable=True)
     st = tok[order]
     pos = torch.arange(st.numel(), device=tok.device)
@@ -336,13 +344,13 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset: int = 0,
     remat = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     outs = []
-    for qi in range(sq // qc):
+    for qi in stepstats.trips(sq // qc, q):
         q_blk = qh[:, :, qi * qc:(qi + 1) * qc]
         q_pos = q_offset + qi * qc + torch.arange(qc, device=dev)
         carry = (torch.full((b, hq, qc), NEG_INF, device=dev),
                  torch.zeros((b, hq, qc), device=dev),
                  torch.zeros((b, hq, qc, d), device=dev))
-        for j in range(skv // kc):
+        for j in stepstats.trips(skv // kc, k):
             kv_pos = j * kc + torch.arange(kc, device=dev)
             args = (q_blk, kh[:, :, j * kc:(j + 1) * kc],
                     vh[:, :, j * kc:(j + 1) * kc], q_pos, kv_pos, carry,
@@ -355,7 +363,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset: int = 0,
                 carry = _attn_chunk(*args)
         _, l, acc = carry
         outs.append((acc / l.clamp_min(1e-20)[..., None]).to(q.dtype))
-    o = torch.cat(outs, dim=2)                            # [B, Hq, Sq, D]
+    o = torch.cat(stepstats.fill(outs, sq // qc), dim=2)  # [B, Hq, Sq, D]
     return o.transpose(1, 2)[:, :sq0]
 
 

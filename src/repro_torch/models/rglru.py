@@ -35,6 +35,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.core import prng
+from repro_torch.launch.stepstats import fill, keep_context, trips
 from repro_torch.models.layers import (Execution, as_weight,
                                        decode_attention, dense_init,
                                        embed_init, flash_attention,
@@ -237,10 +238,10 @@ def _rec_mix(h, p, cfg: RglruConfig, exe: Execution, keys=_NO_KEYS,
     else:
         r = r_state.to(torch.float32)
         steps = []
-        for t in range(a.shape[1]):
+        for t in trips(a.shape[1], a):
             r = a[:, t] * r + bx[:, t]
             steps.append(r)
-        rs = torch.stack(steps, dim=1)
+        rs = torch.stack(fill(steps, a.shape[1]), dim=1)
     out = linear((gate.to(torch.float32) * rs).to(exe.cdtype), p["w_out"],
                  exe, keys[4])
     return out, conv_state, r
@@ -322,10 +323,11 @@ def forward(params, tokens, cfg: RglruConfig, exe: Execution = None,
     def run(fn, *args):
         if remat:
             return torch.utils.checkpoint.checkpoint(
-                fn, *args, use_reentrant=False, preserve_rng_state=False)
+                keep_context(fn), *args, use_reentrant=False,
+                preserve_rng_state=False)
         return fn(*args)
 
-    for i in range(nu):
+    for i in trips(nu, h):
         ps = {name: layer_slice(params["units"][name], i)
               for name in ("rec_a", "rec_b", "attn")}
         h = run(_unit, h, ps, cfg, exe, *unit_keys[3 * i:3 * i + 3],
@@ -333,7 +335,7 @@ def forward(params, tokens, cfg: RglruConfig, exe: Execution = None,
     if nt:
         tail_keys = (prng.split(prng.fold_in(rng, 7), nt)
                      if rng is not None else [None] * nt)
-        for j in range(nt):
+        for j in trips(nt, h):
             h = run(_tail_block, h, layer_slice(params["tail"], j), cfg, exe,
                     tail_keys[j])
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -411,7 +413,7 @@ def decode_step(params, cache, tokens, cfg: RglruConfig,
     names = ("conv_a", "conv_b", "r_a", "r_b", "k", "v")
     outs = {name: [] for name in names}
     units = params["units"]
-    for i in range(cfg.n_units):
+    for i in trips(cfg.n_units, h):
         ca, cb, ra, rb, kc, vc = (cache[name][i] for name in names)
         h, ca, ra = _rec_block(h, layer_slice(units["rec_a"], i), cfg, exe,
                                None, ca, ra)
@@ -421,18 +423,19 @@ def decode_step(params, cache, tokens, cfg: RglruConfig,
                                      exe, kc, vc, pos)
         for name, t in zip(names, (ca, cb, ra, rb, kc, vc)):
             outs[name].append(t)
-    new_cache = {name: torch.stack(ts) for name, ts in outs.items()}
+    new_cache = {name: torch.stack(fill(ts, cfg.n_units))
+                 for name, ts in outs.items()}
     new_cache["len"] = pos + 1
     if cfg.n_tail:
         tc, tr = [], []
-        for i in range(cfg.n_tail):
+        for i in trips(cfg.n_tail, h):
             h, cs, rs = _rec_block(h, layer_slice(params["tail"], i), cfg,
                                    exe, None, cache["tail_conv"][i],
                                    cache["tail_r"][i])
             tc.append(cs)
             tr.append(rs)
-        new_cache |= {"tail_conv": torch.stack(tc),
-                      "tail_r": torch.stack(tr)}
+        new_cache |= {"tail_conv": torch.stack(fill(tc, cfg.n_tail)),
+                      "tail_r": torch.stack(fill(tr, cfg.n_tail))}
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps, batch_invariant=True)
     logits = h.to(torch.float32) @ as_weight(params["unembed"], torch.float32)
     return logits, new_cache

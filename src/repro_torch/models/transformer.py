@@ -49,6 +49,7 @@ from repro_torch.models.layers import (Execution, as_weight,
                                        expert_stack_init, flash_attention,
                                        linear, linear_stack, layer_slice,
                                        rmsnorm, rope, stack_init, swiglu)
+from repro_torch.launch.stepstats import keep_context, trips
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,11 +259,12 @@ def forward(params, tokens, cfg: TransformerConfig, exe: Execution = None,
                   else [None] * cfg.n_layers)
     remat = torch.is_grad_enabled()
     aux = 0.0
-    for i in range(cfg.n_layers):
+    for i in trips(cfg.n_layers, h):
         blk = layer_slice(params["blocks"], i)
         if remat:
             h, a = torch.utils.checkpoint.checkpoint(
-                block_forward, h, blk, cfg, exe, layer_keys[i], positions,
+                keep_context(block_forward), h, blk, cfg, exe, layer_keys[i],
+                positions,
                 use_reentrant=False, preserve_rng_state=False)
         else:
             h, a = block_forward(h, blk, cfg, exe, layer_keys[i], positions)
@@ -318,7 +320,7 @@ def prefill(params, tokens, cfg: TransformerConfig, exe: Execution = None,
     h = embed_tokens(params, tokens, cfg, exe, patch_embeds)
     positions = torch.arange(s, device=dev).expand(b, s)
     cache = init_cache(cfg, b, max_seq, cache_dtype, dev)
-    for i in range(cfg.n_layers):
+    for i in trips(cfg.n_layers, h):
         blk = layer_slice(params["blocks"], i)
         q, k, v = _qkv(rmsnorm(h, blk["ln1"], cfg.norm_eps), blk, cfg, exe,
                        positions)
@@ -359,7 +361,7 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig,
     rows = torch.arange(b, device=dev)
     row_idx = lens.clamp(0, max_seq - 1).long()
     ks, vs = cache["k"].clone(), cache["v"].clone()
-    for i in range(cfg.n_layers):
+    for i in trips(cfg.n_layers, h):
         blk = layer_slice(params["blocks"], i)
         q, k, v = _qkv(rmsnorm(h, blk["ln1"], cfg.norm_eps), blk, cfg, exe,
                        positions)
@@ -440,7 +442,7 @@ def prefill_chunk(params, tokens, cfg: TransformerConfig, exe: Execution,
     touched = (j >= pos0 // page_size) & (j <= (pos0 + span - 1) // page_size)
     pids = torch.where(touched, pt_row, torch.zeros_like(pt_row))
     pad = torch.zeros((c, hkv, hd), dtype=kp.dtype, device=dev)
-    for i in range(cfg.n_layers):
+    for i in trips(cfg.n_layers, h):
         blk = layer_slice(params["blocks"], i)
         q, k, v = _qkv(rmsnorm(h, blk["ln1"], cfg.norm_eps), blk, cfg, exe,
                        positions)

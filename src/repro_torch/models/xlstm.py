@@ -46,6 +46,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import prng
 from repro_torch.core.aimc import AimcLinearState, stack_states
+from repro_torch.launch.stepstats import fill, keep_context, trips
 from repro_torch.models.layers import (Execution, as_weight, dense_init,
                                        embed_init, layer_slice, linear,
                                        linear_stack, recurrent_prefill,
@@ -212,7 +213,7 @@ def _mlstm_chunkwise(q, k, v, li, lf, cfg: XlstmConfig, state=None):
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
                                    device=q.device))
     outs = []
-    for j in range(nc):
+    for j in trips(nc, q):
         qi, ki, vi, lii, lfi = qc[j], kc[j], vc[j], lic[j], lfc[j]
         bcum = lfi.cumsum(dim=-1)                     # inclusive [B,H,c]
         # intra-chunk log decays D_ij = b_i - b_j + li_j (j <= i)
@@ -240,7 +241,7 @@ def _mlstm_chunkwise(q, k, v, li, lf, cfg: XlstmConfig, state=None):
             "bhjd,bhje->bhde", w_in[..., None] * ki, vi)
         n = w_old[..., None] * n + torch.einsum("bhj,bhjd->bhd", w_in, ki)
         m = m_new
-    hout = torch.stack(outs)                          # [nc, B, H, c, dh]
+    hout = torch.stack(fill(outs, nc))                # [nc, B, H, c, dh]
     hout = hout.movedim(0, 1).movedim(3, 2).reshape(b, s, h, dh)
     return hout, (C, n, m)
 
@@ -322,7 +323,7 @@ def _slstm_seq(zifo, r, hd, n_heads, state, batch_invariant=True):
     d = d4 // 4
     c, n, h, m = state
     hs = []
-    for t in range(s):
+    for t in trips(s, zifo):
         x_t = zifo[:, t]
         hh = h.reshape(b, n_heads, hd)
         if batch_invariant:
@@ -344,7 +345,7 @@ def _slstm_seq(zifo, r, hd, n_heads, state, batch_invariant=True):
         h = ot * (c / torch.clamp(n, min=1e-6))
         m = m_new
         hs.append(h)
-    return torch.stack(hs, dim=1), (c, n, h, m)
+    return torch.stack(fill(hs, s), dim=1), (c, n, h, m)
 
 
 def slstm_block(h, p, cfg: XlstmConfig, exe: Execution, key=None,
@@ -402,13 +403,13 @@ def forward(params, tokens, cfg: XlstmConfig, exe: Execution = None,
     n = cfg.n_pairs
     keys = prng.split(rng, 2 * n) if rng is not None else [None] * (2 * n)
     remat = torch.is_grad_enabled()
-    for i in range(n):
+    for i in trips(n, h):
         ps = {blk: layer_slice(params["pairs"][blk], i)
               for blk in ("mlstm", "slstm")}
         args = (h, ps, cfg, exe, keys[2 * i], keys[2 * i + 1])
         if remat:
             h = torch.utils.checkpoint.checkpoint(
-                _pair, *args, use_reentrant=False, preserve_rng_state=False)
+                keep_context(_pair), *args, use_reentrant=False, preserve_rng_state=False)
         else:
             h = _pair(*args)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -453,7 +454,7 @@ def decode_step(params, cache, tokens, cfg: XlstmConfig,
     h = params["embed"][tokens].to(exe.cdtype)
     cdt = cache["m_C"].dtype
     outs = {name: [] for name in _STATE}
-    for i in range(cfg.n_pairs):
+    for i in trips(cfg.n_pairs, h):
         st = [cache[name][i] for name in _STATE]
         pair = {blk: layer_slice(params["pairs"][blk], i)
                 for blk in ("mlstm", "slstm")}
@@ -461,7 +462,8 @@ def decode_step(params, cache, tokens, cfg: XlstmConfig,
         h, s_state = slstm_block(h, pair["slstm"], cfg, exe, None, st[3:])
         for name, t in zip(_STATE, m_state + s_state):
             outs[name].append(t.to(cdt))
-    new_cache = {name: torch.stack(ts) for name, ts in outs.items()}
+    new_cache = {name: torch.stack(fill(ts, cfg.n_pairs))
+                 for name, ts in outs.items()}
     new_cache["len"] = cache["len"] + 1
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps, batch_invariant=True)
     logits = h.to(torch.float32) @ as_weight(params["unembed"], torch.float32)

@@ -9,12 +9,16 @@ equal the bytes reckoned from the reference's `make_step` on a
 ``abstract_inputs`` (`jax.eval_shape` trees) laid out by its
 ``in_shardings`` (`get_param_specs` / `get_opt_specs` / `batch_specs` /
 `cache_specs`, `fit_specs`, `strip_fsdp`), each leaf's shard shape times
-its item size. A train cell's [2] rng key, which the port's bundle does
-not list, is left out of both. The model FLOPs per position are
-`modelstats`' over the positions. A cell that fails is recorded with
-``ok: false`` and the sweep goes on; the CLI then exits 1.
-`repro.launch.dryrun` is never imported here: it sets XLA's host device
-count at import.
+its item size. A train cell's [2] key is replicated (``P()``) in both
+bundles; the port holds its two uint32 words in int64, so its 16 bytes
+are twice the reference's 8. The model FLOPs per position are
+`modelstats`' over the positions. Every cell is counted
+(`launch.stepstats`): FLOPs and bytes per position, temporary and output
+bytes, a peak at least the arguments, collectives (a train cell's
+gradient reduction), the roofline and the useful ratio are present and
+non-negative. A cell that fails is recorded with ``ok: false`` and the
+sweep goes on; the CLI then exits 1. `repro.launch.dryrun` is never
+imported here: it sets XLA's host device count at import.
 
 Tolerance: bytes equal (integers)."""
 
@@ -37,7 +41,7 @@ from repro_torch.launch import dryrun
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch.modelstats import model_flops
 
-NAMES = {"train": ("params", "opt_state", "batch"),
+NAMES = {"train": ("params", "opt_state", "batch", "rng"),
          "prefill": ("params", "batch"), "decode": ("params", "cache",
                                                     "tokens")}
 
@@ -67,7 +71,39 @@ def _ref_bytes(arch, shape, multi, int8=False):
                         e if isinstance(e, tuple) else (e,)))
             total += math.prod(shp) * np.dtype(x.dtype).itemsize
         out[name] = total
+    if "rng" in out:           # the port's key: two uint32 words in int64
+        out["rng"] *= 2
     return out
+
+
+def _counted(rec):
+    """The counted fields of a record: present, non-negative, the peak at
+    least the arguments and the sum of its parts; a train cell reduces its
+    gradients."""
+    m, r = rec["memory"], rec["roofline"]
+    for k in ("output_bytes", "temp_bytes", "peak_bytes"):
+        assert m[k] >= 0, (k, m)
+    assert m["peak_bytes"] >= m["argument_bytes"]
+    assert m["peak_bytes"] == pytest.approx(
+        m["argument_bytes"] + m["output_bytes"] + m["temp_bytes"])
+    assert m["fits"] == (m["peak_bytes"] <= rec["card"]["memory_bytes"])
+    assert rec["hlo_flops"] > 0 and rec["hlo_bytes"] > 0
+    assert rec["xla_flops_raw"] is None and rec["xla_bytes_raw"] is None
+    assert rec["hlo_flops"] == pytest.approx(
+        sum(rec["flops_by_class"].values()))
+    assert 0 < rec["useful_ratio"] == pytest.approx(
+        rec["model_flops_per_position"] / rec["hlo_flops"])
+    coll = rec["collectives"]
+    assert all(v >= 0 for v in coll.values())
+    assert coll["total"] == pytest.approx(
+        sum(v for k, v in coll.items() if k != "total"))
+    if rec["kind"] == "train":
+        assert coll["total"] > 0
+    for k in ("compute_s", "memory_s", "collective_s", "step_s_bound",
+              "roofline_fraction"):
+        assert r[k] >= 0, (k, r)
+    assert r["step_s_bound"] == max(r["compute_s"], r["memory_s"],
+                                    r["collective_s"])
 
 
 @pytest.fixture(scope="module")
@@ -91,8 +127,7 @@ def test_every_cell_matches_reference_bytes(single):
         assert rec["memory"]["argument_bytes"] == sum(want.values())
         assert rec["model_flops_per_position"] == model_flops(
             spec, tconfigs.SHAPES[shape]) / 256
-        assert rec["memory"]["temp_bytes"] is None
-        assert rec["collectives"] is None and rec["hlo_flops"] is None
+        _counted(rec)
         saved = json.loads((out / f"{spec.arch_id}.{shape}.single.digital."
                             "baseline.json").read_text())
         assert saved["memory"] == rec["memory"]
@@ -110,6 +145,7 @@ def test_cells_match_reference_bytes(arch, shape, multi, exec_mode):
     want = _ref_bytes(tconfigs.get_arch(arch).arch_id, shape, multi,
                       int8=exec_mode == "int8")
     assert rec["memory"]["argument_parts"] == want
+    _counted(rec)
 
 
 def test_failing_cell_is_recorded_and_cli_exits_1(monkeypatch, tmp_path):

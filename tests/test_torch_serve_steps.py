@@ -278,7 +278,8 @@ def test_serve_params_shape_matches_reference(name):
 def test_make_step_builds_every_cell():
     """Every (arch, shape) cell of `all_cells` builds at the published
     widths without allocating: train, prefill and decode bundles whose
-    batch is the reference's `abstract_batch` and, for decode, whose cache
+    batch is the reference's `abstract_batch` (a train cell's inputs end
+    with its [2] key, as the reference's do) and, for decode, whose cache
     is the reference's `init_cache` layout of the cell."""
     for name, shape in tconfigs.all_cells():
         spec, jspec = tconfigs.get_arch(name), jconfigs.get_arch(name)
@@ -298,7 +299,10 @@ def test_make_step_builds_every_cell():
                 assert tuple(cache[k].shape) == v.shape, (name, shape, k)
             assert tuple(tok.shape) == (b, 1)
             continue
-        batch = abstract[-1]
+        if cell.kind == "train":     # (params, opt_state, batch, key)
+            key = abstract[3]
+            assert tuple(key.shape) == (2,) and key.device.type == "meta"
+        batch = abstract[2] if cell.kind == "train" else abstract[-1]
         jbatch = jsteps.abstract_batch(jspec, jcell)
         assert sorted(batch) == sorted(jbatch)
         for k, v in jbatch.items():

@@ -6,6 +6,7 @@ in their own process):
     python tests/torch_mesh_oracle.py train OUT.pkl CKPT_DIR
     python tests/torch_mesh_oracle.py serve OUT.pkl
     python tests/torch_mesh_oracle.py cells OUT.pkl
+    python tests/torch_mesh_oracle.py hlo OUT.pkl
 
 The mesh is built as ``jax.make_mesh(shape, axes, axis_types=(Auto,) *
 n)``: the reference's `launch.mesh.make_mesh` leaves this jax's default
@@ -22,7 +23,9 @@ per device. ``serve``: tokens of `ShardedServeEngine` for `SERVE_CASES`.
 ``cells``: the jitted `make_prefill_step` / `make_serve_step` of each
 `CELL_CASES` entry inside ``use_mesh``: their spec trees, one prefill cell
 and `CELL_STEPS` decode-cell steps on seeded numpy inputs (f32 caches; the
-DAC codes logged for `torch_code_replay`).
+DAC codes logged for `torch_code_replay`). ``hlo``: the collective
+histogram (`hlostats.analyze_hlo`) of the jitted `make_train_step` of
+each `HLO_CASES` entry, compiled on its mesh.
 """
 
 import contextlib
@@ -66,6 +69,9 @@ CELL_CASES = {
     "seamless-digital-2x2": ("seamless-m4t-large-v2", "digital", (2, 2)),
 }
 CELL_STEPS = 5
+# name -> (arch, mesh shape, global batch, seq): granite smoke's train
+# cell whose collectives tests/test_torch_stepstats.py reckons by hand
+HLO_CASES = {"granite-train-2x2": ("granite-8b", (2, 2), 4, 32)}
 # (batch, prompt, cell seq_len): xlstm's chunkwise forward needs a
 # seq_len that its chunk (8) divides. The audio cell's frames and decoder
 # tokens are those of tests/test_torch_encdec_serve.py; its seq_len is the
@@ -363,6 +369,27 @@ def cells_case(name):
     return out
 
 
+def hlo_case(name):
+    import jax
+
+    from repro.compat import use_mesh
+    from repro.configs import ShapeCell, get_arch
+    from repro.launch.hlostats import analyze_hlo
+    from repro.launch.shardings import to_named
+    from repro.launch.steps import make_train_step
+
+    arch, shape, batch, seq = HLO_CASES[name]
+    spec = get_arch(arch)
+    spec = dataclasses.replace(spec, model_cfg=spec.smoke_cfg)
+    mesh = auto_mesh(shape)
+    with use_mesh(mesh):
+        b = make_train_step(spec, ShapeCell("t", seq, batch, "train"), mesh)
+        comp = jax.jit(b.fn, in_shardings=to_named(b.in_shardings, mesh),
+                       out_shardings=to_named(b.out_shardings, mesh)
+                       ).lower(*b.abstract_inputs).compile()
+    return analyze_hlo(comp.as_text())["collectives"]
+
+
 def main(argv):
     # only in the oracle's own process, before JAX starts its backend: the
     # parity tests import this module for its case tables
@@ -381,6 +408,8 @@ def main(argv):
         res = {n: serve_case(n) for n in SERVE_CASES}
     elif what == "cells":
         res = {n: cells_case(n) for n in CELL_CASES}
+    elif what == "hlo":
+        res = {n: hlo_case(n) for n in HLO_CASES}
     else:
         raise SystemExit(f"unknown oracle {what!r}")
     with open(out_path, "wb") as f:
