@@ -1,0 +1,8 @@
+"""idle_share.serve: the share of the traced serving window in which no
+kernel, copy or set ran on the card, in percent."""
+
+from portbench.harness import readers
+
+
+def read(ctx):
+    return readers.idle(ctx, "serve")
